@@ -16,9 +16,22 @@ Runs ``simplemath_tpu_torch`` (never JAX) on ``cuda:0``:
 4. drives the two workloads of BASELINE.json through the public ``sm`` API
    at full size (the 1M-float ``sm.add``; ``sm.fuse(chain, donate=0,
    iterations=L)`` on 2048x2048 with L = 16 and 400), counts the kernel's
-   launches (one per call), checks the results, and times kernel and plain
-   version with CUDA events;
-5. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+   launches (one per call) and checks the results;
+5. the reductions: holds the map-reduce kernel (``rd_full``, ``rd_axis``)
+   against its plain version on the card (ragged 1-D, (8192, 8192), a
+   transposed and a negative-step view, NaN, the f32, int32 (exact, with
+   its wraparound) and f32.int32 dots, a map-reduce with a (1, C) row and
+   an (R, 1) column operand, axis 0 and 1; sums and dots within
+   2e-5 * sum|x| of the plain version and of float64 numpy, max/min and
+   the int32 dot exact, every result bit-identical across two launches),
+   then drives bench.py's reduction workloads through the public API at
+   full size (``Array.sum()`` of 64M f32, ``sm.dot`` of two 32M vectors,
+   the fused squared distance with a 0-d operand, the fused thresholded
+   axis sums of (8192, 8192), a lazy ``sm.sum`` of a pending chain) and
+   counts each call's launches by entry point;
+6. times every kernel and its plain version with CUDA events (the
+   reductions also in GB/s of the bytes each call must read once);
+7. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is visible.
@@ -34,8 +47,13 @@ import numpy as np
 
 N_ADD = 1_000_000
 N_FUSED = 2048
+N_RAGGED = 4096 * 3 + 777
+N_SUM = 64 * 1024 * 1024   # bench.py::bench_reduce_sum
+N_DOT = 32 * 1024 * 1024   # bench.py::bench_dot1d, bench_fused_map_reduce
+N_AXIS = 8192              # bench.py::bench_reduce_axis
 SEED = 0
 SOURCE = "simplemath_tpu_torch/csrc/elementwise.cu"
+RD_SOURCE = "simplemath_tpu_torch/csrc/reduction.cu"
 
 
 def log(msg):
@@ -117,6 +135,135 @@ def host_ms(fn, reps=5):
     return statistics.median(out)
 
 
+def same_bits(a, b):
+    import torch
+
+    return torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
+
+
+def times_one(shape):
+    """The program x * 1.0: the identity's value through the interpreter."""
+    import torch
+    from simplemath_tpu_torch.ops import program
+
+    leaf = program.leaf(shape, torch.float32)
+    return program.lower(leaf * 1.0, [leaf])
+
+
+def reduction_checks(dev, rng, sm, elementwise, program, reduction):
+    """Phase 5a: the map-reduce kernel against its plain version on the card.
+    Returns the largest |kernel - plain| of each entry point."""
+    import torch
+
+    err = {"rd_full": 0.0, "rd_axis": 0.0}
+
+    def twice(fn):
+        k1, k2 = fn(), fn()
+        torch.cuda.synchronize()
+        check(same_bits(k1, k2), "a reduction differs between two launches")
+        return k1
+
+    def agree(entry, label, k, p, ref64, absx, exact_kind):
+        k64 = k.double().cpu().numpy()
+        p64 = p.double().cpu().numpy()
+        if exact_kind:
+            check(np.array_equal(k64, p64, equal_nan=True), f"{label}: kernel != plain")
+            check(np.array_equal(k64, ref64, equal_nan=True), f"{label}: kernel != numpy")
+        else:
+            tol = 2e-5 * absx
+            check(np.all(np.abs(k64 - p64) <= tol), f"{label}: kernel vs plain beyond 2e-5*sum|x|")
+            check(np.all(np.abs(k64 - ref64) <= tol), f"{label}: kernel vs float64 beyond 2e-5*sum|x|")
+        d = np.abs(k64 - p64)
+        err[entry] = max(err[entry], float(np.nan_to_num(d, nan=0.0).max(initial=0.0)))
+
+    def full(label, x_np, x, kinds=("sum", "max", "min")):
+        t = elementwise.read(x)
+        x64 = x_np.astype(np.float64)
+        for kind in kinds:
+            k = twice(lambda: reduction.reduce(x, kind))
+            p = reduction._plain(t, kind)
+            ref = {"sum": x64.sum, "max": x64.max, "min": x64.min}[kind]()
+            agree("rd_full", f"{label} {kind}", k, p, ref, float(np.abs(x64).sum()), kind != "sum")
+            if isinstance(x, torch.Tensor):
+                # The identity's direct path and the interpreter (x * 1.0)
+                # combine in one order: the same bits.
+                k1 = reduction.map_reduce(times_one(tuple(x.shape)), kind, tuple(x.shape), x)
+                check(same_bits(k, k1), f"{label} {kind}: direct path != interpreter path")
+        log(f"check rd_full {label}: sum within 2e-5*sum|x|, max/min exact, bits repeat")
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    v = rng.standard_normal(N_RAGGED).astype(np.float32)
+    full(f"ragged n={N_RAGGED}", v, on(v))
+    m_np = rng.standard_normal((N_AXIS, N_AXIS)).astype(np.float32)
+    m = on(m_np)
+    full(f"({N_AXIS},{N_AXIS})", m_np, m)
+    arr = sm.Array(m)
+    full("transposed view", m_np.T, arr.T._operand())
+    full("negative-step view", m_np[::-1, ::-2], arr[::-1, ::-2]._operand())
+    vn = v.copy()
+    vn[1234] = np.nan
+    for kind in ("max", "min", "sum"):
+        check(bool(torch.isnan(twice(lambda: reduction.reduce(on(vn), kind)))),
+              f"{kind} drops a NaN")
+    log("check rd_full NaN: max/min/sum give NaN")
+
+    def dot(label, a_np, b_np, exact_int):
+        a, b = on(a_np), on(b_np)
+        k = twice(lambda: reduction.dot1d(a, b))
+        la, lb = program.leaf(a.shape, a.dtype), program.leaf(b.shape, b.dtype)
+        prog = program.lower(program.apply("multiply", la, lb), [la, lb])
+        vals = program.run_plain(prog, [a, b], tuple(a.shape))
+        if exact_int:
+            p = reduction._plain_sum_i32(vals)
+            ref = int((a_np.astype(np.int64) * b_np.astype(np.int64)).sum()) % (1 << 32)
+            ref = ref - (1 << 32) if ref >= 1 << 31 else ref
+            check(k.dtype == torch.int32 and int(k) == int(p) == ref, f"{label}: {int(k)} != {ref}")
+        else:
+            p = reduction._plain(vals, "sum")
+            prod = a_np.astype(np.float64) * b_np.astype(np.float64)
+            agree("rd_full", label, k, p, prod.sum(), float(np.abs(prod).sum()), False)
+        log(f"check rd_full dot {label}: {'exact' if exact_int else 'within 2e-5*sum|ab|'}, bits repeat")
+
+    a_np = rng.standard_normal(N_RAGGED).astype(np.float32)
+    i_np = rng.integers(-1000, 1000, N_RAGGED).astype(np.int32)
+    j_np = rng.integers(-1000, 1000, N_RAGGED).astype(np.int32)
+    dot("f32.f32", a_np, v, False)
+    dot("int32", i_np, j_np, True)
+    dot("int32 wraparound", np.full(70_000, 40_000, np.int32), np.full(70_000, 40_000, np.int32), True)
+    dot("f32.int32", a_np, i_np, False)
+
+    row_np = rng.standard_normal((1, N_AXIS)).astype(np.float32)
+    col_np = rng.standard_normal((N_AXIS, 1)).astype(np.float32)
+    row, col = on(row_np), on(col_np)
+    shape = (N_AXIS, N_AXIS)
+    leaves = [program.leaf(shape, torch.float32), program.leaf((1, N_AXIS), torch.float32),
+              program.leaf((N_AXIS, 1), torch.float32)]
+    prog = program.lower(leaves[0] * leaves[1] - leaves[2], leaves)
+    vals = program.run_plain(prog, [m, row, col], shape)
+    w64 = (m_np * row_np - col_np).astype(np.float64)  # f32 ops, each rounded, as the kernel's
+    for kind in ("sum", "max", "min"):
+        k = twice(lambda: reduction.map_reduce(prog, kind, shape, m, row, col))
+        ref = {"sum": w64.sum, "max": w64.max, "min": w64.min}[kind]()
+        agree("rd_full", f"map-reduce {kind}", k, reduction._plain(vals, kind), ref,
+              float(np.abs(w64).sum()), kind != "sum")
+        for ax in (0, 1):
+            k = twice(lambda: reduction.map_reduce_axis(prog, kind, ax, shape, m, row, col))
+            ref = {"sum": w64.sum, "max": w64.max, "min": w64.min}[kind](axis=ax)
+            agree("rd_axis", f"map-reduce axis {ax} {kind}", k, reduction._plain(vals, kind, ax),
+                  ref, np.abs(w64).sum(axis=ax), kind != "sum")
+            k = twice(lambda: reduction.reduce_axis(arr.T._operand(), kind, ax))
+            ref = {"sum": m_np.T.astype(np.float64).sum, "max": m_np.T.max,
+                   "min": m_np.T.min}[kind](axis=ax)
+            agree("rd_axis", f"transposed axis {ax} {kind}", k,
+                  reduction._plain(m.T, kind, ax), ref, np.abs(m_np.T.astype(np.float64)).sum(axis=ax),
+                  kind != "sum")
+    log(f"check map-reduce m*row-col ({N_AXIS},{N_AXIS}) full, axis 0 and 1, and axis "
+        "reductions of a transposed view: sums within 2e-5*sum|x|, max/min exact, bits repeat")
+    return err
+
+
 def main():
     import torch
 
@@ -126,7 +273,7 @@ def main():
     import simplemath_tpu_torch as sm
     from simplemath_tpu_torch import _build
     from simplemath_tpu_torch.ops import (
-        dispatch, elementwise, engine, program, registry,
+        dispatch, elementwise, engine, program, reduction, registry,
     )
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -330,7 +477,61 @@ def main():
         log(f"check fused recurrence L={L}: {u} ulp from the plain version, "
             "within 2e-5 of float64 on 64 rows")
 
-    # -------------------------------------------------------- 5. timing
+    # ----------------------------------------------------- 5. reductions
+    err_rd = reduction_checks(dev, rng, sm, elementwise, program, reduction)
+
+    x_np = rng.standard_normal(N_SUM).astype(np.float32)
+    x_big = sm.Array(on(x_np))
+    da, db = sm.Array(x_big.torch()[:N_DOT]), sm.Array(x_big.torch()[N_DOT:])
+    da_np, db_np = x_np[:N_DOT].astype(np.float64), x_np[N_DOT:].astype(np.float64)
+    eps_np = np.asarray(np.float32(1e-3))
+    eps = sm.Array(eps_np)
+    mat = sm.Array(x_big.torch().reshape(N_AXIS, N_AXIS))
+    thr = sm.Array(np.full((1, 1), 0.25, np.float32))
+    dist = sm.fuse(lambda a, b, e: sm.sum(sm.square(a + e - b)))
+    axis_sum = {ax: sm.fuse(lambda a, s, ax=ax: sm.sum(sm.where(a > s, a, 0.0), axis=ax))
+                for ax in (0, 1)}
+    mat_np = x_np.reshape(N_AXIS, N_AXIS)
+    sel64 = np.where(mat_np > np.float32(0.25), mat_np, np.float32(0)).astype(np.float64)
+    x64 = x_np.astype(np.float64)
+    calls = [
+        ("Array.sum() 64M f32", lambda: x_big.sum(), x64.sum(), np.abs(x64).sum(),
+         {"rd_full": 1, "rd_axis": 0}),
+        ("sm.dot 2x32M f32", lambda: sm.dot(da, db), da_np @ db_np, np.abs(da_np * db_np).sum(),
+         {"rd_full": 1, "rd_axis": 0}),
+        ("fused sum(square(a+eps-b)) 32M", lambda: dist(da, db, eps),
+         ((da_np + 1e-3 - db_np) ** 2).sum(), ((da_np + 1e-3 - db_np) ** 2).sum(),
+         {"rd_full": 1, "rd_axis": 0}),
+        ("fused sum(where(a>s,a,0),axis=0) 8192^2", lambda: axis_sum[0](mat, thr),
+         sel64.sum(0), np.abs(sel64).sum(0), {"rd_full": 0, "rd_axis": 1}),
+        ("fused sum(where(a>s,a,0),axis=1) 8192^2", lambda: axis_sum[1](mat, thr),
+         sel64.sum(1), np.abs(sel64).sum(1), {"rd_full": 0, "rd_axis": 1}),
+        ("lazy sm.sum(sm.square(sm.subtract(a,b))) 32M",
+         lambda: sm.sum(sm.square(sm.subtract(da, db))),
+         ((da_np - db_np) ** 2).sum(), ((da_np - db_np) ** 2).sum(), {"rd_full": 1, "rd_axis": 0}),
+    ]
+    torch.cuda.synchronize()
+    reduction.reset_launches()
+    elementwise.reset_launches()
+    outs = []
+    for label, call, _, _, want in calls:
+        before = dict(reduction.LAUNCHES)
+        outs.append(call().torch())
+        got = {k: reduction.LAUNCHES[k] - before[k] for k in before}
+        check(got == want, f"{label}: launched {got}, expected {want}")
+    torch.cuda.synchronize()
+    rd_launches = dict(reduction.LAUNCHES)
+    rd_ew = dict(elementwise.LAUNCHES)
+    log(f"reduction path launches {rd_launches} elementwise {rd_ew}")
+    check(rd_ew == {"ew_flat": 0, "ew_strided": 0}, f"the reduction path launched {rd_ew}")
+    for (label, _, ref, absx, _), out in zip(calls, outs):
+        got = out.double().cpu().numpy()
+        check(out.dtype == torch.float32 and got.shape == np.shape(ref), f"{label}: wrong result")
+        check(bool(np.isfinite(got).all()), f"{label}: non-finite result")
+        check(bool(np.all(np.abs(got - ref) <= 2e-5 * absx)), f"{label}: beyond 2e-5*sum|x| of float64")
+        log(f"check {label}: within 2e-5*sum|x| of float64, one launch, no elementwise pass")
+
+    # -------------------------------------------------------- 6. timing
     add_prog = binop("add", (N_ADD,), (N_ADD,))
     at, bt = add_a.torch(), add_b.torch()
     # The add's 12 MB stay hot in the 50 MB L2 across a run, as they do for
@@ -347,6 +548,55 @@ def main():
         t[f"fused{L}_host_ms"] = host_ms(lambda: fused[L](acc0, fa, fe).torch())
     log(f"times on {card}: " + json.dumps(t))
 
+    # The reductions: kernel and plain version on the same inputs, each a
+    # run of calls over 256 MB (past the 50 MB L2), and the bytes each call
+    # must read once.
+    xt, at_, bt_ = x_big.torch(), da.torch(), db.torch()
+    mt, st = mat.torch(), thr.torch()
+    et = eps.torch()
+
+    def leaves_of(*ts):
+        return [program.leaf(tuple(x.shape), x.dtype) for x in ts]
+
+    def traced(fn, *ts):
+        ls = leaves_of(*ts)
+        red = fn(*ls)
+        return program.lower(red.expr, ls)
+
+    la, lb = leaves_of(at_, bt_)
+    p_dot = program.lower(program.apply("multiply", la, lb), [la, lb])
+    p_dist = traced(lambda a, b, e: sm.sum(sm.square(a + e - b)), at_, bt_, et)
+    p_thr = {ax: traced(lambda a, s, ax=ax: sm.sum(sm.where(a > s, a, 0.0), axis=ax), mt, st)
+             for ax in (0, 1)}
+    sq = (N_AXIS, N_AXIS)
+
+    def plain(prog, ops, shape, dim=None):
+        return reduction._plain(program.run_plain(prog, ops, shape), "sum", dim)
+
+    gb = {"sum": 4 * N_SUM, "dot": 8 * N_DOT, "dist": 8 * N_DOT, "axis0": 4 * N_SUM,
+          "axis1": 4 * N_SUM}
+    p_one = times_one((N_SUM,))
+    rt = {
+        "sum_ms": time_ms(lambda: reduction.reduce(xt, "sum"), n=20),
+        "sum_plain_ms": time_ms(lambda: reduction._plain(xt, "sum"), n=20),
+        "sum_interpreter_ms": time_ms(lambda: reduction.map_reduce(p_one, "sum", (N_SUM,), xt), n=20),
+        "dot_ms": time_ms(lambda: reduction.dot1d(at_, bt_), n=20),
+        "dot_plain_ms": time_ms(lambda: plain(p_dot, [at_, bt_], (N_DOT,)), n=20),
+        "dist_ms": time_ms(lambda: reduction.map_reduce(p_dist, "sum", (N_DOT,), at_, bt_, et), n=20),
+        "dist_plain_ms": time_ms(lambda: plain(p_dist, [at_, bt_, et], (N_DOT,)), n=20),
+    }
+    for ax in (0, 1):
+        rt[f"axis{ax}_ms"] = time_ms(
+            lambda: reduction.map_reduce_axis(p_thr[ax], "sum", ax, sq, mt, st), n=20)
+        rt[f"axis{ax}_plain_ms"] = time_ms(lambda: plain(p_thr[ax], [mt, st], sq, ax), n=20)
+    rt["sum_host_ms"] = host_ms(lambda: x_big.sum().torch())
+    rt["dist_host_ms"] = host_ms(lambda: dist(da, db, eps).torch())
+    for key, nbytes in gb.items():
+        rt[f"{key}_GBps"] = nbytes / (rt[f"{key}_ms"] * 1e-3) / 1e9
+        rt[f"{key}_plain_GBps"] = nbytes / (rt[f"{key}_plain_ms"] * 1e-3) / 1e9
+    rt["sum_interpreter_GBps"] = gb["sum"] / (rt["sum_interpreter_ms"] * 1e-3) / 1e9
+    log(f"reduction times on {card}: " + json.dumps(rt))
+
     kernels = [
         {"name": "ew_flat", "route": "cuda", "source": SOURCE,
          "replaces": "simplemath_tpu/ops/elementwise.py:161",
@@ -356,6 +606,14 @@ def main():
          "replaces": "simplemath_tpu/ops/elementwise.py:225",
          "launches": launches["ew_strided"], "max_abs_err": err_fused,
          "ms": t["fused400_ms"], "plain_ms": t["fused400_plain_ms"]},
+        {"name": "rd_full", "route": "cuda", "source": RD_SOURCE,
+         "replaces": "simplemath_tpu/ops/reduction.py:79 :127 :210 :275 :333",
+         "launches": rd_launches["rd_full"], "max_abs_err": err_rd["rd_full"],
+         "ms": rt["sum_ms"], "plain_ms": rt["sum_plain_ms"]},
+        {"name": "rd_axis", "route": "cuda", "source": RD_SOURCE,
+         "replaces": "simplemath_tpu/ops/reduction.py:482",
+         "launches": rd_launches["rd_axis"], "max_abs_err": err_rd["rd_axis"],
+         "ms": rt["axis0_ms"], "plain_ms": rt["axis0_plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

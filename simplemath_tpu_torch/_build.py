@@ -2,9 +2,10 @@
 
 The kernels are compiled by ``nvcc`` at first use into ``build/kernels/``
 beside the package (a directory ``.gitignore`` lists), as a shared library
-with a plain C interface loaded with ``ctypes``.  The library's name
-carries a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is reused.  A failed build raises with nvcc's output.
+with a plain C interface loaded with ``ctypes``: one ``nvcc -c`` per source,
+all started together, then one link.  The library's name carries a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is reused.  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -21,14 +22,14 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("elementwise.cu",)
-HEADERS = ("tiles.cuh",)
+SOURCES = ("elementwise.cu", "reduction.cu")
+HEADERS = ("tiles.cuh", "program.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
 # the crafted exp/log handle them); --fmad=false so each float operation
 # rounds once, as the plain torch version does.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
 )
 
 # What the last build printed (register and spill counts from -Xptxas -v)
@@ -65,26 +66,39 @@ def library() -> ctypes.CDLL:
     path = BUILD_DIR / f"libsm_kernels_{_digest()}.so"
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-               *(str(CSRC / s) for s in SOURCES)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs = [os.path.join(tmpdir, f"{s}.o") for s in SOURCES]
+            procs = [
+                (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+                for cmd in (
+                    [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(CSRC / s)]
+                    for s, obj in zip(SOURCES, objs)
+                )
+            ]
+            logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+            so = os.path.join(tmpdir, "lib.so")
+            link = [nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", so, *objs]
+            if all(rc == 0 for _, _, rc in logs):
+                proc = subprocess.run(link, capture_output=True, text=True)
+                logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+            for cmd, out, rc in logs:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+            BUILD_SECONDS = time.perf_counter() - t0
+            BUILD_LOG = "".join(out for _, out, _ in logs)
+            os.replace(so, path)  # atomic: a concurrent build never sees half a file
     lib = ctypes.CDLL(str(path))
-    lib.sm_ew_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
-    ]
-    lib.sm_ew_launch.restype = ctypes.c_int
-    lib.sm_ew_params_size.argtypes = []
-    lib.sm_ew_params_size.restype = ctypes.c_int
+    void_p, c_int = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+        ("sm_ew_launch", [void_p, void_p, c_int, void_p]),
+        ("sm_rd_full_launch", [void_p, void_p, void_p, void_p]),
+        ("sm_rd_axis_launch", [void_p, void_p, void_p, void_p]),
+        ("sm_ew_params_size", []),
+        ("sm_rd_params_size", []),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = c_int
     return lib

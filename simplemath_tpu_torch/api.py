@@ -1,11 +1,13 @@
 """User-facing factories and free functions.
 
-Counterpart of ``simplemath_tpu/api.py:28-150``: the factories, the
-arithmetic and transcendental free functions, the registry unaries,
-``maximum``/``minimum``/``where``/``clip`` and ``fuse``.  Factories create
+Counterpart of ``simplemath_tpu/api.py``: the factories, the arithmetic
+and transcendental free functions, the registry unaries,
+``maximum``/``minimum``/``where``/``clip``, ``fuse``, the reductions
+``sum/mean/max/min``, the 1-D ``dot``, and the ``prod``/``var``/``std``/
+``argmax``/``argmin``/``cumsum`` façades over torch.  Factories create
 arrays on ``config.device``.  The rest of the JAX package's NumPy surface
-(reductions, ``dot``/``matmul``, int8, the ``jnp`` façades) is not ported
-yet: see ROADMAP.md, queue 1.
+(``dot``/``matmul`` of rank >= 2, int8, the other ``jnp`` façades) is not
+ported yet: see ROADMAP.md, queue 1.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from . import dtypes as _dtypes
 from .array import Array, asarray
 from .config import config
-from .ops import engine
+from .ops import engine, reduction
 
 
 def _shape_args(shape):
@@ -77,6 +79,17 @@ def pow(a, exponent) -> Array:
     """Free-function pow with working float pow and the reference's
     integer-pow edge semantics."""
     return engine.pow(a, exponent)
+
+
+def dot(a, b):
+    """``numpy.dot``; 1-D operands run the map-reduce kernel
+    (ops/engine.py::dot).  Inside ``sm.fuse`` it is the matmul root, which
+    is not ported yet."""
+    from .ops import fusion
+
+    if fusion.is_fused(a) or fusion.is_fused(b):
+        return fusion.matmul_node(a, b)
+    return engine.dot(a, b)
 
 
 def add(a, b) -> Array:
@@ -179,6 +192,111 @@ def clip(a, a_min=None, a_max=None) -> Array:
     if a_min is None:
         return minimum(a, a_max)
     return engine.ternary("clip", a, a_min, a_max)
+
+
+def _reduce_free(name):
+    """Free-function reductions: the same path as the Array methods; on a
+    fused expression, the reduction root of ``sm.fuse``."""
+
+    def fn(a, axis=None, keepdims=False):
+        from .ops import fusion
+
+        if fusion.is_fused(a):
+            return fusion.reduce_node(name, a, axis=axis, keepdims=keepdims)
+        return getattr(asarray(a), name)(axis=axis, keepdims=keepdims)
+
+    fn.__name__ = name
+    return fn
+
+
+sum = _reduce_free("sum")  # noqa: A001 - numpy-style namespace
+mean = _reduce_free("mean")
+max = _reduce_free("max")  # noqa: A001
+min = _reduce_free("min")  # noqa: A001
+
+
+# The JAX package's jnp façades, as torch with jnp's result dtypes under
+# x64; none of them composes with sm.fuse.
+def _facade_input(name, a) -> torch.Tensor:
+    from .ops import fusion
+
+    if fusion.is_fused(a):
+        raise TypeError(f"sm.{name} is not supported inside sm.fuse")
+    return asarray(a).torch()
+
+
+def _widened(t: torch.Tensor) -> torch.Tensor:
+    """bool and unsigned integers as int64, which torch's CPU kernels take."""
+    return t.to(torch.int64) if t.dtype in (torch.bool, torch.uint16, torch.uint32) else t
+
+
+def prod(a, axis=None, keepdims=False) -> Array:
+    """``jnp.prod``: integer and bool products in int64 (unsigned in uint64),
+    bfloat16 and float16 in float32 cast back."""
+    t = _facade_input("prod", a)
+    dt, out = t.dtype, _dtypes.reduction_dtype(t.dtype, "prod")
+    if dt == torch.bool or _dtypes.is_integer(dt):
+        w = t.to(torch.int64)
+    else:
+        w = t.float() if dt in (torch.bfloat16, torch.float16) else t
+    for d in sorted(reduction.axes(axis, t.ndim), reverse=True):
+        w = w.prod(d, keepdim=keepdims)
+    return Array(w.to(out))
+
+
+def var(a, axis=None, keepdims=False, ddof=0) -> Array:
+    """``jnp.var``: float inputs keep their dtype (bfloat16 computed in
+    float32), integer and bool inputs give float32."""
+    t = _facade_input("var", a)
+    return Array(_var(t, axis, keepdims, ddof))
+
+
+def std(a, axis=None, keepdims=False, ddof=0) -> Array:
+    t = _facade_input("std", a)
+    return Array(torch.sqrt(_var(t, axis, keepdims, ddof)))
+
+
+def _var(t, axis, keepdims, ddof):
+    dims = reduction.axes(axis, t.ndim)
+    out = _dtypes.to_inexact(t.dtype)
+    comp = torch.float32 if out in (torch.bfloat16, torch.float16) else out
+    x = t.to(comp)
+    n = 1
+    for d in dims:
+        n *= t.shape[d]
+    centered = x - reduction.divide(x.sum(dims, keepdim=True), n)
+    total = (centered * centered).sum(dims, keepdim=keepdims)
+    return reduction.divide(total, n - ddof).to(out)
+
+
+def _arg(name, fn):
+    def wrapped(a, axis=None, keepdims=False):
+        t = _widened(_facade_input(name, a))
+        if axis is None:
+            out = fn(t.reshape(-1))
+            return Array(out.reshape((1,) * t.ndim) if keepdims else out)
+        return Array(fn(t, reduction.axes(axis, t.ndim)[0], keepdim=keepdims))
+
+    wrapped.__name__ = name
+    return wrapped
+
+
+argmax = _arg("argmax", torch.argmax)
+argmin = _arg("argmin", torch.argmin)
+
+
+def cumsum(a, axis=None, dtype=None) -> Array:
+    """``jnp.cumsum``: keeps integer dtypes (wrapping), bool gives int64;
+    ``axis=None`` runs over the flattened array."""
+    t = _facade_input("cumsum", a)
+    if dtype is not None:
+        out = _dtypes.canonicalize(dtype)
+    else:
+        out = torch.int64 if t.dtype == torch.bool else t.dtype
+    if axis is None:
+        t, axis = t.reshape(-1), 0
+    w = t.to(torch.int64) if _dtypes.is_integer(out) or out == torch.bool else t.to(out)
+    return Array(w.cumsum(reduction.axes(axis, t.ndim)[0]).to(out))
 
 
 def fuse(fn, donate=None, iterations=1, carry=0):

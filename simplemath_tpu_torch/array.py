@@ -12,9 +12,13 @@ from a torch tensor stays on that tensor's device.  Python lists and
 scalars default to float32/int32 whatever the width of their elements;
 numpy arrays keep their dtype (the JAX package runs with x64 enabled).
 
+Reductions (``sum/max/min/mean``) and the 1-D ``dot``/``@`` run the
+map-reduce kernel (ops/reduction.py) where the JAX package runs its Pallas
+reduction kernels, and plain torch elsewhere.
+
 Not ported yet (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): advanced (gather/scatter) indexing, reductions, and
-``@``/``dot``.
+``ROADMAP.md`` item): advanced (gather/scatter) indexing, and ``@``/``dot``
+of rank >= 2 operands.
 """
 
 from __future__ import annotations
@@ -383,10 +387,16 @@ class Array:
         return self.dot(o)
 
     def __rmatmul__(self, o):
-        return self.dot(o)
+        from .ops import engine
+
+        return engine.dot(o, self)
 
     def dot(self, other):
-        raise NotImplementedError("dot/matmul is " + _NOT_PORTED.format(6))
+        """Dot product with ``numpy.dot`` semantics; views are read in
+        place.  1-D operands only so far (ops/engine.py::dot)."""
+        from .ops import engine
+
+        return engine.dot(self, other)
 
     def __eq__(self, o):
         return self._binary("equal", o)
@@ -410,10 +420,45 @@ class Array:
         return id(self)
 
     # --------------------------------------------------------- reductions
-    def _reduction(self, *args, **kwargs):
-        raise NotImplementedError("reductions are " + _NOT_PORTED.format(4))
+    def _reduce(self, kind: str, axis, keepdims):
+        """``kind`` in sum/max/min/mean.  The map-reduce kernel takes
+        float32 full reductions and single-axis reductions of 2-D float32
+        arrays, as the JAX package sends float full and 2-D axis reductions
+        to its Pallas kernels; a mean is the kernel's float32 sum divided by
+        the count in float32, as there.  Every other call runs as plain
+        torch (``torch_path:<kind>``), where the JAX package runs XLA."""
+        from .ops import reduction
 
-    sum = max = min = mean = _reduction
+        full = axis is None and not keepdims
+        single = self.ndim == 2 and isinstance(axis, int) and -2 <= axis < 2
+        if self.dtype != torch.float32 or self.size == 0 or not (full or single):
+            t = self.torch()
+            if kind == "mean":
+                return Array(reduction.torch_mean(t, axis, keepdims))
+            return Array(reduction.torch_reduce(t, kind, axis, keepdims))
+        op = "sum" if kind == "mean" else kind
+        if full:
+            out = reduction.reduce(self._operand(), op)
+            count = self.size
+        else:
+            axis %= 2
+            out = reduction.reduce_axis(self._operand(), op, axis)
+            count = self.shape[axis]
+            if keepdims:
+                out = out.unsqueeze(axis)
+        return Array(reduction.divide(out, count) if kind == "mean" else out)
+
+    def sum(self, axis=None, keepdims=False):
+        return self._reduce("sum", axis, keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return self._reduce("max", axis, keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._reduce("min", axis, keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._reduce("mean", axis, keepdims)
 
     # ------------------------------------------------------------ display
     def to_string(self) -> str:

@@ -26,45 +26,17 @@
 // Launch: on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include "tiles.cuh"
+#include "program.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 16;
 
-__device__ __forceinline__ uint32_t sm_load(const void* ptr, int64_t i, int32_t dtype) {
-  if (dtype == SM_BOOL) return static_cast<const uint8_t*>(ptr)[i] != 0;
-  return static_cast<const uint32_t*>(ptr)[i];
-}
-
-__device__ __forceinline__ void sm_store(void* out, int64_t i, int32_t dtype, uint32_t v) {
-  if (dtype == SM_BOOL)
-    static_cast<uint8_t*>(out)[i] = v != 0;
-  else
-    static_cast<uint32_t*>(out)[i] = v;
-}
-
-__device__ __forceinline__ uint32_t sm_run(const SmParams& p, uint32_t* r) {
-  for (int it = 0; it < p.iterations; ++it) {
-    for (int k = 0; k < p.n_insts; ++k) {
-      const SmInst in = p.insts[k];
-      r[in.dst] = sm_exec(in.op, r[in.a], r[in.b], r[in.c]);
-    }
-    if (p.carry >= 0) r[p.carry] = r[p.result];
-  }
-  return r[p.result];
-}
-
-__device__ __forceinline__ void sm_load_consts(const SmParams& p, uint32_t* r) {
-  for (int j = 0; j < p.n_consts; ++j) r[p.n_ops + j] = p.consts[j];
-}
-
 // One element of the flat path.
 __device__ __forceinline__ void sm_flat_one(const SmParams& p, uint32_t* r,
                                             void* out, int64_t i) {
-  for (int o = 0; o < p.n_ops; ++o)
-    r[o] = sm_load(p.ops[o].ptr, p.ops[o].scalar ? 0 : i, p.ops[o].dtype);
+  sm_load_flat(p, r, i);
   sm_store(out, i, p.out_dtype, sm_run(p, r));
 }
 
@@ -112,17 +84,7 @@ __global__ void __launch_bounds__(kThreads) ew_strided(const SmParams p, void* _
   sm_load_consts(p, r);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p.n; i += stride) {
-    int64_t coord[SM_MAX_RANK];
-    int64_t rem = i;
-    for (int d = p.rank - 1; d >= 0; --d) {
-      coord[d] = rem % p.shape[d];
-      rem /= p.shape[d];
-    }
-    for (int o = 0; o < p.n_ops; ++o) {
-      int64_t off = 0;
-      for (int d = 0; d < p.rank; ++d) off += coord[d] * p.ops[o].strides[d];
-      r[o] = sm_load(p.ops[o].ptr, off, p.ops[o].dtype);
-    }
+    sm_load_strided(p, r, i);
     sm_store(out, i, p.out_dtype, sm_run(p, r));
   }
 }

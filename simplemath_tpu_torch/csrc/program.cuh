@@ -1,0 +1,84 @@
+// The program and operand descriptors, and the per-element helpers that
+// the elementwise kernel (elementwise.cu) and the map-reduce kernel
+// (reduction.cu) share: load the operands of one element, run the opcode
+// program over them, store a result.  One copy, so both kernels evaluate
+// an expression bit for bit alike.
+#pragma once
+
+#include "tiles.cuh"
+
+// One operand: the address of its first element and its signed element
+// strides over the expression's dims (0 = broadcast).  ``scalar`` marks a
+// one-element operand on the flat path.
+struct SmOperand {
+  const void* ptr;
+  int64_t strides[SM_MAX_RANK];
+  int32_t dtype;
+  int32_t scalar;
+};
+
+// Registers [0, n_ops) are the operands, [n_ops, n_ops + n_consts) the
+// constants, then one per instruction.  With iterations > 1 the program
+// runs that many times with register ``carry`` replaced by the result.
+// ``n``, ``shape`` and ``rank`` are the expression's; ``out_dtype`` is the
+// type of the program's result.
+struct SmParams {
+  int64_t n;
+  int64_t shape[SM_MAX_RANK];
+  int32_t rank, n_ops, n_consts, n_insts;
+  int32_t out_dtype, result, iterations, carry;
+  int32_t vec, pad;
+  uint32_t consts[SM_MAX_CONSTS];
+  SmInst insts[SM_MAX_INSTS];
+  SmOperand ops[SM_MAX_OPERANDS];
+};
+
+__device__ __forceinline__ uint32_t sm_load(const void* ptr, int64_t i, int32_t dtype) {
+  if (dtype == SM_BOOL) return static_cast<const uint8_t*>(ptr)[i] != 0;
+  return static_cast<const uint32_t*>(ptr)[i];
+}
+
+__device__ __forceinline__ void sm_store(void* out, int64_t i, int32_t dtype, uint32_t v) {
+  if (dtype == SM_BOOL)
+    static_cast<uint8_t*>(out)[i] = v != 0;
+  else
+    static_cast<uint32_t*>(out)[i] = v;
+}
+
+__device__ __forceinline__ uint32_t sm_run(const SmParams& p, uint32_t* r) {
+  for (int it = 0; it < p.iterations; ++it) {
+    for (int k = 0; k < p.n_insts; ++k) {
+      const SmInst in = p.insts[k];
+      r[in.dst] = sm_exec(in.op, r[in.a], r[in.b], r[in.c]);
+    }
+    if (p.carry >= 0) r[p.carry] = r[p.result];
+  }
+  return r[p.result];
+}
+
+__device__ __forceinline__ void sm_load_consts(const SmParams& p, uint32_t* r) {
+  for (int j = 0; j < p.n_consts; ++j) r[p.n_ops + j] = p.consts[j];
+}
+
+// Operand registers of flat element ``i``: every operand is contiguous and
+// full-size or a single element.
+__device__ __forceinline__ void sm_load_flat(const SmParams& p, uint32_t* r, int64_t i) {
+  for (int o = 0; o < p.n_ops; ++o)
+    r[o] = sm_load(p.ops[o].ptr, p.ops[o].scalar ? 0 : i, p.ops[o].dtype);
+}
+
+// Operand registers of element ``i`` (row-major over p.shape), each
+// operand read through its own signed strides.
+__device__ __forceinline__ void sm_load_strided(const SmParams& p, uint32_t* r, int64_t i) {
+  int64_t coord[SM_MAX_RANK];
+  int64_t rem = i;
+  for (int d = p.rank - 1; d >= 0; --d) {
+    coord[d] = rem % p.shape[d];
+    rem /= p.shape[d];
+  }
+  for (int o = 0; o < p.n_ops; ++o) {
+    int64_t off = 0;
+    for (int d = 0; d < p.rank; ++d) off += coord[d] * p.ops[o].strides[d];
+    r[o] = sm_load(p.ops[o].ptr, off, p.ops[o].dtype);
+  }
+}

@@ -1,5 +1,7 @@
-// Tile functions of the elementwise kernel: the opcode table, the program
-// and operand descriptors, and the crafted f32 transcendentals.
+// Tile functions of the kernels: the opcode table, the SSA instruction,
+// the crafted f32 transcendentals and the opcode interpreter.  The program
+// and operand descriptors and the per-element helpers that both kernels
+// share are in program.cuh.
 //
 // Transcribed from the JAX package's tile functions, which Mosaic lowered
 // into its Pallas kernels:
@@ -48,30 +50,6 @@ enum SmOpcode : uint8_t {
 // One SSA instruction: r[dst] = op(r[a], r[b], r[c]).
 struct SmInst {
   uint8_t op, dst, a, b, c, pad0, pad1, pad2;
-};
-
-// One operand: the address of its first element and its signed element
-// strides over the output's dims (0 = broadcast).  ``scalar`` marks a
-// one-element operand on the flat path.
-struct SmOperand {
-  const void* ptr;
-  int64_t strides[SM_MAX_RANK];
-  int32_t dtype;
-  int32_t scalar;
-};
-
-// Registers [0, n_ops) are the operands, [n_ops, n_ops + n_consts) the
-// constants, then one per instruction.  With iterations > 1 the program
-// runs that many times with register ``carry`` replaced by the result.
-struct SmParams {
-  int64_t n;
-  int64_t shape[SM_MAX_RANK];
-  int32_t rank, n_ops, n_consts, n_insts;
-  int32_t out_dtype, result, iterations, carry;
-  int32_t vec, pad;
-  uint32_t consts[SM_MAX_CONSTS];
-  SmInst insts[SM_MAX_INSTS];
-  SmOperand ops[SM_MAX_OPERANDS];
 };
 
 // ------------------------------------------------------------- helpers
@@ -151,7 +129,7 @@ __device__ __forceinline__ float sm_ldexp(float x, int k) {
   return (x * s1) * s2;
 }
 
-__device__ float sm_exp(float x) {
+static __device__ float sm_exp(float x) {
   float kf = rintf(x * SM_LOG2E);
   int k = max(-1000, min(sm_f2i(kf), 1000));
   float r = (x - kf * SM_LN2_HI) - kf * SM_LN2_LO;
@@ -209,7 +187,7 @@ __device__ __forceinline__ bool sm_is_pos(float x) {
   return (int32_t)bits >= 0 && (bits & 0x7FFFFFFFu) != 0;
 }
 
-__device__ float sm_log(float x) {
+static __device__ float sm_log(float x) {
   int e;
   float m = sm_decompose(sm_is_pos(x) ? x : 1.0f, &e);
   float ef = (float)e;
@@ -230,20 +208,20 @@ __device__ __forceinline__ float sm_exp2_parts(float t_int, float t_frac) {
   return out;
 }
 
-__device__ float sm_exp2(float x) {
+static __device__ float sm_exp2(float x) {
   float kf = rintf(x);
   float out = sm_exp2_parts(kf, x - kf);
   return x != x ? x : out;
 }
 
-__device__ float sm_log2(float x) {
+static __device__ float sm_log2(float x) {
   int e;
   float m = sm_decompose(sm_is_pos(x) ? x : 1.0f, &e);
   float res = (float)e + sm_log_mantissa(m) * SM_INV_LN2;
   return sm_finish_log(x, res);
 }
 
-__device__ float sm_pow(float x, float y) {
+static __device__ float sm_pow(float x, float y) {
   float ax = fabsf(x);
   int e;
   float m = sm_decompose(ax > 0.f ? ax : 1.0f, &e);
@@ -273,7 +251,7 @@ __device__ float sm_pow(float x, float y) {
   return out;
 }
 
-__device__ float sm_tanh(float x) {
+static __device__ float sm_tanh(float x) {
   float ax = fabsf(x);
   float small = x * sm_poly_tanh(x * x);
   float big = 1.0f - 2.0f / (sm_exp(2.0f * fminf(ax, 44.0f)) + 1.0f);
@@ -283,7 +261,7 @@ __device__ float sm_tanh(float x) {
 
 // Integer pow by square-and-multiply, wrapping; negative exponents give 0
 // except for bases 1 and -1.
-__device__ uint32_t sm_ipow(uint32_t base, uint32_t exponent) {
+static __device__ uint32_t sm_ipow(uint32_t base, uint32_t exponent) {
   int32_t eb = (int32_t)exponent;
   uint32_t e = eb < 0 ? 0u - exponent : exponent;
   uint32_t result = 1u, b = base;

@@ -157,3 +157,17 @@ def to_inexact(dtype: torch.dtype) -> torch.dtype:
     if dtype in (torch.int64, torch.uint64):
         return torch.float64
     return torch.float32
+
+
+UNSIGNED = frozenset([torch.uint8, torch.uint16, torch.uint32, torch.uint64])
+
+
+def reduction_dtype(dtype: torch.dtype, kind: str) -> torch.dtype:
+    """The result type of ``jnp.<kind>`` over ``dtype`` under x64: integer
+    and bool sums and products widen to int64 (unsigned ones to uint64), a
+    mean is inexact (``to_inexact``), max and min keep the type."""
+    if kind in ("sum", "prod") and (dtype == torch.bool or is_integer(dtype)):
+        return torch.uint64 if dtype in UNSIGNED else torch.int64
+    if kind == "mean":
+        return to_inexact(dtype)
+    return dtype

@@ -189,22 +189,49 @@ def _library():
     return lib
 
 
-def _launch(prog, codes, out_shape, operands, iterations, carry, device):
-    lib = _library()
-    out = torch.empty(out_shape, dtype=prog.dtype, device=device)
-    if out.numel() == 0:
-        return out
+def params(prog, codes, out_shape, operands, iterations=1, carry=0):
+    """The parameter block of one call, operand pointers set: ``(params,
+    flat)``.  ``params.vec`` says whether every full-size operand can be
+    read with 16-byte loads (4-byte elements, 16-byte aligned); it holds
+    only on the flat path."""
     descs = [_describe(o) for o in operands]
     layout = tuple((s, st, buf.dtype) for buf, _, s, st in descs)
     raw, flat = _template(prog, codes, out_shape, layout, iterations, carry)
     p = _Params.from_buffer_copy(raw)
-    vec = out.element_size() == 4
+    vec = True
     for o, (buf, off, shape, _) in enumerate(descs):
         ptr = buf.data_ptr() + off * buf.element_size()
         p.ops[o].ptr = ptr
         if math.prod(shape) != 1 and (buf.element_size() != 4 or ptr % 16):
             vec = False
     p.vec = int(flat and vec)
+    return p, flat
+
+
+def check_program(prog, name):
+    """The opcodes of ``prog``, or ValueError when the kernels do not take it."""
+    codes = prog.kernel_codes
+    if codes is None:
+        raise ValueError(
+            f"the kernels do not take {name!r} with dtypes "
+            f"{[_dtypes.name(d) for d in prog.leaf_dtypes]} -> {_dtypes.name(prog.dtype)}"
+        )
+    if not prog.within_limits():
+        raise ValueError(
+            f"program of {len(prog.leaf_dtypes)} operands, {len(prog.consts)} "
+            f"constants and {len(prog.insts)} instructions exceeds the kernel's "
+            f"limits ({program.MAX_OPERANDS}, {program.MAX_CONSTS}, {program.MAX_INSTS})"
+        )
+    return codes
+
+
+def _launch(prog, codes, out_shape, operands, iterations, carry, device):
+    lib = _library()
+    out = torch.empty(out_shape, dtype=prog.dtype, device=device)
+    if out.numel() == 0:
+        return out
+    p, flat = params(prog, codes, out_shape, operands, iterations, carry)
+    p.vec = int(p.vec and out.element_size() == 4)
 
     entry = "ew_flat" if flat else "ew_strided"
     with torch.cuda.device(device):
@@ -214,6 +241,27 @@ def _launch(prog, codes, out_shape, operands, iterations, carry, device):
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
     LAUNCHES[entry] += 1
     return out
+
+
+def operand_device(prog, out_shape, operands) -> torch.device:
+    """The one device of ``operands`` (``config.device`` when there are
+    none), after checking that they are what ``prog`` reads and broadcast
+    to ``out_shape``."""
+    if len(operands) != len(prog.leaf_dtypes):
+        raise ValueError(
+            f"program takes {len(prog.leaf_dtypes)} operands, got {len(operands)}"
+        )
+    for o, dt in zip(operands, prog.leaf_dtypes):
+        if o.dtype != dt:
+            raise ValueError(f"program reads {dt} where the operand is {o.dtype}")
+        if broadcast_shapes(tuple(o.shape), out_shape).result_shape != out_shape:
+            raise ValueError(
+                f"operand of shape {tuple(o.shape)} does not broadcast to {out_shape}"
+            )
+    devices = {o.device for o in operands}
+    if len(devices) > 1:
+        raise ValueError(f"operands are on different devices: {sorted(map(str, devices))}")
+    return devices.pop() if devices else torch.device(config.device)
 
 
 def elementwise(prog: program.Program, out_shape, out_dtype, *operands,
@@ -227,19 +275,9 @@ def elementwise(prog: program.Program, out_shape, out_dtype, *operands,
     operand ``i`` (same shape and dtype as the output) dead after the call;
     the result is still a new tensor, so an operand is never written."""
     out_shape = tuple(int(s) for s in out_shape)
-    if len(operands) != len(prog.leaf_dtypes):
-        raise ValueError(
-            f"program takes {len(prog.leaf_dtypes)} operands, got {len(operands)}"
-        )
     if out_dtype != prog.dtype:
         raise ValueError(f"program writes {prog.dtype}, not {out_dtype}")
-    for o, dt in zip(operands, prog.leaf_dtypes):
-        if o.dtype != dt:
-            raise ValueError(f"program reads {dt} where the operand is {o.dtype}")
-        if broadcast_shapes(tuple(o.shape), out_shape).result_shape != out_shape:
-            raise ValueError(
-                f"operand of shape {tuple(o.shape)} does not broadcast to {out_shape}"
-            )
+    device = operand_device(prog, out_shape, operands)
     for what, i in (("donated", donate), ("iterated elementwise carry", carry if iterations != 1 else None)):
         if i is None:
             continue
@@ -249,10 +287,6 @@ def elementwise(prog: program.Program, out_shape, out_dtype, *operands,
                 f"{what} operand {i} must match the output shape/dtype; got "
                 f"{tuple(o.shape)}/{o.dtype} vs {out_shape}/{out_dtype}"
             )
-    devices = {o.device for o in operands}
-    if len(devices) > 1:
-        raise ValueError(f"operands are on different devices: {sorted(map(str, devices))}")
-    device = devices.pop() if devices else torch.device(config.device)
     dispatch.record("elementwise", name)
     if device.type == "cpu":
         return program.run_plain(
@@ -260,16 +294,5 @@ def elementwise(prog: program.Program, out_shape, out_dtype, *operands,
         )
     if device.type != "cuda":
         raise ValueError(f"the elementwise kernel runs on CUDA tensors, not {device}")
-    codes = prog.kernel_codes
-    if codes is None:
-        raise ValueError(
-            f"the elementwise kernel does not take {name!r} with dtypes "
-            f"{[_dtypes.name(d) for d in prog.leaf_dtypes]} -> {_dtypes.name(prog.dtype)}"
-        )
-    if not prog.within_limits():
-        raise ValueError(
-            f"program of {len(prog.leaf_dtypes)} operands, {len(prog.consts)} "
-            f"constants and {len(prog.insts)} instructions exceeds the kernel's "
-            f"limits ({program.MAX_OPERANDS}, {program.MAX_CONSTS}, {program.MAX_INSTS})"
-        )
+    codes = check_program(prog, name)
     return _launch(prog, codes, out_shape, operands, iterations, carry, device)

@@ -11,8 +11,9 @@ signature the kernel takes launches it.
 
 View operands pass to the kernel as (base tensor, offset, signed strides)
 and are read in place; this replaces the JAX package's
-``_prepare_operands`` + ``viewkernel.plan_view``.  ``dot``/``matmul`` are
-not ported yet (ROADMAP.md, queue 1, item 6).
+``_prepare_operands`` + ``viewkernel.plan_view``.  ``dot`` of 1-D operands
+runs the map-reduce kernel (ops/reduction.py); ``dot``/``matmul`` of
+rank >= 2 operands are not ported yet (ROADMAP.md, queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from .. import dtypes as _dt
 from ..array import Array, asarray
 from ..broadcast import broadcast_shapes
 from ..config import config
-from . import dispatch, elementwise, program, registry
+from . import dispatch, elementwise, program, reduction, registry
 
 
 def _scalarlike(x) -> bool:
@@ -237,3 +238,34 @@ def pow_eager(a: Any, b: Any) -> Array:
         return _eager(label, (a,), lambda x: pow_expr(x, b))
     b = asarray(b)
     return _eager(pow_label(a.dtype, b), (a, b), pow_expr)
+
+
+# ----------------------------------------------------------------- dot
+def dot(a: Any, b: Any) -> Array:
+    """Dot product with ``numpy.dot`` semantics (the reference's
+    ``operator%``).  1-D operands of one length: float32 and int32 results
+    in the map-reduce kernel's fused multiply+reduce (int32 exact mod
+    2**32), as the JAX package's ``pallas_dot1d``; uint32, float64 and the
+    rest as plain torch.  A 0-d operand multiplies."""
+    a, b = asarray(a), asarray(b)
+    if a.ndim == 0 or b.ndim == 0:
+        return binary("multiply", a, b)
+    if a.ndim != 1 or b.ndim != 1:
+        raise NotImplementedError(
+            "dot/matmul of rank >= 2 operands is not ported yet: see ROADMAP.md, "
+            "queue 1, item 6"
+        )
+    if a.shape != b.shape:
+        raise TypeError(
+            "dot_general requires contracting dimensions to have the same shape, "
+            f"got {a.shape} and {b.shape}."
+        )
+    out = _dt.result_dtype(a.dtype, b.dtype)
+    if (
+        out in (torch.float32, torch.int32)
+        and a.dtype in _dt.KERNEL_DTYPES
+        and b.dtype in _dt.KERNEL_DTYPES
+        and a.size > 0
+    ):
+        return Array(reduction.dot1d(a._operand(), b._operand()))
+    return Array(reduction.torch_dot(a.torch(), b.torch(), out))

@@ -14,14 +14,21 @@ materialized::
 The expression is traced once per input signature (shapes + dtypes) and
 cached with its lowered program.
 
-Not ported yet: a reduction root (``FusedReduction``, ROADMAP.md queue 1
-item 4) and a matmul root (``matmul_node``, queue 1 item 6); both raise
-``NotImplementedError``.
+A reduction may be the ROOT of the fused function (``FusedReduction``):
+``sm.sum/mean/max/min`` of an expression, full or along one axis, runs as
+one map-reduce call (ops/reduction.py) that never stores the mapped
+expression::
+
+    dist = sm.fuse(lambda a, b: sm.sum(sm.square(a - b)))
+
+Not ported yet: a matmul root (``matmul_node``, ROADMAP.md queue 1 item 6)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable
 
 import numpy as np
@@ -29,13 +36,102 @@ import torch
 
 from ..array import Array, asarray
 from ..config import config
-from . import engine, program
+from . import elementwise, engine, program, reduction
 
 FusedExpr = program.Node
 
 
+class FusedReduction:
+    """Root node: a reduction over a fused elementwise expression.
+
+    ``sm.sum/mean/max/min`` applied to a ``FusedExpr`` produce one;
+    ``sm.fuse`` materializes it as ONE map-reduce call: full reductions
+    through ``reduction.map_reduce``, single-axis reductions of 2-D
+    expressions through ``reduction.map_reduce_axis``.  Every operand is
+    read once, broadcast ones in place, and the mapped expression is never
+    stored.  Float32 expressions run the kernel; the rest run as plain
+    torch with ``jnp``'s result dtypes.  A reduction result cannot be
+    composed further inside the same fused function."""
+
+    __slots__ = ("kind", "expr", "axis", "keepdims")
+
+    def __init__(self, kind: str, expr: FusedExpr, axis=None, keepdims=False):
+        self.kind = kind
+        self.expr = expr
+        self.axis = axis
+        self.keepdims = keepdims
+
+    def _no_compose(self, *_a, **_k):
+        _reject_reduction(self)
+
+    __add__ = __radd__ = __sub__ = __rsub__ = _no_compose
+    __mul__ = __rmul__ = __truediv__ = __rtruediv__ = _no_compose
+    __floordiv__ = __mod__ = __pow__ = __neg__ = __abs__ = _no_compose
+
+    def materialize(self, leaves, operands) -> Array:
+        expr = self.expr
+        kind = "sum" if self.kind == "mean" else self.kind
+        shape, dtype = expr.shape, expr.dtype
+        prog = program.lower(expr, leaves)
+        kernel = (dtype == torch.float32 and math.prod(shape) > 0 and len(shape) >= 1
+                  and prog.kernel_codes is not None)
+        ax = self.axis
+        if kernel and (ax is None or len(shape) == 2):
+            if ax is None:
+                total = reduction.map_reduce(prog, kind, shape, *operands)
+            else:
+                total = reduction.map_reduce_axis(prog, kind, ax, shape, *operands)
+        else:
+            vals = reduction.values(prog, shape, operands,
+                                    elementwise.operand_device(prog, shape, operands))
+            if dtype in (torch.bfloat16, torch.float16):
+                vals = vals.float()  # the JAX package reduces these in f32
+            total = reduction.torch_reduce(vals, kind, ax)
+        if self.kind == "mean":
+            total = reduction.divide(total, math.prod(shape) if ax is None else shape[ax])
+        if dtype.is_floating_point:
+            total = total.to(dtype)
+        if self.keepdims:
+            total = total.unsqueeze(ax)
+        return Array(total)
+
+
+def reduce_node(kind: str, a, axis=None, keepdims=False) -> FusedReduction:
+    """``api._reduce_free``'s hook: a (full or single-axis) reduction rooting
+    a fused expression."""
+    if isinstance(a, FusedReduction):
+        raise TypeError("a reduction result cannot be reduced again inside sm.fuse")
+    if not isinstance(a, FusedExpr):
+        raise TypeError(f"sm.{kind} fused-reduction requires a fused expression")
+    if axis is not None:
+        if isinstance(axis, (tuple, list)):
+            raise TypeError(
+                f"sm.{kind} inside sm.fuse supports a single int axis, got {axis!r}"
+            )
+        nd = len(a.shape)
+        ax = int(axis) + nd if int(axis) < 0 else int(axis)
+        if not 0 <= ax < nd:
+            raise ValueError(
+                f"axis {axis} out of bounds for fused expression of rank {nd}"
+            )
+        return FusedReduction(kind, a, axis=ax, keepdims=keepdims)
+    if keepdims:
+        raise TypeError(
+            f"sm.{kind}(keepdims=True) without an axis is not supported inside sm.fuse"
+        )
+    return FusedReduction(kind, a)
+
+
+def _reject_reduction(*xs):
+    if any(isinstance(x, FusedReduction) for x in xs):
+        raise TypeError(
+            "reduction results cannot be composed further inside sm.fuse; "
+            "make the reduction the LAST op of the fused function"
+        )
+
+
 def is_fused(x) -> bool:
-    return isinstance(x, FusedExpr)
+    return isinstance(x, (FusedExpr, FusedReduction))
 
 
 def _lift(x) -> FusedExpr:
@@ -55,12 +151,14 @@ def _lift(x) -> FusedExpr:
 
 
 def binary_node(name: str, a, b) -> FusedExpr:
+    _reject_reduction(a, b)
     if name == "pow":
         return pow_node(a, b)
     return program.apply(name, _lift(a), _lift(b))
 
 
 def unary_node(name: str, a) -> FusedExpr:
+    _reject_reduction(a)
     if not isinstance(a, FusedExpr):
         raise TypeError(f"unary fused op {name!r} requires a FusedExpr")
     return program.apply(name, a)
@@ -68,22 +166,18 @@ def unary_node(name: str, a) -> FusedExpr:
 
 def pow_node(a, b) -> FusedExpr:
     """Fused ``sm.pow``: the same ladder as the public ``engine.pow``."""
+    _reject_reduction(a, b)
     return engine.pow_expr(_lift(a), b if engine._scalarlike(b) else _lift(b))
 
 
 def ternary_node(name: str, a, b, c) -> FusedExpr:
+    _reject_reduction(a, b, c)
     return program.apply(name, _lift(a), _lift(b), _lift(c))
 
 
 def matmul_node(a, b):
     raise NotImplementedError(
         "matmul inside sm.fuse is not ported yet: see ROADMAP.md, queue 1, item 6"
-    )
-
-
-def reduce_node(kind: str, a, axis=None, keepdims=False):
-    raise NotImplementedError(
-        f"sm.{kind} inside sm.fuse is not ported yet: see ROADMAP.md, queue 1, item 4"
     )
 
 
@@ -121,12 +215,18 @@ def fuse(
         if hit is None:
             leaves = [program.leaf(a.shape, a.dtype) for a in arrs]
             expr = fn(*leaves)
-            if not isinstance(expr, FusedExpr):
+            if not is_fused(expr):
                 raise TypeError(
                     "the function passed to sm.fuse must return a fused "
                     f"expression built from sm ops; got {type(expr).__name__}"
                 )
-            if iterations != 1 and (
+            if isinstance(expr, FusedReduction):
+                if iterations != 1:
+                    raise ValueError(
+                        "sm.fuse(iterations=...) does not compose with a "
+                        "reduction root (the result is a scalar)"
+                    )
+            elif iterations != 1 and (
                 expr.shape != arrs[carry].shape or expr.dtype != arrs[carry].dtype
             ):
                 raise ValueError(
@@ -137,6 +237,8 @@ def fuse(
                 )
             hit = cache[key] = (expr, leaves)
         expr, leaves = hit
+        if isinstance(expr, FusedReduction):
+            return expr.materialize(leaves, [a._operand() for a in arrs])
         return engine.run(
             expr, leaves, [a._operand() for a in arrs], "fused",
             donate=donate, iterations=iterations, carry=carry,

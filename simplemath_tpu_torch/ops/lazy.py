@@ -17,7 +17,11 @@ Semantics are preserved:
 * result dtypes follow the eager engine's promotion, Python scalars
   included (dtypes.py's weak types);
 * a single-op expression flushes under the op's own dispatch name
-  (``elementwise:add``), a chain as ``elementwise:fused``.
+  (``elementwise:add``), a chain as ``elementwise:fused``;
+* ``sum/mean/max/min`` of a pending expression (full, or one axis of a
+  2-D one) do not flush it: the recorded expression becomes the map of ONE
+  map-reduce call (``fusion.FusedReduction``), so
+  ``sm.sum(sm.square(a - b))`` never stores ``a - b`` or its square.
 
 Disable with ``SM_DEFERRED_EAGER=0`` (config.deferred_eager).
 """
@@ -109,6 +113,22 @@ class LazyArray(Array):
     def transpose(self, *axes):
         self._flush()
         return super().transpose(*axes)
+
+    def _reduce(self, kind, axis, keepdims):
+        """A full reduction, or one along an int axis of a 2-D expression, of
+        the pending expression does not flush it: one map-reduce call over
+        the recorded operands.  Anything else flushes first."""
+        from . import fusion
+
+        p = self._pending
+        if p is not None and (
+            not keepdims if axis is None else isinstance(axis, int) and len(p[0].shape) == 2
+        ):
+            node, leaves, operands, _ = p
+            return fusion.reduce_node(kind, node, axis=axis, keepdims=keepdims).materialize(
+                leaves, operands
+            )
+        return super()._reduce(kind, axis, keepdims)
 
 
 # ---------------------------------------------------------------- recording

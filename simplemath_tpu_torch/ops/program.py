@@ -398,12 +398,14 @@ _UNSIGNED = (torch.uint16, torch.uint32)
 def _plain_fn(op: str, dtype):
     if op == "cast":
         return lambda x: x.to(dtype)
-    fn = registry.op_def(op).fn
+    op_def = registry.op_def(op)
+    fn = op_def.fn
+    unsigned_fn = op_def.unsigned_fn or fn
 
     def widening(*args):
         if any(a.dtype in _UNSIGNED for a in args):
             wide = (a.to(torch.int64) if a.dtype in _UNSIGNED else a for a in args)
-            return fn(*wide).to(dtype)
+            return unsigned_fn(*wide).to(dtype)
         return fn(*args)
 
     return widening

@@ -39,6 +39,9 @@ class Op:
     opcodes: Dict[torch.dtype, str] = dataclasses.field(default_factory=dict)
     # Whether the elementwise kernel may execute this op.
     pallas_ok: bool = True
+    # ``fn`` for unsigned operands widened to int64 (ops/program.py), where
+    # the two differ; None = ``fn``.
+    unsigned_fn: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, Op] = {}
@@ -73,26 +76,58 @@ def registered_ops():
 
 
 def _builtin(name, fn, rule, arity=2, f32: Optional[str] = None,
-             i32: Optional[str] = None, table=_REGISTRY):
+             i32: Optional[str] = None, table=_REGISTRY, unsigned_fn=None):
     codes = {}
     if f32:
         codes[F32] = f32
     if i32:
         codes[I32] = i32
-    table[name] = Op(name=name, fn=fn, arity=arity, rule=rule, opcodes=codes)
+    table[name] = Op(name=name, fn=fn, arity=arity, rule=rule, opcodes=codes,
+                     unsigned_fn=unsigned_fn)
+
+
+# Floor division and remainder with jnp.floor_divide's and jnp.remainder's
+# values everywhere, division by zero included.  torch raises on an integer
+# division by zero on the CPU, leaves it unspecified on CUDA and gives ±inf
+# for a float x // 0.0, so no divisor of 0 (or -1, whose INT_MIN quotient
+# overflows) ever reaches a torch division: explicit guards give XLA's
+# values instead.  Floats: x // 0.0 and x % 0.0 are NaN.  Integers: XLA's
+# x / 0 is -1 (all ones unsigned) and x % 0 is 0; the floor step then makes
+# a signed x // 0 -2 for x != 0; INT_MIN // -1 wraps to INT_MIN.
+def _floor_divide(x, y):
+    zero = y == 0
+    if x.is_floating_point():
+        q = torch.floor_divide(x, torch.where(zero, 1.0, y))
+        return torch.where(zero, torch.nan, q)
+    neg1 = y == -1
+    q = torch.div(x, torch.where(zero | neg1, 1, y), rounding_mode="trunc")
+    q = torch.where(neg1, -x, torch.where(zero, -1, q))
+    r = x - q * y
+    return torch.where((torch.sign(x) != torch.sign(y)) & (r != 0), q - 1, q)
+
+
+def _floor_divide_unsigned(x, y):
+    zero = y == 0
+    q = torch.div(x, torch.where(zero, 1, y), rounding_mode="trunc")
+    return torch.where(zero, -1, q)
+
+
+def _remainder(x, y):
+    if x.is_floating_point():
+        zero = y == 0
+        return torch.where(zero, torch.nan, torch.remainder(x, torch.where(zero, 1.0, y)))
+    return torch.remainder(x, torch.where((y == 0) | (y == -1), 1, y))
 
 
 # ---------------------------------------------------------------- built-ins
 # Binary arithmetic.  True division follows NumPy (int/int -> float).
-# Integer floor_divide/remainder follow Python floor semantics, which the
-# kernel does not implement yet (division by zero cannot be matched), so
-# both run as plain torch.
+# floor_divide/remainder run as plain torch (no kernel opcode yet).
 _builtin("add", torch.add, "promote", f32="ADD_F", i32="ADD_I")
 _builtin("subtract", torch.sub, "promote", f32="SUB_F", i32="SUB_I")
 _builtin("multiply", torch.mul, "promote", f32="MUL_F", i32="MUL_I")
 _builtin("divide", torch.div, "inexact", f32="DIV_F")
-_builtin("floor_divide", torch.floor_divide, "promote")
-_builtin("remainder", torch.remainder, "promote")
+_builtin("floor_divide", _floor_divide, "promote", unsigned_fn=_floor_divide_unsigned)
+_builtin("remainder", _remainder, "promote")
 _builtin("maximum", torch.maximum, "promote", f32="MAX_F", i32="MAX_I")
 _builtin("minimum", torch.minimum, "promote", f32="MIN_F", i32="MIN_I")
 

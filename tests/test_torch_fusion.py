@@ -131,13 +131,20 @@ def test_fuse_errors_match_jax():
 
 
 def test_fused_reduction_and_matmul_wait():
+    """The matmul root still waits (ROADMAP.md queue 1 item 6); the
+    reduction root is ported and takes only fused expressions, as in the
+    JAX package (tests/test_torch_reduction.py holds its values)."""
+    from simplemath_tpu.ops import fusion as jfusion
     from simplemath_tpu_torch.ops import fusion
 
     a = sm.ones(4, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         sm.fuse(lambda x: x @ x)(a)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fusion.reduce_node("sum", a)
+    for mod, arr in ((fusion, a), (jfusion, jsm.ones(4, 4))):
+        with pytest.raises(TypeError, match="requires a fused expression"):
+            mod.reduce_node("sum", arr)
+    assert float(sm.fuse(lambda x: sm.sum(x * 2.0))(a)) == 32.0
+    assert dispatch.count("reduce_fused", "sum") == 1
 
 
 def test_fused_static_and_integer_pow(rng):

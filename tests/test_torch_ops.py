@@ -75,6 +75,44 @@ def test_binary_registry_ops_match(rng, name, dtype):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+_BY_ZERO = {
+    "int32": (np.array([7, -7, 0, -2**31, 2**31 - 1, -2**31, 5, -9, 0], np.int32),
+              np.array([0, 0, 0, -1, -1, 0, -3, 2, -1], np.int32)),
+    "float32": (np.array([7.0, -7.0, 0.0, -0.0, np.inf, -np.inf, np.nan, 5.0, -1.0],
+                         np.float32),
+                np.array([0.0, 0.0, 0.0, 0.0, 0.0, -0.0, 0.0, -3.0, np.inf], np.float32)),
+    "uint32": (np.array([7, 0, 4294967295, 5], np.uint32), np.array([0, 0, 0, 2], np.uint32)),
+}
+_DIVISIONS = {"floor_divide": lambda m, x, y: x // y, "remainder": lambda m, x, y: x % y,
+              "fused": lambda m, x, y: m.fuse(lambda a, b: (a // b) * 3 + a % b)(x, y)}
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("op", sorted(_DIVISIONS))
+@pytest.mark.parametrize("dtype", sorted(_BY_ZERO))
+def test_floor_divide_and_remainder_by_zero_match_jax(dtype, op, deferred):
+    """x // 0 and x % 0 give the JAX package's values, eager, lazy and
+    inside sm.fuse: NaN for floats; for integers XLA's (-1 or -2 signed,
+    all ones unsigned, x % 0 == 0), and INT_MIN // -1 wraps.  torch alone
+    raises (CPU) or is unspecified (CUDA) on an integer zero divisor and
+    gives ±inf for a float one."""
+    from simplemath_tpu.config import config as jconfig
+    from simplemath_tpu_torch.config import config
+
+    x, y = _BY_ZERO[dtype]
+    f = _DIVISIONS[op]
+    old = (config.deferred_eager, jconfig.deferred_eager)
+    config.deferred_eager = jconfig.deferred_eager = deferred
+    try:
+        got = f(sm, sm.Array(x), sm.Array(y))
+        want = f(jsm, jsm.Array(x), jsm.Array(y)).numpy()
+        got_np = got.numpy()
+    finally:
+        config.deferred_eager, jconfig.deferred_eager = old
+    assert dtypes.name(got.dtype) == want.dtype.name
+    np.testing.assert_array_equal(got_np, want)  # NaN == NaN here
+
+
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
 @pytest.mark.parametrize("name", _UNARY)
 def test_unary_registry_ops_match(rng, name, dtype):

@@ -1,0 +1,489 @@
+"""The port's reductions and 1-D dot against the JAX package's: Array and
+free-function ``sum/mean/max/min``, ``sm.dot``, reductions as ``sm.fuse``
+roots and of pending deferred-eager chains, the torch façades, and the
+whole slice (``bench.py``'s reduction workloads at small size).
+
+The JAX side runs with ``kernel_backend = "pallas"``, so its reduction
+kernels run in interpret mode (the dispatch counts prove it); the port's
+CPU tensors take the map-reduce kernel's plain version, and its dispatch
+names must match.  Tolerances are tests/test_reduce_axis.py's (rtol 2e-5,
+atol 2e-5 to 2e-4) and tests/test_dot.py's (rtol 1e-6 to 1e-4); integer
+results, the int32 dot and max/min are exact.  Expected dtypes come from
+the JAX package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import simplemath_tpu as jsm
+import simplemath_tpu_torch as sm
+from simplemath_tpu.config import config as jconfig
+from simplemath_tpu.ops import dispatch as jdispatch
+from simplemath_tpu_torch import dtypes
+from simplemath_tpu_torch.config import config
+from simplemath_tpu_torch.ops import dispatch, reduction
+
+
+@pytest.fixture(autouse=True)
+def _reference_setup():
+    old = (jconfig.kernel_backend, jconfig.transcendental_impl,
+           jconfig.deferred_eager, config.deferred_eager)
+    jconfig.kernel_backend = "pallas"
+    jconfig.transcendental_impl = "crafted"
+    dispatch.reset()
+    jdispatch.reset()
+    yield
+    (jconfig.kernel_backend, jconfig.transcendental_impl,
+     jconfig.deferred_eager, config.deferred_eager) = old
+
+
+_KERNEL_KINDS = ("reduce", "reduce_fused", "reduce_axis", "dot1d", "elementwise")
+
+
+def _kernel_counts(counts):
+    return {k: v for k, v in counts.items() if k.split(":")[0] in _KERNEL_KINDS}
+
+
+def _same_dtype(got, want):
+    assert dtypes.name(got.dtype) == np.dtype(want.dtype).name, (got.dtype, want.dtype)
+
+
+def _data(rng, dtype, shape):
+    x = rng.standard_normal(shape)
+    if dtype == "bool":
+        return x > 0
+    if dtype == "int32":
+        return np.round(x * 50).astype(np.int32)
+    if dtype == "uint32":
+        return np.round(np.abs(x) * 50).astype(np.uint32)
+    return x.astype(np.float64 if dtype == "float64" else np.float32)
+
+
+def _arrays(x, dtype):
+    if dtype == "bfloat16":
+        return jsm.Array(x, dtype="bfloat16"), sm.Array(x, dtype="bfloat16")
+    return jsm.Array(x), sm.Array(x)
+
+
+def _close(got, want, kind="sum"):
+    """Exact for max/min and integer and bool results; bf16 within its
+    rounding (both sides accumulate in f32 and round once); f32 as
+    test_reduce_axis.py."""
+    g = np.asarray(got.numpy(), np.float64)
+    w = np.asarray(want.numpy(), np.float64)
+    assert g.shape == w.shape
+    if kind in ("max", "min") or not got.dtype.is_floating_point:
+        np.testing.assert_array_equal(g, w)
+    elif got.dtype == torch.bfloat16:
+        np.testing.assert_allclose(g, w, rtol=1e-2, atol=1e-2)
+    elif got.dtype == torch.float64:
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-12)
+    else:
+        np.testing.assert_allclose(g, w, rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------ Array reductions
+_AXES = [None, 0, 1, -1, -2, (0, 1)]
+
+
+@pytest.mark.parametrize("kind", ["sum", "mean", "max", "min"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64", "int32", "uint32", "bool"])
+def test_reductions_match_jax(rng, dtype, kind):
+    x = _data(rng, dtype, (33, 47))
+    ja, pa = _arrays(x, dtype)
+    for axis in _AXES:
+        for keepdims in (False, True):
+            jdispatch.reset()
+            dispatch.reset()
+            want = getattr(ja, kind)(axis=axis, keepdims=keepdims)
+            got = getattr(pa, kind)(axis=axis, keepdims=keepdims)
+            _same_dtype(got, want)
+            _close(got, want, kind)
+            if dtype == "float32" and not isinstance(axis, tuple):
+                # The JAX package's Pallas reductions and the port's kernel
+                # take the same calls, under the same names.
+                assert _kernel_counts(dispatch.counts()) == _kernel_counts(jdispatch.counts())
+    free = getattr(sm, kind)(pa, axis=1)
+    _close(free, getattr(jsm, kind)(ja, axis=1), kind)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "uint32", "int8", "int16", "int32",
+                                   "int64", "bool", "float16", "float32", "float64"])
+def test_reduction_dtypes_match_jax(dtype):
+    """Every reduction and façade gives jnp's result dtype under x64 (narrow
+    integer sums and products widen to int64, unsigned ones to uint64)."""
+    x = (np.arange(12).reshape(3, 4) % 5).astype(dtype)
+    for f in (lambda m, a: a.sum(), lambda m, a: a.mean(axis=0), lambda m, a: a.max(),
+              lambda m, a: a.min(axis=1), lambda m, a: m.prod(a), lambda m, a: m.cumsum(a),
+              lambda m, a: m.var(a), lambda m, a: m.argmax(a, axis=1)):
+        got, want = f(sm, sm.Array(x)), f(jsm, jsm.Array(x))
+        _same_dtype(got, want)
+        np.testing.assert_allclose(np.asarray(got.numpy(), np.float64),
+                                   np.asarray(want.numpy(), np.float64), rtol=1e-3)
+
+
+def test_float32_reductions_take_the_kernel_path(rng):
+    a = sm.Array(rng.standard_normal((16, 24)).astype(np.float32))
+    a.sum(), a.max(axis=0), a.mean(axis=-1), a.min()
+    assert dispatch.counts() == {"reduce:sum": 1, "reduce_axis:max0": 1,
+                                 "reduce_axis:sum1": 1, "reduce:min": 1}
+    dispatch.reset()
+    a.sum(keepdims=True), a.sum(axis=(0, 1))
+    sm.Array(rng.standard_normal((2, 3, 4)).astype(np.float32)).sum(axis=1)
+    assert dispatch.counts() == {"torch_path:sum": 3}
+
+
+_VIEWS = {
+    "T": lambda a: a.T,
+    "negative-step": lambda a: a[::-1, ::-2],
+    "row": lambda a: a[3],
+    "offset": lambda a: a[1:, 2:],
+}
+
+
+@pytest.mark.parametrize("view", sorted(_VIEWS))
+def test_reductions_of_views_read_in_place(rng, view):
+    x = rng.standard_normal((40, 56)).astype(np.float32)
+    jv, pv = _VIEWS[view](jsm.Array(x)), _VIEWS[view](sm.Array(x))
+    axes = [None, 0, 1] if len(pv.shape) == 2 else [None]
+    for kind in ("sum", "mean", "max", "min"):
+        for axis in axes:
+            jdispatch.reset()
+            dispatch.reset()
+            _close(getattr(pv, kind)(axis=axis), getattr(jv, kind)(axis=axis), kind)
+            counts = dispatch.counts()
+            assert counts == _kernel_counts(jdispatch.counts())
+            assert not any(k.startswith(("elementwise", "torch_path")) for k in counts)
+
+
+@pytest.mark.parametrize("n", [1, 5, 4096 * 3 + 777, 40_000])
+def test_ragged_1d_reductions_match_jax_and_float64(rng, n):
+    x = rng.standard_normal(n).astype(np.float32)
+    ja, pa = jsm.Array(x), sm.Array(x)
+    ref = {"sum": x.astype(np.float64).sum(), "mean": x.astype(np.float64).mean(),
+           "max": x.max(), "min": x.min()}
+    for kind, r in ref.items():
+        got, want = getattr(pa, kind)(), getattr(ja, kind)()
+        np.testing.assert_allclose(float(got), float(want.numpy()), rtol=2e-5, atol=2e-4)
+        np.testing.assert_allclose(float(got), r, rtol=2e-5, atol=2e-4)
+        assert got.shape == () and got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("kind", ["sum", "mean", "max", "min"])
+def test_nan_propagates_like_jax(kind):
+    x = np.linspace(-2, 2, 300, dtype=np.float32).reshape(20, 15)
+    x[7, 4] = np.nan
+    for axis in (None, 0, 1):
+        got = getattr(sm.Array(x), kind)(axis=axis).numpy()
+        want = np.asarray(getattr(jsm.Array(x), kind)(axis=axis).numpy())
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert np.isnan(got).any()
+
+
+def test_empty_and_zero_d_reductions_match_jax():
+    e = np.zeros((0,), np.float32)
+    assert float(sm.Array(e).sum()) == float(jsm.Array(e).sum().numpy()) == 0.0
+    assert np.isnan(float(sm.Array(e).mean())) and np.isnan(float(jsm.Array(e).mean().numpy()))
+    for mod in (sm, jsm):
+        with pytest.raises(ValueError, match="zero-size array"):
+            mod.Array(e).max()
+    s = np.float32(3.5)
+    got, want = sm.Array(s).sum(), jsm.Array(s).sum()
+    assert got.shape == () and float(got) == float(want.numpy()) == 3.5
+    with pytest.raises(ValueError, match="out of bounds"):
+        sm.Array(np.ones(4, np.float32)).sum(axis=1)
+
+
+# ------------------------------------------------------------- the dot
+def _dot_operands(rng, da, db, n):
+    def one(d):
+        if d == "bool":
+            return rng.integers(0, 2, n).astype(bool)
+        if d == "uint32":
+            return rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+        if d == "int32":
+            return rng.integers(-100, 100, n).astype(np.int32)
+        return rng.standard_normal(n).astype(d)
+    return one(da), one(db)
+
+
+_DOTS = [
+    ("float32", "float32", "dot1d"), ("int32", "int32", "dot1d"),
+    ("float32", "int32", "dot1d"), ("int32", "bool", "dot1d"),
+    ("uint32", "uint32", "torch_path:dot"), ("float64", "float64", "torch_path:dot"),
+    ("bool", "bool", "torch_path:dot"),
+]
+
+
+@pytest.mark.parametrize("n", [8, 4096 * 3 + 777])
+@pytest.mark.parametrize("da,db,path", _DOTS, ids=str)
+def test_dot_1d_matches_jax(rng, da, db, path, n):
+    a, b = _dot_operands(rng, da, db, n)
+    want = jsm.dot(jsm.Array(a), jsm.Array(b))
+    got = sm.dot(sm.Array(a), sm.Array(b))
+    _same_dtype(got, want)
+    assert dispatch.count(path) == 1
+    if got.dtype.is_floating_point:
+        np.testing.assert_allclose(float(got), float(want.numpy()), rtol=1e-5, atol=1e-4)
+        ref = np.dot(a.astype(np.float64), b.astype(np.float64))
+        np.testing.assert_allclose(float(got), ref, rtol=1e-5, atol=1e-4)
+    else:
+        assert got.item() == want.numpy().item()
+
+
+def test_int32_dot_is_exact_and_wraps():
+    """tests/test_int_compute.py's wraparound case: i32 accumulation wraps
+    mod 2**32, as the reference's int32 SIMD accumulator does."""
+    a = np.full(70_000, 40_000, np.int32)
+    want = (np.int64(40_000) * 40_000 * 70_000) % (1 << 32)
+    want = int(want - (1 << 32) if want >= 1 << 31 else want)
+    got = sm.dot(sm.Array(a), sm.Array(a))
+    assert got.dtype == torch.int32 and int(got) == want == int(jsm.dot(jsm.Array(a), jsm.Array(a)).numpy())
+    u = np.array([4294967295, 3], np.uint32)
+    assert int(sm.dot(sm.Array(u), sm.Array(u))) == int(jsm.dot(jsm.Array(u), jsm.Array(u)).numpy()) == 10
+
+
+def test_int32_dot_float32_matches_jnp_dot(rng):
+    """i32 . f32 gives f32 = jnp.dot's value.  (The JAX package's Pallas
+    route fails on this order, so its XLA route is the reference here.)"""
+    a = rng.integers(-50, 50, 1000).astype(np.int32)
+    b = rng.standard_normal(1000).astype(np.float32)
+    jconfig.kernel_backend = "auto"
+    want = jsm.dot(jsm.Array(a), jsm.Array(b))
+    got = sm.dot(sm.Array(a), sm.Array(b))
+    _same_dtype(got, want)
+    np.testing.assert_allclose(float(got), float(want.numpy()), rtol=1e-5, atol=1e-4)
+    assert dispatch.count("dot1d") == 1
+
+
+def test_dot_operator_forms_and_views(rng):
+    x = rng.standard_normal((6, 64)).astype(np.float32)
+    ja, pa = jsm.Array(x), sm.Array(x)
+    cases = [
+        lambda a: a[1] @ a[2], lambda a: a[1].dot(a[4]),
+        lambda a: a[0, ::2] @ a[5, 1::2], lambda a: a[3, ::-1] @ a[2],
+        lambda a: a.T[7] @ a.T[9], lambda a: a[2].__rmatmul__(a[0]),
+    ]
+    for f in cases:
+        np.testing.assert_allclose(float(f(pa)), float(f(ja).numpy()), rtol=1e-6, atol=1e-5)
+    assert dispatch.count("dot1d") == len(cases)
+    assert not any(k.startswith("elementwise") for k in dispatch.counts())
+
+
+def test_dot_errors_and_scalars_match_jax():
+    for mod in (sm, jsm):
+        with pytest.raises(TypeError, match="same shape"):
+            mod.dot(mod.Array(np.ones(3, np.float32)), mod.Array(np.ones(4, np.float32)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sm.dot(sm.ones(2, 2), sm.ones(2, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sm.fuse(lambda x: sm.dot(x, x))(sm.ones(4))
+    s, v = np.float32(2.0), np.arange(3, dtype=np.float32)
+    np.testing.assert_array_equal(sm.dot(sm.Array(s), sm.Array(v)).numpy(),
+                                  jsm.dot(jsm.Array(s), jsm.Array(v)).numpy())
+
+
+# -------------------------------------------------- fused reductions
+_FUSED = {
+    "full": (lambda m: lambda x, y: m.sum(m.square(x - y)), "B"),
+    "full_mean": (lambda m: lambda x, y: m.mean(m.exp(x) * y), "B"),
+    "full_row": (lambda m: lambda x, w: m.sum(x * w), "row"),
+    "full_scalar_max": (lambda m: lambda x, w: m.max(x * w), "one"),
+    "axis1": (lambda m: lambda x, y: m.sum(m.square(x - y), axis=1), "B"),
+    "axis0_mean": (lambda m: lambda x, y: m.mean(m.abs(x), axis=0), "B"),
+    "row_max0": (lambda m: lambda x, w: m.max(x * w, axis=0), "row"),
+    "col_sum1": (lambda m: lambda x, w: m.sum(x * w, axis=1), "col"),
+    "col_min0": (lambda m: lambda x, w: m.min(x - w, axis=0), "col"),
+    "keepdims": (lambda m: lambda x, y: m.sum(m.square(x), axis=1, keepdims=True), "B"),
+    "negative_axis": (lambda m: lambda x, y: m.sum(x + y, axis=-1), "B"),
+    "int_sum": (lambda m: lambda x, y: m.sum(x > y), "B"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FUSED))
+def test_fused_reductions_match_jax(rng, case):
+    build, second = _FUSED[case]
+    A = rng.standard_normal((48, 40)).astype(np.float32)
+    y = {"B": rng.standard_normal((48, 40)), "row": rng.standard_normal((1, 40)),
+         "col": rng.standard_normal((48, 1)), "one": np.full((1, 1), 1.5)}[second]
+    y = y.astype(np.float32)
+    want = jsm.fuse(build(jsm))(A, y)
+    got = sm.fuse(build(sm))(A, y)
+    _same_dtype(got, want)
+    assert got.shape == tuple(np.shape(want.numpy()))
+    np.testing.assert_allclose(np.asarray(got.numpy(), np.float64),
+                               np.asarray(want.numpy(), np.float64), rtol=2e-5, atol=2e-4)
+    counts = dispatch.counts()
+    assert not any(k.startswith("elementwise") for k in counts)
+    if case != "int_sum":
+        assert sum(v for k, v in counts.items() if k.startswith("reduce")) == 1
+        jk = _kernel_counts(jdispatch.counts())
+        if jk:  # where the JAX package uses its kernel, the names agree
+            assert _kernel_counts(counts) == jk
+
+
+def test_fused_rank1_axis0_and_view_operands(rng):
+    x = rng.standard_normal(512).astype(np.float32)
+    f = lambda m: m.fuse(lambda a: m.sum(m.square(a), axis=0))  # noqa: E731
+    np.testing.assert_allclose(float(f(sm)(x)), float(f(jsm)(x).numpy()), rtol=2e-5)
+    base = rng.standard_normal((32, 48)).astype(np.float32)
+    g = lambda m: m.fuse(lambda a, b: m.sum(a * b, axis=0))  # noqa: E731
+    pv, jv = sm.Array(base), jsm.Array(base)
+    got = g(sm)(pv.T, pv[:, ::-1].T)
+    want = g(jsm)(jv.T, jv[:, ::-1].T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()), rtol=2e-5, atol=2e-4)
+
+
+_FUSE_ERRORS = [
+    (lambda m: lambda x: m.sum(x, axis=(0, 1)), TypeError, "single int axis"),
+    (lambda m: lambda x: m.sum(x, axis=0) + 1.0, TypeError, "cannot be composed"),
+    (lambda m: lambda x: m.exp(m.sum(x)), TypeError, "cannot be composed"),
+    (lambda m: lambda x: m.add(1.0, m.max(x)), TypeError, "cannot be composed"),
+    (lambda m: lambda x: m.sum(m.sum(x, axis=0)), TypeError, "reduced again"),
+    (lambda m: lambda x: m.sum(x, keepdims=True), TypeError, "without an axis"),
+    (lambda m: lambda x: m.sum(x, axis=2), ValueError, "out of bounds"),
+]
+
+
+@pytest.mark.parametrize("k", range(len(_FUSE_ERRORS)))
+def test_fused_reduction_errors_match_jax(k):
+    build, exc, msg = _FUSE_ERRORS[k]
+    for mod in (sm, jsm):
+        with pytest.raises(exc, match=msg):
+            mod.fuse(build(mod))(np.ones((4, 4), np.float32))
+    for mod in (sm, jsm):
+        with pytest.raises(ValueError, match="does not compose with a reduction root"):
+            mod.fuse(lambda x: mod.sum(x), iterations=2)(np.ones((4, 4), np.float32))
+
+
+# --------------------------------------------------- lazy reductions
+@pytest.mark.parametrize("kind", ["sum", "mean", "max", "min"])
+def test_lazy_chain_reduction_is_one_map_reduce(rng, kind):
+    """tests/test_lazy.py's single-pass case: a reduction of a pending chain
+    composes into ONE map-reduce and never flushes the chain."""
+    a = rng.standard_normal((64, 96)).astype(np.float32)
+    b = rng.standard_normal((64, 96)).astype(np.float32)
+    got = getattr(sm, kind)(sm.square(sm.subtract(sm.Array(a), sm.Array(b))))
+    want = getattr(jsm, kind)(jsm.square(jsm.subtract(jsm.Array(a), jsm.Array(b))))
+    np.testing.assert_allclose(float(got), float(want.numpy()), rtol=2e-5, atol=2e-4)
+    counts = dispatch.counts()
+    assert counts.get(f"reduce_fused:{'sum' if kind == 'mean' else kind}") == 1, counts
+    assert not any(k.startswith("elementwise") for k in counts), counts
+    assert counts == jdispatch.counts()
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_lazy_chain_axis_reduction(rng, axis):
+    a = rng.standard_normal((48, 40)).astype(np.float32)
+    b = rng.standard_normal((48, 40)).astype(np.float32)
+    x, y = sm.Array(a), sm.Array(b)
+    chain = (x - y) * 2.0
+    got = chain.mean(axis=axis, keepdims=True)
+    want = ((jsm.Array(a) - jsm.Array(b)) * 2.0).mean(axis=axis, keepdims=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()), rtol=2e-5, atol=2e-4)
+    assert dispatch.count("reduce_axis", f"sum{axis % 2}") == 1
+    assert not any(k.startswith("elementwise") for k in dispatch.counts())
+    # The chain itself stayed pending and still gives its values.
+    np.testing.assert_array_equal(chain.numpy(), (a - b) * np.float32(2.0))
+    assert dispatch.count("elementwise", "fused") == 1
+
+
+def test_lazy_reductions_that_flush_first(rng):
+    a = rng.standard_normal((4, 5, 6)).astype(np.float32)
+    x = sm.Array(a) + 1.0
+    np.testing.assert_allclose(x.sum(axis=1).numpy(), (a + 1).sum(axis=1), rtol=2e-5, atol=2e-5)
+    assert dispatch.count("elementwise", "add") == 1 and dispatch.count("torch_path", "sum") == 1
+    config.deferred_eager = False
+    y = sm.Array(a[0]) * 2.0
+    assert float(y.max()) == float((a[0] * 2).max())
+    assert dispatch.count("reduce", "max") == 1
+
+
+# ---------------------------------------------------------- façades
+_FACADE_DTYPES = ["float32", "int32", "uint32", "bool"]
+
+
+@pytest.mark.parametrize("dtype", _FACADE_DTYPES)
+@pytest.mark.parametrize("name", ["prod", "var", "std", "argmax", "argmin", "cumsum"])
+def test_facades_match_jax(rng, name, dtype):
+    x = _data(rng, dtype, (6, 7))
+    if name == "prod" and dtype != "bool":
+        x = (x[:3, :4] % 7).astype(x.dtype) if dtype != "float32" else x[:3, :4]
+    for axis in (None, 1):
+        want = getattr(jsm, name)(jsm.Array(x), axis=axis)
+        got = getattr(sm, name)(sm.Array(x), axis=axis)
+        _same_dtype(got, want)
+        np.testing.assert_allclose(np.asarray(got.numpy(), np.float64),
+                                   np.asarray(want.numpy(), np.float64), rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError, match=f"sm.{name} is not supported inside sm.fuse"):
+        sm.fuse(lambda a: getattr(sm, name)(a))(sm.Array(x))
+
+
+def test_facade_options_match_jax(rng):
+    x = rng.standard_normal((5, 8)).astype(np.float32)
+    x[2, 3] = np.nan
+    for f in (lambda m, a: m.argmax(a), lambda m, a: m.argmin(a, axis=1),
+              lambda m, a: m.argmax(a, axis=0, keepdims=True),
+              lambda m, a: m.var(a[:, :3], axis=0, ddof=1), lambda m, a: m.std(a[:2], ddof=1),
+              lambda m, a: m.cumsum(a[:, :3], axis=0), lambda m, a: m.prod(a[:2], axis=1, keepdims=True)):
+        got, want = f(sm, sm.Array(x)), f(jsm, jsm.Array(x))
+        _same_dtype(got, want)
+        np.testing.assert_allclose(np.asarray(got.numpy(), np.float64),
+                                   np.asarray(want.numpy(), np.float64), rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------- the slice
+def test_slice_bench_reduction_workloads(rng):
+    """bench.py's reduction workloads at small size through the public API:
+    ``Array.sum()`` (bench_reduce_sum), ``sm.dot`` (bench_dot1d), the fused
+    squared distance with a 0-d ``eps`` operand (bench_fused_map_reduce) and
+    the fused thresholded axis sums with a (1, 1) operand
+    (bench_reduce_axis): the same values as the JAX package and float64,
+    one reduction call each, no elementwise pass."""
+    n = 40_000
+    a = rng.standard_normal(n).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    eps = np.asarray(np.float32(1e-3))
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    m = rng.standard_normal((64, 96)).astype(np.float32)
+    s = np.full((1, 1), 0.25, np.float32)
+    dist = lambda mod: mod.fuse(lambda x, y, e: mod.sum(mod.square(x + e - y)))  # noqa: E731
+    thr = lambda mod, ax: mod.fuse(lambda x, t: mod.sum(mod.where(x > t, x, 0.0), axis=ax))  # noqa: E731
+    runs = [
+        (lambda mod: mod.Array(a).sum(), a64.sum(), "reduce:sum"),
+        (lambda mod: mod.dot(mod.Array(a), mod.Array(b)), a64 @ b64, "dot1d"),
+        (lambda mod: dist(mod)(a, b, eps), ((a64 + 1e-3 - b64) ** 2).sum(), "reduce_fused:sum"),
+        (lambda mod: thr(mod, 0)(m, s), np.where(m > 0.25, m, 0.0).astype(np.float64).sum(0),
+         "reduce_axis:sum0"),
+        (lambda mod: thr(mod, 1)(m, s), np.where(m > 0.25, m, 0.0).astype(np.float64).sum(1),
+         "reduce_axis:sum1"),
+    ]
+    for run, ref, name in runs:
+        dispatch.reset()
+        jdispatch.reset()
+        got, want = run(sm), run(jsm)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.numpy()), rtol=2e-5, atol=2e-4)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-4)
+        assert _kernel_counts(dispatch.counts()) == {name: 1} == _kernel_counts(jdispatch.counts())
+
+
+def test_kernel_wrappers_need_cuda_or_raise():
+    """On CPU tensors the wrappers run the plain version and launch
+    nothing; on any other device they launch the kernel or raise."""
+    reduction.reset_launches()
+    x = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    assert float(reduction.reduce(x, "sum")) == 66.0
+    assert torch.equal(reduction.reduce_axis(x, "max", 0), x[2])
+    assert int(reduction.dot1d(x[0].int(), x[1].int())) == int((x[0] * x[1]).sum())
+    assert reduction.LAUNCHES == {"rd_full": 0, "rd_axis": 0}
+    meta = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        reduction.reduce(meta, "sum")
+    with pytest.raises(ValueError, match="unknown reduction"):
+        reduction.reduce(x, "prod")
+    with pytest.raises(ValueError, match="2-D expression"):
+        reduction.reduce_axis(x.reshape(-1), "sum", 0)
+    with pytest.raises(ValueError, match="non-empty"):
+        reduction.reduce(torch.zeros(0), "sum")

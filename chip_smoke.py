@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Runs ``simplemath_tpu_torch`` (never JAX) on ``cuda:0``:
+Runs ``simplemath_tpu_torch`` (never JAX) on ``cuda:0``, the port's default
+device:
 
 1. the card (``nvidia-smi``), torch and CUDA versions;
-2. builds the elementwise kernel from ``simplemath_tpu_torch/csrc``, timed;
+2. builds the kernels from ``simplemath_tpu_torch/csrc``, timed;
 3. holds the kernel against its plain PyTorch version on the card, same
    inputs: flat and broadcast adds, transposed and negative-step view
    operands, every opcode on float32 and int32, int32 ``ipow`` with negative
@@ -30,8 +31,27 @@ Runs ``simplemath_tpu_torch`` (never JAX) on ``cuda:0``:
    axis sums of (8192, 8192), a lazy ``sm.sum`` of a pending chain) and
    counts each call's launches by entry point;
 6. times every kernel and its plain version with CUDA events (the
-   reductions also in GB/s of the bytes each call must read once);
-7. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+   reductions also in GB/s of the bytes each call must read once), and,
+   as a yardstick the port never calls, the one PyTorch call that computes
+   the same function where there is one (``torch.add``, ``torch.sum``,
+   ``torch.dot``, ``torch.sum(dim)``, ``torch.matmul``, ``torch._int_mm``);
+7. the matmul path: holds the matmul kernel against its plain version on
+   the card (f32, bf16, int8/uint8 and a wrapping int32; the ragged
+   (300, 270) @ (270, 515); a transposed and a negative-step view operand;
+   rank 3; epilogues with a (1, N) row, an (M, 1) column, a full and a 0-d
+   extra; bf16 output; the dequantizing epilogue with a scalar and a
+   per-channel scale; f32 within 2e-5 * (|A| @ |B|) elementwise of the
+   plain version and of float64, integers exact, a bf16 result the f32
+   result rounded once, every result bit-identical across two launches),
+   then drives bench.py's matmul workloads through the public API at full
+   width (the fused ``relu(x @ W + bias) * s - c`` at 2048^3 in f32 and
+   bf16, ``sm.int8_matmul`` at 2048^3 with and without ``scale=``, the
+   fused batched root at (8, 1024, 1024) bf16, an int32 ``sm.dot``; one
+   launch per call and no elementwise pass; ``sm.dot``/``sm.matmul`` of
+   f32 and complex64 through ``torch.matmul``), and times them;
+8. prints the kernels' JSON line (each kernel's launches on the main path,
+   its error, its time beside the plain version's, the library call's and
+   its bound on this card), then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is visible.
@@ -54,6 +74,25 @@ N_AXIS = 8192              # bench.py::bench_reduce_axis
 SEED = 0
 SOURCE = "simplemath_tpu_torch/csrc/elementwise.cu"
 RD_SOURCE = "simplemath_tpu_torch/csrc/reduction.cu"
+MM_SOURCE = "simplemath_tpu_torch/csrc/matmul.cu"
+N_MM = 2048                # bench.py::bench_matmul, _epilogue, bench_int8_matmul
+BMM = (8, 1024, 1024)      # bench.py::bench_bmm
+N_INT_DOT = 512
+
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# the bound of a kernel is the larger of its bytes over the memory rate and
+# its operations over the rate for their type.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# Float operations of one crafted transcendental (counted in
+# csrc/tiles.cuh); every other opcode counts as one.
+CRAFTED_OPS = {"exp": 24, "pow": 55}
+
+
+def bound(nbytes, ops, kind="f32"):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[kind]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def log(msg):
@@ -264,6 +303,120 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     return err
 
 
+def matmul_checks(dev, rng, sm, program, matmul):
+    """Phase 7a: the matmul kernel against its plain version on the card.
+    Returns the largest |kernel - plain| of each entry point."""
+    import torch
+
+    err = {"mm": 0.0, "bmm": 0.0}
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def f32(*shape):
+        return on(rng.standard_normal(shape).astype(np.float32))
+
+    def both(a, b, out_dtype=None, epilogue=None, extras=()):
+        """The kernel twice (the bits must repeat) and the plain version."""
+        k1 = matmul.matmul(a, b, out_dtype, epilogue=epilogue, extras=extras)
+        k2 = matmul.matmul(a, b, out_dtype, epilogue=epilogue, extras=extras)
+        torch.cuda.synchronize()
+        check(torch.equal(k1, k2), "a product differs between two launches")
+        dims = matmul.product_shape(a.shape, b.shape)
+        ex = [matmul._extra3(e, dims, len(a.shape) == 3) for e in extras]
+        p = matmul.matmul_plain(a, b, k1.dtype, epilogue, ex)
+        entry = "bmm" if len(a.shape) == 3 else "mm"
+        err[entry] = max(err[entry], float((k1.double() - p.double()).abs().max()))
+        return k1, p
+
+    def close(label, k, p, ref64, scale64):
+        tol = 2e-5 * scale64
+        check(bool(((k.double() - p.double()).abs() <= tol).all()),
+              f"{label}: kernel vs plain beyond 2e-5*(|A|@|B|)")
+        check(bool(((k.double() - ref64).abs() <= tol).all()),
+              f"{label}: kernel vs float64 beyond 2e-5*(|A|@|B|)")
+
+    def one_bf16_ulp(label, kb, k32):
+        check(kb.dtype == torch.bfloat16 and torch.equal(kb, k32.bfloat16()),
+              f"{label}: the bf16 result is not the f32 result rounded once")
+
+    # f32 and bf16, ragged, against the plain version and float64 numpy.
+    a_np = rng.standard_normal((300, 270)).astype(np.float32)
+    b_np = rng.standard_normal((270, 515)).astype(np.float32)
+    a, b = on(a_np), on(b_np)
+    scale = on(np.abs(a_np).astype(np.float64) @ np.abs(b_np).astype(np.float64))
+    k, p = both(a, b)
+    close("f32 ragged", k, p, on(a_np.astype(np.float64) @ b_np.astype(np.float64)), scale)
+    ab, bb = a.bfloat16(), b.bfloat16()
+    k32, p32 = both(ab, bb, torch.float32)
+    ref = ab.double() @ bb.double()
+    close("bf16 ragged", k32, p32, ref, ab.double().abs() @ bb.double().abs())
+    kb, _ = both(ab, bb, torch.bfloat16)
+    one_bf16_ulp("bf16 ragged", kb, k32)
+    log("check mm (300,270)@(270,515) f32 and bf16: within 2e-5*(|A|@|B|) of plain and "
+        "float64; bf16 output = f32 result rounded once; bits repeat")
+
+    # A transposed view and a negative-step view, read in place.
+    base_a, base_b = sm.Array(f32(270, 300)), sm.Array(f32(540, 330))
+    va, vb = base_a.T, base_b[::-2, ::-1][:, :300]
+    k, p = both(va._operand(), vb._operand())
+    at, bt = va.torch().double(), vb.torch().double()
+    close("views", k, p, at @ bt, at.abs() @ bt.abs())
+    log(f"check mm views: transposed {va.shape} strides {va.strides} @ negative-step "
+        f"{vb.shape} strides {vb.strides}: within tolerance, no copy")
+
+    # Integers: exact against int64 numpy, and an int32 product that wraps.
+    for da, db in (("int8", "int8"), ("int8", "uint8"), ("uint8", "uint8")):
+        ia = rng.integers(np.iinfo(da).min, np.iinfo(da).max + 1, (130, 200)).astype(da)
+        ib = rng.integers(np.iinfo(db).min, np.iinfo(db).max + 1, (200, 129)).astype(db)
+        k, p = both(on(ia), on(ib))
+        want = on((ia.astype(np.int64) @ ib.astype(np.int64)).astype(np.int32))
+        check(k.dtype == torch.int32 and torch.equal(k, want) and torch.equal(k, p),
+              f"{da} @ {db} is not exact")
+    wa = torch.full((20, 600), 40_000, dtype=torch.int32, device=dev)
+    wb = torch.full((600, 17), 40_000, dtype=torch.int32, device=dev)
+    want = (40_000 * 40_000 * 600) % (1 << 32)
+    want = want - (1 << 32) if want >= 1 << 31 else want
+    k, p = both(wa, wb)
+    check(bool((k == want).all()) and torch.equal(k, p), "the int32 product does not wrap exactly")
+    log("check mm int8@int8, int8@uint8, uint8@uint8: exact int32; int32 wraparound exact")
+
+    # Rank 3, and every epilogue extra shape: a (1, N) row, an (M, 1)
+    # column, a full extra, a 0-d extra (and a per-batch one).
+    for lead in ((), (3,)):
+        M, K, N = 200, 70, 260
+        a, b = f32(*lead, M, K), f32(*lead, K, N)
+        extras = [f32(1, N), f32(M, 1), f32(*lead, M, N), f32()] + ([f32(3, 1, 1)] if lead else [])
+        acc = program.leaf(lead + (M, N), torch.float32)
+        ls = [program.leaf(tuple(t.shape), t.dtype) for t in extras]
+        root = sm.tanh(sm.maximum(acc * ls[1] + ls[0], 0.0) - ls[2]) * ls[3]
+        if lead:
+            root = root + ls[4]
+        prog = program.lower_epilogue(root, acc, ls)
+        k, p = both(a, b, torch.float32, prog, extras)
+        # The epilogue is exact given the accumulator, and tanh (slope <= 1)
+        # does not amplify the accumulators' difference in summation order.
+        tol = (2e-5 * (a.double().abs() @ b.double().abs()) * extras[1].double().abs()
+               * extras[3].double().abs() + 1e-6)
+        check(bool(((k.double() - p.double()).abs() <= tol).all()),
+              f"epilogue rank {len(lead) + 2}: kernel vs plain beyond tolerance")
+        kb, _ = both(a, b, torch.bfloat16, prog, extras)
+        one_bf16_ulp(f"epilogue rank {len(lead) + 2}", kb, k)
+    log("check mm/bmm epilogue tanh(relu(acc*col+row)-full)*scalar(+batch): within tolerance, "
+        "bf16 output rounded once, bits repeat")
+
+    # The dequantizing epilogue, scalar and per-channel (1, N) scale.
+    ia = rng.integers(-127, 128, (130, 200)).astype(np.int8)
+    ib = rng.integers(0, 256, (200, 129)).astype(np.uint8)
+    acc64 = (ia.astype(np.int64) @ ib.astype(np.int64)).astype(np.float32)
+    for s_np in (np.float32(0.5), np.abs(rng.standard_normal((1, 129))).astype(np.float32)):
+        k = matmul.int8_matmul(on(ia), on(ib), scale=on(np.asarray(s_np)))
+        check(k.dtype == torch.float32 and np.array_equal(k.cpu().numpy(), acc64 * s_np),
+              "the dequantizing epilogue is not exact")
+    log("check mm dequant epilogue, scalar and (1, N) scale: exact")
+    return err
+
+
 def main():
     import torch
 
@@ -273,11 +426,12 @@ def main():
     import simplemath_tpu_torch as sm
     from simplemath_tpu_torch import _build
     from simplemath_tpu_torch.ops import (
-        dispatch, elementwise, engine, program, reduction, registry,
+        dispatch, elementwise, engine, matmul, program, reduction, registry,
     )
 
     check("jax" not in sys.modules, "the port imported jax")
-    sm.configure(device="cuda")
+    check(torch.device(sm.config.device).type == "cuda",
+          f"the port's default device is {sm.config.device!r}, not the card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -295,7 +449,7 @@ def main():
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS})")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry function" in line:
             log(f"ptxas: {line.strip()}")
 
     # ------------------------------------------------ 3. kernel vs plain
@@ -597,23 +751,232 @@ def main():
     rt["sum_interpreter_GBps"] = gb["sum"] / (rt["sum_interpreter_ms"] * 1e-3) / 1e9
     log(f"reduction times on {card}: " + json.dumps(rt))
 
+
+    # The library yardsticks of the earlier kernels: one PyTorch call that
+    # computes the same function on the same inputs (the port never calls
+    # them).  The fused chains have none.
+    lib = {
+        "add": time_ms(lambda: torch.add(at, bt), n=100),
+        "sum": time_ms(lambda: torch.sum(xt), n=20),
+        "dot": time_ms(lambda: torch.dot(at_, bt_), n=20),
+        "axis0": time_ms(lambda: torch.sum(mt, 0), n=20),
+    }
+    rt["axis0_identity_ms"] = time_ms(lambda: reduction.reduce_axis(mt, "sum", 0), n=20)
+    rt["axis0_identity_plain_ms"] = time_ms(lambda: reduction._plain(mt, "sum", 0), n=20)
+    log(f"library times on {card}: " + json.dumps(lib)
+        + f" axis0 identity kernel/plain {rt['axis0_identity_ms']}/{rt['axis0_identity_plain_ms']}")
+
+    # ------------------------------------------------- 7. the matmul path
+    err_mm = matmul_checks(dev, rng, sm, program, matmul)
+
+    n = N_MM
+    s_c, c_c = 1.0 / n, 0.5
+    layer = sm.fuse(lambda x, w, bias: sm.maximum(x @ w + bias, 0.0) * s_c - c_c)
+    x_np = rng.standard_normal((n, n)).astype(np.float32)
+    w_np = rng.standard_normal((n, n)).astype(np.float32)
+    bias_np = rng.standard_normal((1, n)).astype(np.float32)
+    xf, wf, biasf = sm.Array(x_np), sm.Array(w_np), sm.Array(bias_np)
+    xb, wb, biasb = (sm.Array(a.torch().bfloat16()) for a in (xf, wf, biasf))
+    x3 = sm.Array(on(rng.standard_normal(BMM[:1] + (BMM[1], BMM[2])).astype(np.float32)).bfloat16())
+    w3 = sm.Array(on(rng.standard_normal(BMM[:1] + (BMM[2], BMM[2])).astype(np.float32)).bfloat16())
+    bias3 = sm.Array(on(rng.standard_normal((1, 1, BMM[2])).astype(np.float32)).bfloat16())
+    qa = sm.Array(rng.integers(-127, 128, (n, n)).astype(np.int8))
+    qb = sm.Array(rng.integers(-127, 128, (n, n)).astype(np.int8))
+    q_scale = sm.Array(np.abs(rng.standard_normal((1, n))).astype(np.float32) * 1e-3)
+    ia = sm.Array(rng.integers(-1000, 1000, (N_INT_DOT, N_INT_DOT)).astype(np.int32))
+    ib = sm.Array(rng.integers(-1000, 1000, (N_INT_DOT, N_INT_DOT)).astype(np.int32))
+    main_calls = [
+        ("fused relu(x@W+bias)*s-c 2048^3 f32", lambda: layer(xf, wf, biasf), {"mm": 1, "bmm": 0}),
+        ("fused relu(x@W+bias)*s-c 2048^3 bf16", lambda: layer(xb, wb, biasb), {"mm": 1, "bmm": 0}),
+        ("sm.int8_matmul 2048^3", lambda: sm.int8_matmul(qa, qb), {"mm": 1, "bmm": 0}),
+        ("sm.int8_matmul 2048^3 scale=(1,N)", lambda: sm.int8_matmul(qa, qb, scale=q_scale),
+         {"mm": 1, "bmm": 0}),
+        ("fused batched root (8,1024,1024) bf16", lambda: layer(x3, w3, bias3), {"mm": 0, "bmm": 1}),
+        ("sm.dot int32 (512,512)", lambda: sm.dot(ia, ib), {"mm": 1, "bmm": 0}),
+    ]
+    torch.cuda.synchronize()
+    matmul.reset_launches()
+    elementwise.reset_launches()
+    reduction.reset_launches()
+    dispatch.reset()
+    mm_outs = []
+    for label, call, want in main_calls:
+        before = dict(matmul.LAUNCHES)
+        mm_outs.append(call().torch())
+        got = {k: matmul.LAUNCHES[k] - before[k] for k in before}
+        check(got == want, f"{label}: launched {got}, expected {want}")
+    torch.cuda.synchronize()
+    mm_launches = dict(matmul.LAUNCHES)
+    counts = dispatch.counts()
+    log(f"matmul path launches {mm_launches} dispatch {counts}")
+    check(mm_launches == {"mm": 5, "bmm": 1}, f"the matmul path launched {mm_launches}")
+    check(counts.get("matmul:mm_epilogue") == 3 and counts.get("matmul:bmm_epilogue") == 1
+          and counts.get("matmul:int8") == 2, f"matmul dispatch {counts}")
+    check(not any(k.startswith(("elementwise", "torch_path")) for k in counts),
+          f"the matmul path left the matmul kernel: {counts}")
+    check(sum(elementwise.LAUNCHES.values()) + sum(reduction.LAUNCHES.values()) == 0,
+          "the matmul path launched another kernel")
+
+    def relu_layer64(x, w, bias):
+        return torch.relu(x.double() @ w.double() + bias.double()) * s_c - c_c
+
+    out_f, out_b, out_q, out_qs, out_3, out_i = mm_outs
+
+    # The same calls' plain versions, at the main path's shapes.
+    acc_leaf = program.leaf((n, n), torch.float32)
+    lf, lb16 = program.leaf((1, n), torch.float32), program.leaf((1, n), torch.bfloat16)
+    epi_f = program.lower_epilogue(sm.maximum(acc_leaf + lf, 0.0) * s_c - c_c, acc_leaf, [lf])
+    epi_b = program.lower_epilogue(sm.maximum(acc_leaf + lb16, 0.0) * s_c - c_c, acc_leaf, [lb16])
+    bias_f3, bias_b3 = biasf.torch().reshape(1, 1, n), biasb.torch().reshape(1, 1, n)
+    for entry, label, out, (x, w, bias), epi in (
+            ("mm", "f32 2048^3", out_f, (xf, wf, bias_f3), epi_f),
+            ("mm", "bf16 2048^3", out_b, (xb, wb, bias_b3), epi_b),
+            ("bmm", "bf16 (8,1024,1024)", out_3, (x3, w3, bias3.torch()), epi_b)):
+        plain = matmul.matmul_plain(x.torch(), w.torch(), out.dtype, epi, [bias])
+        diff = (out.double() - plain.double()).abs()
+        # f32: two f32 sums in different orders; bf16: one rounding of each on top.
+        tol = 2e-5 * (x.torch().double().abs() @ w.torch().double().abs()) * s_c + 1e-7
+        if out.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * plain.double().abs()
+        check(bool((diff <= tol).all()), f"fused {label}: kernel vs plain beyond tolerance")
+        err_mm[entry] = max(err_mm[entry], float(diff.max()))
+    log("check fused f32/bf16 2048^3 and bf16 (8,1024,1024): kernel within tolerance of the "
+        "plain version at the main path's shapes")
+    prod_abs = xf.torch().double().abs() @ wf.torch().double().abs()
+    check(out_f.dtype == torch.float32 and tuple(out_f.shape) == (n, n)
+          and bool(torch.isfinite(out_f).all()), "fused f32: wrong result")
+    ref_f = relu_layer64(xf.torch(), wf.torch(), biasf.torch())
+    check(bool(((out_f.double() - ref_f).abs() <= 2e-5 * prod_abs * s_c + 1e-7).all()),
+          "fused f32: beyond 2e-5*(|x|@|W|)*s of float64")
+    rows = np.maximum(x_np[:64].astype(np.float64) @ w_np.astype(np.float64) + bias_np, 0.0) * s_c - c_c
+    np.testing.assert_allclose(out_f[:64].cpu().numpy(), rows, rtol=1e-4, atol=1e-6,
+                               err_msg="fused f32 vs float64 numpy on 64 rows")
+    log("check fused f32 2048^3: within 2e-5*(|x|@|W|)*s of float64 (torch, all rows; numpy, "
+        "64 rows), one launch, no elementwise pass")
+    for label, out, (x, w, bias) in (("bf16 2048^3", out_b, (xb, wb, biasb)),
+                                     ("bf16 (8,1024,1024)", out_3, (x3, w3, bias3))):
+        ref = relu_layer64(x.torch(), w.torch(), bias.torch())
+        check(out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all()),
+              f"fused {label}: wrong result")
+        # One bf16 rounding of a value the f32 accumulator holds to 2e-5*(|x|@|W|).
+        tol = (2.0 ** -8) * ref.abs() + 2e-5 * (x.torch().double().abs() @ w.torch().double().abs()) * s_c + 1e-6
+        check(bool(((out.double() - ref).abs() <= tol).all()),
+              f"fused {label}: beyond one bf16 rounding of float64")
+        log(f"check fused {label}: within one bf16 rounding of float64, one launch")
+    acc_q = matmul.int_product(qa.torch(), qb.torch())
+    check(out_q.dtype == torch.int32 and torch.equal(out_q, acc_q), "int8_matmul is not exact")
+    check(torch.equal(out_q[:64].cpu(), (qa.torch()[:64].cpu().long() @ qb.torch().cpu().long()).int()),
+          "int8_matmul differs from the int64 product on 64 rows")
+    check(out_qs.dtype == torch.float32 and torch.equal(out_qs, acc_q.float() * q_scale.torch()),
+          "int8_matmul with scale= is not the scaled exact product")
+    want_i = (ia.torch().cpu().long() @ ib.torch().cpu().long())
+    check(out_i.dtype == torch.int32 and torch.equal(out_i.cpu().long(), want_i),
+          "sm.dot of int32 is not exact")
+    log("check sm.int8_matmul 2048^3 (exact int32; scaled: exact), sm.dot int32 (512,512): exact")
+
+    # Float and complex dot/matmul go to torch.matmul: held to numpy.
+    small = 512
+    f_a, f_b = x_np[:small, :small], w_np[:small, :small]
+    ca = (f_a + 1j * w_np[small:2 * small, :small]).astype(np.complex64)
+    cb = (f_b + 1j * x_np[small:2 * small, :small]).astype(np.complex64)
+    matmul.reset_launches()
+    for name, fn in (("dot", sm.dot), ("matmul", sm.matmul)):
+        got = fn(sm.Array(f_a), sm.Array(f_b))
+        np.testing.assert_allclose(got.numpy(), f_a.astype(np.float64) @ f_b.astype(np.float64),
+                                   rtol=1e-4, atol=1e-3, err_msg=f"sm.{name} f32")
+        got = fn(sm.Array(ca), sm.Array(cb))
+        check(got.dtype == torch.complex64, f"sm.{name} complex64 gives {got.dtype}")
+        np.testing.assert_allclose(got.numpy(), ca.astype(np.complex128) @ cb.astype(np.complex128),
+                                   rtol=1e-4, atol=1e-3, err_msg=f"sm.{name} complex64")
+    check(sum(matmul.LAUNCHES.values()) == 0, "a float dot/matmul launched the matmul kernel")
+    log("check sm.dot/sm.matmul f32 and complex64 (512,512) through torch.matmul: "
+        "within 1e-4 of float64/complex128 numpy")
+
+    # Times: the bare kernel, the fused epilogue, the plain version and the
+    # library call, in turns on this card.
+    xt_, wt_, xbt, wbt = xf.torch(), wf.torch(), xb.torch(), wb.torch()
+    qat, qbt = qa.torch(), qb.torch()
+    qa32, qb32 = qat.int(), qbt.int()
+    x3t, w3t = x3.torch(), w3.torch()
+    mmt = {
+        "mm_f32_ms": time_ms(lambda: matmul.matmul(xt_, wt_, torch.float32), n=5),
+        "mm_f32_library_ms": time_ms(lambda: torch.matmul(xt_, wt_), n=5),
+        "mm_f32_plain_ms": time_ms(lambda: matmul.matmul_plain(xt_, wt_, torch.float32), n=5),
+        "mm_bf16_ms": time_ms(lambda: matmul.matmul(xbt, wbt, torch.bfloat16), n=5),
+        "mm_bf16_library_ms": time_ms(lambda: torch.matmul(xbt, wbt), n=20),
+        "mm_bf16_plain_ms": time_ms(lambda: matmul.matmul_plain(xbt, wbt, torch.bfloat16), n=5),
+        "fused_f32_ms": time_ms(lambda: layer(xf, wf, biasf).torch(), n=5),
+        "fused_f32_plain_ms": time_ms(
+            lambda: matmul.matmul_plain(xt_, wt_, torch.float32, epi_f, [bias_f3]), n=5),
+        "fused_bf16_ms": time_ms(lambda: layer(xb, wb, biasb).torch(), n=5),
+        "fused_bf16_plain_ms": time_ms(
+            lambda: matmul.matmul_plain(xbt, wbt, torch.bfloat16, epi_b, [bias_b3]), n=5),
+        "int8_ms": time_ms(lambda: sm.int8_matmul(qa, qb).torch(), n=3),
+        "int8_plain_ms": time_ms(lambda: matmul.matmul_plain(qat, qbt, torch.int32), n=3),
+        "int8_scaled_ms": time_ms(lambda: sm.int8_matmul(qa, qb, scale=q_scale).torch(), n=3),
+        "bmm_bf16_ms": time_ms(lambda: matmul.matmul(x3t, w3t, torch.bfloat16), n=5),
+        "bmm_bf16_library_ms": time_ms(lambda: torch.matmul(x3t, w3t), n=20),
+        "bmm_bf16_plain_ms": time_ms(lambda: matmul.matmul_plain(x3t, w3t, torch.bfloat16), n=5),
+        "bmm_fused_bf16_ms": time_ms(lambda: layer(x3, w3, bias3).torch(), n=5),
+        # The same kernel on 4-byte integers, and reading A through a
+        # transposed view: what the narrow loads and the strides cost.
+        "mm_int32_ms": time_ms(lambda: matmul.matmul(qa32, qb32, torch.int32), n=3),
+        "mm_f32_transposed_a_ms": time_ms(
+            lambda: matmul.matmul(xf.T._operand(), wt_, torch.float32), n=5),
+        "fused_f32_host_ms": host_ms(lambda: layer(xf, wf, biasf).torch()),
+        "fused_bf16_host_ms": host_ms(lambda: layer(xb, wb, biasb).torch()),
+    }
+    # torch._int_mm is the one PyTorch call for int8 x int8 -> int32 on the
+    # card; a yardstick only, so a build of torch without it leaves null.
+    int_mm = getattr(torch, "_int_mm", None)
+    mmt["int8_library_ms"] = time_ms(lambda: int_mm(qat, qbt), n=20) if int_mm else None
+    flop = 2.0 * n ** 3
+    for key in ("mm_f32", "mm_bf16", "fused_f32", "fused_bf16", "int8", "int8_scaled", "bmm_bf16",
+                "bmm_fused_bf16", "mm_int32", "mm_f32_transposed_a"):
+        mmt[f"{key}_Tops"] = flop / (mmt[f"{key}_ms"] * 1e-3) / 1e12
+    b_f32 = bound(3 * 4 * n * n, flop, "f32")
+    b_bf16 = bound(3 * 2 * n * n, flop, "bf16")
+    b_int8 = bound((2 + 4) * n * n, flop, "int8")
+    b_bmm = bound(3 * 2 * BMM[0] * BMM[1] * BMM[2], flop, "bf16")
+    for key, b in (("mm_f32", b_f32), ("fused_f32", b_f32), ("mm_bf16", b_bf16),
+                   ("fused_bf16", b_bf16), ("int8", b_int8), ("bmm_bf16", b_bmm)):
+        mmt[f"{key}_bound_ms"] = b[0]
+        mmt[f"{key}_share_of_bound"] = b[0] / mmt[f"{key}_ms"]
+    log(f"matmul times on {card}: " + json.dumps(mmt))
+
+    # Bounds of the earlier kernels at the timed shapes: the add moves 12 MB;
+    # the fused recurrence reads two (2048, 2048) arrays and a row, writes
+    # one, and does L * (4 + exp + pow) float operations per element; the
+    # reductions read 256 MB once.
+    chain_ops = 4 + CRAFTED_OPS["exp"] + CRAFTED_OPS["pow"]
+    b_add = bound(12 * N_ADD, N_ADD)
+    b_chain = bound(4 * (3 * N_FUSED * N_FUSED + N_FUSED), 400.0 * chain_ops * N_FUSED * N_FUSED)
+    b_sum = bound(4 * N_SUM, N_SUM)
+    b_axis = bound(4 * N_SUM + 4 * N_AXIS, N_SUM)
+
+    def entry(name, source, replaces, launched, err, ms, plain_ms, b, library_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
     kernels = [
-        {"name": "ew_flat", "route": "cuda", "source": SOURCE,
-         "replaces": "simplemath_tpu/ops/elementwise.py:161",
-         "launches": launches["ew_flat"], "max_abs_err": err_add,
-         "ms": t["add_ms"], "plain_ms": t["add_plain_ms"]},
-        {"name": "ew_strided", "route": "cuda", "source": SOURCE,
-         "replaces": "simplemath_tpu/ops/elementwise.py:225",
-         "launches": launches["ew_strided"], "max_abs_err": err_fused,
-         "ms": t["fused400_ms"], "plain_ms": t["fused400_plain_ms"]},
-        {"name": "rd_full", "route": "cuda", "source": RD_SOURCE,
-         "replaces": "simplemath_tpu/ops/reduction.py:79 :127 :210 :275 :333",
-         "launches": rd_launches["rd_full"], "max_abs_err": err_rd["rd_full"],
-         "ms": rt["sum_ms"], "plain_ms": rt["sum_plain_ms"]},
-        {"name": "rd_axis", "route": "cuda", "source": RD_SOURCE,
-         "replaces": "simplemath_tpu/ops/reduction.py:482",
-         "launches": rd_launches["rd_axis"], "max_abs_err": err_rd["rd_axis"],
-         "ms": rt["axis0_ms"], "plain_ms": rt["axis0_plain_ms"]},
+        entry("ew_flat", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
+              launches["ew_flat"], err_add, t["add_ms"], t["add_plain_ms"], b_add, lib["add"]),
+        entry("ew_strided", SOURCE, "simplemath_tpu/ops/elementwise.py:225",
+              launches["ew_strided"], err_fused, t["fused400_ms"], t["fused400_plain_ms"],
+              b_chain, None),
+        entry("rd_full", RD_SOURCE, "simplemath_tpu/ops/reduction.py:79 :127 :210 :275 :333",
+              rd_launches["rd_full"], err_rd["rd_full"], rt["sum_ms"], rt["sum_plain_ms"],
+              b_sum, lib["sum"]),
+        entry("rd_axis", RD_SOURCE, "simplemath_tpu/ops/reduction.py:482",
+              rd_launches["rd_axis"], err_rd["rd_axis"], rt["axis0_identity_ms"],
+              rt["axis0_identity_plain_ms"], b_axis, lib["axis0"]),
+        entry("mm", MM_SOURCE, "simplemath_tpu/ops/matmul.py:134",
+              mm_launches["mm"], err_mm["mm"], mmt["mm_f32_ms"], mmt["mm_f32_plain_ms"],
+              b_f32, mmt["mm_f32_library_ms"]),
+        entry("bmm", MM_SOURCE, "simplemath_tpu/ops/matmul.py:209",
+              mm_launches["bmm"], err_mm["bmm"], mmt["bmm_bf16_ms"], mmt["bmm_bf16_plain_ms"],
+              b_bmm, mmt["bmm_bf16_library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,27 @@
 """simplemath_tpu_torch — the PyTorch and CUDA port of simplemath_tpu.
 
-The array core of ``simplemath_tpu`` on PyTorch, with two of its Pallas
-kernel families written by hand in CUDA for NVIDIA Hopper (``csrc/``): the
-generic elementwise kernel and the map-reduce kernel of the reductions and
-the 1-D dot.  The JAX package stays the reference; the port keeps its
-module layout and names.
+The array core of ``simplemath_tpu`` on PyTorch, with its Pallas kernel
+families written by hand in CUDA for NVIDIA Hopper (``csrc/``): the generic
+elementwise kernel, the map-reduce kernel of the reductions and the 1-D
+dot, and the matmul kernel with its fused epilogue.  The JAX package stays
+the reference; the port keeps its module layout and names.  Arrays live on
+the card (``config.device`` is ``"cuda"``) unless the caller asks for the
+CPU with ``sm.configure(device="cpu")`` or ``SM_DEVICE=cpu``.
 
     import simplemath_tpu_torch as sm
-    sm.configure(device="cuda")
     a = sm.Array([[1., 2.], [3., 4.]])
     b = sm.ones(2, 2)
     c = a + b                 # broadcast + the elementwise kernel
     d = sm.pow(a, 3)          # correct float/integer pow
     v = a[0, :]               # aliasing view; v[0] = 9 writes through
     s = sm.sum(sm.square(a - b))   # one map-reduce kernel call
+    layer = sm.fuse(lambda x, w, bias: sm.maximum(x @ w + bias, 0.0))
+    y = layer(x, w, bias)     # one matmul kernel call, epilogue included
 
 Ported so far: ``Array`` with views, the op registry, the engine,
-``sm.fuse`` and the deferred-eager queue, the reductions and the 1-D dot.
-What waits is listed in ROADMAP.md.
+``sm.fuse`` and the deferred-eager queue, the reductions, ``dot`` and
+``matmul`` of every rank, the fused matmul root and ``int8_matmul``.  What
+waits is listed in ROADMAP.md.
 """
 
 from .array import Array, asarray  # noqa: F401
@@ -35,6 +39,7 @@ from .api import (  # noqa: F401
     clip,
     cos,
     cumsum,
+    dequantize,
     divide,
     dot,
     empty,
@@ -43,8 +48,10 @@ from .api import (  # noqa: F401
     full,
     full_like,
     fuse,
+    int8_matmul,
     log,
     log2,
+    matmul,
     max,
     maximum,
     mean,
@@ -56,6 +63,7 @@ from .api import (  # noqa: F401
     ones_like,
     pow,
     prod,
+    quantize,
     sign,
     sin,
     sqrt,

@@ -22,11 +22,12 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("elementwise.cu", "reduction.cu")
+SOURCES = ("elementwise.cu", "reduction.cu", "matmul.cu")
 HEADERS = ("tiles.cuh", "program.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
 # the crafted exp/log handle them); --fmad=false so each float operation
-# rounds once, as the plain torch version does.
+# rounds once, as the plain torch version does (the matmul kernel's inner
+# product asks for its fused multiply-add by name).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
@@ -95,8 +96,10 @@ def library() -> ctypes.CDLL:
         ("sm_ew_launch", [void_p, void_p, c_int, void_p]),
         ("sm_rd_full_launch", [void_p, void_p, void_p, void_p]),
         ("sm_rd_axis_launch", [void_p, void_p, void_p, void_p]),
+        ("sm_mm_launch", [void_p, void_p, void_p]),
         ("sm_ew_params_size", []),
         ("sm_rd_params_size", []),
+        ("sm_mm_params_size", []),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args

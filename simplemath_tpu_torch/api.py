@@ -3,11 +3,12 @@
 Counterpart of ``simplemath_tpu/api.py``: the factories, the arithmetic
 and transcendental free functions, the registry unaries,
 ``maximum``/``minimum``/``where``/``clip``, ``fuse``, the reductions
-``sum/mean/max/min``, the 1-D ``dot``, and the ``prod``/``var``/``std``/
-``argmax``/``argmin``/``cumsum`` façades over torch.  Factories create
-arrays on ``config.device``.  The rest of the JAX package's NumPy surface
-(``dot``/``matmul`` of rank >= 2, int8, the other ``jnp`` façades) is not
-ported yet: see ROADMAP.md, queue 1.
+``sum/mean/max/min``, ``dot`` and ``matmul`` of every rank,
+``int8_matmul`` with ``quantize``/``dequantize``, and the ``prod``/``var``/
+``std``/``argmax``/``argmin``/``cumsum`` façades over torch.  Factories
+create arrays on ``config.device``.  The rest of the JAX package's NumPy
+surface (the other ``jnp`` façades) is not ported yet: see ROADMAP.md,
+queue 1.
 """
 
 from __future__ import annotations
@@ -82,14 +83,61 @@ def pow(a, exponent) -> Array:
 
 
 def dot(a, b):
-    """``numpy.dot``; 1-D operands run the map-reduce kernel
-    (ops/engine.py::dot).  Inside ``sm.fuse`` it is the matmul root, which
-    is not ported yet."""
+    """``numpy.dot`` for every rank (ops/engine.py::dot).  Inside
+    ``sm.fuse``, a product of two direct arguments is the matmul root whose
+    elementwise consumers run as the matmul kernel's epilogue."""
     from .ops import fusion
 
     if fusion.is_fused(a) or fusion.is_fused(b):
         return fusion.matmul_node(a, b)
     return engine.dot(a, b)
+
+
+def matmul(a, b) -> Array:
+    """``numpy.matmul`` (ops/engine.py::matmul); inside ``sm.fuse`` the
+    matmul root, as ``dot``."""
+    from .ops import fusion
+
+    if fusion.is_fused(a) or fusion.is_fused(b):
+        return fusion.matmul_node(a, b)
+    return engine.matmul(a, b)
+
+
+def int8_matmul(a, b, scale=None) -> Array:
+    """int8/uint8 matrix product (rank 2, or rank 3 with a batch) with exact
+    int32 accumulation in the matmul kernel.  ``scale`` (typically
+    ``scale_a * scale_b``) fuses the dequantization into the kernel's
+    epilogue and gives float32."""
+    from .ops import matmul as _mm
+
+    a, b = asarray(a), asarray(b)
+    if scale is not None and not isinstance(scale, (bool, int, float)):
+        scale = asarray(scale)._operand()
+    return Array(_mm.int8_matmul(a._operand(), b._operand(), scale=scale))
+
+
+def quantize(x, scale=None, axis=None):
+    """Symmetric int8 quantization: ``(q, scale)`` with
+    ``q = clip(round(x / scale), -127, 127)`` (default scale max|x| / 127).
+    ``axis`` gives per-channel scales (dims kept): ``axis=0`` on a (K, N)
+    weight gives the (1, N) scales that ``int8_matmul``'s dequantizing
+    epilogue reads in place."""
+    from .ops import matmul as _mm
+
+    if scale is not None and not isinstance(scale, (bool, int, float)):
+        scale = asarray(scale).torch()
+    q, s = _mm.quantize_int8(asarray(x).torch(), scale, axis=axis)
+    return Array(q), Array(s)
+
+
+def dequantize(q, scale) -> Array:
+    """Inverse of ``quantize``; for ``int8_matmul`` results pass
+    ``scale_a * scale_b``."""
+    from .ops import matmul as _mm
+
+    if not isinstance(scale, (bool, int, float)):
+        scale = asarray(scale).torch()
+    return Array(_mm.dequantize_int8(asarray(q).torch(), scale))
 
 
 def add(a, b) -> Array:

@@ -14,11 +14,11 @@ numpy arrays keep their dtype (the JAX package runs with x64 enabled).
 
 Reductions (``sum/max/min/mean``) and the 1-D ``dot``/``@`` run the
 map-reduce kernel (ops/reduction.py) where the JAX package runs its Pallas
-reduction kernels, and plain torch elsewhere.
+reduction kernels, and plain torch elsewhere.  ``dot``/``@`` of rank >= 2
+follow ``numpy.dot`` (ops/engine.py::dot).
 
-Not ported yet (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): advanced (gather/scatter) indexing, and ``@``/``dot``
-of rank >= 2 operands.
+Not ported yet (raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item): advanced (gather/scatter) indexing.
 """
 
 from __future__ import annotations
@@ -120,6 +120,12 @@ def _tensor_from(data, dtype) -> torch.Tensor:
         return buf if dt is None else buf.to(dt)
     explicit = isinstance(data, np.ndarray)
     arr = np.asarray(data)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 is an extension dtype torch does not read; the
+        # same 16 bits through uint16 keep the values and the dtype.
+        bits = np.array(arr, order="C", copy=True).view(np.uint16)
+        buf = torch.from_numpy(bits).view(torch.bfloat16).to(config.device)
+        return buf if dt is None else buf.to(dt)
     if arr.dtype == object:
         raise ValueError(f"cannot build an Array from {type(data).__name__}")
     if dt is None and not explicit:
@@ -392,8 +398,8 @@ class Array:
         return engine.dot(o, self)
 
     def dot(self, other):
-        """Dot product with ``numpy.dot`` semantics; views are read in
-        place.  1-D operands only so far (ops/engine.py::dot)."""
+        """Dot product with ``numpy.dot`` semantics for every rank; views
+        are read through their strides (ops/engine.py::dot)."""
         from .ops import engine
 
         return engine.dot(self, other)

@@ -6,6 +6,7 @@ complex64 tunnel probe, and the ``pallas_min_elements`` size gate with its
 ``"xla"``/``"pallas"`` routing (those were measured on a TPU; on a CUDA
 tensor every signature the kernel takes launches the kernel, whatever its
 size).  New here is ``device``: arrays are created on it and never moved.
+It is the card by default.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ def _env_str(name: str, default: str) -> str:
 
 @dataclasses.dataclass
 class Config:
-    # Kernel routing.  Only "auto": the hand-written elementwise kernel for
-    # every signature it takes on a CUDA tensor, its plain PyTorch version
-    # on a CPU tensor, plain PyTorch for the dtypes the kernel does not take.
+    # Kernel routing.  Only "auto": the hand-written kernels for every
+    # signature they take on a CUDA tensor, their plain PyTorch versions on
+    # a CPU tensor, plain PyTorch for the dtypes the kernels do not take.
     kernel_backend: str = "auto"
 
     # Transcendental implementation: "auto" and "crafted" both resolve to
@@ -45,9 +46,12 @@ class Config:
         default_factory=lambda: _env_str("SM_DEBUG_CHECKS", "") not in ("", "0")
     )
 
-    # Device new arrays are created on ("cpu", "cuda", "cuda:1", ...).
+    # Device new arrays are created on ("cuda", "cuda:1", "cpu", ...): the
+    # card, unless the caller asks for the CPU (SM_DEVICE=cpu, or
+    # ``configure(device="cpu")``).  Nothing probes for a card: without one,
+    # creating an array on the default device raises torch's own error.
     device: str = dataclasses.field(
-        default_factory=lambda: _env_str("SM_DEVICE", "cpu")
+        default_factory=lambda: _env_str("SM_DEVICE", "cuda")
     )
 
     def __post_init__(self):

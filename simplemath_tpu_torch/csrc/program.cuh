@@ -1,8 +1,8 @@
 // The program and operand descriptors, and the per-element helpers that
-// the elementwise kernel (elementwise.cu) and the map-reduce kernel
-// (reduction.cu) share: load the operands of one element, run the opcode
-// program over them, store a result.  One copy, so both kernels evaluate
-// an expression bit for bit alike.
+// the elementwise kernel (elementwise.cu), the map-reduce kernel
+// (reduction.cu) and the matmul kernel's epilogue (matmul.cu) share: load
+// the operands of one element, run the opcode program over them, store a
+// result.  One copy, so all three evaluate an expression bit for bit alike.
 #pragma once
 
 #include "tiles.cuh"
@@ -34,13 +34,24 @@ struct SmParams {
 };
 
 __device__ __forceinline__ uint32_t sm_load(const void* ptr, int64_t i, int32_t dtype) {
+  if (dtype <= SM_I32) return static_cast<const uint32_t*>(ptr)[i];
   if (dtype == SM_BOOL) return static_cast<const uint8_t*>(ptr)[i] != 0;
-  return static_cast<const uint32_t*>(ptr)[i];
+  if (dtype == SM_BF16) return (uint32_t)static_cast<const uint16_t*>(ptr)[i] << 16;
+  if (dtype == SM_I8) return (uint32_t)(int32_t)static_cast<const int8_t*>(ptr)[i];
+  return static_cast<const uint8_t*>(ptr)[i];  // SM_U8
+}
+
+// f32 bits rounded to bf16, nearest even; a NaN stays a (quiet) NaN.
+__device__ __forceinline__ uint16_t sm_f2bf(uint32_t u) {
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (uint16_t)((u >> 16) | 0x0040u);
+  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
 }
 
 __device__ __forceinline__ void sm_store(void* out, int64_t i, int32_t dtype, uint32_t v) {
   if (dtype == SM_BOOL)
     static_cast<uint8_t*>(out)[i] = v != 0;
+  else if (dtype == SM_BF16)
+    static_cast<uint16_t*>(out)[i] = sm_f2bf(v);
   else
     static_cast<uint32_t*>(out)[i] = v;
 }

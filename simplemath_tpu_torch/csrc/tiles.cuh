@@ -30,8 +30,13 @@
 #define SM_MAX_INSTS 128
 #define SM_MAX_REGS (SM_MAX_OPERANDS + SM_MAX_CONSTS + SM_MAX_INSTS)
 
-// Register / operand element types.
-enum SmDtype : int32_t { SM_F32 = 0, SM_I32 = 1, SM_BOOL = 2 };
+// Register / operand element types.  Registers hold SM_F32, SM_I32 or
+// SM_BOOL.  The narrow types exist in memory only: a load widens them
+// (bf16 to f32, exactly; int8 and uint8 to i32), and an f32 result rounds
+// to bf16 (nearest even) at the store.
+enum SmDtype : int32_t {
+  SM_F32 = 0, SM_I32 = 1, SM_BOOL = 2, SM_BF16 = 3, SM_I8 = 4, SM_U8 = 5,
+};
 
 // Opcodes: the same names in the same order as OPCODES in ops/program.py.
 enum SmOpcode : uint8_t {

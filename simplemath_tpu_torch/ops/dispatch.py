@@ -1,15 +1,26 @@
 """Kernel-dispatch observability.
 
 Counterpart of ``simplemath_tpu/ops/dispatch.py`` with the same counter
-names (``"elementwise:add"``, ``"elementwise:fused"``, ``"engine:add"``,
-...), so tests can compare the two packages' counts for the same program.
+names, so tests can compare the two packages' counts for the same program:
+
+* ``"engine:<op>"``, ``"elementwise:<op>"``, ``"elementwise:fused"``: the
+  engine and the elementwise kernel's wrapper;
+* ``"reduce:<kind>"``, ``"dot1d"``, ``"reduce_fused:<kind>"``,
+  ``"reduce_axis:<kind><axis>"``: the map-reduce kernel's wrapper;
+* ``"matmul:mm"``, ``"matmul:bmm"`` (a rank-2 or rank-3 product),
+  ``"matmul:mm_epilogue"``, ``"matmul:bmm_epilogue"`` (recorded beside the
+  former when the call carries an epilogue) and ``"matmul:int8"``
+  (``int8_matmul``): the matmul kernel's wrapper.
+
 The port adds one kind: ``"torch_path:<name>"`` records a call that ran as
-plain PyTorch because the kernel does not take its signature (float64,
-int64, bfloat16, ...), so no such call is silent.
+plain PyTorch because no kernel takes its signature (float64, int64,
+bfloat16 elementwise, a float ``dot``/``matmul``, ``matmul_epilogue`` of a
+fused root the kernel does not take, ...), so no such call is silent.
 
 Counting happens per call: one increment per eager op, per flushed lazy
-chain and per fused call.  The elementwise wrapper's launch count (kernel
-launches on the card only) is ``ops.elementwise.LAUNCHES``.
+chain and per fused call.  The wrappers' launch counts (kernel launches on
+the card only) are ``LAUNCHES`` in ``ops.elementwise``, ``ops.reduction``
+and ``ops.matmul``.
 """
 
 from __future__ import annotations

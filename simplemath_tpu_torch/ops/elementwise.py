@@ -36,7 +36,10 @@ from . import dispatch, program
 LAUNCHES = {"ew_flat": 0, "ew_strided": 0}
 
 _MAX_RANK = 8
-_DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
+# enum SmDtype (csrc/tiles.cuh).  Registers and this kernel's operands are
+# the first three; the narrow types are the matmul kernel's (ops/matmul.py).
+_DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.bool: 2,
+               torch.bfloat16: 3, torch.int8: 4, torch.uint8: 5}
 
 
 def reset_launches() -> None:

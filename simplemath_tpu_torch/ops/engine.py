@@ -12,12 +12,18 @@ signature the kernel takes launches it.
 View operands pass to the kernel as (base tensor, offset, signed strides)
 and are read in place; this replaces the JAX package's
 ``_prepare_operands`` + ``viewkernel.plan_view``.  ``dot`` of 1-D operands
-runs the map-reduce kernel (ops/reduction.py); ``dot``/``matmul`` of
-rank >= 2 operands are not ported yet (ROADMAP.md, queue 1, item 6).
+runs the map-reduce kernel (ops/reduction.py).  ``dot``/``matmul`` of
+rank >= 2 operands are a plain product that the JAX package computes
+outside any Pallas kernel: float and complex operands go to
+``torch.matmul`` (complex64 natively: the three-product split of the JAX
+package's ``complexmm.py`` exists only because a TPU has no complex type),
+integer operands, for which torch has no matmul on CUDA, to the matmul
+kernel (ops/matmul.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -241,31 +247,155 @@ def pow_eager(a: Any, b: Any) -> Array:
 
 
 # ----------------------------------------------------------------- dot
+_CONTRACTION = (
+    "dot_general requires contracting dimensions to have the same shape, "
+    "got ({},) and ({},)."
+)
+
+
+def product_dtype(a_dtype, b_dtype) -> torch.dtype:
+    """The type ``dot``/``matmul`` give for rank >= 2 operands: ``jnp``'s
+    result type, with bfloat16 and float16 products widened to the float32
+    they are accumulated in."""
+    out = _dt.result_dtype(a_dtype, b_dtype)
+    return torch.float32 if out in (torch.bfloat16, torch.float16) else out
+
+
+def _float_product(fn, a, b, out, name):
+    """A float or complex product as plain torch, computed in ``out`` (so a
+    bfloat16 or float16 product accumulates in float32), float32 in full
+    float32 whatever the caller's TF32 setting."""
+    from . import matmul as _mm
+
+    dispatch.record("torch_path", name)
+    with _mm.exact_float32():
+        return fn(a.torch().to(out), b.torch().to(out))
+
+
+def _as_kernel_int(t: torch.Tensor) -> torch.Tensor:
+    """An integer or bool tensor of at most 32 bits in a type the matmul
+    kernel reads (int8, uint8, int32), the value mod 2**32 kept."""
+    if t.dtype in (torch.int8, torch.uint8, torch.int32):
+        return t
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32)
+    return t.to(torch.int32)
+
+
+def _int_product(a2, b2, shape, out, name) -> torch.Tensor:
+    """The integer product of rank-2 or rank-3 ``a2 @ b2`` (tensors or view
+    operands), reshaped to ``shape``, as ``out``.  Types of at most 32 bits
+    run the matmul kernel with its exact int32 accumulator: the value mod
+    2**32 is the product mod 2**32 of any such type.  torch has no integer
+    matmul on CUDA, so 64-bit operands have no route there."""
+    from . import matmul as _mm
+
+    if math.prod(shape) == 0 or a2.shape[-1] == 0:
+        dispatch.record("torch_path", name)
+        return torch.zeros(shape, dtype=out, device=a2.device)
+    if out in (torch.int64, torch.uint64):
+        if a2.device.type != "cpu":
+            raise NotImplementedError(
+                "a 64-bit integer matmul on the card is not ported: torch has no "
+                "integer matmul on CUDA and the kernel accumulates in int32 "
+                "(see ROADMAP.md, queue 1)"
+            )
+        dispatch.record("torch_path", name)
+        at, bt = elementwise.read(a2), elementwise.read(b2)
+        return torch.matmul(at.to(torch.int64), bt.to(torch.int64)).reshape(shape).to(out)
+    if not (a2.dtype in _mm.INT_OPERANDS and b2.dtype in _mm.INT_OPERANDS):
+        a2 = _as_kernel_int(elementwise.read(a2))
+        b2 = _as_kernel_int(elementwise.read(b2))
+    acc = _mm.matmul(a2, b2, torch.int32).reshape(shape)
+    if out == torch.bool:
+        return acc != 0
+    if out == torch.uint32:
+        return acc.view(torch.uint32)
+    return acc if out == torch.int32 else acc.to(out)
+
+
+def _is_int(dtype) -> bool:
+    return dtype == torch.bool or _dt.is_integer(dtype)
+
+
 def dot(a: Any, b: Any) -> Array:
     """Dot product with ``numpy.dot`` semantics (the reference's
-    ``operator%``).  1-D operands of one length: float32 and int32 results
-    in the map-reduce kernel's fused multiply+reduce (int32 exact mod
-    2**32), as the JAX package's ``pallas_dot1d``; uint32, float64 and the
-    rest as plain torch.  A 0-d operand multiplies."""
+    ``operator%``) for every rank: 1-D . 1-D is the inner product, 2-D . 2-D
+    the matrix product, N-D . 1-D sums over the last axes, N-D . M-D
+    contracts ``a``'s last axis with ``b``'s second-to-last.  A 0-d operand
+    multiplies.  Views are read through their strides.
+
+    1-D operands of one length: float32 and int32 results in the map-reduce
+    kernel's fused multiply+reduce (int32 exact mod 2**32), as the JAX
+    package's ``pallas_dot1d``; the rest as plain torch.  Rank >= 2: float
+    and complex operands run ``torch.matmul``'s contraction (the JAX package
+    leaves these to XLA), bfloat16 and float16 accumulating in and giving
+    float32; integer operands run the matmul kernel (ops/matmul.py)."""
     a, b = asarray(a), asarray(b)
     if a.ndim == 0 or b.ndim == 0:
+        wide = product_dtype(a.dtype, b.dtype)
+        if wide != _dt.result_dtype(a.dtype, b.dtype):  # bfloat16, float16: in float32
+            a, b = a.astype(wide), b.astype(wide)
         return binary("multiply", a, b)
-    if a.ndim != 1 or b.ndim != 1:
-        raise NotImplementedError(
-            "dot/matmul of rank >= 2 operands is not ported yet: see ROADMAP.md, "
-            "queue 1, item 6"
-        )
-    if a.shape != b.shape:
-        raise TypeError(
-            "dot_general requires contracting dimensions to have the same shape, "
-            f"got {a.shape} and {b.shape}."
-        )
-    out = _dt.result_dtype(a.dtype, b.dtype)
-    if (
-        out in (torch.float32, torch.int32)
-        and a.dtype in _dt.KERNEL_DTYPES
-        and b.dtype in _dt.KERNEL_DTYPES
-        and a.size > 0
-    ):
-        return Array(reduction.dot1d(a._operand(), b._operand()))
-    return Array(reduction.torch_dot(a.torch(), b.torch(), out))
+    k_b = b.shape[0] if b.ndim == 1 else b.shape[-2]
+    if a.shape[-1] != k_b:
+        raise TypeError(_CONTRACTION.format(a.shape[-1], k_b))
+    if a.ndim == 1 and b.ndim == 1:
+        out = _dt.result_dtype(a.dtype, b.dtype)
+        if (
+            out in (torch.float32, torch.int32)
+            and a.dtype in _dt.KERNEL_DTYPES
+            and b.dtype in _dt.KERNEL_DTYPES
+            and a.size > 0
+        ):
+            return Array(reduction.dot1d(a._operand(), b._operand()))
+        return Array(reduction.torch_dot(a.torch(), b.torch(), out))
+    out = product_dtype(a.dtype, b.dtype)
+    b_axis = 0 if b.ndim == 1 else b.ndim - 2
+    if not _is_int(out):
+        return Array(_float_product(
+            lambda x, y: torch.tensordot(x, y, dims=([x.ndim - 1], [b_axis])), a, b, out, "dot"))
+    shape = a.shape[:-1] + b.shape[:b_axis] + b.shape[b_axis + 1:]
+    if a.ndim == 2 and b.ndim == 2:
+        return Array(_int_product(a._operand(), b._operand(), shape, out, "dot"))
+    k = a.shape[-1]
+    return Array(_int_product(a.torch().reshape(-1, k),
+                              b.torch().movedim(b_axis, 0).reshape(k, -1), shape, out, "dot"))
+
+
+def matmul(a: Any, b: Any) -> Array:
+    """``numpy.matmul`` semantics: the matrix product over the last two
+    dims, leading dims broadcast, a 1-D operand promoted to a matrix and its
+    dim removed from the result.  Routes as ``dot`` does: float and complex
+    operands through ``torch.matmul``, integers through the matmul kernel."""
+    a, b = asarray(a), asarray(b)
+    for i, x in enumerate((a, b)):
+        if x.ndim == 0:
+            raise ValueError(
+                f"matmul input operand {i} must have ndim at least 1, but it has ndim 0"
+            )
+    k_b = b.shape[0] if b.ndim == 1 else b.shape[-2]
+    if a.shape[-1] != k_b:
+        raise TypeError(_CONTRACTION.format(a.shape[-1], k_b))
+    try:
+        batch = tuple(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
+    except RuntimeError:
+        raise ValueError(
+            f"Incompatible shapes for matmul arguments: {a.shape} and {b.shape}"
+        ) from None
+    if a.ndim == 1 and b.ndim == 1:
+        out = product_dtype(a.dtype, b.dtype)
+        if out != _dt.result_dtype(a.dtype, b.dtype):  # bfloat16, float16: in float32
+            return Array(reduction.torch_dot(a.torch(), b.torch(), out))
+        return dot(a, b)
+    out = product_dtype(a.dtype, b.dtype)
+    if not _is_int(out):
+        return Array(_float_product(torch.matmul, a, b, out, "matmul"))
+    shape = batch + a.shape[-2:-1] + (b.shape[-1:] if b.ndim > 1 else ())
+    if a.ndim == b.ndim and a.ndim in (2, 3) and a.shape[:-2] == b.shape[:-2]:
+        return Array(_int_product(a._operand(), b._operand(), shape, out, "matmul"))
+    at = a.torch() if a.ndim > 1 else a.torch().reshape(1, -1)
+    bt = b.torch() if b.ndim > 1 else b.torch().reshape(-1, 1)
+    a3 = at.expand(batch + at.shape[-2:]).reshape((-1,) + at.shape[-2:])
+    b3 = bt.expand(batch + bt.shape[-2:]).reshape((-1,) + bt.shape[-2:])
+    return Array(_int_product(a3, b3, shape, out, "matmul"))

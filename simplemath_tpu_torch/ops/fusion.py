@@ -21,12 +21,18 @@ expression::
 
     dist = sm.fuse(lambda a, b: sm.sum(sm.square(a - b)))
 
-Not ported yet: a matmul root (``matmul_node``, ROADMAP.md queue 1 item 6)
-raises ``NotImplementedError``.
+A matmul of two direct arguments may be the root's source
+(``matmul_node``): ``x @ w`` runs in the matmul kernel (ops/matmul.py) and
+the elementwise ops on it become the kernel's epilogue, applied to the
+float32 accumulator at the store, so the (M, N) product never goes to
+device memory::
+
+    layer = sm.fuse(lambda x, w, b: sm.maximum(x @ w + b, 0.0))
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Callable
@@ -34,11 +40,30 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import dtypes as _dt
 from ..array import Array, asarray
 from ..config import config
-from . import elementwise, engine, program, reduction
+from . import dispatch, elementwise, engine, matmul, program, reduction
 
 FusedExpr = program.Node
+
+
+class _Trace:
+    """One ``sm.fuse`` trace: the argument leaves and, once the function has
+    multiplied two of them, the matmul (``a``, ``b``: argument indices;
+    ``product``: the leaf that stands for ``a @ b``).  ``product_dtype``
+    overrides the product leaf's dtype (see ``_trace``)."""
+
+    __slots__ = ("leaves", "a", "b", "product", "product_dtype")
+
+    def __init__(self, leaves, product_dtype=None):
+        self.leaves = leaves
+        self.a = self.b = self.product = None
+        self.product_dtype = product_dtype
+
+
+# The trace that ``fuse`` is running, innermost last.
+_TRACES: list = []
 
 
 class FusedReduction:
@@ -175,10 +200,130 @@ def ternary_node(name: str, a, b, c) -> FusedExpr:
     return program.apply(name, _lift(a), _lift(b), _lift(c))
 
 
-def matmul_node(a, b):
-    raise NotImplementedError(
-        "matmul inside sm.fuse is not ported yet: see ROADMAP.md, queue 1, item 6"
-    )
+def matmul_node(a, b) -> FusedExpr:
+    """``x @ w`` inside a fused function: the matmul kernel's product, whose
+    elementwise consumers become the kernel's epilogue.
+
+    Both operands must be direct arguments of the fused function (the
+    kernel reads them from memory), there is at most one matmul per fused
+    function, and the operands cannot also be used elementwise."""
+    _reject_reduction(a, b)
+    trace = _TRACES[-1] if _TRACES else None
+    index = {id(n): i for i, n in enumerate(trace.leaves)} if trace else {}
+    if id(a) not in index or id(b) not in index:
+        raise TypeError(
+            "matmul inside sm.fuse requires direct arguments of the fused "
+            "function (not composed expressions)"
+        )
+    if trace.product is not None:
+        raise TypeError("sm.fuse supports at most one matmul per fused function")
+    try:
+        matmul.product_shape(a.shape, b.shape)
+    except ValueError:
+        raise TypeError(
+            f"fused matmul requires 2-D (M,K) @ (K,N) or batched "
+            f"(B,M,K) @ (B,K,N) arguments; got {a.shape} @ {b.shape}"
+        ) from None
+    dtype = trace.product_dtype or _dt.result_dtype(a.dtype, b.dtype)
+    trace.a, trace.b = index[id(a)], index[id(b)]
+    trace.product = program.leaf(a.shape[:-1] + b.shape[-1:], dtype)
+    return trace.product
+
+
+def _reads(root, leaves) -> set:
+    """Which of ``leaves`` (by position) the expression ``root`` reads."""
+    index = {id(n): i for i, n in enumerate(leaves)}
+    found, seen, stack = set(), set(), [root]
+    while stack:
+        n = stack.pop()
+        if id(n) in seen:
+            continue
+        seen.add(id(n))
+        if id(n) in index:
+            found.add(index[id(n)])
+        stack.extend(n.args)
+    return found
+
+
+def _trace(fn, arrs, product_dtype=None):
+    """``fn`` over fresh leaves for ``arrs``: (expression, trace)."""
+    trace = _Trace([program.leaf(a.shape, a.dtype) for a in arrs], product_dtype)
+    _TRACES.append(trace)
+    try:
+        expr = fn(*trace.leaves)
+    finally:
+        _TRACES.pop()
+    return expr, trace
+
+
+@dataclasses.dataclass(frozen=True)
+class _MatmulRoot:
+    """A traced function whose result is an epilogue over ``x @ w``.
+
+    ``a``, ``b`` and ``extras`` are argument positions.  ``epilogue`` reads
+    the product as it is computed (float32 for bfloat16 and float16
+    operands, as ``sm.matmul`` gives it) and is the kernel's form
+    (``program.lower_epilogue``); ``dtype`` is the result's type, traced
+    with the product in its operands' own type as the JAX package does."""
+
+    a: int
+    b: int
+    extras: tuple
+    epilogue: program.Program
+    shape: tuple
+    dtype: torch.dtype
+
+    def materialize(self, arrs) -> Array:
+        a, b = arrs[self.a], arrs[self.b]
+        extras = [arrs[i] for i in self.extras]
+        prog = self.epilogue
+        dims = matmul.product_shape(a.shape, b.shape)
+        kernel = (
+            matmul.accumulator(a.dtype, b.dtype) == prog.leaf_dtypes[0]
+            and math.prod(dims) > 0
+            and self.shape == a.shape[:-1] + b.shape[-1:]
+            and all(e.dtype in matmul.EXTRA_DTYPES for e in extras)
+            and prog.kernel_codes is not None
+            and self.dtype in matmul.stored_dtypes(prog.dtype)
+        )
+        if kernel:
+            return Array(matmul.matmul(
+                a._operand(), b._operand(), self.dtype, epilogue=prog,
+                extras=[e._operand() for e in extras],
+            ))
+        # Signatures the kernel does not take (float64, float16, complex
+        # and narrow-integer products, an extra of another type or of more
+        # dims than the product): the product and the epilogue as torch.
+        dispatch.record("torch_path", "matmul_epilogue")
+        prod = engine.matmul(a, b).torch()
+        wide = [e.torch() for e in extras]
+        wide = [t.float() if want == torch.float32 and t.dtype == torch.bfloat16 else t
+                for t, want in zip(wide, prog.leaf_dtypes[1:])]
+        out = program.run_plain(prog, [prod, *wide], self.shape, device=prod.device)
+        return Array(out.to(self.dtype))
+
+
+def _matmul_root(fn, arrs, expr, trace) -> _MatmulRoot:
+    read = _reads(expr, trace.leaves)
+    if trace.a in read or trace.b in read:
+        raise TypeError(
+            "the matmul operands cannot also be used elementwise in the fused "
+            "epilogue (the kernel reads them as matrix tiles); pass a separate "
+            "argument"
+        )
+    a, b = arrs[trace.a], arrs[trace.b]
+    computed = engine.product_dtype(a.dtype, b.dtype)
+    if computed != trace.product.dtype:
+        # bfloat16 and float16 products are computed, and seen by the
+        # epilogue, in float32; only the result's type comes from the
+        # first trace.
+        run_expr, run_trace = _trace(fn, arrs, product_dtype=computed)
+    else:
+        run_expr, run_trace = expr, trace
+    extras = tuple(sorted(_reads(run_expr, run_trace.leaves)))
+    prog = program.lower_epilogue(run_expr, run_trace.product,
+                                  [run_trace.leaves[i] for i in extras])
+    return _MatmulRoot(trace.a, trace.b, extras, prog, expr.shape, expr.dtype)
 
 
 def fuse(
@@ -213,8 +358,8 @@ def fuse(
         key = tuple((a.shape, a.dtype) for a in arrs) + (config.transcendental_impl,)
         hit = cache.get(key)
         if hit is None:
-            leaves = [program.leaf(a.shape, a.dtype) for a in arrs]
-            expr = fn(*leaves)
+            expr, trace = _trace(fn, arrs)
+            leaves = trace.leaves
             if not is_fused(expr):
                 raise TypeError(
                     "the function passed to sm.fuse must return a fused "
@@ -226,6 +371,18 @@ def fuse(
                         "sm.fuse(iterations=...) does not compose with a "
                         "reduction root (the result is a scalar)"
                     )
+                if trace.product is not None and _reads(expr.expr, [trace.product]):
+                    raise TypeError(
+                        "a reduction over a fused matmul epilogue is not "
+                        "supported; materialize the epilogue first"
+                    )
+            elif trace.product is not None and _reads(expr, [trace.product]):
+                if iterations != 1:
+                    raise ValueError(
+                        "sm.fuse(iterations=...) does not compose with a "
+                        "matmul root"
+                    )
+                expr = _matmul_root(fn, arrs, expr, trace)
             elif iterations != 1 and (
                 expr.shape != arrs[carry].shape or expr.dtype != arrs[carry].dtype
             ):
@@ -239,6 +396,8 @@ def fuse(
         expr, leaves = hit
         if isinstance(expr, FusedReduction):
             return expr.materialize(leaves, [a._operand() for a in arrs])
+        if isinstance(expr, _MatmulRoot):
+            return expr.materialize(arrs)
         return engine.run(
             expr, leaves, [a._operand() for a in arrs], "fused",
             donate=donate, iterations=iterations, carry=carry,

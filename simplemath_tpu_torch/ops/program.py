@@ -156,7 +156,10 @@ class Node:
 
         return fusion.matmul_node(self, o)
 
-    __rmatmul__ = __matmul__
+    def __rmatmul__(self, o):
+        from . import fusion
+
+        return fusion.matmul_node(o, self)
 
     def __neg__(self):
         from . import fusion
@@ -386,6 +389,42 @@ def lower(root: Node, leaves: Sequence[Node]) -> Program:
         insts=tuple(insts),
         result=reg[id(root)],
         dtype=root.dtype,
+    )
+
+
+def lower_epilogue(root: Node, product: Node, extras: Sequence[Node]) -> Program:
+    """Lower the epilogue ``root`` of a matmul for the matmul kernel.
+
+    Operand 0 of the program is ``product``, the leaf that stands for the
+    accumulator: the kernel fills its register and loads nothing for it.
+    The other operands are ``extras``.  The kernel widens a bfloat16 extra
+    to float32 at the load, which is exact, so such a leaf enters the
+    program as float32 and the cast the trace put on it is dropped.  An
+    instruction that computes in bfloat16 is kept as it is; the program
+    then has no kernel form (``kernel_codes`` is None)."""
+    prog = lower(root, [product, *extras])
+    wide = {i for i, dt in enumerate(prog.leaf_dtypes) if i > 0 and dt == torch.bfloat16}
+    if not wide:
+        return prog
+    base = len(prog.leaf_dtypes) + len(prog.consts)
+    alias, insts = {}, []
+    for k, (op, ctype, dtype, *regs) in enumerate(prog.insts):
+        if op == "cast" and regs[0] in wide and dtype == torch.float32:
+            alias[base + k] = regs[0]
+            continue
+        if any(r in wide for r in regs):
+            return prog  # the leaf is read as bfloat16: nothing to widen
+        alias[base + k] = base + len(insts)
+        insts.append((op, ctype, dtype, *(alias.get(r, r) for r in regs)))
+    if prog.result in wide:
+        return prog
+    return Program(
+        leaf_dtypes=tuple(torch.float32 if i in wide else dt
+                          for i, dt in enumerate(prog.leaf_dtypes)),
+        consts=prog.consts,
+        insts=tuple(insts),
+        result=alias.get(prog.result, prog.result),
+        dtype=prog.dtype,
     )
 
 

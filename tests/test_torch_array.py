@@ -10,6 +10,15 @@ import simplemath_tpu_torch as sm
 from simplemath_tpu_torch import dtypes
 
 
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's default device is the card; these tests ask for the CPU."""
+    old = sm.config.device
+    sm.configure(device="cpu")
+    yield
+    sm.configure(device=old)
+
+
 def _same(port_arr, jax_arr):
     want = jax_arr.numpy()
     got = port_arr.numpy()
@@ -132,10 +141,14 @@ def test_index_errors():
 
 
 @pytest.mark.parametrize("call", [
-    lambda a: a[[0, 1]], lambda a: a.__setitem__([0, 1], 1.0), lambda a: a.T @ a,
-    lambda a: a @ a, lambda a: a.dot(a),
+    lambda a: a[[0, 1]], lambda a: a.__setitem__([0, 1], 1.0),
+    lambda a: a[np.array([True, False])], lambda a: a[a > 0.0],
+    lambda a: a.__setitem__(np.array([1, 0]), 1.0),
 ])
 def test_not_ported_yet_raises_naming_roadmap(call):
+    """What still waits (advanced indexing) says so.  ``@``/``dot`` of
+    rank >= 2 left this list when the matmul path was ported
+    (tests/test_torch_matmul.py holds its values)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         call(sm.ones(2, 2))
 

@@ -12,7 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+import simplemath_tpu_torch as sm
 from simplemath_tpu_torch import dtypes
+
+@pytest.fixture(autouse=True)
+def _on_the_cpu():
+    """The port's default device is the card; these tests ask for the CPU."""
+    old = sm.config.device
+    sm.configure(device="cpu")
+    yield
+    sm.configure(device=old)
+
 
 _ARRAY_DTYPES = [
     "bool", "uint8", "uint16", "uint32", "int8", "int16", "int32", "int64",

@@ -27,14 +27,15 @@ from simplemath_tpu_torch.ops import dispatch, elementwise
 @pytest.fixture(autouse=True)
 def _reference_setup():
     old = (jconfig.kernel_backend, jconfig.transcendental_impl,
-           jconfig.deferred_eager, config.deferred_eager)
+           jconfig.deferred_eager, config.deferred_eager, config.device)
     jconfig.kernel_backend = "pallas"
+    config.device = "cpu"  # the port's default device is the card
     jconfig.transcendental_impl = "crafted"
     dispatch.reset()
     jdispatch.reset()
     yield
     (jconfig.kernel_backend, jconfig.transcendental_impl,
-     jconfig.deferred_eager, config.deferred_eager) = old
+     jconfig.deferred_eager, config.deferred_eager, config.device) = old
 
 
 def max_ulp(got, want):
@@ -131,15 +132,20 @@ def test_fuse_errors_match_jax():
 
 
 def test_fused_reduction_and_matmul_wait():
-    """The matmul root still waits (ROADMAP.md queue 1 item 6); the
-    reduction root is ported and takes only fused expressions, as in the
-    JAX package (tests/test_torch_reduction.py holds its values)."""
+    """Neither root waits any more.  The matmul root takes two direct
+    arguments and refuses an operand that is also used elementwise, as in
+    the JAX package (tests/test_torch_matmul.py holds its values); the
+    reduction root takes only fused expressions
+    (tests/test_torch_reduction.py holds its values)."""
     from simplemath_tpu.ops import fusion as jfusion
     from simplemath_tpu_torch.ops import fusion
 
     a = sm.ones(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sm.fuse(lambda x: x @ x)(a)
+    assert float(sm.fuse(lambda x, w: x @ w)(a, a).sum()) == 64.0
+    assert dispatch.count("matmul", "mm_epilogue") == 1
+    for mod, arr in ((sm, a), (jsm, jsm.ones(4, 4))):
+        with pytest.raises(TypeError, match="used elementwise"):
+            mod.fuse(lambda x, w: (x @ w) + x)(arr, arr)
     for mod, arr in ((fusion, a), (jfusion, jsm.ones(4, 4))):
         with pytest.raises(TypeError, match="requires a fused expression"):
             mod.reduce_node("sum", arr)

@@ -1,4 +1,4 @@
-"""The CUDA kernels (elementwise and map-reduce) against their plain
+"""The CUDA kernels (elementwise, map-reduce and matmul) against their plain
 PyTorch versions, on the card.  Every test needs a CUDA device and skips
 without one.  The file imports no jax, so it also runs where only PyTorch
 is installed:
@@ -7,8 +7,8 @@ is installed:
 
 Tolerance: exact for arithmetic, comparisons, casts and the integer ops
 (the kernel is built with --fmad=false, so each float operation rounds
-once, as torch's do); 2 ulp for the transcendentals.  The reductions'
-tolerances are stated above their tests.
+once, as torch's do); 2 ulp for the transcendentals.  The reductions' and
+the matmul's tolerances are stated above their tests.
 """
 
 import numpy as np
@@ -16,7 +16,9 @@ import pytest
 import torch
 
 import simplemath_tpu_torch as sm
-from simplemath_tpu_torch.ops import elementwise, engine, program, reduction, registry
+from simplemath_tpu_torch.ops import (
+    dispatch, elementwise, engine, matmul, program, reduction, registry,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -297,3 +299,196 @@ def test_reductions_through_the_api_launch_rd(cuda):
     assert abs(s - float(((at - bt) ** 2).sum())) <= 2e-5 * float(((at - bt) ** 2).sum())
     assert torch.allclose(m.double(), (at * bt).mean(0), rtol=2e-5, atol=2e-5)
     assert abs(d - float(at[3] @ bt[5])) <= 2e-5 * float((at[3] * bt[5]).abs().sum())
+
+
+# ------------------------------------------------------ the matmul kernel
+# Tolerance: a float32 product within 2e-5 * (|A| @ |B|), elementwise, of
+# the plain version (torch.matmul, TF32 off) and of float64: both sum in
+# float32, in different orders, and no other difference is admitted.
+# Integer products exact.  A bfloat16 result is the float32 result rounded
+# once, so within one bfloat16 ulp of the plain version's.  Every result
+# bit-identical across two launches (one thread sums each element in
+# ascending k; no split-K, no atomics).
+def _mm_both(a, b, out_dtype=None, epilogue=None, extras=()):
+    matmul.reset_launches()
+    k1 = matmul.matmul(a, b, out_dtype, epilogue=epilogue, extras=extras)
+    k2 = matmul.matmul(a, b, out_dtype, epilogue=epilogue, extras=extras)
+    torch.cuda.synchronize()
+    assert sum(matmul.LAUNCHES.values()) == 2
+    assert torch.equal(k1.view(torch.int16 if k1.element_size() == 2 else torch.int32)
+                       if k1.dtype != torch.bool else k1,
+                       k2.view(torch.int16 if k2.element_size() == 2 else torch.int32)
+                       if k2.dtype != torch.bool else k2)
+    p = matmul.matmul_plain(a, b, k1.dtype, epilogue,
+                            [matmul._extra3(e, matmul.product_shape(a.shape, b.shape),
+                                            len(a.shape) == 3) for e in extras])
+    return k1, p
+
+
+def _f32(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
+def _abs_product(a, b):
+    return elementwise.read(a).double().abs() @ elementwise.read(b).double().abs()
+
+
+@pytest.mark.parametrize("shape", [((300, 270), (270, 515)), ((1, 1), (1, 1)), ((5, 17), (17, 3)),
+                                   ((128, 16), (16, 128)), ((129, 33), (33, 257)),
+                                   ((3, 70, 33), (3, 33, 140))], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_mm_float_matches_plain(cuda, shape, dtype):
+    rng = np.random.default_rng(8)
+    a, b = _f32(rng, shape[0], cuda).to(dtype), _f32(rng, shape[1], cuda).to(dtype)
+    k, p = _mm_both(a, b, torch.float32)
+    tol = 2e-5 * _abs_product(a, b)
+    assert bool(((k.double() - p.double()).abs() <= tol).all())
+    assert bool(((k.double() - a.double() @ b.double()).abs() <= tol).all())
+    if dtype == torch.bfloat16:
+        kb, pb = _mm_both(a, b, torch.bfloat16)
+        assert torch.equal(kb, k.bfloat16())  # the float32 result, rounded once
+        assert bool(((kb.float() - pb.float()).abs() <= pb.float().abs() * 2.0 ** -7 + 1e-30).all())
+
+
+@pytest.mark.parametrize("case", ["T", "neg", "slice", "both"])
+def test_mm_view_operands_read_in_place(cuda, case):
+    rng = np.random.default_rng(9)
+    base_a = sm.Array(_f32(rng, (270, 300), cuda))
+    base_b = sm.Array(_f32(rng, (540, 330), cuda))
+    a = base_a.T                                   # (300, 270)
+    b = base_b[::2, 10:310]                        # (270, 300)
+    if case == "T":
+        b = sm.Array(b.torch().clone())
+    elif case == "neg":
+        a, b = sm.Array(a.torch().clone()), base_b[::-2, ::-1][:, :300]
+    elif case == "slice":
+        a = sm.Array(a.torch().clone())
+    k, _ = _mm_both(a._operand(), b._operand())
+    ref = a.torch().double() @ b.torch().double()
+    tol = 2e-5 * (a.torch().double().abs() @ b.torch().double().abs())
+    assert bool(((k.double() - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtypes", [("int8", "int8"), ("int8", "uint8"), ("uint8", "uint8"),
+                                    ("int32", "int32"), ("int32", "int8")], ids=str)
+@pytest.mark.parametrize("batched", [False, True])
+def test_mm_integers_exact(cuda, dtypes, batched):
+    rng = np.random.default_rng(10)
+    lead = (2,) if batched else ()
+
+    def make(name, shape):
+        if name == "int32":  # no wraparound here: test_mm_int32_wraps has it
+            return rng.integers(-1000, 1000, shape).astype(name)
+        info = np.iinfo(name)
+        return rng.integers(info.min, info.max + 1, shape).astype(name)
+
+    a_np, b_np = make(dtypes[0], lead + (130, 200)), make(dtypes[1], lead + (200, 129))
+    want = np.matmul(a_np.astype(np.int64), b_np.astype(np.int64))
+    k, p = _mm_both(torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda))
+    assert k.dtype == torch.int32
+    assert np.array_equal(k.cpu().numpy(), want) and torch.equal(k, p)
+
+
+def test_mm_int32_wraps(cuda):
+    a = torch.full((20, 600), 40_000, dtype=torch.int32, device=cuda)
+    b = torch.full((600, 17), 40_000, dtype=torch.int32, device=cuda)
+    want = (40_000 * 40_000 * 600) % (1 << 32)
+    want = want - (1 << 32) if want >= 1 << 31 else want
+    k, p = _mm_both(a, b)
+    assert bool((k == want).all()) and torch.equal(k, p)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_mm_epilogue_every_extra_shape(cuda, batched):
+    """A (1, N) row, an (M, 1) column, a full extra, a 0-d extra and (rank
+    3) a per-batch (B, 1, 1) extra, in one epilogue with a transcendental."""
+    rng = np.random.default_rng(11)
+    lead = (3,) if batched else ()
+    M, K, N = 70, 33, 140
+    a, b = _f32(rng, lead + (M, K), cuda), _f32(rng, lead + (K, N), cuda)
+    extras = [_f32(rng, (1, N), cuda), _f32(rng, (M, 1), cuda), _f32(rng, lead + (M, N), cuda),
+              _f32(rng, (), cuda), _f32(rng, lead + (1, 1), cuda)]
+    acc = program.leaf(lead + (M, N), torch.float32)
+    ls = [program.leaf(tuple(t.shape), t.dtype) for t in extras]
+    root = sm.tanh(sm.maximum(acc * ls[1] + ls[0], 0.0) - ls[2]) * ls[3] + ls[4]
+    prog = program.lower_epilogue(root, acc, ls)
+    k, p = _mm_both(a, b, torch.float32, prog, extras)
+    # The epilogue is exact given the accumulator; the accumulators differ
+    # by the order of summation, which tanh (slope <= 1) does not amplify.
+    tol = 2e-5 * _abs_product(a, b) * extras[1].double().abs() * extras[3].double().abs() + 1e-6
+    assert bool(((k.double() - p.double()).abs() <= tol).all())
+
+
+def test_mm_epilogue_is_ew_strided_on_the_stored_product(cuda):
+    """The epilogue gives bit for bit what the elementwise kernel gives on
+    the stored product."""
+    rng = np.random.default_rng(12)
+    a, b, row = _f32(rng, (200, 64), cuda), _f32(rng, (64, 130), cuda), _f32(rng, (1, 130), cuda)
+    acc, lrow = program.leaf((200, 130), torch.float32), program.leaf((1, 130), torch.float32)
+    root = sm.exp(sm.minimum(acc * 0.01 + lrow, 3.0))
+    fused = matmul.matmul(a, b, torch.float32, epilogue=program.lower_epilogue(root, acc, [lrow]),
+                          extras=[row])
+    stored = matmul.matmul(a, b, torch.float32)
+    after = elementwise.elementwise(program.lower(root, [acc, lrow]), (200, 130), torch.float32,
+                                    stored, row)
+    assert torch.equal(fused, after)
+
+
+def test_mm_bf16_fused_relu_bias(cuda):
+    rng = np.random.default_rng(13)
+    a, b = _f32(rng, (3, 70, 33), cuda).bfloat16(), _f32(rng, (3, 33, 140), cuda).bfloat16()
+    row = _f32(rng, (1, 1, 140), cuda).bfloat16()
+    acc = program.leaf((3, 70, 140), torch.float32)
+    lrow = program.leaf((1, 1, 140), torch.bfloat16)
+    prog = program.lower_epilogue(sm.maximum(acc + lrow, 0.0) * 0.5 - 0.25, acc, [lrow])
+    k, p = _mm_both(a, b, torch.bfloat16, prog, [row])
+    assert k.dtype == torch.bfloat16
+    assert bool(((k.float() - p.float()).abs() <= p.float().abs() * 2.0 ** -7 + 1e-3).all())
+
+
+@pytest.mark.parametrize("scale", ["scalar", "channel"])
+def test_mm_dequant_epilogue(cuda, scale):
+    rng = np.random.default_rng(14)
+    a = torch.from_numpy(rng.integers(-128, 128, (130, 200)).astype(np.int8)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 256, (200, 129)).astype(np.uint8)).to(cuda)
+    s = torch.tensor(0.5, device=cuda) if scale == "scalar" else _f32(rng, (1, 129), cuda).abs()
+    matmul.reset_launches()
+    k = matmul.int8_matmul(a, b, scale=s)
+    assert matmul.LAUNCHES == {"mm": 1, "bmm": 0} and k.dtype == torch.float32
+    want = (a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(np.int64)).astype(np.float32)
+    assert np.array_equal(k.cpu().numpy(), want * s.cpu().numpy())
+
+
+def test_matmul_path_through_the_api_launches_mm(cuda):
+    rng = np.random.default_rng(15)
+    x, w = (sm.Array(rng.standard_normal(s).astype(np.float32)) for s in ((300, 270), (270, 515)))
+    bias = sm.Array(rng.standard_normal((1, 515)).astype(np.float32))
+    layer = sm.fuse(lambda x, w, b: sm.maximum(x @ w + b, 0.0))
+    elementwise.reset_launches()
+    matmul.reset_launches()
+    dispatch.reset()
+    y = layer(x, w, bias).torch()
+    yt = layer(w.T, x.T, bias.T).torch()           # transposed views, read in place
+    ai = sm.Array(rng.integers(-50, 50, (64, 96)).astype(np.int32))
+    di = sm.dot(ai, ai.T).torch()
+    q = sm.int8_matmul(sm.Array(rng.integers(-127, 128, (2, 64, 64)).astype(np.int8)),
+                       sm.Array(rng.integers(-127, 128, (2, 64, 64)).astype(np.int8))).torch()
+    f = sm.matmul(x, w).torch()                     # float: torch.matmul, no launch
+    torch.cuda.synchronize()
+    assert matmul.LAUNCHES == {"mm": 3, "bmm": 1}
+    assert elementwise.LAUNCHES == {"ew_flat": 0, "ew_strided": 0}
+    assert dispatch.count("matmul", "mm_epilogue") == 2 and dispatch.count("torch_path", "matmul") == 1
+    ref = torch.relu(x.torch().double() @ w.torch().double() + bias.torch().double())
+    tol = 2e-5 * (x.torch().double().abs() @ w.torch().double().abs()) + 1e-6
+    assert bool(((y.double() - ref).abs() <= tol).all())
+    ref_t = torch.relu(w.torch().T.double() @ x.torch().T.double() + bias.torch().T.double())
+    assert bool(((yt.double() - ref_t).abs() <= tol.T).all())
+    assert torch.equal(di.cpu(), (ai.torch().cpu().long() @ ai.torch().cpu().long().T).int())
+    assert q.dtype == torch.int32 and f.dtype == torch.float32
+    assert bool(((f.double() - x.torch().double() @ w.torch().double()).abs() <= tol).all())
+
+
+def test_int64_matmul_has_no_route_on_the_card(cuda):
+    a = sm.Array(np.arange(12, dtype=np.int64).reshape(3, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sm.matmul(a, a.T)

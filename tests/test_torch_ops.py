@@ -29,13 +29,16 @@ _CRAFTED = dict(exp=1e-6, log=1e-6, log_atol=1e-6, pow=4e-6)
 @pytest.fixture(autouse=True)
 def _reference_crafted():
     """The port is crafted everywhere; hold it against the JAX package's
-    crafted mode (its "auto" picks native exp/pow by TPU measurements)."""
+    crafted mode (its "auto" picks native exp/pow by TPU measurements).
+    The tests run on the CPU and ask for it."""
     from simplemath_tpu.config import config as jconfig
 
-    old = jconfig.transcendental_impl
+    old = (jconfig.transcendental_impl, sm.config.device)
     jconfig.transcendental_impl = "crafted"
+    sm.configure(device="cpu")  # the port's default device is the card
     yield
-    jconfig.transcendental_impl = old
+    jconfig.transcendental_impl = old[0]
+    sm.configure(device=old[1])
 
 
 def max_ulp(got, want):

@@ -42,16 +42,30 @@ device:
    extra; bf16 output; the dequantizing epilogue with a scalar and a
    per-channel scale; f32 within 2e-5 * (|A| @ |B|) elementwise of the
    plain version and of float64, integers exact, a bf16 result the f32
-   result rounded once, every result bit-identical across two launches),
+   result rounded once, every result bit-identical across two launches);
+   for bf16 @ bf16, which runs wgmma in the tensor-core kernel whatever its
+   shape or strides (``matmul.VARIANTS``): the four operand orders (each
+   operand row-major or a transposed view) at (300, 270) @ (270, 515), read
+   element by element and, cut from bases whose rows are multiples of 8,
+   16 bytes at a time; an unaligned slice and a negative-step view whose
+   results are bit-identical to those of their contiguous clones; K = 1
+   and K = 2048 + 5; rank 3 with a per-batch extra and the fused epilogue
+   stored as bf16 and as f32; the largest error is printed in units of the
+   tolerance; mixed f32/bf16 and integer products must not take that
+   kernel),
    then drives bench.py's matmul workloads through the public API at full
    width (the fused ``relu(x @ W + bias) * s - c`` at 2048^3 in f32 and
    bf16, ``sm.int8_matmul`` at 2048^3 with and without ``scale=``, the
    fused batched root at (8, 1024, 1024) bf16, an int32 ``sm.dot``; one
-   launch per call and no elementwise pass; ``sm.dot``/``sm.matmul`` of
-   f32 and complex64 through ``torch.matmul``), and times them;
+   launch per call and no elementwise pass; the bf16 workloads through
+   the tensor-core kernel and the f32 and integer ones not, by the variant
+   counter; ``sm.dot``/``sm.matmul`` of f32 and complex64 through
+   ``torch.matmul``), and times them;
 8. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
-   its bound on this card), then ``{"ok": true, "device": ...}``.
+   its bound on this card, and the bound's share of the time, which cannot
+   read above 1; ``mm`` and ``bmm`` with their bf16 times), then
+   ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
 is visible.
@@ -75,6 +89,7 @@ SEED = 0
 SOURCE = "simplemath_tpu_torch/csrc/elementwise.cu"
 RD_SOURCE = "simplemath_tpu_torch/csrc/reduction.cu"
 MM_SOURCE = "simplemath_tpu_torch/csrc/matmul.cu"
+WGMMA_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma.cu"
 N_MM = 2048                # bench.py::bench_matmul, _epilogue, bench_int8_matmul
 BMM = (8, 1024, 1024)      # bench.py::bench_bmm
 N_INT_DOT = 512
@@ -303,7 +318,7 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     return err
 
 
-def matmul_checks(dev, rng, sm, program, matmul):
+def matmul_checks(dev, rng, sm, program, matmul, elementwise):
     """Phase 7a: the matmul kernel against its plain version on the card.
     Returns the largest |kernel - plain| of each entry point."""
     import torch
@@ -414,6 +429,98 @@ def matmul_checks(dev, rng, sm, program, matmul):
         check(k.dtype == torch.float32 and np.array_equal(k.cpu().numpy(), acc64 * s_np),
               "the dequantizing epilogue is not exact")
     log("check mm dequant epilogue, scalar and (1, N) scale: exact")
+
+    # bf16 @ bf16: the tensor-core kernel, whatever the shape or the strides.
+    worst = [0.0]  # the largest error found, in units of the tolerance
+
+    def bf16(*shape):
+        return f32(*shape).bfloat16()
+
+    def tensor_core(label, a, b):
+        """f32 and bf16 results of one bf16 product, held to the tolerance."""
+        matmul.reset_launches()
+        k32, p32 = both(a, b, torch.float32)
+        kb, _ = both(a, b, torch.bfloat16)
+        check(matmul.VARIANTS == {"wgmma_bf16": 4, "fma_f32": 0, "imad_i32": 0},
+              f"{label}: launched {matmul.VARIANTS}, not the tensor-core kernel")
+        at, bt = elementwise.read(a).double(), elementwise.read(b).double()
+        ref, scale = at @ bt, at.abs() @ bt.abs()
+        close(label, k32, p32, ref, scale)
+        one_bf16_ulp(label, kb, k32)
+        worst[0] = max(worst[0], float(((k32.double() - ref).abs() / (2e-5 * scale)).max()))
+        return k32
+
+    def round8(n):
+        return n + (-n % 8)
+
+    for path, width in (("element by element", lambda n: n), ("16 bytes at a time", round8)):
+        def operand(rows, cols, transposed):
+            if transposed:  # (rows, cols) with the rows contiguous
+                return bf16(cols, width(rows))[:, :rows].T
+            return bf16(rows, width(cols))[:, :cols]
+        for ta, tb in ((False, False), (True, False), (False, True), (True, True)):
+            tensor_core(f"bf16 {'a.T' if ta else 'a'} @ {'b.T' if tb else 'b'}, {path}",
+                        operand(300, 270, ta), operand(270, 515, tb))
+    log("check mm bf16 (300,270)@(270,515), each operand row-major or a transposed view, read "
+        "element by element and 16 bytes at a time: wgmma, within tolerance, bits repeat")
+    base_a, base_b = sm.Array(bf16(270, 304)), sm.Array(bf16(540, 336))
+    va = base_a.T[:300]._operand()
+    for label, vb in (("unaligned slice", base_b[::2, 10:310]),
+                      ("negative-step view", base_b[::-2, ::-1][:, :300])):
+        vb = vb._operand()
+        check(not matmul.staging(matmul._strides3(vb.shape, vb.strides, False), 1,
+                                 vb.base.data_ptr() + 2 * vb.offset)[1],
+              f"{label}: not on the element path")
+        k = tensor_core(f"bf16 {label}", va, vb)
+        clone = matmul.matmul(elementwise.read(va).contiguous(), elementwise.read(vb).contiguous(),
+                              torch.float32)
+        check(torch.equal(k, clone), f"bf16 {label}: the view and its clone differ in bits")
+    log("check mm bf16 unaligned slice and negative-step view (element path): the bits of "
+        "their contiguous clones")
+    tensor_core("bf16 K=1", bf16(130, 1), bf16(1, 70))
+    tensor_core(f"bf16 K={N_MM + 5}", bf16(100, N_MM + 5), bf16(N_MM + 5, 264))
+    tensor_core("bf16 rank 3", bf16(3, 70, 33), bf16(3, 33, 136))
+    a, b = bf16(3, 200, 70), bf16(3, 70, 264)
+    extras = [bf16(1, 1, 264), f32(3, 1, 1)]
+    acc = program.leaf((3, 200, 264), torch.float32)
+    ls = [program.leaf(tuple(t.shape), t.dtype) for t in extras]
+    prog = program.lower_epilogue(sm.maximum(acc + ls[0], 0.0) * 0.5 - ls[1], acc, ls)
+    matmul.reset_launches()
+    k, p = both(a, b, torch.float32, prog, extras)
+    check(bool(((k.double() - p.double()).abs()
+                <= 2e-5 * (a.double().abs() @ b.double().abs()) * 0.5 + 1e-6).all()),
+          "bf16 fused epilogue: kernel vs plain beyond tolerance")
+    kb, _ = both(a, b, torch.bfloat16, prog, extras)
+    one_bf16_ulp("bf16 fused epilogue", kb, k)
+    check(matmul.VARIANTS["wgmma_bf16"] == 4, "the bf16 fused epilogue left the tensor-core kernel")
+    # The epilogue runs four columns at a time: a short and a long program
+    # must both give the elementwise kernel's bits on the stored product.
+    a2, b2, row2 = a[0], b[0], f32(1, 264)
+    acc2, lrow2 = program.leaf((200, 264), torch.float32), program.leaf((1, 264), torch.float32)
+    stored = matmul.matmul(a2, b2, torch.float32)
+    for terms in (1, 12):
+        root = acc2
+        for i in range(terms):
+            root = sm.minimum(root * (0.5 + 0.01 * i) + lrow2, 3.0 + i)
+        fused = matmul.matmul(a2, b2, torch.float32,
+                              epilogue=program.lower_epilogue(root, acc2, [lrow2]), extras=[row2])
+        after = elementwise.elementwise(program.lower(root, [acc2, lrow2]), (200, 264),
+                                        torch.float32, stored, row2)
+        check(torch.equal(fused, after),
+              f"bf16 epilogue of {terms} terms differs from ew_strided on the stored product")
+    log(f"check mm bf16 K=1, K={N_MM + 5}, rank 3, fused epilogue with a per-batch extra "
+        "stored as f32 and bf16: wgmma, within tolerance; a short and a long epilogue give "
+        "ew_strided's bits on the stored product")
+    # Mixed and integer operands keep the CUDA-core kernels.
+    matmul.reset_launches()
+    x32, y32 = f32(130, 70), f32(70, 90)
+    check(torch.equal(matmul.matmul(x32, y32.bfloat16()), matmul.matmul(x32, y32.bfloat16().float())),
+          "f32 @ bf16 is not the f32 product of the widened operand")
+    matmul.matmul(x32.to(torch.int8), y32.to(torch.int8))
+    check(matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 2, "imad_i32": 1},
+          f"mixed and integer products launched {matmul.VARIANTS}")
+    log(f"check mm bf16: largest error {worst[0]:.4f} of the tolerance 2e-5*(|A|@|B|) "
+        "against float64; f32 @ bf16 and int8 keep the CUDA-core kernels")
     return err
 
 
@@ -767,7 +874,7 @@ def main():
         + f" axis0 identity kernel/plain {rt['axis0_identity_ms']}/{rt['axis0_identity_plain_ms']}")
 
     # ------------------------------------------------- 7. the matmul path
-    err_mm = matmul_checks(dev, rng, sm, program, matmul)
+    err_mm = matmul_checks(dev, rng, sm, program, matmul, elementwise)
 
     n = N_MM
     s_c, c_c = 1.0 / n, 0.5
@@ -801,15 +908,23 @@ def main():
     dispatch.reset()
     mm_outs = []
     for label, call, want in main_calls:
-        before = dict(matmul.LAUNCHES)
+        before, before_v = dict(matmul.LAUNCHES), dict(matmul.VARIANTS)
         mm_outs.append(call().torch())
         got = {k: matmul.LAUNCHES[k] - before[k] for k in before}
         check(got == want, f"{label}: launched {got}, expected {want}")
+        took = {k: v - before_v[k] for k, v in matmul.VARIANTS.items() if v != before_v[k]}
+        check(took == {"wgmma_bf16" if "bf16" in label else
+                       "fma_f32" if "f32" in label else "imad_i32": 1},
+              f"{label}: ran {took}")
     torch.cuda.synchronize()
-    mm_launches = dict(matmul.LAUNCHES)
+    mm_launches, mm_variants = dict(matmul.LAUNCHES), dict(matmul.VARIANTS)
     counts = dispatch.counts()
-    log(f"matmul path launches {mm_launches} dispatch {counts}")
+    log(f"matmul path launches {mm_launches} by kernel {mm_variants} dispatch {counts}")
     check(mm_launches == {"mm": 5, "bmm": 1}, f"the matmul path launched {mm_launches}")
+    # The two bf16 workloads took the tensor-core kernel, and only they.
+    check(mm_variants == {"wgmma_bf16": 2, "fma_f32": 1, "imad_i32": 3},
+          f"the matmul path's kernels were {mm_variants}")
+    check(counts.get("matmul:wgmma_bf16") == 2, f"matmul dispatch {counts}")
     check(counts.get("matmul:mm_epilogue") == 3 and counts.get("matmul:bmm_epilogue") == 1
           and counts.get("matmul:int8") == 2, f"matmul dispatch {counts}")
     check(not any(k.startswith(("elementwise", "torch_path")) for k in counts),
@@ -902,7 +1017,7 @@ def main():
         "mm_f32_ms": time_ms(lambda: matmul.matmul(xt_, wt_, torch.float32), n=5),
         "mm_f32_library_ms": time_ms(lambda: torch.matmul(xt_, wt_), n=5),
         "mm_f32_plain_ms": time_ms(lambda: matmul.matmul_plain(xt_, wt_, torch.float32), n=5),
-        "mm_bf16_ms": time_ms(lambda: matmul.matmul(xbt, wbt, torch.bfloat16), n=5),
+        "mm_bf16_ms": time_ms(lambda: matmul.matmul(xbt, wbt, torch.bfloat16), n=20),
         "mm_bf16_library_ms": time_ms(lambda: torch.matmul(xbt, wbt), n=20),
         "mm_bf16_plain_ms": time_ms(lambda: matmul.matmul_plain(xbt, wbt, torch.bfloat16), n=5),
         "fused_f32_ms": time_ms(lambda: layer(xf, wf, biasf).torch(), n=5),
@@ -914,7 +1029,7 @@ def main():
         "int8_ms": time_ms(lambda: sm.int8_matmul(qa, qb).torch(), n=3),
         "int8_plain_ms": time_ms(lambda: matmul.matmul_plain(qat, qbt, torch.int32), n=3),
         "int8_scaled_ms": time_ms(lambda: sm.int8_matmul(qa, qb, scale=q_scale).torch(), n=3),
-        "bmm_bf16_ms": time_ms(lambda: matmul.matmul(x3t, w3t, torch.bfloat16), n=5),
+        "bmm_bf16_ms": time_ms(lambda: matmul.matmul(x3t, w3t, torch.bfloat16), n=20),
         "bmm_bf16_library_ms": time_ms(lambda: torch.matmul(x3t, w3t), n=20),
         "bmm_bf16_plain_ms": time_ms(lambda: matmul.matmul_plain(x3t, w3t, torch.bfloat16), n=5),
         "bmm_fused_bf16_ms": time_ms(lambda: layer(x3, w3, bias3).torch(), n=5),
@@ -923,6 +1038,14 @@ def main():
         "mm_int32_ms": time_ms(lambda: matmul.matmul(qa32, qb32, torch.int32), n=3),
         "mm_f32_transposed_a_ms": time_ms(
             lambda: matmul.matmul(xf.T._operand(), wt_, torch.float32), n=5),
+        # The tensor-core kernel's other routes: f32 stored, both operands
+        # transposed views (the other shared-memory layouts), and an
+        # operand read element by element (its first element 2 bytes off).
+        "mm_bf16_f32_out_ms": time_ms(lambda: matmul.matmul(xbt, wbt, torch.float32), n=20),
+        "mm_bf16_transposed_ms": time_ms(
+            lambda: matmul.matmul(xb.T._operand(), wb.T._operand(), torch.bfloat16), n=20),
+        "mm_bf16_element_path_ms": time_ms(
+            lambda: matmul.matmul(xbt[:, 1:], wbt[1:], torch.bfloat16), n=3),
         "fused_f32_host_ms": host_ms(lambda: layer(xf, wf, biasf).torch()),
         "fused_bf16_host_ms": host_ms(lambda: layer(xb, wb, biasb).torch()),
     }
@@ -939,9 +1062,12 @@ def main():
     b_int8 = bound((2 + 4) * n * n, flop, "int8")
     b_bmm = bound(3 * 2 * BMM[0] * BMM[1] * BMM[2], flop, "bf16")
     for key, b in (("mm_f32", b_f32), ("fused_f32", b_f32), ("mm_bf16", b_bf16),
-                   ("fused_bf16", b_bf16), ("int8", b_int8), ("bmm_bf16", b_bmm)):
+                   ("fused_bf16", b_bf16), ("int8", b_int8), ("bmm_bf16", b_bmm),
+                   ("bmm_fused_bf16", b_bmm)):
         mmt[f"{key}_bound_ms"] = b[0]
         mmt[f"{key}_share_of_bound"] = b[0] / mmt[f"{key}_ms"]
+    for key in ("mm_bf16", "bmm_bf16"):
+        mmt[f"{key}_over_library"] = mmt[f"{key}_ms"] / mmt[f"{key}_library_ms"]
     log(f"matmul times on {card}: " + json.dumps(mmt))
 
     # Bounds of the earlier kernels at the timed shapes: the add moves 12 MB;
@@ -955,9 +1081,11 @@ def main():
     b_axis = bound(4 * N_SUM + 4 * N_AXIS, N_SUM)
 
     def entry(name, source, replaces, launched, err, ms, plain_ms, b, library_ms):
+        check(b[0] <= ms, f"{name}: {ms} ms is under its bound of {b[0]} ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+                "bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms,
+                "share_of_bound": b[0] / ms}
 
     kernels = [
         entry("ew_flat", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
@@ -971,13 +1099,18 @@ def main():
         entry("rd_axis", RD_SOURCE, "simplemath_tpu/ops/reduction.py:482",
               rd_launches["rd_axis"], err_rd["rd_axis"], rt["axis0_identity_ms"],
               rt["axis0_identity_plain_ms"], b_axis, lib["axis0"]),
-        entry("mm", MM_SOURCE, "simplemath_tpu/ops/matmul.py:134",
-              mm_launches["mm"], err_mm["mm"], mmt["mm_f32_ms"], mmt["mm_f32_plain_ms"],
-              b_f32, mmt["mm_f32_library_ms"]),
-        entry("bmm", MM_SOURCE, "simplemath_tpu/ops/matmul.py:209",
+        # mm and bmm with bf16 operands, at 2048^3 and (8, 1024, 1024): the
+        # tensor-core kernel.  The f32 and integer instantiations of the same
+        # entry points (csrc/matmul.cu) are in the "matmul times" line.
+        entry("mm", WGMMA_SOURCE, "simplemath_tpu/ops/matmul.py:134",
+              mm_launches["mm"], err_mm["mm"], mmt["mm_bf16_ms"], mmt["mm_bf16_plain_ms"],
+              b_bf16, mmt["mm_bf16_library_ms"]),
+        entry("bmm", WGMMA_SOURCE, "simplemath_tpu/ops/matmul.py:209",
               mm_launches["bmm"], err_mm["bmm"], mmt["bmm_bf16_ms"], mmt["bmm_bf16_plain_ms"],
               b_bmm, mmt["bmm_bf16_library_ms"]),
     ]
+    for k in kernels[-2:]:
+        k["other_source"] = MM_SOURCE
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,7 @@
-// The matmul kernel for Hopper (sm_90a).
+// The CUDA-core matmul kernel for Hopper (sm_90a): float32, mixed
+// float32/bfloat16 and integer operands.  bfloat16 @ bfloat16 takes the
+// tensor-core kernel of matmul_wgmma.cu instead; the wrapper routes by the
+// operands' types alone, never by shape, stride or size.
 //
 // Replaces the JAX package's two Pallas matmul kernels, both in
 // simplemath_tpu/ops/matmul.py:
@@ -10,7 +13,7 @@
 // What it computes: out[b] = epilogue(A[b] @ B[b], extras...) for
 // (B, M, K) @ (B, K, N); rank 2 is B = 1.  The accumulator is f32 for f32
 // and bf16 operands (each read by its own type and widened at the load, so
-// a bf16 product is exact and only the sum rounds) and int32 for int8,
+// a bf16 factor enters exactly and only the sum rounds) and int32 for int8,
 // uint8 and int32 operands (kept in uint32_t: it wraps mod 2^32, exactly).
 // The epilogue is the elementwise kernel's opcode program (program.cuh) run
 // once per output element with register 0 holding the accumulator and the
@@ -35,11 +38,13 @@
 // What bounds it on an H100: operations.  2048^3 is 17.2 GFLOP over 48 MB,
 // so even at the f32 rate of the CUDA cores (67 TFLOP/s: 0.256 ms) the
 // bytes (14 us at 3.35 TB/s) are far from the limit.  This kernel does
-// exact f32 multiply-adds on the CUDA cores for every float type, and
-// 32-bit integer multiply-adds for the integer types; it does not use the
-// tensor cores, so for bf16 and int8 operands it is bound by the CUDA
-// cores, far above the card's tensor-core bound.  wgmma, TMA and a ring of
-// stages are the later redesign; this kernel is the simple correct one.
+// exact f32 multiply-adds on the CUDA cores for every float signature it
+// takes, and 32-bit integer multiply-adds for the integer types.  For f32
+// operands that is the arithmetic "default" precision promises (a
+// tensor-core route would truncate them).  For int8 it is far above the
+// card's tensor-core bound: the int8 tensor-core instructions want both
+// operands contraction-contiguous in shared memory, so a row-major B has
+// to be transposed on the way in, which is a redesign of its own.
 //
 // Built with --fmad=false like the other sources, so the epilogue rounds
 // once per operation; the inner product therefore asks for its fused
@@ -48,33 +53,7 @@
 // Launch: on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include "program.cuh"
-
-// One matrix operand: its first element and its signed element strides
-// over (batch, row, column) of the product it enters: A is (b, m, k), B is
-// (b, k, n).  ``inner_fast`` says the operand's contraction stride is the
-// smaller one, so neighbouring threads should walk k.
-struct MmOperand {
-  const void* ptr;
-  int64_t strides[3];
-  int32_t dtype;
-  int32_t inner_fast;
-};
-
-// ``p`` is the epilogue over shape (B, M, N): operand 0 is the accumulator
-// (never loaded), operands 1.. are the extras with their strides over
-// (b, m, n); p.out_dtype is the type of the program's result.  Without an
-// epilogue the accumulator itself is stored.  ``out_dtype`` is the stored
-// type: the result's own, or SM_BF16 for an f32 result.
-struct MmParams {
-  SmParams p;
-  MmOperand a, b;
-  int64_t B, M, N, K;
-  int32_t int_acc;
-  int32_t epilogue;
-  int32_t out_dtype;
-  int32_t pad;
-};
+#include "matmul.cuh"
 
 namespace {
 
@@ -210,12 +189,7 @@ __global__ void __launch_bounds__(kThreads, 2) mm_kernel(const MmParams q, void*
   for (int e = 0; e < 64; ++e) {
     const int64_t m = m0 + mm_row(ty, e >> 3), n = n0 + mm_row(tx, e & 7);
     if (m >= q.M || n >= q.N) continue;
-    r[0] = res[e];
-    for (int o = 1; o < p.n_ops; ++o) {
-      const SmOperand& x = p.ops[o];
-      r[o] = sm_load(x.ptr, bz * x.strides[0] + m * x.strides[1] + n * x.strides[2], x.dtype);
-    }
-    sm_store(out, out_base + m * q.N + n, q.out_dtype, sm_run(p, r));
+    sm_store(out, out_base + m * q.N + n, q.out_dtype, mm_epilogue_at(p, r, bz, m, n, res[e]));
   }
 }
 

@@ -1,9 +1,25 @@
 """The wrapper of the hand-written matmul kernel.
 
 Counterpart of ``simplemath_tpu/ops/matmul.py`` and its two Pallas kernels,
-``_build_matmul`` (rank 2) and ``_build_bmm`` (rank 3).  On the card both
-become one CUDA kernel (csrc/matmul.cu) whose batch is a grid dimension;
-``LAUNCHES`` counts its launches as ``mm`` (rank 2) and ``bmm`` (rank 3).
+``_build_matmul`` (rank 2) and ``_build_bmm`` (rank 3).  On the card the
+batch is a grid dimension, so one kernel serves both ranks; ``LAUNCHES``
+counts launches as ``mm`` (rank 2) and ``bmm`` (rank 3).  Which kernel a
+product takes follows from its operands' types alone (``variant``), never
+from a shape, a stride or a size, and ``VARIANTS`` counts launches by it:
+
+- ``wgmma_bf16``: bfloat16 @ bfloat16, on the tensor cores
+  (csrc/matmul_wgmma.cu: ``wgmma`` from a ring of shared-memory stages).
+  A bf16 x bf16 product is exact in float32 and the accumulator is
+  float32, as on the TPU's matrix unit.  Bound by the tensor cores' bf16
+  rate and, beneath it, by the L2 traffic of the tiles (hence 128 x 256
+  tiles).  Each operand is staged either 16 bytes at a time or element by
+  element through its strides (``staging``), into one shared-memory
+  layout, so a view and its contiguous clone give the same bits.
+- ``fma_f32``: float32 @ float32 and the mixed float32/bfloat16 pairs, in
+  exact float32 multiply-adds on the CUDA cores (csrc/matmul.cu), which is
+  what bounds it (a tensor-core route would truncate a float32 operand).
+- ``imad_i32``: int8, uint8 and int32 operands, 32-bit integer
+  multiply-adds on the CUDA cores (csrc/matmul.cu), wrapping mod 2**32.
 
 ``matmul(a, b, out_dtype=None, precision="default", epilogue=None,
 extras=())`` multiplies (M, K) @ (K, N) or (B, M, K) @ (B, K, N).  Operands
@@ -20,11 +36,15 @@ accumulator, so the product itself is never stored.  The result is cast to
 ``out_dtype`` at the store.
 
 Precision.  ``precision="default"`` and ``"highest"`` are the same on this
-card: exact float32 multiply-adds with a float32 accumulator, which is also
-what ``torch.matmul`` does on the card with TF32 off (its default).  The
-JAX package's ``"default"`` truncates float32 operands to bfloat16 on a
-TPU; that is a property of the TPU's matrix unit and is not carried over.
-A TF32 or bfloat16 tensor-core route would be a new, named precision.
+card.  Float32 operands get exact float32 multiply-adds with a float32
+accumulator, which is also what ``torch.matmul`` does on the card with TF32
+off (its default).  The JAX package's ``"default"`` truncates float32
+operands to bfloat16 on a TPU; that is a property of the TPU's matrix unit
+and is not carried over: a TF32 or bfloat16 tensor-core route for float32
+operands would be a new, named precision.  Bfloat16 operands lose nothing
+on the tensor cores (their products are exact in the float32 accumulator;
+only the order of the sum differs from the CUDA cores'), so they need no
+name.
 
 ``matmul`` looks at the operands' device.  CPU tensors take the kernel's
 plain version, ``matmul_plain``: ``torch.matmul`` in the accumulator's type
@@ -32,7 +52,8 @@ plain version, ``matmul_plain``: ``torch.matmul`` in the accumulator's type
 ``program.run_plain``, then the cast.  CUDA tensors launch the kernel or
 raise: there is no fallback.  Dispatch names are the JAX package's:
 ``matmul:mm``, ``matmul:bmm``, ``matmul:mm_epilogue``,
-``matmul:bmm_epilogue`` and ``matmul:int8``.
+``matmul:bmm_epilogue`` and ``matmul:int8``; the port adds
+``matmul:wgmma_bf16`` for a product routed to the tensor-core kernel.
 
 ``int8_matmul``, ``quantize_int8`` and ``dequantize_int8`` are the
 quantized-inference entry points.  Unlike the TPU's matrix unit this kernel
@@ -51,8 +72,10 @@ import torch
 from .. import dtypes as _dt
 from . import dispatch, elementwise, program
 
-# Kernel launches by entry point since the last reset.
+# Kernel launches by entry point since the last reset, and the same
+# launches by the kernel they took.
 LAUNCHES = {"mm": 0, "bmm": 0}
+VARIANTS = {"wgmma_bf16": 0, "fma_f32": 0, "imad_i32": 0}
 
 _FLOAT_OPERANDS = (torch.float32, torch.bfloat16)
 INT_OPERANDS = (torch.int8, torch.uint8, torch.int32)
@@ -66,8 +89,9 @@ _MAX_M = 65535 * 128      # gridDim.y tiles of 128 rows
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANTS):
+        for k in counts:
+            counts[k] = 0
 
 
 def accumulator(a_dtype, b_dtype):
@@ -78,6 +102,43 @@ def accumulator(a_dtype, b_dtype):
     if a_dtype in INT_OPERANDS and b_dtype in INT_OPERANDS:
         return torch.int32
     return None
+
+
+def variant(a_dtype, b_dtype):
+    """The kernel a product of these operand types takes (a key of
+    ``VARIANTS``), or None when no kernel takes them."""
+    if a_dtype == b_dtype == torch.bfloat16:
+        return "wgmma_bf16"
+    acc = accumulator(a_dtype, b_dtype)
+    if acc is None:
+        return None
+    return "fma_f32" if acc == torch.float32 else "imad_i32"
+
+
+def staging(strides, contraction, address):
+    """How the tensor-core kernel stages one operand: ``(k_major, vec16)``.
+
+    ``strides`` are the operand's signed element strides over (batch, row,
+    column) as ``_strides3`` gives them (0 for a dim of size 1),
+    ``contraction`` is its contraction dim (2 for A, 1 for B) and
+    ``address`` the byte address of its first element.  ``vec16``: the
+    operand is copied 16 bytes at a time, which needs stride 1 along one
+    matrix dim, every other stride a multiple of 8 elements (16 bytes;
+    negative or 0 alike) and a 16-byte-aligned first element; otherwise it
+    is read element by element.  ``k_major``: the contraction dim is the
+    contiguous one of the shared-memory tile (the dim of stride 1, or on
+    the element path the one of the smaller step).  Either way the same
+    elements land in the same layout, so the choice never shows in a
+    result."""
+    other = 3 - contraction  # dims 1 and 2 are the matrix's own
+    chunk = 8                # bfloat16 elements in 16 bytes
+    s_k, s_mn = strides[contraction], strides[other]
+    aligned = address % 16 == 0 and strides[0] % chunk == 0
+    if s_k == 1 and s_mn % chunk == 0 and aligned:
+        return True, True
+    if s_mn == 1 and s_k % chunk == 0 and aligned:
+        return False, True
+    return abs(s_k) <= abs(s_mn), False
 
 
 def stored_dtypes(result_dtype) -> tuple:
@@ -113,6 +174,8 @@ class _MmOperand(ctypes.Structure):
         ("strides", ctypes.c_int64 * 3),
         ("dtype", ctypes.c_int32),
         ("inner_fast", ctypes.c_int32),
+        ("vec16", ctypes.c_int32),
+        ("pad", ctypes.c_int32),
     ]
 
 
@@ -147,19 +210,25 @@ def _strides3(shape, strides, batched):
     return s if batched else [0] + s
 
 
-def _set_operand(dst, x, batched, contraction):
+def _set_operand(dst, x, batched, contraction, tensor_core):
     buf, off, shape, strides = elementwise._describe(x)
     dst.ptr = buf.data_ptr() + off * buf.element_size()
     s = _strides3(shape, strides, batched)
     for d in range(3):
         dst.strides[d] = s[d]
     dst.dtype = _DTYPE_CODE[buf.dtype]
-    other = 3 - contraction  # dims 1 and 2 are the matrix's own
-    dst.inner_fast = int(abs(s[contraction]) <= abs(s[other]))
+    if tensor_core:
+        k_major, vec16 = staging(s, contraction, dst.ptr)
+        dst.inner_fast, dst.vec16 = int(k_major), int(vec16)
+    else:
+        other = 3 - contraction  # dims 1 and 2 are the matrix's own
+        dst.inner_fast = int(abs(s[contraction]) <= abs(s[other]))
 
 
 def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
     lib = _library()
+    kernel = variant(a.dtype, b.dtype)
+    tensor_core = kernel == "wgmma_bf16"
     B, M, N, K = dims
     batched = len(a.shape) == 3
     out = torch.empty((B, M, N) if batched else (M, N), dtype=out_dtype, device=device)
@@ -170,18 +239,20 @@ def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
         stand_in = elementwise.View(out, 0, (1, 1, 1), (0, 0, 0))
         q.p, _ = elementwise.params(epilogue, codes, (B, M, N), [stand_in, *extras])
         q.epilogue = 1
-    _set_operand(q.a, a, batched, contraction=2)
-    _set_operand(q.b, b, batched, contraction=1)
+    _set_operand(q.a, a, batched, 2, tensor_core)
+    _set_operand(q.b, b, batched, 1, tensor_core)
     q.B, q.M, q.N, q.K = B, M, N, K
     q.int_acc = int(acc == torch.int32)
     q.out_dtype = _DTYPE_CODE[out_dtype]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.sm_mm_launch(ctypes.byref(q), out.data_ptr(), stream)
+        launch = lib.sm_mm_wgmma_launch if tensor_core else lib.sm_mm_launch
+        rc = launch(ctypes.byref(q), out.data_ptr(), stream)
     entry = "bmm" if batched else "mm"
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{entry} ({kernel}) launch failed: cudaError {rc}")
     LAUNCHES[entry] += 1
+    VARIANTS[kernel] += 1
     return out
 
 
@@ -307,6 +378,8 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
     dispatch.record("matmul", "bmm" if batched else "mm")
     if epilogue is not None:
         dispatch.record("matmul", "bmm_epilogue" if batched else "mm_epilogue")
+    if variant(a.dtype, b.dtype) == "wgmma_bf16":
+        dispatch.record("matmul", "wgmma_bf16")
     if device.type == "cpu":
         return matmul_plain(a, b, out_dtype, epilogue, extras)
     if device.type != "cuda":

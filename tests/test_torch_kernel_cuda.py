@@ -307,8 +307,11 @@ def test_reductions_through_the_api_launch_rd(cuda):
 # float32, in different orders, and no other difference is admitted.
 # Integer products exact.  A bfloat16 result is the float32 result rounded
 # once, so within one bfloat16 ulp of the plain version's.  Every result
-# bit-identical across two launches (one thread sums each element in
-# ascending k; no split-K, no atomics).
+# bit-identical across two launches (one thread, or for bf16 @ bf16 one
+# warpgroup's tensor cores, sums each element in ascending k; no split-K,
+# no atomics).  bf16 @ bf16 runs wgmma in the tensor-core kernel whatever
+# its shape or strides (``matmul.VARIANTS``), and a view gives the bits of
+# its contiguous clone.
 def _mm_both(a, b, out_dtype=None, epilogue=None, extras=()):
     matmul.reset_launches()
     k1 = matmul.matmul(a, b, out_dtype, epilogue=epilogue, extras=extras)
@@ -419,11 +422,13 @@ def test_mm_epilogue_every_extra_shape(cuda, batched):
     assert bool(((k.double() - p.double()).abs() <= tol).all())
 
 
-def test_mm_epilogue_is_ew_strided_on_the_stored_product(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_mm_epilogue_is_ew_strided_on_the_stored_product(cuda, dtype):
     """The epilogue gives bit for bit what the elementwise kernel gives on
-    the stored product."""
+    the stored product (bf16 operands: the tensor-core kernel's f32 product)."""
     rng = np.random.default_rng(12)
     a, b, row = _f32(rng, (200, 64), cuda), _f32(rng, (64, 130), cuda), _f32(rng, (1, 130), cuda)
+    a, b = a.to(dtype), b.to(dtype)
     acc, lrow = program.leaf((200, 130), torch.float32), program.leaf((1, 130), torch.float32)
     root = sm.exp(sm.minimum(acc * 0.01 + lrow, 3.0))
     fused = matmul.matmul(a, b, torch.float32, epilogue=program.lower_epilogue(root, acc, [lrow]),
@@ -486,6 +491,173 @@ def test_matmul_path_through_the_api_launches_mm(cuda):
     assert torch.equal(di.cpu(), (ai.torch().cpu().long() @ ai.torch().cpu().long().T).int())
     assert q.dtype == torch.int32 and f.dtype == torch.float32
     assert bool(((f.double() - x.torch().double() @ w.torch().double()).abs() <= tol).all())
+
+
+# --------------------------------- the tensor-core kernel (bf16 @ bf16)
+def _bf16(rng, shape, device):
+    return _f32(rng, shape, device).bfloat16()
+
+
+def _check_bf16(a, b):
+    """The f32 product of two bf16 operands through the tensor-core kernel:
+    within tolerance of plain and float64, a bf16 output the f32 one
+    rounded once, every launch a wgmma launch."""
+    matmul.reset_launches()
+    k, p = _mm_both(a, b, torch.float32)
+    assert matmul.VARIANTS == {"wgmma_bf16": 2, "fma_f32": 0, "imad_i32": 0}
+    at, bt = elementwise.read(a).double(), elementwise.read(b).double()
+    tol = 2e-5 * (at.abs() @ bt.abs())
+    assert bool(((k.double() - p.double()).abs() <= tol).all())
+    assert bool(((k.double() - at @ bt).abs() <= tol).all())
+    kb, _ = _mm_both(a, b, torch.bfloat16)
+    assert torch.equal(kb, k.bfloat16())
+    return k
+
+
+@pytest.mark.parametrize("path", ["elements", "chunks"])
+@pytest.mark.parametrize("order", ["ab", "aTb", "abT", "aTbT"])
+def test_mm_bf16_operand_orders(cuda, order, path):
+    """(300, 270) @ (270, 515) with each operand row-major or a transposed
+    view: the four shared-memory layout pairs.  ``elements``: the strides
+    (270, 515, 300) are no multiples of 8, so tiles are read element by
+    element; ``chunks``: the same shapes cut from bases whose rows are
+    multiples of 8, copied 16 bytes at a time with a short last copy."""
+    rng = np.random.default_rng(20)
+    pad = 0 if path == "elements" else 1
+
+    def round8(n):
+        return n + (-n % 8) * pad
+
+    def operand(rows, cols, transposed):
+        if transposed:  # (rows, cols) with the rows contiguous
+            return _bf16(rng, (cols, round8(rows)), cuda)[:, :rows].T
+        return _bf16(rng, (rows, round8(cols)), cuda)[:, :cols]
+
+    a = operand(300, 270, order in ("aTb", "aTbT"))
+    b = operand(270, 515, order in ("abT", "aTbT"))
+    assert tuple(a.shape) == (300, 270) and tuple(b.shape) == (270, 515)
+    for x, contraction in ((a, 2), (b, 1)):
+        s3 = matmul._strides3(tuple(x.shape), tuple(x.stride()), False)
+        k_major, vec16 = matmul.staging(s3, contraction, x.data_ptr())
+        assert vec16 == (path == "chunks")
+        assert k_major == (x.stride(-1 if contraction == 2 else -2) == 1)
+    _check_bf16(a, b)
+
+
+@pytest.mark.parametrize("case", ["unaligned_slice", "negative_step", "row_step", "broadcast"])
+def test_mm_bf16_view_gives_the_bits_of_its_clone(cuda, case):
+    rng = np.random.default_rng(21)
+    base_a = sm.Array(_bf16(rng, (270, 304), cuda))
+    base_b = sm.Array(_bf16(rng, (540, 336), cuda))
+    a = base_a.T[:300]._operand()                     # (300, 270), m contiguous
+    if case == "broadcast":                           # one row read 270 times: stride 0 over k
+        b = base_b.torch()[5:6, :300].expand(270, 300)
+    else:
+        b = {"unaligned_slice": base_b[::2, 10:310],          # first element 20 bytes in
+             "negative_step": base_b[::-2, ::-1][:, :300],
+             "row_step": base_b[:270, 8:308]}[case]._operand()  # aligned: 16-byte copies
+    k = _check_bf16(a, b)
+    clone = matmul.matmul(elementwise.read(a).contiguous(), elementwise.read(b).contiguous(),
+                          torch.float32)
+    assert torch.equal(k, clone)
+
+
+@pytest.mark.parametrize("shape", [((40, 1), (1, 24)), ((64, 2053), (2053, 72)),
+                                   ((1, 1), (1, 1)), ((130, 64), (64, 264)),
+                                   ((3, 70, 33), (3, 33, 136)), ((2, 128, 256), (2, 256, 512))],
+                         ids=str)
+def test_mm_bf16_edges(cuda, shape):
+    """K = 1, K = 2048 + 5, one element, N % 8 == 0 with ragged M (whole
+    rows stored), rank 3."""
+    rng = np.random.default_rng(22)
+    _check_bf16(_bf16(rng, shape[0], cuda), _bf16(rng, shape[1], cuda))
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16", "bool"])
+@pytest.mark.parametrize("n", [257, 258, 260, 264, 272])
+def test_mm_bf16_epilogue_every_store_width(cuda, n, out):
+    """The fused epilogue with a per-batch extra, stored as f32, bf16 and
+    (a comparison) bool, at widths whose rows do and do not start on 16
+    bytes: the kernel against its plain version, and bf16 = f32 rounded."""
+    rng = np.random.default_rng(23)
+    a, b = _bf16(rng, (2, 70, 40), cuda), _bf16(rng, (2, 40, n), cuda)
+    row, per_batch = _bf16(rng, (1, 1, n), cuda), _f32(rng, (2, 1, 1), cuda)
+    acc = program.leaf((2, 70, n), torch.float32)
+    lrow, lb = program.leaf((1, 1, n), torch.bfloat16), program.leaf((2, 1, 1), torch.float32)
+    root = sm.maximum(acc + lrow, 0.0) * 0.5 - lb
+    if out == "bool":
+        root = root > 0.25
+    prog = program.lower_epilogue(root, acc, [lrow, lb])
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bool": torch.bool}[out]
+    matmul.reset_launches()
+    k, p = _mm_both(a, b, dtype, prog, [row, per_batch])
+    assert matmul.VARIANTS["wgmma_bf16"] == 2 and k.dtype == dtype
+    k32, p32 = _mm_both(a, b, torch.float32 if out != "bool" else torch.bool, prog, [row, per_batch])
+    if out == "bool":
+        # a sum within 2e-5 * (|A| @ |B|) of the threshold may fall either way
+        margin = 2e-5 * (a.double().abs() @ b.double().abs()) * 0.5
+        full = matmul.matmul_plain(a, b, torch.float32, program.lower_epilogue(
+            sm.maximum(acc + lrow, 0.0) * 0.5 - lb, acc, [lrow, lb]),
+            [matmul._extra3(e, (2, 70, n, 40), True) for e in (row, per_batch)])
+        assert bool(((k == p) | ((full.double() - 0.25).abs() <= margin)).all())
+    else:
+        tol = 2e-5 * (a.double().abs() @ b.double().abs()) * 0.5 + 1e-6
+        assert bool(((k32.double() - p32.double()).abs() <= tol).all())
+        if out == "bfloat16":
+            assert torch.equal(k, k32.bfloat16())
+
+
+@pytest.mark.parametrize("terms", [1, 12])
+def test_mm_bf16_epilogue_short_and_long_programs(cuda, terms):
+    """The tensor-core kernel's epilogue runs four columns at a time; a
+    short and a long program both give bit for bit what the elementwise
+    kernel gives on the stored product."""
+    rng = np.random.default_rng(26)
+    a, b, row = _bf16(rng, (200, 64), cuda), _bf16(rng, (64, 136), cuda), _f32(rng, (1, 136), cuda)
+    acc, lrow = program.leaf((200, 136), torch.float32), program.leaf((1, 136), torch.float32)
+    root = acc
+    for i in range(terms):
+        root = sm.minimum(root * (0.5 + 0.01 * i) + lrow, 3.0 + i)
+    prog = program.lower_epilogue(root, acc, [lrow])
+    fused = matmul.matmul(a, b, torch.float32, epilogue=prog, extras=[row])
+    stored = matmul.matmul(a, b, torch.float32)
+    after = elementwise.elementwise(program.lower(root, [acc, lrow]), (200, 136), torch.float32,
+                                    stored, row)
+    assert torch.equal(fused, after)
+
+
+def test_mm_mixed_and_other_types_keep_their_kernels(cuda):
+    """f32 @ bf16 and bf16 @ f32 run the CUDA-core f32 kernel and give the
+    bits of the same product with the bf16 operand widened beforehand
+    (widening is exact); integers run the integer kernel."""
+    rng = np.random.default_rng(24)
+    a, b = _f32(rng, (130, 70), cuda), _f32(rng, (70, 90), cuda)
+    matmul.reset_launches()
+    both = matmul.matmul(a, b.bfloat16().float())
+    assert torch.equal(matmul.matmul(a, b.bfloat16()), both)
+    assert torch.equal(matmul.matmul(a.bfloat16(), b), matmul.matmul(a.bfloat16().float(), b))
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 4, "imad_i32": 0}
+    matmul.matmul(a.to(torch.int8), b.to(torch.int8))
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 4, "imad_i32": 1}
+
+
+def test_bf16_root_through_the_api_takes_the_tensor_core_kernel(cuda):
+    rng = np.random.default_rng(25)
+    x, w, bias = (sm.Array(_bf16(rng, s, cuda)) for s in ((300, 272), (272, 520), (1, 520)))
+    layer = sm.fuse(lambda x, w, b: sm.maximum(x @ w + b, 0.0))
+    matmul.reset_launches()
+    elementwise.reset_launches()
+    dispatch.reset()
+    y = layer(x, w, bias).torch()
+    yt = layer(w.T, x.T, bias.T).torch()
+    torch.cuda.synchronize()
+    assert matmul.LAUNCHES == {"mm": 2, "bmm": 0} and matmul.VARIANTS["wgmma_bf16"] == 2
+    assert sum(elementwise.LAUNCHES.values()) == 0
+    assert dispatch.count("matmul", "wgmma_bf16") == 2
+    ref = torch.relu(x.torch().double() @ w.torch().double() + bias.torch().double())
+    tol = 2.0 ** -8 * ref.abs() + 2e-5 * (x.torch().double().abs() @ w.torch().double().abs()) + 1e-6
+    assert y.dtype == torch.bfloat16 and bool(((y.double() - ref).abs() <= tol).all())
+    assert bool(((yt.double() - ref.T).abs() <= tol.T).all())
 
 
 def test_int64_matmul_has_no_route_on_the_card(cuda):

@@ -578,3 +578,204 @@ def test_from_reference_keeps_narrow_dtypes(dtype):
     assert dtypes.name(pa.dtype) == dtype and pa.shape == ja.shape and pa.is_view
     np.testing.assert_array_equal(pa.numpy().astype(np.float32),
                                   np.asarray(ja.jax().astype(jnp.float32)))
+
+
+# ------------------------------------ the tensor-core route (bf16 @ bf16)
+_VARIANT_PAIRS = [
+    ("bfloat16", "bfloat16", "wgmma_bf16"), ("float32", "float32", "fma_f32"),
+    ("float32", "bfloat16", "fma_f32"), ("bfloat16", "float32", "fma_f32"),
+    ("int8", "int8", "imad_i32"), ("int8", "uint8", "imad_i32"), ("uint8", "uint8", "imad_i32"),
+    ("int32", "int32", "imad_i32"), ("int32", "int8", "imad_i32"),
+    ("float64", "float64", None), ("float16", "float16", None), ("bfloat16", "int8", None),
+    ("float32", "int32", None),
+]
+
+
+@pytest.mark.parametrize("a,b,want", _VARIANT_PAIRS, ids=str)
+def test_kernel_variant_follows_the_operand_types_alone(a, b, want):
+    """bf16 @ bf16 takes the tensor-core kernel; every other pair the kernel
+    takes keeps the CUDA-core instantiation it had; the rest have none."""
+    da, db = getattr(torch, a), getattr(torch, b)
+    assert matmul.variant(da, db) == want
+    assert (matmul.variant(da, db) is None) == (matmul.accumulator(da, db) is None)
+    assert want is None or want in matmul.VARIANTS
+
+
+def _bf16_view(case):
+    """(operand of the product's shape (b, m, k) or (b, k, n), its
+    contraction dim) for one staging case; bfloat16, on the CPU."""
+    base = torch.zeros(64, 48, dtype=torch.bfloat16)          # 16-byte aligned, rows of 96 bytes
+    return {
+        "a_contiguous": (base, 2),                            # (M, K), K contiguous
+        "b_contiguous": (base, 1),                            # (K, N), N contiguous
+        "a_transposed": (base.T, 2),                          # (M, K) with M contiguous
+        "b_transposed": (base.T, 1),                          # (K, N) with K contiguous
+        "rows_reversed": (base.flip(0), 2),                   # handled by View below
+        "row_slice_aligned": (base[::2, 8:40], 2),            # strides (96, 1), base 16 bytes in
+        "unaligned_base": (base[::2, 10:42], 2),              # base 20 bytes in
+        "odd_row_stride": (torch.zeros(64, 45, dtype=torch.bfloat16), 2),
+        "column_step": (base[:, ::2], 2),                     # inner stride 2
+        "ragged_k": (base[:, :45], 2),                        # K = 45: rows still start on 16 bytes
+        "ragged_n": (base[:, :45], 1),
+        "broadcast_rows": (base[:1].expand(64, 48), 2),       # stride 0 over m
+        "broadcast_inner": (base[:, :1].expand(64, 48), 2),   # stride 0 over k
+        "single_row": (base[:1], 2),                          # M = 1: its stride counts as 0
+        "single_column_k": (base[:, :1], 2),                  # K = 1, rows 96 bytes apart
+        "contiguous_column_k": (torch.zeros(64, 1, dtype=torch.bfloat16), 2),  # K = 1, m contiguous
+        "batched": (torch.zeros(3, 16, 24, dtype=torch.bfloat16), 2),
+        "batched_odd_batch_stride": (torch.zeros(3, 17, 24, dtype=torch.bfloat16)[:, :16], 2),
+    }[case]
+
+
+_STAGING = {
+    # case: (k_major, vec16)
+    "a_contiguous": (True, True), "b_contiguous": (False, True),
+    "a_transposed": (False, True), "b_transposed": (True, True),
+    "rows_reversed": (True, True), "row_slice_aligned": (True, True),
+    "unaligned_base": (True, False), "odd_row_stride": (True, False),
+    "column_step": (True, False), "ragged_k": (True, True), "ragged_n": (False, True),
+    "broadcast_rows": (True, True), "broadcast_inner": (True, False),
+    "single_row": (True, True), "single_column_k": (True, False),
+    "contiguous_column_k": (False, True),
+    "batched": (True, True), "batched_odd_batch_stride": (True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STAGING))
+def test_staging_decision_per_operand(case):
+    """16-byte copies need stride 1 along one matrix dim, every other stride
+    a multiple of 8 elements and a 16-byte-aligned first element; anything
+    else is read element by element.  The order says which dim is the
+    shared tile's contiguous one."""
+    t, contraction = _bf16_view(case)
+    if case == "rows_reversed":  # torch has no negative strides: a View does
+        from simplemath_tpu_torch.ops import elementwise
+        flat = torch.zeros(64, 48, dtype=torch.bfloat16)
+        t = elementwise.View(flat, 63 * 48, (64, 48), (-48, 1))
+    op = matmul._MmOperand()
+    matmul._set_operand(op, t, len(t.shape) == 3, contraction, True)
+    assert (bool(op.inner_fast), bool(op.vec16)) == _STAGING[case]
+    # and the plain function on the same strides and address
+    strides = [op.strides[d] for d in range(3)]
+    assert matmul.staging(strides, contraction, op.ptr) == _STAGING[case]
+    if case == "batched_odd_batch_stride":
+        assert strides[0] == 17 * 24  # 408: a multiple of 8, so batches stay aligned
+
+
+def test_staging_needs_aligned_batches_and_negative_inner_steps_go_element_wise():
+    assert matmul.staging([404, 24, 1], 2, 0) == (True, False)   # batch stride 404 % 8 != 0
+    assert matmul.staging([0, 24, 1], 2, 16) == (True, True)
+    assert matmul.staging([0, 24, 1], 2, 18) == (True, False)    # base off by 2 bytes
+    assert matmul.staging([0, 24, -1], 2, 0) == (True, False)    # negative step along k
+    assert matmul.staging([0, -24, 1], 2, 0) == (True, True)     # rows backwards: still rows
+    assert matmul.staging([0, -1, 24], 2, 0) == (False, False)
+    assert matmul.staging([0, 3, 50], 1, 0) == (True, False)     # B: the smaller step leads
+    assert matmul.staging([0, 50, 3], 1, 0) == (False, False)
+    # The CUDA-core kernel's operands keep their old description.
+    op = matmul._MmOperand()
+    matmul._set_operand(op, torch.zeros(8, 8), False, 2, False)
+    assert (op.inner_fast, op.vec16) == (1, 0)
+
+
+_BF16_EDGES = {
+    # name: (shape of a, shape of b, views applied to both packages' arrays)
+    "k1": ((40, 1), (1, 24), None),
+    "k77": ((33, 77), (77, 50), None),
+    "ragged": ((129, 33), (33, 257), None),
+    "a_transposed": ((77, 40), (77, 24), lambda a, b: (a.T, b)),
+    "b_transposed": ((40, 77), (24, 77), lambda a, b: (a, b.T)),
+    "both_transposed": ((77, 40), (24, 77), lambda a, b: (a.T, b.T)),
+    "sliced": ((40, 90), (180, 30), lambda a, b: (a[:, 5:82], b[3:157:2, ::-1])),
+    "batched": ((3, 20, 77), (3, 77, 12), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BF16_EDGES))
+def test_bf16_product_matches_jax_at_the_edges(name):
+    """The bare bf16 @ bf16 root of ``sm.fuse`` (the route to the matmul
+    wrapper; ``sm.matmul`` of floats is ``torch.matmul``) against the JAX
+    package (its Pallas kernels in interpret mode where they take the
+    shape).  Both accumulate exact bf16 products in float32, in different
+    orders, and round the sum to bfloat16 once: within one bfloat16 ulp
+    (2**-7 relative) plus the sums' 2e-5 * (|A| @ |B|)."""
+    sa, sb, views = _BF16_EDGES[name]
+    (ja, pa), (jb, pb) = _operand(sa, "bfloat16", 0), _operand(sb, "bfloat16", 1)
+    if views:
+        (ja, jb), (pa, pb) = views(ja, jb), views(pa, pb)
+    want = jsm.fuse(lambda x, w: x @ w)(ja, jb)
+    got = sm.fuse(lambda x, w: x @ w)(pa, pb)
+    _same_meta(got, want)
+    assert got.dtype == torch.bfloat16
+    a64 = np.asarray(ja.jax().astype(jnp.float32), np.float64)
+    b64 = np.asarray(jb.jax().astype(jnp.float32), np.float64)
+    ref, scale = a64 @ b64, np.abs(a64) @ np.abs(b64)
+    tol = 2.0 ** -7 * np.abs(ref) + 2e-5 * scale + 1e-30
+    w = np.asarray(want.jax().astype(jnp.float32), np.float64)
+    assert np.all(np.abs(got.numpy().astype(np.float64) - ref) <= tol)
+    assert np.all(np.abs(got.numpy().astype(np.float64) - w) <= 2 * tol)
+    assert dispatch.count("matmul", "wgmma_bf16") == 1
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 0, "imad_i32": 0}  # the CPU launches nothing
+
+
+@pytest.mark.parametrize("name", ["k1", "k77", "a_transposed", "both_transposed", "batched"])
+def test_fused_bf16_root_matches_jax_at_the_edges(name):
+    """The fused bf16 root relu(x @ w + bias) * 0.5 - 0.25 at the same edge
+    shapes: the epilogue sees the float32 accumulator and the result is
+    rounded to bfloat16 once (tolerance as above, through the epilogue's
+    slope of 0.5, plus the bias's own bfloat16 rounding: none, it is read
+    as stored)."""
+    sa, sb, views = _BF16_EDGES[name]
+    (ja, pa), (jb, pb) = _operand(sa, "bfloat16", 0), _operand(sb, "bfloat16", 1)
+    if views:
+        (ja, jb), (pa, pb) = views(ja, jb), views(pa, pb)
+    n = pb.shape[-1]
+    jbias, pbias = _operand((1,) * (len(pb.shape) - 1) + (n,), "bfloat16", 2)
+
+    def make(mod):
+        return lambda x, w, b: mod.maximum(x @ w + b, 0.0) * 0.5 - 0.25
+
+    want = jsm.fuse(make(jsm))(ja, jb, jbias)
+    got = sm.fuse(make(sm))(pa, pb, pbias)
+    _same_meta(got, want)
+    a64 = np.asarray(ja.jax().astype(jnp.float32), np.float64)
+    b64 = np.asarray(jb.jax().astype(jnp.float32), np.float64)
+    bias64 = np.asarray(jbias.jax().astype(jnp.float32), np.float64)
+    ref = np.maximum(a64 @ b64 + bias64, 0.0) * 0.5 - 0.25
+    tol = 2.0 ** -7 * np.abs(ref) + 2e-5 * (np.abs(a64) @ np.abs(b64)) + 1e-6
+    w = np.asarray(want.jax().astype(jnp.float32), np.float64)
+    assert np.all(np.abs(got.numpy().astype(np.float64) - ref) <= tol)
+    assert np.all(np.abs(got.numpy().astype(np.float64) - w) <= 2 * tol)
+    batched = len(pa.shape) == 3
+    assert dispatch.count("matmul", "bmm_epilogue" if batched else "mm_epilogue") == 1
+    assert dispatch.count("matmul", "wgmma_bf16") == 1
+    assert dispatch.count("torch_path", "matmul_epilogue") == 0
+
+
+def test_mixed_and_float32_products_do_not_record_the_tensor_core_route():
+    a, b = torch.from_numpy(_mk((8, 6))), torch.from_numpy(_mk((6, 4), 1))
+    matmul.matmul(a, b.bfloat16())
+    matmul.matmul(a.bfloat16(), b)
+    matmul.matmul(a, b)
+    matmul.matmul(a.to(torch.int8), b.to(torch.int8))
+    assert dispatch.count("matmul", "wgmma_bf16") == 0
+    matmul.matmul(a.bfloat16(), b.bfloat16())
+    matmul.matmul(a.bfloat16()[None], b.bfloat16()[None])
+    assert dispatch.count("matmul", "wgmma_bf16") == 2
+    assert dispatch.count("matmul", "mm") == 5 and dispatch.count("matmul", "bmm") == 1
+
+
+def test_epilogue_dispatch_lists_every_opcode():
+    """The tensor-core kernel's epilogue dispatches an instruction once for
+    four elements through a list of the opcodes (csrc/matmul.cuh); an opcode
+    missing from it would still be right, but slow: the list is held to the
+    kernel's opcode enum and to the port's table."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(program.__file__).resolve().parent.parent / "csrc"
+    enum = re.search(r"enum SmOpcode : uint8_t \{(.*?)\};", (csrc / "tiles.cuh").read_text(), re.S)
+    opcodes = [name.strip() for name in enum.group(1).replace("\n", " ").split(",") if name.strip()]
+    listed = [name for name in re.findall(r"MM_CASE4\((\w+)\)", (csrc / "matmul.cuh").read_text())
+              if name != "OP"]
+    assert listed == opcodes
+    assert [name.lower() for name in opcodes] == [name.lower() for name in program.OPCODES]

@@ -13,7 +13,12 @@ device:
    operands, every opcode on float32 and int32, int32 ``ipow`` with negative
    exponents and static pow; arithmetic must agree exactly, transcendentals
    within 2 ulp; the crafted transcendentals are also held against float64
-   numpy at the JAX package's "crafted" bounds;
+   numpy at the JAX package's "crafted" bounds.  The opcode cases run
+   ``ew_flat``'s 16-byte path with a ragged tail, one instruction each (the
+   dispatch hoisted out of the loop); a chain, a scalar operand on either
+   side, a constant, a bool store and an operand 4 bytes off (the
+   per-element path) are held bit for bit against the plain interpreter
+   and against ``ew_strided`` on the same program;
 4. drives the two workloads of BASELINE.json through the public ``sm`` API
    at full size (the 1M-float ``sm.add``; ``sm.fuse(chain, donate=0,
    iterations=L)`` on 2048x2048 with L = 16 and 400), counts the kernel's
@@ -34,7 +39,12 @@ device:
    reductions also in GB/s of the bytes each call must read once), and,
    as a yardstick the port never calls, the one PyTorch call that computes
    the same function where there is one (``torch.add``, ``torch.sum``,
-   ``torch.dot``, ``torch.sum(dim)``, ``torch.matmul``, ``torch._int_mm``);
+   ``torch.dot``, ``torch.sum(dim)``, ``torch.matmul``, ``torch._int_mm``).
+   The 1M add is timed twice, kernel and ``torch.add`` alike: on the same
+   three arrays again and again (12 MB: hot in the 50 MB L2, what a caller
+   who adds the same arrays sees), and over a ring of operands and results
+   past the L2, which is what the kernels line holds against the bound at
+   the device-memory rate; and a chain of three instructions on 16M floats;
 7. the matmul path: holds the matmul kernel against its plain version on
    the card (f32, bf16, int8/uint8 and a wrapping int32; the ragged
    (300, 270) @ (270, 515); a transposed and a negative-step view operand;
@@ -51,20 +61,28 @@ device:
    results are bit-identical to those of their contiguous clones; K = 1
    and K = 2048 + 5; rank 3 with a per-batch extra and the fused epilogue
    stored as bf16 and as f32; the largest error is printed in units of the
-   tolerance; mixed f32/bf16 and integer products must not take that
-   kernel),
+   tolerance; mixed f32/bf16 and int32 products must not take that
+   kernel); for int8/uint8 pairs, which run the 8-bit wgmma in the int8
+   tensor-core kernel: the four signed/unsigned pairs with values above
+   127, the four operand orders at (300, 270) @ (270, 515) copied or
+   transposed 16 bytes at a time and byte by byte, K = 1 and K = 2048 + 5,
+   a product of uint8 255s at K = 33,280 that wraps int32, rank 3, a view
+   one byte off against its clone, and the dequantizing epilogue with a
+   scalar and a per-channel scale: all exact against ``int_product``, the
+   bits repeating,
    then drives bench.py's matmul workloads through the public API at full
    width (the fused ``relu(x @ W + bias) * s - c`` at 2048^3 in f32 and
    bf16, ``sm.int8_matmul`` at 2048^3 with and without ``scale=``, the
    fused batched root at (8, 1024, 1024) bf16, an int32 ``sm.dot``; one
    launch per call and no elementwise pass; the bf16 workloads through
-   the tensor-core kernel and the f32 and integer ones not, by the variant
-   counter; ``sm.dot``/``sm.matmul`` of f32 and complex64 through
+   the bf16 tensor-core kernel, ``sm.int8_matmul`` through the int8 one and
+   the f32 and int32 ones through neither, by the variant counter; ``sm.dot``/``sm.matmul`` of f32 and complex64 through
    ``torch.matmul``), and times them;
 8. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
-   read above 1; ``mm`` and ``bmm`` with their bf16 times), then
+   read above 1; ``mm`` and ``bmm`` with their bf16 times, ``mm_int8`` and
+   ``mm_f32`` beside them), then
    ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
@@ -90,6 +108,9 @@ SOURCE = "simplemath_tpu_torch/csrc/elementwise.cu"
 RD_SOURCE = "simplemath_tpu_torch/csrc/reduction.cu"
 MM_SOURCE = "simplemath_tpu_torch/csrc/matmul.cu"
 WGMMA_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma.cu"
+WGMMA_S8_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_s8.cu"
+N_CHAIN = 16 * 1024 * 1024  # the flat chain a * b + c - a: 256 MB moved
+ADD_RING = 16               # sets of (a, b, result) of the 1M add: 192 MB
 N_MM = 2048                # bench.py::bench_matmul, _epilogue, bench_int8_matmul
 BMM = (8, 1024, 1024)      # bench.py::bench_bmm
 N_INT_DOT = 512
@@ -323,7 +344,7 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
     Returns the largest |kernel - plain| of each entry point."""
     import torch
 
-    err = {"mm": 0.0, "bmm": 0.0}
+    err = {"mm": 0.0, "bmm": 0.0, **{k: 0.0 for k in matmul.VARIANTS}}
 
     def on(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -340,8 +361,8 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
         dims = matmul.product_shape(a.shape, b.shape)
         ex = [matmul._extra3(e, dims, len(a.shape) == 3) for e in extras]
         p = matmul.matmul_plain(a, b, k1.dtype, epilogue, ex)
-        entry = "bmm" if len(a.shape) == 3 else "mm"
-        err[entry] = max(err[entry], float((k1.double() - p.double()).abs().max()))
+        for key in ("bmm" if len(a.shape) == 3 else "mm", matmul.variant(a.dtype, b.dtype)):
+            err[key] = max(err[key], float((k1.double() - p.double()).abs().max()))
         return k1, p
 
     def close(label, k, p, ref64, scale64):
@@ -381,6 +402,7 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
         f"{vb.shape} strides {vb.strides}: within tolerance, no copy")
 
     # Integers: exact against int64 numpy, and an int32 product that wraps.
+    matmul.reset_launches()
     for da, db in (("int8", "int8"), ("int8", "uint8"), ("uint8", "uint8")):
         ia = rng.integers(np.iinfo(da).min, np.iinfo(da).max + 1, (130, 200)).astype(da)
         ib = rng.integers(np.iinfo(db).min, np.iinfo(db).max + 1, (200, 129)).astype(db)
@@ -394,6 +416,8 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
     want = want - (1 << 32) if want >= 1 << 31 else want
     k, p = both(wa, wb)
     check(bool((k == want).all()) and torch.equal(k, p), "the int32 product does not wrap exactly")
+    check(matmul.VARIANTS["wgmma_s8"] == 6 and matmul.VARIANTS["imad_i32"] >= 2,
+          f"the integer products launched {matmul.VARIANTS}")
     log("check mm int8@int8, int8@uint8, uint8@uint8: exact int32; int32 wraparound exact")
 
     # Rank 3, and every epilogue extra shape: a (1, N) row, an (M, 1)
@@ -441,7 +465,7 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
         matmul.reset_launches()
         k32, p32 = both(a, b, torch.float32)
         kb, _ = both(a, b, torch.bfloat16)
-        check(matmul.VARIANTS == {"wgmma_bf16": 4, "fma_f32": 0, "imad_i32": 0},
+        check(matmul.VARIANTS == {"wgmma_bf16": 4, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0},
               f"{label}: launched {matmul.VARIANTS}, not the tensor-core kernel")
         at, bt = elementwise.read(a).double(), elementwise.read(b).double()
         ref, scale = at @ bt, at.abs() @ bt.abs()
@@ -511,17 +535,99 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
     log(f"check mm bf16 K=1, K={N_MM + 5}, rank 3, fused epilogue with a per-batch extra "
         "stored as f32 and bf16: wgmma, within tolerance; a short and a long epilogue give "
         "ew_strided's bits on the stored product")
-    # Mixed and integer operands keep the CUDA-core kernels.
+    # Mixed operands and pairs with an int32 operand keep the CUDA-core kernels.
     matmul.reset_launches()
     x32, y32 = f32(130, 70), f32(70, 90)
     check(torch.equal(matmul.matmul(x32, y32.bfloat16()), matmul.matmul(x32, y32.bfloat16().float())),
           "f32 @ bf16 is not the f32 product of the widened operand")
-    matmul.matmul(x32.to(torch.int8), y32.to(torch.int8))
-    check(matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 2, "imad_i32": 1},
-          f"mixed and integer products launched {matmul.VARIANTS}")
+    k, p = both(x32.to(torch.int32), y32.to(torch.int8))
+    check(torch.equal(k, p), "int32 @ int8 is not exact")
+    check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 2, "imad_i32": 2},
+          f"mixed and int32 products launched {matmul.VARIANTS}")
     log(f"check mm bf16: largest error {worst[0]:.4f} of the tolerance 2e-5*(|A|@|B|) "
-        "against float64; f32 @ bf16 and int8 keep the CUDA-core kernels")
+        "against float64; f32 @ bf16 and int32 @ int8 keep the CUDA-core kernels")
+    int8_checks(dev, rng, sm, matmul, elementwise, both)
     return err
+
+
+def int8_checks(dev, rng, sm, matmul, elementwise, both):
+    """Phase 7a, int8/uint8 pairs: the int8 tensor-core kernel against the
+    exact product (``matmul.int_product``), whatever the shape or the
+    strides.  ``both`` is matmul_checks' (two launches whose bits must
+    repeat, and the plain version)."""
+    import torch
+
+    def i8(dtype, *shape):
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max + 1, shape).astype(dtype)
+        return torch.from_numpy(x).to(dev)
+
+    def tensor_core(label, a, b):
+        matmul.reset_launches()
+        k, p = both(a, b)
+        check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0},
+              f"{label}: launched {matmul.VARIANTS}, not the int8 tensor-core kernel")
+        want = matmul.int_product(elementwise.read(a), elementwise.read(b))
+        check(k.dtype == torch.int32 and torch.equal(k, want) and torch.equal(k, p),
+              f"{label}: not the exact int32 product")
+        return k
+
+    for da in ("int8", "uint8"):
+        for db in ("int8", "uint8"):
+            a, b = i8(da, 130, 200), i8(db, 200, 129)
+            check(da == "int8" or int(a.max()) > 127, "no uint8 value above 127")
+            k = tensor_core(f"{da} @ {db}", a, b)
+            want = a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(np.int64)
+            check(np.array_equal(k.cpu().numpy(), want), f"{da} @ {db} differs from int64 numpy")
+    log("check mm int8/uint8, the four pairs with values above 127: wgmma, exact")
+
+    def round16(n):
+        return n + (-n % 16)
+
+    for path, width in (("byte by byte", lambda n: n), ("16 bytes at a time", round16)):
+        def operand(dtype, rows, cols, transposed):
+            if transposed:  # (rows, cols) with the rows contiguous
+                return i8(dtype, cols, width(rows))[:, :rows].T
+            return i8(dtype, rows, width(cols))[:, :cols]
+        for ta, tb in ((False, False), (True, False), (False, True), (True, True)):
+            a, b = operand("int8", 300, 270, ta), operand("uint8", 270, 515, tb)
+            for x, contraction in ((a, 2), (b, 1)):
+                vec16 = matmul.staging(matmul._strides3(x.shape, x.stride(), False), contraction,
+                                       x.data_ptr(), 1)[1]
+                check(vec16 == (path != "byte by byte"), f"int8 {path}: staged otherwise")
+            tensor_core(f"int8 {'a.T' if ta else 'a'} @ {'b.T' if tb else 'b'}, {path}", a, b)
+    log("check mm int8 (300,270)@(270,515), each operand row-major or a transposed view, read "
+        "byte by byte and 16 bytes at a time (copied or transposed): wgmma, exact, bits repeat")
+    tensor_core("int8 K=1", i8("int8", 130, 1), i8("uint8", 1, 70))
+    tensor_core(f"int8 K={N_MM + 5}", i8("uint8", 100, N_MM + 5), i8("int8", N_MM + 5, 264))
+    tensor_core("int8 rank 3", i8("int8", 3, 70, 33), i8("uint8", 3, 33, 136))
+    ones = torch.full((20, 33_280), 255, dtype=torch.uint8, device=dev)
+    k = tensor_core("uint8 wraparound", ones, ones.T[:, :24])
+    want = (255 * 255 * 33_280) % (1 << 32) - (1 << 32)
+    check(255 * 255 * 33_280 >= 1 << 31 and bool((k == want).all()),
+          "the uint8 product does not wrap int32 exactly")
+    base = sm.Array(i8("int8", 540, 337))
+    va, vb = sm.Array(i8("uint8", 270, 304)).T[:300]._operand(), base[::2, 1:301]._operand()
+    k = tensor_core("int8 view one byte off", va, vb)
+    clone = matmul.matmul(elementwise.read(va).contiguous(), elementwise.read(vb).contiguous())
+    check(torch.equal(k, clone), "int8: the view and its clone differ")
+    log(f"check mm int8 K=1, K={N_MM + 5}, rank 3, uint8 255s at K=33280 (wraps int32), a view "
+        "one byte off: wgmma, exact")
+    ia, ib = i8("int8", 3, 130, 200), i8("uint8", 3, 200, 136)
+    acc = matmul.int_product(ia, ib).float()
+    for rank in (2, 3):
+        x, y, want = (ia, ib, acc) if rank == 3 else (ia[0], ib[0], acc[0])
+        for s in (torch.tensor(0.5, device=dev),
+                  torch.from_numpy(np.abs(rng.standard_normal((1,) * (rank - 1) + (136,)))
+                                   .astype(np.float32)).to(dev)):
+            matmul.reset_launches()
+            k1, k2 = matmul.int8_matmul(x, y, scale=s), matmul.int8_matmul(x, y, scale=s)
+            check(k1.dtype == torch.float32 and torch.equal(k1, want * s) and torch.equal(k1, k2),
+                  "int8_matmul with scale= is not the scaled exact product")
+            check(matmul.VARIANTS["wgmma_s8"] == 2 and sum(matmul.VARIANTS.values()) == 2,
+                  f"int8_matmul with scale= launched {matmul.VARIANTS}")
+    log("check mm/bmm int8 dequantizing epilogue, scalar and per-channel scale: the scaled "
+        "exact product, inside the tensor-core kernel")
 
 
 def main():
@@ -643,6 +749,39 @@ def main():
         n_codes += 1
     log(f"check {n_codes} opcode/dtype cases: arithmetic exact, "
         f"transcendentals within {worst_tr} ulp of the plain version")
+
+    # ew_flat beyond one instruction on two full operands: bit for bit the
+    # plain interpreter's values, and ew_strided's on the same program
+    # (operands read backwards take the strided entry point).
+    n_flat = xf.numel()
+    check(n_flat % 4 != 0, "the flat checks need a ragged tail")
+    lx, ly, ls = (program.leaf((n_flat,), torch.float32), program.leaf((n_flat,), torch.float32),
+                  program.leaf((), torch.float32))
+    scalar = yf[7].reshape(())
+    flat_cases = [
+        ("chain a*b+a-b", program.lower(lx * ly + lx - ly, [lx, ly]), [xf, yf]),
+        ("scalar on the right", program.lower(lx / ls, [lx, ls]), [xf, scalar]),
+        ("scalar on the left", program.lower(ls - lx, [ls, lx]), [scalar, xf]),
+        ("constant", program.lower(lx * 2.5, [lx]), [xf]),
+        ("bool store", program.lower(lx > ly, [lx, ly]), [xf, yf]),
+        ("one operand twice", program.lower(lx + lx, [lx]), [xf]),
+    ]
+    elementwise.reset_launches()
+    for label, prog, operands in flat_cases:
+        k, p = both(prog, (n_flat,), operands)
+        check(k.dtype == p.dtype and exact(k, p), f"ew_flat {label}: differs from the plain interpreter")
+        backwards = [elementwise.View(o, n_flat - 1, (n_flat,), (-1,)) if o.dim() else o
+                     for o in operands]
+        k2 = elementwise.elementwise(prog, (n_flat,), prog.dtype, *backwards, name="check")
+        check(exact(k.flip(0), k2), f"ew_flat {label}: differs from ew_strided")
+    check(elementwise.LAUNCHES == {"ew_flat": len(flat_cases), "ew_strided": len(flat_cases)},
+          f"the flat checks launched {elementwise.LAUNCHES}")
+    l_off = program.leaf((n_flat - 1,), torch.float32)
+    k, p = both(program.lower(l_off * l_off, [l_off]), (n_flat - 1,), [xf[1:]])
+    check(exact(k, p), "ew_flat on an operand 4 bytes off differs from the plain interpreter")
+    log(f"check ew_flat n={n_flat} (16-byte path and a tail of {n_flat % 4}): a chain, a scalar on "
+        "either side, a constant, a bool store, an operand 4 bytes off: the plain interpreter's "
+        "bits, and ew_strided's")
 
     # Crafted transcendentals against float64 (the JAX package's bounds).
     sweep = np.linspace(0.01, 20.0, N_ADD).astype(np.float32)
@@ -795,17 +934,50 @@ def main():
     # -------------------------------------------------------- 6. timing
     add_prog = binop("add", (N_ADD,), (N_ADD,))
     at, bt = add_a.torch(), add_b.torch()
-    # The add's 12 MB stay hot in the 50 MB L2 across a run, as they do for
-    # a caller that adds the same arrays again.
+    # The add twice.  Hot: its 12 MB stay in the 50 MB L2 across a run, as
+    # they do for a caller that adds the same arrays again.  Past the L2: a
+    # ring of operands, and of results kept alive so that each call writes
+    # other memory, 192 MB in all, as the reductions are timed; that is the
+    # time the kernels line holds against the bound at the device-memory
+    # rate.  torch.add, the library's call, is timed both ways too.
+    ring = [(sm.Array(on(rng.standard_normal(N_ADD).astype(np.float32))),
+             sm.Array(on(rng.standard_normal(N_ADD).astype(np.float32)))) for _ in range(ADD_RING)]
+    kept, turn = [None] * ADD_RING, [0]
+
+    def rotated(fn):
+        def call():
+            i = turn[0] = (turn[0] + 1) % ADD_RING
+            kept[i] = fn(*ring[i])
+        return call
+
     t = {
-        "add_ms": time_ms(lambda: sm.add(add_a, add_b).torch(), n=100),
-        "add_plain_ms": time_ms(lambda: program.run_plain(add_prog, [at, bt], (N_ADD,)), n=100),
+        "add_hot_ms": time_ms(lambda: sm.add(add_a, add_b).torch(), n=100),
+        "add_hot_plain_ms": time_ms(lambda: program.run_plain(add_prog, [at, bt], (N_ADD,)), n=100),
+        "add_hot_library_ms": time_ms(lambda: torch.add(at, bt), n=100),
+        "add_ms": time_ms(rotated(lambda a, b: sm.add(a, b).torch()), n=100),
+        "add_plain_ms": time_ms(rotated(lambda a, b: program.run_plain(
+            add_prog, [a.torch(), b.torch()], (N_ADD,))), n=100),
+        "add_library_ms": time_ms(rotated(lambda a, b: torch.add(a.torch(), b.torch())), n=100),
         "add_host_ms": host_ms(lambda: sm.add(add_a, add_b).torch()),
     }
+    t["add_hot_over_library"] = t["add_hot_ms"] / t["add_hot_library_ms"]
+    t["add_over_library"] = t["add_ms"] / t["add_library_ms"]
+    del ring, kept
+    # A chain of three instructions on 16M floats (256 MB: device memory):
+    # ew_flat's interpreter on registers of four elements.
+    chain_in = [on(rng.standard_normal(N_CHAIN).astype(np.float32)) for _ in range(3)]
+    lc = [program.leaf((N_CHAIN,), torch.float32) for _ in range(3)]
+    chain_prog = program.lower(lc[0] * lc[1] + lc[2] - lc[0], lc)
+    t["chain_16m_ms"] = time_ms(lambda: elementwise.elementwise(
+        chain_prog, (N_CHAIN,), torch.float32, *chain_in), n=10)
+    t["chain_16m_plain_ms"] = time_ms(
+        lambda: program.run_plain(chain_prog, chain_in, (N_CHAIN,)), n=10)
+    t["chain_16m_bound_ms"] = bound(16 * N_CHAIN, 3 * N_CHAIN)[0]
+    del chain_in
     for L in (16, 400):
         t[f"fused{L}_ms"] = time_ms(lambda: fused[L](acc0, fa, fe).torch(), n=4 if L == 16 else 1)
         t[f"fused{L}_plain_ms"] = time_ms(
-            lambda: program.run_plain(prog, plain_in, sq, L, 0), reps=3)
+            lambda: program.run_plain(prog, plain_in, sq, L, 0), reps=3 if L == 16 else 1)
         t[f"fused{L}_host_ms"] = host_ms(lambda: fused[L](acc0, fa, fe).torch())
     log(f"times on {card}: " + json.dumps(t))
 
@@ -863,7 +1035,7 @@ def main():
     # computes the same function on the same inputs (the port never calls
     # them).  The fused chains have none.
     lib = {
-        "add": time_ms(lambda: torch.add(at, bt), n=100),
+        "add": t["add_library_ms"],
         "sum": time_ms(lambda: torch.sum(xt), n=20),
         "dot": time_ms(lambda: torch.dot(at_, bt_), n=20),
         "axis0": time_ms(lambda: torch.sum(mt, 0), n=20),
@@ -913,18 +1085,20 @@ def main():
         got = {k: matmul.LAUNCHES[k] - before[k] for k in before}
         check(got == want, f"{label}: launched {got}, expected {want}")
         took = {k: v - before_v[k] for k, v in matmul.VARIANTS.items() if v != before_v[k]}
-        check(took == {"wgmma_bf16" if "bf16" in label else
-                       "fma_f32" if "f32" in label else "imad_i32": 1},
+        check(took == {"wgmma_bf16" if "bf16" in label else "fma_f32" if "f32" in label else
+                       "wgmma_s8" if "int8" in label else "imad_i32": 1},
               f"{label}: ran {took}")
     torch.cuda.synchronize()
     mm_launches, mm_variants = dict(matmul.LAUNCHES), dict(matmul.VARIANTS)
     counts = dispatch.counts()
     log(f"matmul path launches {mm_launches} by kernel {mm_variants} dispatch {counts}")
     check(mm_launches == {"mm": 5, "bmm": 1}, f"the matmul path launched {mm_launches}")
-    # The two bf16 workloads took the tensor-core kernel, and only they.
-    check(mm_variants == {"wgmma_bf16": 2, "fma_f32": 1, "imad_i32": 3},
+    # The two bf16 workloads took the bf16 tensor-core kernel, the two
+    # int8_matmul calls the int8 one, and only they.
+    check(mm_variants == {"wgmma_bf16": 2, "wgmma_s8": 2, "fma_f32": 1, "imad_i32": 1},
           f"the matmul path's kernels were {mm_variants}")
-    check(counts.get("matmul:wgmma_bf16") == 2, f"matmul dispatch {counts}")
+    check(counts.get("matmul:wgmma_bf16") == 2 and counts.get("matmul:wgmma_s8") == 2,
+          f"matmul dispatch {counts}")
     check(counts.get("matmul:mm_epilogue") == 3 and counts.get("matmul:bmm_epilogue") == 1
           and counts.get("matmul:int8") == 2, f"matmul dispatch {counts}")
     check(not any(k.startswith(("elementwise", "torch_path")) for k in counts),
@@ -1013,6 +1187,8 @@ def main():
     qat, qbt = qa.torch(), qb.torch()
     qa32, qb32 = qat.int(), qbt.int()
     x3t, w3t = x3.torch(), w3.torch()
+    q3a, q3b = (on(rng.integers(-127, 128, BMM[:1] + (BMM[1], BMM[2])).astype(np.int8))
+                for _ in range(2))
     mmt = {
         "mm_f32_ms": time_ms(lambda: matmul.matmul(xt_, wt_, torch.float32), n=5),
         "mm_f32_library_ms": time_ms(lambda: torch.matmul(xt_, wt_), n=5),
@@ -1026,9 +1202,18 @@ def main():
         "fused_bf16_ms": time_ms(lambda: layer(xb, wb, biasb).torch(), n=5),
         "fused_bf16_plain_ms": time_ms(
             lambda: matmul.matmul_plain(xbt, wbt, torch.bfloat16, epi_b, [bias_b3]), n=5),
-        "int8_ms": time_ms(lambda: sm.int8_matmul(qa, qb).torch(), n=3),
+        # int8: the bare kernel as bf16 is timed, then the public calls.
+        "mm_int8_ms": time_ms(lambda: matmul.matmul(qat, qbt, torch.int32), n=20),
+        "int8_ms": time_ms(lambda: sm.int8_matmul(qa, qb).torch(), n=20),
         "int8_plain_ms": time_ms(lambda: matmul.matmul_plain(qat, qbt, torch.int32), n=3),
-        "int8_scaled_ms": time_ms(lambda: sm.int8_matmul(qa, qb, scale=q_scale).torch(), n=3),
+        "int8_scaled_ms": time_ms(lambda: sm.int8_matmul(qa, qb, scale=q_scale).torch(), n=20),
+        # Its other routes: rank 3, a K-major B (a transposed view: copied,
+        # not transposed on the way in), and an operand one byte off, read
+        # byte by byte.
+        "bmm_int8_ms": time_ms(lambda: matmul.matmul(q3a, q3b, torch.int32), n=20),
+        "mm_int8_k_major_b_ms": time_ms(lambda: matmul.matmul(qat, qbt.T, torch.int32), n=20),
+        "mm_int8_one_byte_off_ms": time_ms(
+            lambda: matmul.matmul(qat[:, 1:], qbt[1:], torch.int32), n=5),
         "bmm_bf16_ms": time_ms(lambda: matmul.matmul(x3t, w3t, torch.bfloat16), n=20),
         "bmm_bf16_library_ms": time_ms(lambda: torch.matmul(x3t, w3t), n=20),
         "bmm_bf16_plain_ms": time_ms(lambda: matmul.matmul_plain(x3t, w3t, torch.bfloat16), n=5),
@@ -1054,20 +1239,25 @@ def main():
     int_mm = getattr(torch, "_int_mm", None)
     mmt["int8_library_ms"] = time_ms(lambda: int_mm(qat, qbt), n=20) if int_mm else None
     flop = 2.0 * n ** 3
-    for key in ("mm_f32", "mm_bf16", "fused_f32", "fused_bf16", "int8", "int8_scaled", "bmm_bf16",
-                "bmm_fused_bf16", "mm_int32", "mm_f32_transposed_a"):
+    for key in ("mm_f32", "mm_bf16", "fused_f32", "fused_bf16", "mm_int8", "int8", "int8_scaled",
+                "bmm_int8", "bmm_bf16", "bmm_fused_bf16", "mm_int32", "mm_f32_transposed_a"):
         mmt[f"{key}_Tops"] = flop / (mmt[f"{key}_ms"] * 1e-3) / 1e12
     b_f32 = bound(3 * 4 * n * n, flop, "f32")
     b_bf16 = bound(3 * 2 * n * n, flop, "bf16")
     b_int8 = bound((2 + 4) * n * n, flop, "int8")
     b_bmm = bound(3 * 2 * BMM[0] * BMM[1] * BMM[2], flop, "bf16")
     for key, b in (("mm_f32", b_f32), ("fused_f32", b_f32), ("mm_bf16", b_bf16),
-                   ("fused_bf16", b_bf16), ("int8", b_int8), ("bmm_bf16", b_bmm),
-                   ("bmm_fused_bf16", b_bmm)):
+                   ("fused_bf16", b_bf16), ("mm_int8", b_int8), ("int8", b_int8),
+                   ("int8_scaled", b_int8), ("bmm_bf16", b_bmm), ("bmm_fused_bf16", b_bmm)):
         mmt[f"{key}_bound_ms"] = b[0]
         mmt[f"{key}_share_of_bound"] = b[0] / mmt[f"{key}_ms"]
-    for key in ("mm_bf16", "bmm_bf16"):
+    for key in ("mm_bf16", "bmm_bf16", "mm_f32"):
         mmt[f"{key}_over_library"] = mmt[f"{key}_ms"] / mmt[f"{key}_library_ms"]
+    if int_mm:
+        mmt["mm_int8_over_library"] = mmt["mm_int8_ms"] / mmt["int8_library_ms"]
+        check(mmt["mm_int8_over_library"] <= 1.0,
+              f"the int8 kernel is slower than torch._int_mm: {mmt['mm_int8_ms']} ms against "
+              f"{mmt['int8_library_ms']}")
     log(f"matmul times on {card}: " + json.dumps(mmt))
 
     # Bounds of the earlier kernels at the timed shapes: the add moves 12 MB;
@@ -1100,17 +1290,27 @@ def main():
               rd_launches["rd_axis"], err_rd["rd_axis"], rt["axis0_identity_ms"],
               rt["axis0_identity_plain_ms"], b_axis, lib["axis0"]),
         # mm and bmm with bf16 operands, at 2048^3 and (8, 1024, 1024): the
-        # tensor-core kernel.  The f32 and integer instantiations of the same
-        # entry points (csrc/matmul.cu) are in the "matmul times" line.
+        # bf16 tensor-core kernel.  Then the other kernels behind the same
+        # entry point, mm at 2048^3: int8 operands (the int8 tensor-core
+        # kernel) and f32 operands (the CUDA-core kernel), each with the
+        # launches of its kernel on the main path.
         entry("mm", WGMMA_SOURCE, "simplemath_tpu/ops/matmul.py:134",
               mm_launches["mm"], err_mm["mm"], mmt["mm_bf16_ms"], mmt["mm_bf16_plain_ms"],
               b_bf16, mmt["mm_bf16_library_ms"]),
         entry("bmm", WGMMA_SOURCE, "simplemath_tpu/ops/matmul.py:209",
               mm_launches["bmm"], err_mm["bmm"], mmt["bmm_bf16_ms"], mmt["bmm_bf16_plain_ms"],
               b_bmm, mmt["bmm_bf16_library_ms"]),
+        entry("mm_int8", WGMMA_S8_SOURCE, "simplemath_tpu/ops/matmul.py:134 :457",
+              mm_variants["wgmma_s8"], err_mm["wgmma_s8"], mmt["mm_int8_ms"], mmt["int8_plain_ms"],
+              b_int8, mmt["int8_library_ms"]),
+        entry("mm_f32", MM_SOURCE, "simplemath_tpu/ops/matmul.py:134",
+              mm_variants["fma_f32"], err_mm["fma_f32"], mmt["mm_f32_ms"], mmt["mm_f32_plain_ms"],
+              b_f32, mmt["mm_f32_library_ms"]),
     ]
-    for k in kernels[-2:]:
-        k["other_source"] = MM_SOURCE
+    for k in kernels[4:6]:
+        k["other_sources"] = [WGMMA_S8_SOURCE, MM_SOURCE]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,9 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("elementwise.cu", "reduction.cu", "matmul.cu", "matmul_wgmma.cu")
-HEADERS = ("tiles.cuh", "program.cuh", "matmul.cuh")
+SOURCES = ("elementwise.cu", "reduction.cu", "matmul.cu", "matmul_wgmma.cu",
+           "matmul_wgmma_s8.cu")
+HEADERS = ("tiles.cuh", "program.cuh", "matmul.cuh", "wgmma.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
 # the crafted exp/log handle them); --fmad=false so each float operation
 # rounds once, as the plain torch version does (the matmul kernel's inner
@@ -98,6 +99,7 @@ def library() -> ctypes.CDLL:
         ("sm_rd_axis_launch", [void_p, void_p, void_p, void_p]),
         ("sm_mm_launch", [void_p, void_p, void_p]),
         ("sm_mm_wgmma_launch", [void_p, void_p, void_p]),
+        ("sm_mm_wgmma_s8_launch", [void_p, void_p, void_p]),
         ("sm_ew_params_size", []),
         ("sm_rd_params_size", []),
         ("sm_mm_params_size", []),

@@ -15,13 +15,30 @@
 // iterations (the TPU kernel's in-kernel fori_loop carry).
 //
 // What bounds it on an H100: the 1M-float add moves 12 MB and does one
-// add per element, so it is bound by device-memory bandwidth; ew_flat
-// reads and writes 16 bytes per thread where the data is aligned.  The
-// iterated pow/exp recurrence does ~L * 100 flops per element on 16 MB,
-// so it is bound by arithmetic, and the interpreter's dispatch on each
-// instruction is its overhead.  Generating code per expression, larger
-// per-thread work and TMA are later work; this kernel is the simple
-// correct one.
+// add per element, so it is bound by bytes (device memory, or the L2 when
+// the same arrays are added again); the iterated pow/exp recurrence does
+// ~L * 100 flops per element on 16 MB, so it is bound by arithmetic.  Either
+// way the interpreter's own work per element is the overhead, and ew_flat
+// is designed to shed it where the data allows 16-byte accesses (p.vec):
+//   - a register holds the four elements of a 16-byte load, so an
+//     instruction is fetched and dispatched once for four elements
+//     (sm_exec4), and scalars and constants are splatted once, before the
+//     loop;
+//   - a program of one instruction (every eager unary and binary op) has
+//     its dispatch hoisted out of the loop altogether: the opcode is chosen
+//     once per thread, and the loop body is that opcode's code on values in
+//     registers, with no register file in local memory (flat_single);
+//   - a thread issues the 16-byte loads of all its operands before any
+//     arithmetic (operands are read once, so the loads are streaming
+//     ones), and the grid is the blocks the card runs at once, which
+//     stride over the vectors.  Several vectors per operand in flight per
+//     thread were tried and were no faster: 1, 2, 4, 8 of them took 4.3,
+//     4.6, 4.7, 5.0 us for the 1M-float add in a hot L2 (torch.add 3.4; H100
+//     at 700 W) and 73, 74, 74, 79 us for 16M floats.
+// Inside a case the opcode is a constant, so sm_exec folds to its body and
+// the bits are the per-element interpreter's.  Code generated per
+// expression was not taken: nvcc at run time costs seconds per new
+// expression.  ew_strided still interprets per element.
 //
 // Launch: on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -40,39 +57,112 @@ __device__ __forceinline__ void sm_flat_one(const SmParams& p, uint32_t* r,
   sm_store(out, i, p.out_dtype, sm_run(p, r));
 }
 
+// A source register of a one-instruction program on the 16-byte path: a
+// full-size operand (``ptr``), or a scalar operand or a constant
+// (``splat``).
+struct FlatSource {
+  const uint4* ptr;
+  uint4 splat;
+};
+
+__device__ __forceinline__ FlatSource flat_source(const SmParams& p, int reg) {
+  FlatSource s;
+  s.ptr = nullptr;
+  if (reg >= p.n_ops) {
+    s.splat = sm_splat(p.consts[reg - p.n_ops]);
+  } else if (p.ops[reg].scalar) {
+    s.splat = sm_splat(sm_load(p.ops[reg].ptr, 0, p.ops[reg].dtype));
+  } else {
+    s.ptr = static_cast<const uint4*>(p.ops[reg].ptr);
+    s.splat = sm_splat(0u);
+  }
+  return s;
+}
+
+__device__ __forceinline__ uint4 flat_read(const FlatSource& s, int64_t q) {
+  return s.ptr ? __ldcs(s.ptr + q) : s.splat;
+}
+
+// The 16-byte path of a program of one instruction, the opcode a constant.
+// An operand the opcode does not read is never loaded (its load is dead
+// code).
+template <SmOpcode OP>
+__device__ __forceinline__ void flat_single(const SmParams& p, uint4* __restrict__ out,
+                                            int64_t n4) {
+  const SmInst in = p.insts[0];
+  const FlatSource a = flat_source(p, in.a), b = flat_source(p, in.b), c = flat_source(p, in.c);
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < n4; q += stride) {
+    const uint4 va = flat_read(a, q), vb = flat_read(b, q), vc = flat_read(c, q);
+    out[q] = sm_exec_lanes(OP, va, vb, vc);
+  }
+}
+
+// The 16-byte path of any other program: the interpreter on registers of
+// four elements.  The full-size operands of a vector are loaded four at a
+// time before they go to the register file (local memory), so that their
+// loads are in flight together.
+__device__ __forceinline__ void flat_program(const SmParams& p, uint4* __restrict__ out,
+                                             int64_t n4) {
+  uint4 r[SM_MAX_REGS];
+  sm_load_consts4(p, r);
+  for (int o = 0; o < p.n_ops; ++o)
+    if (p.ops[o].scalar) r[o] = sm_splat(sm_load(p.ops[o].ptr, 0, p.ops[o].dtype));
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < n4; q += stride) {
+    for (int o0 = 0; o0 < p.n_ops; o0 += 4) {
+      uint4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (o0 + j < p.n_ops && !p.ops[o0 + j].scalar)
+          v[j] = __ldcs(static_cast<const uint4*>(p.ops[o0 + j].ptr) + q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (o0 + j < p.n_ops && !p.ops[o0 + j].scalar) r[o0 + j] = v[j];
+    }
+    out[q] = sm_run4(p, r);
+  }
+}
+
 }  // namespace
 
 // Counterpart of _build_call_1d: every operand is contiguous and full-size
-// or a single element; a grid-stride loop, 16-byte loads and stores when
-// p.vec (all full operands and the output 4-byte and 16-byte aligned).
-__global__ void __launch_bounds__(kThreads) ew_flat(const SmParams p, void* __restrict__ out) {
-  uint32_t r[SM_MAX_REGS];
-  sm_load_consts(p, r);
+// or a single element.  With p.vec (all full operands and the output
+// 4-byte and 16-byte aligned) whole 16-byte vectors go through flat_single
+// or flat_program and the last n % 4 elements through the per-element
+// interpreter; without it every element does.
+__global__ void __launch_bounds__(kThreads) ew_flat(const __grid_constant__ SmParams p,
+                                                    void* __restrict__ out) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int64_t done = 0;
   if (p.vec) {
     const int64_t n4 = p.n / 4;
-    for (int64_t q = tid; q < n4; q += stride) {
-      uint4 lanes[SM_MAX_OPERANDS];
-      for (int o = 0; o < p.n_ops; ++o)
-        if (!p.ops[o].scalar) lanes[o] = static_cast<const uint4*>(p.ops[o].ptr)[q];
-      uint32_t res[4];
-      for (int e = 0; e < 4; ++e) {
-        for (int o = 0; o < p.n_ops; ++o) {
-          if (p.ops[o].scalar) {
-            r[o] = sm_load(p.ops[o].ptr, 0, p.ops[o].dtype);
-          } else {
-            const uint4 v = lanes[o];
-            r[o] = e == 0 ? v.x : (e == 1 ? v.y : (e == 2 ? v.z : v.w));
-          }
-        }
-        res[e] = sm_run(p, r);
+    uint4* const out4 = static_cast<uint4*>(out);
+    // One instruction whose result is the program's: its opcode is chosen
+    // here, once, and is a constant inside flat_single.
+    const bool single = p.n_insts == 1 && p.iterations == 1 &&
+                        p.result == p.n_ops + p.n_consts && p.insts[0].dst == p.result;
+    bool taken = false;
+    if (single) {
+      taken = true;
+#define SM_CASE_FLAT(OP)             \
+  case OP:                           \
+    flat_single<OP>(p, out4, n4);    \
+    break;
+      switch (p.insts[0].op) {
+        SM_FOR_EACH_OPCODE(SM_CASE_FLAT)
+        default:
+          taken = false;
       }
-      static_cast<uint4*>(out)[q] = make_uint4(res[0], res[1], res[2], res[3]);
+#undef SM_CASE_FLAT
     }
+    if (!taken) flat_program(p, out4, n4);
     done = n4 * 4;
+    if (tid >= p.n - done) return;
   }
+  uint32_t r[SM_MAX_REGS];
+  sm_load_consts(p, r);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = done + tid; i < p.n; i += stride) sm_flat_one(p, r, out, i);
 }
 
@@ -89,10 +179,39 @@ __global__ void __launch_bounds__(kThreads) ew_strided(const SmParams p, void* _
   }
 }
 
+namespace {
+
+// The blocks of ew_flat that the card runs at once: its 16-byte path
+// launches no more and strides over the rest.  Asked once.
+cudaError_t flat_resident_blocks(int64_t* resident) {
+  static int64_t blocks = 0;
+  if (blocks == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t rc = cudaGetDevice(&device);
+    if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ew_flat, kThreads, 0);
+    if (rc != cudaSuccess) return rc;
+    if (sms < 1 || per_sm < 1) return cudaErrorLaunchOutOfResources;
+    blocks = (int64_t)sms * per_sm;
+  }
+  *resident = blocks;
+  return cudaSuccess;
+}
+
+}  // namespace
+
 extern "C" int sm_ew_launch(const SmParams* p, void* out, int strided, void* stream) {
-  const int64_t work = (!strided && p->vec) ? (p->n + 3) / 4 : p->n;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
+  int64_t blocks = (p->n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (!strided && p->vec) {
+    // One vector a thread a pass; the blocks stride over the rest.
+    int64_t resident = 0;
+    const cudaError_t rc = flat_resident_blocks(&resident);
+    if (rc != cudaSuccess) return (int)rc;
+    blocks = (p->n / 4 + kThreads - 1) / kThreads;
+    if (blocks > resident) blocks = resident;
+  }
   if (blocks < 1) blocks = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (strided)

@@ -1,6 +1,7 @@
 // The CUDA-core matmul kernel for Hopper (sm_90a): float32, mixed
-// float32/bfloat16 and integer operands.  bfloat16 @ bfloat16 takes the
-// tensor-core kernel of matmul_wgmma.cu instead; the wrapper routes by the
+// float32/bfloat16 and integer operands of which one is int32.  bfloat16 @
+// bfloat16 takes the tensor-core kernel of matmul_wgmma.cu and int8/uint8
+// pairs that of matmul_wgmma_s8.cu instead; the wrapper routes by the
 // operands' types alone, never by shape, stride or size.
 //
 // Replaces the JAX package's two Pallas matmul kernels, both in
@@ -41,10 +42,11 @@
 // exact f32 multiply-adds on the CUDA cores for every float signature it
 // takes, and 32-bit integer multiply-adds for the integer types.  For f32
 // operands that is the arithmetic "default" precision promises (a
-// tensor-core route would truncate them).  For int8 it is far above the
-// card's tensor-core bound: the int8 tensor-core instructions want both
-// operands contraction-contiguous in shared memory, so a row-major B has
-// to be transposed on the way in, which is a redesign of its own.
+// tensor-core route would truncate them), and a product with an int32
+// operand has no tensor-core instruction.  The int8 and uint8 loads stay
+// for the pairs with one int32 operand; a pair of 1-byte operands runs on
+// the int8 tensor cores (matmul_wgmma_s8.cu), which this kernel's
+// multiply-adds are two hundred times slower than.
 //
 // Built with --fmad=false like the other sources, so the epilogue rounds
 // once per operation; the inner product therefore asks for its fused

@@ -66,87 +66,14 @@
 // per operation).  Launch: on the caller's stream; allocates nothing;
 // returns the first CUDA error so the wrapper can raise.
 
-#include "matmul.cuh"
+#include "wgmma.cuh"
+
+using namespace sm_wgmma;
 
 namespace {
 
-constexpr int kBM = 128, kBN = 256, kBK = 64;
-constexpr int kThreads = 256;
-constexpr int kAcc = kBN / 2;  // accumulator registers of a thread
-constexpr int kStages = 4;  // 5 to 7 were no faster at 128 x 128 tiles
-constexpr int kTileBytesA = kBM * kBK * 2, kTileBytesB = kBN * kBK * 2;
-constexpr int kStageBytes = kTileBytesA + kTileBytesB;
-constexpr int kAtomBytes = 1024;  // 8 rows of 128 bytes: the swizzle's period
-constexpr int kSmemBytes = kStages * kStageBytes + kAtomBytes;  // + alignment slack
-static_assert(kStages >= 3, "the ring keeps two steps in the multiplier");
-static_assert(kSmemBytes <= 232448, "a block has 227 KB of shared memory");
+constexpr int kBK = kRowBytes / 2;  // k of one step: a 128-byte tile row of bf16
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset, inside a ROWS x 64 (K-major) or 64 x ROWS (MN-major) bf16
-// tile, of element (mn, k).  Both are the canonical 128-byte-swizzle
-// layouts of wgmma: rows of 128 bytes in atoms of 8 rows, the 16-byte chunk
-// c of row r stored at chunk c ^ (r & 7).
-//   K-major:  row = mn, 64 k to a row; atoms follow each other over mn.
-//   MN-major: row = k, 64 mn to a row; atom (mn / 64, k / 8) sits at
-//             (mn / 64) * 8 + k / 8.
-template <bool KMAJOR>
-__device__ __forceinline__ uint32_t tile_offset(int mn, int k) {
-  if (KMAJOR) return mn * 128 + ((((k >> 3) ^ (mn & 7)) << 4) | ((k & 7) << 1));
-  return ((mn >> 6) * 8 + (k >> 3)) * kAtomBytes + (k & 7) * 128 +
-         (((((mn & 63) >> 3) ^ (k & 7)) << 4) | ((mn & 7) << 1));
-}
-
-// The shared-memory matrix descriptor of a tile (or of a part of it that
-// starts at ``addr``): 128-byte swizzle, 1024 bytes from one atom to the
-// next along the strided direction (8 rows of mn for K-major, 8 rows of k
-// for MN-major), and for MN-major 8 KB from one block of 64 mn to the next
-// (the leading offset is not used for a swizzled K-major operand).
-template <bool KMAJOR>
-__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
-  const uint64_t lbo = KMAJOR ? 1 : (8 * kAtomBytes) >> 4;
-  const uint64_t sbo = kAtomBytes >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | (1ull << 62);
-}
-
-// Bytes from a tile's start to what one k16 step ``ks`` (0..3) reads of the
-// rows from 64 * ``half`` on.
-template <bool KMAJOR>
-__device__ __forceinline__ uint32_t step_offset(int half, int ks) {
-  // K-major: 64 rows of 128 bytes down, 16 k = 32 bytes along the row.
-  // MN-major: the next block of 64 mn, two atoms of 8 k down.
-  return KMAJOR ? half * 64 * 128 + ks * 32 : half * 8 * kAtomBytes + ks * 2 * kAtomBytes;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Orders this thread's ordinary shared-memory stores before later reads by
-// wgmma (the async proxy).
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Keeps the compiler from moving accumulator registers across the
 // asynchronous multiplies.
 __device__ __forceinline__ void fence_accumulator(float* d) {
@@ -216,150 +143,6 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TA), "n"(TB));
 }
 
-// A thread's part in staging one operand 16 bytes at a time.  A tile of
-// ROWS x 64 is ROWS * 8 chunks of 8 elements, ROWS / 32 to a thread;
-// neighbouring threads take neighbouring chunks of one row of the source.
-// K-major: the thread's chunks sit at one k, 32 rows of mn apart; MN-major:
-// at one mn, 2048 / ROWS rows of k apart (a multiple of 8, so the swizzle's
-// row bits do not change).  Either way they are a fixed step apart in the
-// source and in the tile, and the source moves on by 64 k from one step to
-// the next, so the addresses are worked out once, before the K loop.
-struct ChunkPlan {
-  const uint16_t* src;  // the thread's first chunk of the coming step
-  int64_t per_chunk;    // elements from one of its chunks to the next
-  int64_t per_step;     // elements from one step to the next
-  uint32_t dst;         // bytes from a tile's start to its first chunk
-  int32_t k;            // k, inside a tile, of its first chunk
-  // K-major: bit i says the row of chunk i lies inside the matrix;
-  // MN-major: the bytes (0..16) of each chunk that lie inside it along mn.
-  int32_t inside;
-};
-
-template <bool KMAJOR, int ROWS>
-__device__ __forceinline__ ChunkPlan plan_chunks(const MmOperand& x, int64_t base, int64_t s_mn,
-                                                 int64_t s_k, int64_t mn0, int64_t MN, int tid) {
-  constexpr int kPerRow = ROWS / 8;  // chunks along mn (MN-major)
-  ChunkPlan c;
-  const int mn = KMAJOR ? tid >> 3 : (tid % kPerRow) << 3;
-  c.k = KMAJOR ? (tid & 7) << 3 : tid / kPerRow;
-  c.src = static_cast<const uint16_t*>(x.ptr) + base + (mn0 + mn) * s_mn + c.k * s_k;
-  c.per_chunk = KMAJOR ? 32 * s_mn : (kThreads / kPerRow) * s_k;
-  c.per_step = kBK * s_k;
-  c.dst = tile_offset<KMAJOR>(mn, c.k);
-  c.inside = 0;
-  if (KMAJOR) {
-#pragma unroll
-    for (int i = 0; i < ROWS / 32; ++i) c.inside |= (mn0 + mn + 32 * i < MN) << i;
-  } else {
-    const int64_t left = MN - (mn0 + mn);
-    c.inside = left >= 8 ? 16 : (left > 0 ? (int)left * 2 : 0);
-  }
-  return c;
-}
-
-// Issues the thread's copies of one step into the tile at ``tile`` and
-// moves the plan on to the next step; ``k_left`` is K minus the step's
-// first k.  The source size of a copy zero-fills what lies past the edge;
-// a copy of no bytes is given ``safe``, an address it may name.
-template <bool KMAJOR, int ROWS>
-__device__ __forceinline__ void copy_chunks(ChunkPlan& c, const void* safe, uint32_t tile,
-                                            int64_t k_left) {
-  constexpr int kRowsOfK = kThreads / (ROWS / 8);  // MN-major: k from chunk to chunk
-  const int64_t along = k_left - c.k;  // K-major: elements left in the row
-  const int row_bytes = along >= 8 ? 16 : (along > 0 ? (int)along * 2 : 0);
-#pragma unroll
-  for (int i = 0; i < ROWS / 32; ++i) {
-    const int bytes = KMAJOR ? ((c.inside >> i) & 1 ? row_bytes : 0)
-                             : (c.k + kRowsOfK * i < k_left ? c.inside : 0);
-    cp_async16(tile + c.dst + i * (KMAJOR ? 32 * 128 : kRowsOfK / 8 * kAtomBytes),
-               bytes ? static_cast<const void*>(c.src + i * c.per_chunk) : safe, bytes);
-  }
-  c.src += c.per_step;
-}
-
-// One operand's ROWS x 64 tile (mn from mn0, k from k0), element by element
-// through its strides ``s_mn`` and ``s_k``, into the shared tile at
-// ``tile``; zero outside the matrix.
-template <bool KMAJOR, int ROWS>
-__device__ __forceinline__ void copy_elements(const MmOperand& x, int64_t base, int64_t s_mn,
-                                              int64_t s_k, int64_t mn0, int64_t MN, int64_t k0,
-                                              int64_t K, uint8_t* tile, int tid) {
-  const uint16_t* src = static_cast<const uint16_t*>(x.ptr);
-#pragma unroll 4
-  for (int i = 0; i < ROWS * kBK / kThreads; ++i) {
-    const int e = tid + i * kThreads;
-    const int mn = KMAJOR ? e >> 6 : e % ROWS;
-    const int k = KMAJOR ? e & 63 : e / ROWS;
-    const int64_t gmn = mn0 + mn, gk = k0 + k;
-    const uint16_t v = (gmn < MN && gk < K) ? src[base + gmn * s_mn + gk * s_k] : (uint16_t)0;
-    *reinterpret_cast<uint16_t*>(tile + tile_offset<KMAJOR>(mn, k)) = v;
-  }
-}
-
-// Two f32 values (as bits) rounded to bf16, nearest even, ``lo`` in the low
-// half: one instruction.  A NaN becomes the canonical NaN.
-__device__ __forceinline__ uint32_t pack_bf16(uint32_t lo, uint32_t hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(sm_f(hi)), "f"(sm_f(lo)));
-  return d;
-}
-
-// Two adjacent f32 values at ``at`` (aligned to the pair) as bf16 (ESIZE
-// 2) or as they are (ESIZE 4); one value in the stored type of ``esize``
-// bytes (2: bf16; 1: bool; 4: the register's bits).
-template <int ESIZE>
-__device__ __forceinline__ void write_pair(void* at, uint32_t v0, uint32_t v1) {
-  if (ESIZE == 2)
-    *static_cast<uint32_t*>(at) = pack_bf16(v0, v1);
-  else
-    *static_cast<uint2*>(at) = make_uint2(v0, v1);
-}
-__device__ __forceinline__ void write_one(void* at, int esize, uint32_t v) {
-  if (esize == 2)
-    *static_cast<uint16_t*>(at) = (uint16_t)pack_bf16(v, 0u);
-  else if (esize == 1)
-    *static_cast<uint8_t*>(at) = v != 0;
-  else
-    *static_cast<uint32_t*>(at) = v;
-}
-
-// A warp lays its 16 x 256 results out in shared memory, then writes whole
-// rows of the output, 16 bytes a lane.  The pitch's padding spreads the 8
-// rows one store instruction touches over the banks.
-template <int ESIZE>
-struct Rows {
-  static constexpr int kPitch = kBN * ESIZE + (ESIZE == 4 ? 32 : 16);
-  static constexpr int kWarpBytes = 16 * (kBN * 4 + 32);  // the largest ESIZE's
-
-  // Where pair ``e`` of this lane's accumulator goes (see the kernel).
-  static __device__ __forceinline__ uint8_t* at(uint8_t* mine, int lane, int e) {
-    return mine + ((lane >> 2) + 8 * (e & 1)) * kPitch + (8 * (e >> 1) + (lane & 3) * 2) * ESIZE;
-  }
-
-  // The accumulator itself (``wide`` output without an epilogue).
-  static __device__ __forceinline__ void stash(uint8_t* mine, int lane, const float* acc) {
-#pragma unroll
-    for (int e = 0; e < kAcc / 2; ++e)
-      write_pair<ESIZE>(at(mine, lane, e), sm_u(acc[2 * e]), sm_u(acc[2 * e + 1]));
-  }
-
-};
-
-// A warp's rows, ``PITCH`` bytes apart at ``mine``, to ``dst`` (the output
-// at the warp's first row and the tile's first column): ``rows`` of them,
-// ``row_bytes`` apart, the first ``bytes`` of each (a multiple of 16), of at
-// most ROW_BYTES; whole rows, 16 bytes a lane.
-template <int ROW_BYTES, int PITCH>
-__device__ __forceinline__ void flush_rows(const uint8_t* mine, int lane, uint8_t* dst,
-                                           int64_t row_bytes, int rows, int64_t bytes) {
-  for (int rr = 0; rr < rows; ++rr, dst += row_bytes) {
-#pragma unroll
-    for (int c = lane * 16; c < ROW_BYTES; c += 32 * 16)
-      if (c < bytes)
-        *reinterpret_cast<uint4*>(dst + c) = *reinterpret_cast<const uint4*>(mine + rr * PITCH + c);
-  }
-}
-
 }  // namespace
 
 template <bool A_KMAJOR, bool B_KMAJOR>
@@ -382,23 +165,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool stores = !(q.a.vec16 && q.b.vec16);
 
   // B is (b, k, n): its mn stride is its last.
-  ChunkPlan plan_a =
-      plan_chunks<A_KMAJOR, kBM>(q.a, base_a, q.a.strides[1], q.a.strides[2], m0, q.M, tid);
-  ChunkPlan plan_b =
-      plan_chunks<B_KMAJOR, kBN>(q.b, base_b, q.b.strides[2], q.b.strides[1], n0, q.N, tid);
+  ChunkPlan<uint16_t> plan_a =
+      plan_chunks<A_KMAJOR, kBM, uint16_t>(q.a, base_a, q.a.strides[1], q.a.strides[2], m0, q.M, tid);
+  ChunkPlan<uint16_t> plan_b =
+      plan_chunks<B_KMAJOR, kBN, uint16_t>(q.b, base_b, q.b.strides[2], q.b.strides[1], n0, q.N, tid);
   // Steps are staged in ascending order, each once.
   auto stage = [&](int step) {
     const uint32_t off = (uint32_t)(step % kStages) * kStageBytes;
     const int64_t k0 = (int64_t)step * kBK;
     if (q.a.vec16)
-      copy_chunks<A_KMAJOR, kBM>(plan_a, q.a.ptr, ring + off, q.K - k0);
+      copy_chunks<A_KMAJOR, kBM, uint16_t>(plan_a, q.a.ptr, ring + off, q.K - k0);
     else
-      copy_elements<A_KMAJOR, kBM>(q.a, base_a, q.a.strides[1], q.a.strides[2], m0, q.M, k0, q.K,
+      copy_elements<A_KMAJOR, kBM, uint16_t>(q.a, base_a, q.a.strides[1], q.a.strides[2], m0, q.M, k0, q.K,
                                    ring_ptr + off, tid);
     if (q.b.vec16)
-      copy_chunks<B_KMAJOR, kBN>(plan_b, q.b.ptr, ring + off + kTileBytesA, q.K - k0);
+      copy_chunks<B_KMAJOR, kBN, uint16_t>(plan_b, q.b.ptr, ring + off + kTileBytesA, q.K - k0);
     else
-      copy_elements<B_KMAJOR, kBN>(q.b, base_b, q.b.strides[2], q.b.strides[1], n0, q.N, k0, q.K,
+      copy_elements<B_KMAJOR, kBN, uint16_t>(q.b, base_b, q.b.strides[2], q.b.strides[1], n0, q.N, k0, q.K,
                                    ring_ptr + off + kTileBytesA, tid);
   };
 
@@ -438,107 +221,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   wgmma_wait<0>();
   fence_accumulator(acc);
 
-  // Accumulator register 4 * j + 2 * h + c of a thread is the element at
-  // row 16 * warp + lane / 4 + 8 * h, column 8 * j + 2 * (lane % 4) + c of
-  // the tile (warps 0-3 are the first warpgroup): pair e = 2 * j + h is two
-  // adjacent columns.  With one block of 8 warps on an SM every instruction
-  // here is paid in full (nothing else runs meanwhile), so the store does
-  // as little per element as it can: where the output's rows start on 16
-  // bytes (``wide``) a warp lays its 16 x 256 results out in the ring, which
-  // is free by now, and writes whole rows; otherwise the pairs go out one by
-  // one.
-  const int lane = tid & 31, warp = tid >> 5;
-  const int64_t row0 = m0 + warp * 16 + (lane >> 2);
-  const int64_t col0 = n0 + (lane & 3) * 2;
-  const int esize = q.out_dtype == SM_BF16 ? 2 : (q.out_dtype == SM_BOOL ? 1 : 4);
-  const bool wide = (q.N * esize) % 16 == 0;
-  uint8_t* const out_bytes = static_cast<uint8_t*>(out) + bz * q.M * q.N * esize;
-  uint8_t* const mine = ring_ptr + warp * Rows<4>::kWarpBytes;
-  static_assert(8 * Rows<4>::kWarpBytes <= kStages * kStageBytes, "the results fit in the ring");
-  __syncthreads();  // both warpgroups have read their last tiles
-
-  const int64_t first = m0 + warp * 16;  // the warp's first row
-  const int rows = first >= q.M ? 0 : (int)(q.M - first < 16 ? q.M - first : 16);
-  const int64_t row_bytes = q.N * esize;
-  uint8_t* const dst = out_bytes + first * row_bytes + n0 * esize;
-  const int64_t bytes = row_bytes - n0 * esize;  // of an output row, from this tile on
-
-  if (!q.epilogue) {
-    if (wide) {
-      // f32 or bf16: no bounds here, the rows are cut when they are written.
-      if (esize == 2) {
-        Rows<2>::stash(mine, lane, acc);
-        __syncwarp();
-        flush_rows<kBN * 2, Rows<2>::kPitch>(mine, lane, dst, row_bytes, rows, bytes);
-      } else {
-        Rows<4>::stash(mine, lane, acc);
-        __syncwarp();
-        flush_rows<kBN * 4, Rows<4>::kPitch>(mine, lane, dst, row_bytes, rows, bytes);
-      }
-      return;
-    }
-#pragma unroll
-    for (int e = 0; e < kAcc / 2; ++e) {
-      const int64_t m = row0 + 8 * (e & 1), n = col0 + 8 * (e >> 1);
-      if (m < q.M && n < q.N) {
-        uint8_t* at = out_bytes + (m * q.N + n) * esize;
-        write_one(at, esize, sm_u(acc[2 * e]));
-        if (n + 1 < q.N) write_one(at + esize, esize, sm_u(acc[2 * e + 1]));
-      }
-    }
-    return;
-  }
-
-  // The epilogue.  The accumulators go to the warp's rows as f32; then a
-  // lane takes four adjacent columns of a row at a time (two such groups a
-  // row) through the interpreter, whose registers hold four elements each,
-  // and puts the results back at the row's start in the stored type (never
-  // past what the warp has already read), or straight to the output where
-  // its rows do not start on 16 bytes.  Each instruction is dispatched once
-  // for the four elements (mm_exec4): dispatching per element cost 0.03 ms
-  // more at 2048^3 (H100, 700 W).  The register file in shared memory instead of local
-  // memory, and eight elements a pass instead of four, were tried and were
-  // no faster.
-  Rows<4>::stash(mine, lane, acc);
-  __syncwarp();
-  const SmParams& p = q.p;
-  uint4 r[SM_MAX_REGS];
-  mm_load_consts4(p, r);
-#pragma unroll 1
-  for (int pass = 0; pass < 2 * rows; ++pass) {
-    const int rr = pass >> 1;
-    const int c = 4 * (lane + 32 * (pass & 1));  // the group's first column in the tile
-    const int64_t m = first + rr, n = n0 + c;
-    const int count = n < q.N ? (int)(q.N - n < 4 ? q.N - n : 4) : 0;
-    uint8_t* const row = mine + rr * Rows<4>::kPitch;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (count)
-      v = mm_epilogue4_at(p, r, bz, m, n, *reinterpret_cast<const uint4*>(row + c * 4), count);
-    __syncwarp();  // every lane has read its accumulators of this half row
-    if (wide) {  // then count is 0 or 4; what lies past N is not written out
-      if (esize == 4)
-        *reinterpret_cast<uint4*>(row + c * 4) = v;
-      else if (esize == 2)
-        *reinterpret_cast<uint2*>(row + c * 2) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-      else
-        *reinterpret_cast<uint32_t*>(row + c) =
-            (v.x != 0) | ((v.y != 0) << 8) | ((v.z != 0) << 16) | ((uint32_t)(v.w != 0) << 24);
-    } else {
-      uint8_t* at = out_bytes + (m * q.N + n) * esize;
-      const uint32_t vs[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i < count) write_one(at + i * esize, esize, vs[i]);
-    }
-  }
-  if (!wide) return;
-  __syncwarp();
-  if (esize == 4)
-    flush_rows<kBN * 4, Rows<4>::kPitch>(mine, lane, dst, row_bytes, rows, bytes);
-  else if (esize == 2)
-    flush_rows<kBN * 2, Rows<4>::kPitch>(mine, lane, dst, row_bytes, rows, bytes);
-  else
-    flush_rows<kBN, Rows<4>::kPitch>(mine, lane, dst, row_bytes, rows, bytes);
+  store_tile(q, out, acc, ring_ptr, tid, bz, m0, n0);
 }
 
 namespace {

@@ -1,8 +1,10 @@
-// The program and operand descriptors, and the per-element helpers that
-// the elementwise kernel (elementwise.cu), the map-reduce kernel
-// (reduction.cu) and the matmul kernel's epilogue (matmul.cu) share: load
-// the operands of one element, run the opcode program over them, store a
-// result.  One copy, so all three evaluate an expression bit for bit alike.
+// The program and operand descriptors, and the helpers that the elementwise
+// kernel (elementwise.cu), the map-reduce kernel (reduction.cu) and the
+// matmul kernels' epilogues (matmul.cuh) share: load the operands of one
+// element, run the opcode program over them, store a result; and the same
+// on four elements at a time, each register a uint4, so that an instruction
+// is fetched and dispatched once for four elements.  One copy, so all of
+// them evaluate an expression bit for bit alike.
 #pragma once
 
 #include "tiles.cuh"
@@ -69,6 +71,60 @@ __device__ __forceinline__ uint32_t sm_run(const SmParams& p, uint32_t* r) {
 
 __device__ __forceinline__ void sm_load_consts(const SmParams& p, uint32_t* r) {
   for (int j = 0; j < p.n_consts; ++j) r[p.n_ops + j] = p.consts[j];
+}
+
+// ------------------------------------------------ four elements at a time
+// Every opcode of SmOpcode (tiles.cuh), in its order: the list behind each
+// switch that turns a run-time opcode into a compile-time one.
+#define SM_FOR_EACH_OPCODE(X)                                                           \
+  X(ADD_F) X(SUB_F) X(MUL_F) X(DIV_F) X(MAX_F) X(MIN_F)                                 \
+  X(NEG_F) X(ABS_F) X(SQRT_F) X(SQUARE_F) X(SIGN_F)                                     \
+  X(EXP_F) X(LOG_F) X(EXP2_F) X(LOG2_F) X(TANH_F) X(SIN_F) X(COS_F) X(TAN_F)            \
+  X(POW_F)                                                                              \
+  X(ADD_I) X(SUB_I) X(MUL_I) X(MAX_I) X(MIN_I) X(NEG_I) X(ABS_I) X(SQUARE_I)            \
+  X(SIGN_I) X(IPOW_I)                                                                   \
+  X(EQ_F) X(NE_F) X(LT_F) X(LE_F) X(GT_F) X(GE_F)                                       \
+  X(EQ_I) X(NE_I) X(LT_I) X(LE_I) X(GT_I) X(GE_I)                                       \
+  X(SELECT)                                                                             \
+  X(I2F) X(F2I) X(B2F) X(B2I) X(F2B) X(I2B)
+
+__device__ __forceinline__ uint4 sm_splat(uint32_t v) { return make_uint4(v, v, v, v); }
+
+// One instruction on the four elements of a register.  With a constant
+// ``op`` sm_exec's switch folds to that opcode's body.
+__device__ __forceinline__ uint4 sm_exec_lanes(uint8_t op, uint4 a, uint4 b, uint4 c) {
+  return make_uint4(sm_exec(op, a.x, b.x, c.x), sm_exec(op, a.y, b.y, c.y),
+                    sm_exec(op, a.z, b.z, c.z), sm_exec(op, a.w, b.w, c.w));
+}
+
+// One instruction on four elements behind one dispatch.  Inside a case the
+// opcode is a constant, so the values are sm_exec's, bit for bit, and an
+// opcode missing from the list is still right (the default dispatches per
+// element).
+__device__ __forceinline__ uint4 sm_exec4(uint8_t op, uint4 a, uint4 b, uint4 c) {
+#define SM_CASE4(OP) \
+  case OP:           \
+    return sm_exec_lanes(OP, a, b, c);
+  switch (op) { SM_FOR_EACH_OPCODE(SM_CASE4) }
+#undef SM_CASE4
+  return sm_exec_lanes(op, a, b, c);
+}
+
+// sm_load_consts and sm_run on registers of four elements.
+__device__ __forceinline__ void sm_load_consts4(const SmParams& p, uint4* r) {
+  for (int j = 0; j < p.n_consts; ++j) r[p.n_ops + j] = sm_splat(p.consts[j]);
+}
+
+__device__ __forceinline__ uint4 sm_run4(const SmParams& p, uint4* r) {
+  for (int it = 0; it < p.iterations; ++it) {
+    for (int k = 0; k < p.n_insts; ++k) {
+      const SmInst in = p.insts[k];
+      const uint4 a = r[in.a], b = r[in.b], c = r[in.c];
+      r[in.dst] = sm_exec4(in.op, a, b, c);
+    }
+    if (p.carry >= 0) r[p.carry] = r[p.result];
+  }
+  return r[p.result];
 }
 
 // Operand registers of flat element ``i``: every operand is contiguous and

@@ -15,10 +15,19 @@ from a shape, a stride or a size, and ``VARIANTS`` counts launches by it:
   tiles).  Each operand is staged either 16 bytes at a time or element by
   element through its strides (``staging``), into one shared-memory
   layout, so a view and its contiguous clone give the same bits.
+- ``wgmma_s8``: int8 or uint8 @ int8 or uint8, on the int8 tensor cores
+  (csrc/matmul_wgmma_s8.cu: ``wgmma`` s32 += {s8, u8} x {s8, u8}, without
+  saturation, so the int32 accumulator wraps mod 2**32, and uint8 is read
+  as unsigned).  The same ring, tile and store as ``wgmma_bf16``.  The 8-bit
+  ``wgmma`` reads both operands with the contraction dim contiguous in
+  shared memory only, so an operand whose other dim is the contiguous one
+  in memory (a row-major ``B``) is transposed byte-wise on its way in;
+  ``staging`` says which of copy, transpose and byte-by-byte an operand
+  takes.
 - ``fma_f32``: float32 @ float32 and the mixed float32/bfloat16 pairs, in
   exact float32 multiply-adds on the CUDA cores (csrc/matmul.cu), which is
   what bounds it (a tensor-core route would truncate a float32 operand).
-- ``imad_i32``: int8, uint8 and int32 operands, 32-bit integer
+- ``imad_i32``: integer pairs with an int32 operand, 32-bit integer
   multiply-adds on the CUDA cores (csrc/matmul.cu), wrapping mod 2**32.
 
 ``matmul(a, b, out_dtype=None, precision="default", epilogue=None,
@@ -53,11 +62,14 @@ plain version, ``matmul_plain``: ``torch.matmul`` in the accumulator's type
 raise: there is no fallback.  Dispatch names are the JAX package's:
 ``matmul:mm``, ``matmul:bmm``, ``matmul:mm_epilogue``,
 ``matmul:bmm_epilogue`` and ``matmul:int8``; the port adds
-``matmul:wgmma_bf16`` for a product routed to the tensor-core kernel.
+``matmul:wgmma_bf16`` and ``matmul:wgmma_s8`` for a product routed to a
+tensor-core kernel.
 
 ``int8_matmul``, ``quantize_int8`` and ``dequantize_int8`` are the
-quantized-inference entry points.  Unlike the TPU's matrix unit this kernel
-reads uint8 as it reads int8, so ``int8_matmul`` sends both to it.
+quantized-inference entry points.  Unlike the TPU's matrix unit the card's
+tensor cores read uint8 as unsigned, so ``int8_matmul`` sends int8 and
+uint8 alike to ``wgmma_s8``, and with ``scale=`` the dequantizing epilogue
+runs inside that kernel.
 """
 
 from __future__ import annotations
@@ -75,10 +87,13 @@ from . import dispatch, elementwise, program
 # Kernel launches by entry point since the last reset, and the same
 # launches by the kernel they took.
 LAUNCHES = {"mm": 0, "bmm": 0}
-VARIANTS = {"wgmma_bf16": 0, "fma_f32": 0, "imad_i32": 0}
+VARIANTS = {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0}
+# The kernels that stage tiles for ``wgmma``, and the library function of each.
+_TENSOR_CORE = {"wgmma_bf16": "sm_mm_wgmma_launch", "wgmma_s8": "sm_mm_wgmma_s8_launch"}
 
 _FLOAT_OPERANDS = (torch.float32, torch.bfloat16)
 INT_OPERANDS = (torch.int8, torch.uint8, torch.int32)
+_BYTE_OPERANDS = (torch.int8, torch.uint8)
 # Extras the epilogue reads: the elementwise kernel's types, and bfloat16,
 # which the load widens to float32.
 EXTRA_DTYPES = frozenset(_dt.KERNEL_DTYPES | {torch.bfloat16})
@@ -109,29 +124,34 @@ def variant(a_dtype, b_dtype):
     ``VARIANTS``), or None when no kernel takes them."""
     if a_dtype == b_dtype == torch.bfloat16:
         return "wgmma_bf16"
+    if a_dtype in _BYTE_OPERANDS and b_dtype in _BYTE_OPERANDS:
+        return "wgmma_s8"
     acc = accumulator(a_dtype, b_dtype)
     if acc is None:
         return None
     return "fma_f32" if acc == torch.float32 else "imad_i32"
 
 
-def staging(strides, contraction, address):
-    """How the tensor-core kernel stages one operand: ``(k_major, vec16)``.
+def staging(strides, contraction, address, itemsize=2):
+    """How a tensor-core kernel stages one operand: ``(k_major, vec16)``.
 
     ``strides`` are the operand's signed element strides over (batch, row,
     column) as ``_strides3`` gives them (0 for a dim of size 1),
-    ``contraction`` is its contraction dim (2 for A, 1 for B) and
-    ``address`` the byte address of its first element.  ``vec16``: the
-    operand is copied 16 bytes at a time, which needs stride 1 along one
-    matrix dim, every other stride a multiple of 8 elements (16 bytes;
-    negative or 0 alike) and a 16-byte-aligned first element; otherwise it
-    is read element by element.  ``k_major``: the contraction dim is the
-    contiguous one of the shared-memory tile (the dim of stride 1, or on
-    the element path the one of the smaller step).  Either way the same
-    elements land in the same layout, so the choice never shows in a
-    result."""
+    ``contraction`` is its contraction dim (2 for A, 1 for B), ``address``
+    the byte address of its first element and ``itemsize`` its element size
+    (2: bfloat16, 1: int8/uint8).  ``vec16``: the operand is read 16 bytes
+    at a time, which needs stride 1 along one matrix dim, every other
+    stride a multiple of 16 bytes (8 or 16 elements; negative or 0 alike)
+    and a 16-byte-aligned first element; otherwise it is read element by
+    element.  ``k_major``: the contraction dim is the one of stride 1, or
+    on the element path the one of the smaller step.  For bfloat16 that is
+    the contiguous dim of the shared-memory tile (``wgmma`` reads either
+    order); a 1-byte tile is always contraction-contiguous, so a ``vec16``
+    operand that is not ``k_major`` is transposed on its way in.  Either
+    way the same elements land in the same layout, so the choice never
+    shows in a result."""
     other = 3 - contraction  # dims 1 and 2 are the matrix's own
-    chunk = 8                # bfloat16 elements in 16 bytes
+    chunk = 16 // itemsize   # elements in 16 bytes
     s_k, s_mn = strides[contraction], strides[other]
     aligned = address % 16 == 0 and strides[0] % chunk == 0
     if s_k == 1 and s_mn % chunk == 0 and aligned:
@@ -218,7 +238,7 @@ def _set_operand(dst, x, batched, contraction, tensor_core):
         dst.strides[d] = s[d]
     dst.dtype = _DTYPE_CODE[buf.dtype]
     if tensor_core:
-        k_major, vec16 = staging(s, contraction, dst.ptr)
+        k_major, vec16 = staging(s, contraction, dst.ptr, buf.element_size())
         dst.inner_fast, dst.vec16 = int(k_major), int(vec16)
     else:
         other = 3 - contraction  # dims 1 and 2 are the matrix's own
@@ -228,7 +248,7 @@ def _set_operand(dst, x, batched, contraction, tensor_core):
 def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
     lib = _library()
     kernel = variant(a.dtype, b.dtype)
-    tensor_core = kernel == "wgmma_bf16"
+    tensor_core = kernel in _TENSOR_CORE
     B, M, N, K = dims
     batched = len(a.shape) == 3
     out = torch.empty((B, M, N) if batched else (M, N), dtype=out_dtype, device=device)
@@ -246,7 +266,7 @@ def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
     q.out_dtype = _DTYPE_CODE[out_dtype]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launch = lib.sm_mm_wgmma_launch if tensor_core else lib.sm_mm_launch
+        launch = getattr(lib, _TENSOR_CORE.get(kernel, "sm_mm_launch"))
         rc = launch(ctypes.byref(q), out.data_ptr(), stream)
     entry = "bmm" if batched else "mm"
     if rc != 0:
@@ -378,8 +398,8 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
     dispatch.record("matmul", "bmm" if batched else "mm")
     if epilogue is not None:
         dispatch.record("matmul", "bmm_epilogue" if batched else "mm_epilogue")
-    if variant(a.dtype, b.dtype) == "wgmma_bf16":
-        dispatch.record("matmul", "wgmma_bf16")
+    if variant(a.dtype, b.dtype) in _TENSOR_CORE:
+        dispatch.record("matmul", variant(a.dtype, b.dtype))
     if device.type == "cpu":
         return matmul_plain(a, b, out_dtype, epilogue, extras)
     if device.type != "cuda":

@@ -504,7 +504,7 @@ def _check_bf16(a, b):
     rounded once, every launch a wgmma launch."""
     matmul.reset_launches()
     k, p = _mm_both(a, b, torch.float32)
-    assert matmul.VARIANTS == {"wgmma_bf16": 2, "fma_f32": 0, "imad_i32": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 2, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0}
     at, bt = elementwise.read(a).double(), elementwise.read(b).double()
     tol = 2e-5 * (at.abs() @ bt.abs())
     assert bool(((k.double() - p.double()).abs() <= tol).all())
@@ -629,16 +629,19 @@ def test_mm_bf16_epilogue_short_and_long_programs(cuda, terms):
 def test_mm_mixed_and_other_types_keep_their_kernels(cuda):
     """f32 @ bf16 and bf16 @ f32 run the CUDA-core f32 kernel and give the
     bits of the same product with the bf16 operand widened beforehand
-    (widening is exact); integers run the integer kernel."""
+    (widening is exact); a pair with an int32 operand runs the CUDA-core
+    integer kernel, a pair of 1-byte integers the int8 tensor-core kernel."""
     rng = np.random.default_rng(24)
     a, b = _f32(rng, (130, 70), cuda), _f32(rng, (70, 90), cuda)
     matmul.reset_launches()
     both = matmul.matmul(a, b.bfloat16().float())
     assert torch.equal(matmul.matmul(a, b.bfloat16()), both)
     assert torch.equal(matmul.matmul(a.bfloat16(), b), matmul.matmul(a.bfloat16().float(), b))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 4, "imad_i32": 0}
-    matmul.matmul(a.to(torch.int8), b.to(torch.int8))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 4, "imad_i32": 1}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 0}
+    matmul.matmul(a.to(torch.int8), b.to(torch.int32))
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 1}
+    matmul.matmul(a.to(torch.int8), b.to(torch.uint8))
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 1, "fma_f32": 4, "imad_i32": 1}
 
 
 def test_bf16_root_through_the_api_takes_the_tensor_core_kernel(cuda):
@@ -658,6 +661,238 @@ def test_bf16_root_through_the_api_takes_the_tensor_core_kernel(cuda):
     tol = 2.0 ** -8 * ref.abs() + 2e-5 * (x.torch().double().abs() @ w.torch().double().abs()) + 1e-6
     assert y.dtype == torch.bfloat16 and bool(((y.double() - ref).abs() <= tol).all())
     assert bool(((yt.double() - ref.T).abs() <= tol.T).all())
+
+
+# ------------------------- the int8 tensor-core kernel (int8/uint8 pairs)
+# Exact: the int32 accumulator of the 8-bit wgmma wraps mod 2**32 like the
+# plain version's, uint8 is read as unsigned, and every launch gives the
+# same bits.  The kernel runs whatever the shape or the strides
+# (``matmul.VARIANTS``), and a view gives the bits of its contiguous clone.
+def _i8(rng, dtype, shape, device):
+    info = np.iinfo(dtype)
+    return torch.from_numpy(rng.integers(info.min, info.max + 1, shape).astype(dtype)).to(device)
+
+
+def _check_int8(a, b):
+    matmul.reset_launches()
+    k, p = _mm_both(a, b)
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0}
+    assert k.dtype == torch.int32 and torch.equal(k, p)
+    assert torch.equal(k, matmul.int_product(elementwise.read(a), elementwise.read(b)))
+    return k
+
+
+@pytest.mark.parametrize("db", ["int8", "uint8"])
+@pytest.mark.parametrize("da", ["int8", "uint8"])
+def test_mm_int8_signed_and_unsigned_pairs(cuda, da, db):
+    rng = np.random.default_rng(30)
+    a, b = _i8(rng, da, (130, 200), cuda), _i8(rng, db, (200, 129), cuda)
+    assert da == "int8" or int(a.max()) > 127
+    k = _check_int8(a, b)
+    want = a.cpu().numpy().astype(np.int64) @ b.cpu().numpy().astype(np.int64)
+    assert np.array_equal(k.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("path", ["bytes", "chunks"])
+@pytest.mark.parametrize("order", ["ab", "aTb", "abT", "aTbT"])
+def test_mm_int8_operand_orders(cuda, order, path):
+    """(300, 270) @ (270, 515) with each operand row-major or a transposed
+    view.  ``bytes``: the strides (270, 515, 300) are no multiples of 16, so
+    tiles are read byte by byte; ``chunks``: the same shapes cut from bases
+    whose rows are multiples of 16, so an operand with k contiguous is
+    copied and one with m or n contiguous is transposed on its way in, 16
+    bytes at a time."""
+    rng = np.random.default_rng(31)
+
+    def round16(n):
+        return n + (-n % 16) * (path == "chunks")
+
+    def operand(dtype, rows, cols, transposed):
+        if transposed:  # (rows, cols) with the rows contiguous
+            return _i8(rng, dtype, (cols, round16(rows)), cuda)[:, :rows].T
+        return _i8(rng, dtype, (rows, round16(cols)), cuda)[:, :cols]
+
+    a = operand("int8", 300, 270, order in ("aTb", "aTbT"))
+    b = operand("uint8", 270, 515, order in ("abT", "aTbT"))
+    for x, contraction in ((a, 2), (b, 1)):
+        s3 = matmul._strides3(tuple(x.shape), tuple(x.stride()), False)
+        k_major, vec16 = matmul.staging(s3, contraction, x.data_ptr(), 1)
+        assert vec16 == (path == "chunks")
+        assert k_major == (x.stride(-1 if contraction == 2 else -2) == 1)
+    _check_int8(a, b)
+
+
+@pytest.mark.parametrize("shape", [((40, 1), (1, 24)), ((64, 2053), (2053, 72)),
+                                   ((1, 1), (1, 1)), ((130, 128), (128, 264)),
+                                   ((129, 33), (33, 257)), ((3, 70, 33), (3, 33, 136)),
+                                   ((2, 128, 256), (2, 256, 512))], ids=str)
+def test_mm_int8_edges(cuda, shape):
+    """K = 1, K = 2048 + 5, one element, whole and ragged tiles, rank 3."""
+    rng = np.random.default_rng(32)
+    _check_int8(_i8(rng, "int8", shape[0], cuda), _i8(rng, "uint8", shape[1], cuda))
+    _check_int8(_i8(rng, "uint8", shape[0], cuda).contiguous(), _i8(rng, "int8", shape[1], cuda))
+
+
+def test_mm_int8_wraps(cuda):
+    """255 * 255 * 33,280 passes 2**31: the accumulator wraps, it does not
+    saturate."""
+    a = torch.full((20, 33_280), 255, dtype=torch.uint8, device=cuda)
+    b = torch.full((33_280, 24), 255, dtype=torch.uint8, device=cuda)
+    want = 255 * 255 * 33_280
+    assert want >= 1 << 31
+    k = _check_int8(a, b)
+    assert bool((k == want - (1 << 32)).all())
+    assert bool((_check_int8(a, b.T.contiguous().T) == want - (1 << 32)).all())
+
+
+@pytest.mark.parametrize("case", ["one_byte_off", "negative_step", "row_step", "broadcast"])
+def test_mm_int8_view_gives_the_bits_of_its_clone(cuda, case):
+    rng = np.random.default_rng(33)
+    base_a = sm.Array(_i8(rng, "uint8", (270, 304), cuda))
+    base_b = sm.Array(_i8(rng, "int8", (540, 336), cuda))
+    a = base_a.T[:300]._operand()                     # (300, 270), m contiguous: transposed
+    if case == "broadcast":                           # one row read 270 times: stride 0 over k
+        b = base_b.torch()[5:6, :300].expand(270, 300)
+    else:
+        b = {"one_byte_off": base_b[::2, 1:301],
+             "negative_step": base_b[::-2, ::-1][:, :300],
+             "row_step": base_b[:270, 16:316]}[case]._operand()  # aligned: 16-byte reads
+    k = _check_int8(a, b)
+    clone = matmul.matmul(elementwise.read(a).contiguous(), elementwise.read(b).contiguous())
+    assert torch.equal(k, clone)
+
+
+@pytest.mark.parametrize("scale", ["scalar", "channel"])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("n", [129, 136])
+def test_mm_int8_dequant_epilogue_runs_in_the_tensor_core_kernel(cuda, n, batched, scale):
+    rng = np.random.default_rng(34)
+    lead = (3,) if batched else ()
+    a, b = _i8(rng, "int8", lead + (130, 200), cuda), _i8(rng, "uint8", lead + (200, n), cuda)
+    s = (torch.tensor(0.5, device=cuda) if scale == "scalar"
+         else _f32(rng, (1,) * (len(lead) + 1) + (n,), cuda).abs())
+    matmul.reset_launches()
+    k1, k2 = matmul.int8_matmul(a, b, scale=s), matmul.int8_matmul(a, b, scale=s)
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0}
+    assert k1.dtype == torch.float32 and torch.equal(k1, k2)
+    assert torch.equal(k1, matmul.int_product(a, b).float() * s)
+
+
+@pytest.mark.parametrize("out", ["int32", "float32", "bfloat16", "bool"])
+@pytest.mark.parametrize("n", [257, 260, 272])
+def test_mm_int8_epilogue_every_store_width(cuda, n, out):
+    """Integer and float epilogues on the int32 accumulator, stored as
+    int32, f32, bf16 and (a comparison) bool, at widths whose rows do and do
+    not start on 16 bytes: exactly the plain version's values (the
+    accumulator is exact, so nothing may differ), and ew_strided's on the
+    stored product."""
+    rng = np.random.default_rng(35)
+    a, b = _i8(rng, "int8", (2, 70, 40), cuda), _i8(rng, "uint8", (2, 40, n), cuda)
+    row = torch.from_numpy(rng.integers(-500, 500, (1, 1, n)).astype(np.int32)).to(cuda)
+    acc, lrow = program.leaf((2, 70, n), torch.int32), program.leaf((1, 1, n), torch.int32)
+    root = sm.maximum(acc * 3 - lrow, 0)
+    dtype = getattr(torch, out)
+    if out in ("float32", "bfloat16"):
+        root = program.cast(root, torch.float32) * 0.125
+    elif out == "bool":
+        root = root > 1000
+    prog = program.lower_epilogue(root, acc, [lrow])
+    matmul.reset_launches()
+    k, p = _mm_both(a, b, dtype, prog, [row])
+    assert matmul.VARIANTS["wgmma_s8"] == 2 and k.dtype == dtype
+    assert torch.equal(k, p)
+    if out != "bfloat16":
+        stored = matmul.matmul(a, b)
+        after = elementwise.elementwise(program.lower(root, [acc, lrow]), (2, 70, n), dtype,
+                                        stored, row)
+        assert torch.equal(k, after)
+
+
+def test_int8_matmul_through_the_api_takes_the_tensor_core_kernel(cuda):
+    rng = np.random.default_rng(36)
+    qa = sm.Array(rng.integers(-127, 128, (300, 272)).astype(np.int8))
+    qb = sm.Array(rng.integers(0, 256, (272, 520)).astype(np.uint8))
+    scale = sm.Array(np.abs(rng.standard_normal((1, 520))).astype(np.float32))
+    matmul.reset_launches()
+    elementwise.reset_launches()
+    dispatch.reset()
+    y = sm.int8_matmul(qa, qb).torch()
+    ys = sm.int8_matmul(qa, qb, scale=scale).torch()
+    yt = sm.int8_matmul(qb.T, qa.T).torch()            # transposed views, read in place
+    d = sm.dot(qa, qb).torch()                          # the engine's integer route
+    torch.cuda.synchronize()
+    assert matmul.LAUNCHES == {"mm": 4, "bmm": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 4, "fma_f32": 0, "imad_i32": 0}
+    assert sum(elementwise.LAUNCHES.values()) == 0
+    assert dispatch.count("matmul", "wgmma_s8") == 4 and dispatch.count("matmul", "int8") == 3
+    want = matmul.int_product(qa.torch(), qb.torch())
+    assert torch.equal(y, want) and torch.equal(yt, want.T)
+    assert torch.equal(d, want.to(d.dtype))            # jnp.dot's type: the product mod 2**16
+    assert torch.equal(ys, want.float() * scale.torch())
+
+
+# ------------------------------------- ew_flat's paths against each other
+def _flat_programs(n):
+    x, y, s = (program.leaf((n,), torch.float32), program.leaf((n,), torch.float32),
+               program.leaf((), torch.float32))
+    i, j = program.leaf((n,), torch.int32), program.leaf((n,), torch.int32)
+    return {
+        "add": (x + y, [x, y]), "chain": (x * y + x - y, [x, y]),
+        "long_chain": (sm.minimum(sm.maximum(x * 0.5 + y, -1.0) * y - x, 2.0) + x * y, [x, y]),
+        "scalar_right": (x / s, [x, s]), "scalar_left": (s - x, [s, x]),
+        "constant": (x * 2.5, [x]), "twice": (x + x, [x]),
+        "transcendental": (sm.exp(x * 0.25), [x]), "compare": (x > y, [x, y]),
+        "select": (sm.where(x > y, x, y), [x, y]), "int": (i * j - i, [i, j]),
+        "int_compare": (i >= j, [i, j]), "cast": (program.cast(i, torch.float32) * x, [i, x]),
+        "identity": (x, [x]),
+    }
+
+
+@pytest.mark.parametrize("n", [3, 4, 1027, (1 << 16) + 2])
+@pytest.mark.parametrize("name", sorted(_flat_programs(4)))
+def test_ew_flat_is_the_plain_interpreter_and_ew_strided(cuda, name, n):
+    """Every shape of program on ew_flat's paths (one instruction with the
+    dispatch hoisted, the interpreter on four elements at a time, the
+    per-element tail; n = 3 has only a tail): bit for bit the plain
+    interpreter's values, and ew_strided's, which reads the same operands
+    backwards."""
+    root, leaves = _flat_programs(n)[name]
+    prog = program.lower(root, leaves)
+    operands = [(_inputs(l.dtype, max(n, 16), cuda, seed)[:n] if l.shape else
+                 torch.tensor(1.75, device=cuda)) for seed, l in enumerate(leaves)]
+    elementwise.reset_launches()
+    k, p = _both(prog, (n,), operands)
+    backwards = [elementwise.View(o, n - 1, (n,), (-1,)) if o.dim() else o for o in operands]
+    k2 = elementwise.elementwise(prog, (n,), prog.dtype, *backwards)
+    assert elementwise.LAUNCHES == {"ew_flat": 1, "ew_strided": 1}
+    for got in (k, k2.flip(0)):
+        assert got.dtype == p.dtype
+        if name == "transcendental":
+            assert _max_ulp(got, p) <= 2.0
+        elif got.is_floating_point():
+            assert _max_ulp(got, p) == 0.0
+        else:
+            assert torch.equal(got, p)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ew_flat_unaligned_operands_take_the_per_element_path(cuda, offset):
+    n = 4099
+    x, y = _inputs(torch.float32, n + 4, cuda, 1), _inputs(torch.float32, n + 4, cuda, 2)
+    lx, ly = program.leaf((n,), torch.float32), program.leaf((n,), torch.float32)
+    k, p = _both(program.lower(lx * ly + lx, [lx, ly]), (n,), [x[offset:offset + n], y[:n]])
+    assert _max_ulp(k, p) == 0.0
+
+
+def test_ew_flat_iterated_carry(cuda):
+    n = (1 << 14) + 1
+    x, y = _inputs(torch.float32, n, cuda, 1).clamp(-2, 2).nan_to_num(0.5), _inputs(torch.float32, n, cuda, 2)
+    lx, ly = program.leaf((n,), torch.float32), program.leaf((n,), torch.float32)
+    prog = program.lower(lx * 0.5 + ly, [lx, ly])
+    k, p = _both(prog, (n,), [x, y], iterations=5, carry=0)
+    assert _max_ulp(k, p) == 0.0
+    k1, p1 = _both(program.lower(lx * 0.5, [lx]), (n,), [x], iterations=7, carry=0)
+    assert _max_ulp(k1, p1) == 0.0  # one instruction, iterated: not the hoisted loop
 
 
 def test_int64_matmul_has_no_route_on_the_card(cuda):

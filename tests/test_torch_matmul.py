@@ -244,11 +244,13 @@ def _ints(shape, dtype, seed):
 @pytest.mark.parametrize("scale", [None, "scalar", "channel"])
 @pytest.mark.parametrize("shape", [((64, 48), (48, 80)), ((2, 32, 48), (2, 48, 24)),
                                    ((256, 256), (256, 256))], ids=str)
-@pytest.mark.parametrize("dts", [("int8", "int8"), ("uint8", "uint8"), ("int8", "uint8")], ids=str)
+@pytest.mark.parametrize("dts", [("int8", "int8"), ("uint8", "uint8"), ("int8", "uint8"),
+                                 ("uint8", "int8")], ids=str)
 def test_int8_matmul_exact(dts, shape, scale):
     """Exact against int64 numpy and the JAX package ((256, 256) int8 runs
     its Pallas kernel in interpret mode; uint8 its XLA widening), with no
-    scale, a scalar scale and per-channel (1, N) scales."""
+    scale, a scalar scale and per-channel (1, N) scales; every pair is
+    routed to the int8 tensor-core kernel."""
     a, b = _ints(shape[0], dts[0], 0), _ints(shape[1], dts[1], 1)
     s = {None: None, "scalar": 0.5,
          "channel": np.abs(_mk((1,) * (len(shape[1]) - 1) + shape[1][-1:], 2)) + 0.5}[scale]
@@ -264,6 +266,43 @@ def test_int8_matmul_exact(dts, shape, scale):
     assert counts.get("matmul:int8") == 1 and counts.get("matmul:bmm" if rank3 else "matmul:mm") == 1
     assert counts.get("matmul:bmm_epilogue" if rank3 else "matmul:mm_epilogue") == (
         None if s is None else 1)
+    assert counts.get("matmul:wgmma_s8") == 1 and "matmul:wgmma_bf16" not in counts
+
+
+_INT8_VIEWS = {
+    # name: (shape of a's base, shape of b's base, the views taken of both packages' arrays)
+    "b_transposed": ((40, 77), (24, 77), lambda a, b: (a, b.T)),       # a K-major weight
+    "a_transposed": ((77, 40), (77, 24), lambda a, b: (a.T, b)),
+    "both_transposed": ((77, 40), (24, 77), lambda a, b: (a.T, b.T)),
+    "sliced": ((40, 90), (180, 30), lambda a, b: (a[:, 5:82], b[3:157:2, ::-1])),
+    "batched": ((3, 20, 64), (3, 64, 48), lambda a, b: (a, b)),
+}
+
+
+@pytest.mark.parametrize("scale", [None, "channel"])
+@pytest.mark.parametrize("dts", [("int8", "int8"), ("uint8", "int8"), ("int8", "uint8"),
+                                 ("uint8", "uint8")], ids=str)
+@pytest.mark.parametrize("name", sorted(_INT8_VIEWS))
+def test_int8_matmul_of_views_exact(name, dts, scale):
+    """Transposed, sliced and negative-step views of int8/uint8 arrays, read
+    in place by both packages: exact against the JAX package and against
+    int64 numpy on the same views, with and without per-channel scales."""
+    sa, sb, views = _INT8_VIEWS[name]
+    a_np, b_np = _ints(sa, dts[0], 3), _ints(sb, dts[1], 4)
+    (ja, pa), (jb, pb) = _pair(a_np), _pair(b_np)
+    (ja, jb), (pa, pb) = views(ja, jb), views(pa, pb)
+    va, vb = views(a_np, b_np)
+    n = vb.shape[-1]
+    s = None if scale is None else np.abs(_mk((1,) * (vb.ndim - 1) + (n,), 5)) + 0.5
+    want = jsm.int8_matmul(ja, jb, scale=s)
+    got = sm.int8_matmul(pa, pb, scale=s)
+    _same_meta(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    acc = np.matmul(va.astype(np.int64), vb.astype(np.int64))
+    ref = acc.astype(np.int32) if s is None else acc.astype(np.float32) * s
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert dispatch.count("matmul", "wgmma_s8") == 1
+    assert matmul.LAUNCHES == {"mm": 0, "bmm": 0}  # a CPU tensor launches nothing
 
 
 def test_int8_matmul_refuses_other_types():
@@ -584,8 +623,9 @@ def test_from_reference_keeps_narrow_dtypes(dtype):
 _VARIANT_PAIRS = [
     ("bfloat16", "bfloat16", "wgmma_bf16"), ("float32", "float32", "fma_f32"),
     ("float32", "bfloat16", "fma_f32"), ("bfloat16", "float32", "fma_f32"),
-    ("int8", "int8", "imad_i32"), ("int8", "uint8", "imad_i32"), ("uint8", "uint8", "imad_i32"),
-    ("int32", "int32", "imad_i32"), ("int32", "int8", "imad_i32"),
+    ("int8", "int8", "wgmma_s8"), ("int8", "uint8", "wgmma_s8"), ("uint8", "uint8", "wgmma_s8"),
+    ("uint8", "int8", "wgmma_s8"),
+    ("int32", "int32", "imad_i32"), ("int32", "int8", "imad_i32"), ("uint8", "int32", "imad_i32"),
     ("float64", "float64", None), ("float16", "float16", None), ("bfloat16", "int8", None),
     ("float32", "int32", None),
 ]
@@ -593,8 +633,10 @@ _VARIANT_PAIRS = [
 
 @pytest.mark.parametrize("a,b,want", _VARIANT_PAIRS, ids=str)
 def test_kernel_variant_follows_the_operand_types_alone(a, b, want):
-    """bf16 @ bf16 takes the tensor-core kernel; every other pair the kernel
-    takes keeps the CUDA-core instantiation it had; the rest have none."""
+    """bf16 @ bf16 takes the bf16 tensor-core kernel and a pair of 1-byte
+    integers the int8 one; every other pair the kernel takes (any with an
+    int32 or a float32 operand) keeps its CUDA-core instantiation; the rest
+    have none."""
     da, db = getattr(torch, a), getattr(torch, b)
     assert matmul.variant(da, db) == want
     assert (matmul.variant(da, db) is None) == (matmul.accumulator(da, db) is None)
@@ -677,6 +719,75 @@ def test_staging_needs_aligned_batches_and_negative_inner_steps_go_element_wise(
     assert (op.inner_fast, op.vec16) == (1, 0)
 
 
+def _int8_view(case):
+    """(operand of the product's shape (b, m, k) or (b, k, n), its
+    contraction dim) for one staging case; int8 or uint8, on the CPU."""
+    base = torch.zeros(64, 48, dtype=torch.int8)               # rows of 48 bytes: 16-byte aligned
+    return {
+        "a_contiguous": (base, 2),                             # (M, K), K contiguous: copied
+        "b_contiguous": (base, 1),                             # (K, N), N contiguous: transposed
+        "a_transposed": (base.T, 2),                           # (M, K) with M contiguous: transposed
+        "b_transposed": (base.T, 1),                           # (K, N) with K contiguous: copied
+        "rows_of_40_bytes": (torch.zeros(64, 40, dtype=torch.uint8), 2),   # 40 % 16 != 0
+        "rows_of_8_elements": (torch.zeros(64, 8, dtype=torch.uint8), 2),  # a bf16 chunk, not a byte one
+        "one_byte_off": (base[:, 1:33], 2),
+        "sixteen_bytes_in": (base[:, 16:48], 2),
+        "column_step": (base[:, ::2], 2),
+        "ragged_k": (base[:, :45], 2),                         # K = 45: rows still start on 16 bytes
+        "ragged_n": (base[:, :45], 1),
+        "broadcast_rows": (base[:1].expand(64, 48), 2),        # stride 0 over m
+        "broadcast_inner": (base[:, :1].expand(64, 48), 2),    # stride 0 over k
+        "batched": (torch.zeros(3, 16, 32, dtype=torch.int8), 2),
+        "batched_odd_batch_stride": (torch.zeros(3, 17, 24, dtype=torch.int8)[:, :16], 2),  # 408 % 16
+        "batched_aligned_batch_stride": (torch.zeros(3, 18, 32, dtype=torch.int8)[:, :16], 2),
+    }[case]
+
+
+_INT8_STAGING = {
+    # case: (k_major, vec16)
+    "a_contiguous": (True, True), "b_contiguous": (False, True),
+    "a_transposed": (False, True), "b_transposed": (True, True),
+    "rows_of_40_bytes": (True, False), "rows_of_8_elements": (True, False),
+    "one_byte_off": (True, False), "sixteen_bytes_in": (True, True),
+    "column_step": (True, False), "ragged_k": (True, True), "ragged_n": (False, True),
+    "broadcast_rows": (True, True), "broadcast_inner": (True, False),
+    "batched": (True, True), "batched_odd_batch_stride": (True, False),
+    "batched_aligned_batch_stride": (True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_INT8_STAGING))
+def test_staging_decision_per_one_byte_operand(case):
+    """A 1-byte operand is read 16 bytes at a time where one matrix dim has
+    stride 1, every other stride is a multiple of 16 elements and the first
+    element lies on 16 bytes; ``k_major`` then says whether it is copied as
+    it is or transposed on its way in.  Anything else is read byte by
+    byte."""
+    t, contraction = _int8_view(case)
+    op = matmul._MmOperand()
+    matmul._set_operand(op, t, len(t.shape) == 3, contraction, True)
+    assert (bool(op.inner_fast), bool(op.vec16)) == _INT8_STAGING[case]
+    strides = [op.strides[d] for d in range(3)]
+    assert matmul.staging(strides, contraction, op.ptr, 1) == _INT8_STAGING[case]
+
+
+def test_staging_of_one_byte_operands_negative_and_zero_strides():
+    assert matmul.staging([0, 48, 1], 2, 0, 1) == (True, True)
+    assert matmul.staging([0, 48, 1], 2, 8, 1) == (True, False)     # 8 bytes in: a bf16 chunk only
+    assert matmul.staging([0, 48, 1], 2, 8, 2) == (True, False)     # 48 elements of bf16: 96 bytes, base 8
+    assert matmul.staging([0, 24, 1], 2, 0, 1) == (True, False)     # rows of 24 bytes
+    assert matmul.staging([0, 24, 1], 2, 0, 2) == (True, True)      # rows of 24 bf16: 48 bytes
+    assert matmul.staging([0, -48, 1], 2, 0, 1) == (True, True)     # rows backwards: still rows
+    assert matmul.staging([0, 48, -1], 2, 0, 1) == (True, False)    # negative step along k
+    assert matmul.staging([0, 0, 1], 2, 0, 1) == (True, True)       # one row broadcast over m
+    assert matmul.staging([0, 1, 0], 2, 0, 1) == (False, True)      # one column broadcast over k
+    assert matmul.staging([0, 1, 48], 1, 0, 1) == (True, True)      # B with k contiguous: copied
+    assert matmul.staging([0, 48, 1], 1, 0, 1) == (False, True)     # row-major B: transposed
+    assert matmul.staging([40, 48, 1], 2, 0, 1) == (True, False)    # batch stride 40 % 16 != 0
+    assert matmul.staging([0, 3, 50], 1, 0, 1) == (True, False)     # B: the smaller step leads
+    assert matmul.staging([0, 50, 3], 1, 0, 1) == (False, False)
+
+
 _BF16_EDGES = {
     # name: (shape of a, shape of b, views applied to both packages' arrays)
     "k1": ((40, 1), (1, 24), None),
@@ -714,7 +825,8 @@ def test_bf16_product_matches_jax_at_the_edges(name):
     assert np.all(np.abs(got.numpy().astype(np.float64) - ref) <= tol)
     assert np.all(np.abs(got.numpy().astype(np.float64) - w) <= 2 * tol)
     assert dispatch.count("matmul", "wgmma_bf16") == 1
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "fma_f32": 0, "imad_i32": 0}  # the CPU launches nothing
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0,
+                               "imad_i32": 0}  # the CPU launches nothing
 
 
 @pytest.mark.parametrize("name", ["k1", "k77", "a_transposed", "both_transposed", "batched"])
@@ -756,17 +868,20 @@ def test_mixed_and_float32_products_do_not_record_the_tensor_core_route():
     matmul.matmul(a, b.bfloat16())
     matmul.matmul(a.bfloat16(), b)
     matmul.matmul(a, b)
-    matmul.matmul(a.to(torch.int8), b.to(torch.int8))
-    assert dispatch.count("matmul", "wgmma_bf16") == 0
+    matmul.matmul(a.to(torch.int32), b.to(torch.int8))
+    assert dispatch.count("matmul", "wgmma_bf16") == 0 and dispatch.count("matmul", "wgmma_s8") == 0
+    matmul.matmul(a.to(torch.int8), b.to(torch.uint8))
+    assert dispatch.count("matmul", "wgmma_bf16") == 0 and dispatch.count("matmul", "wgmma_s8") == 1
     matmul.matmul(a.bfloat16(), b.bfloat16())
     matmul.matmul(a.bfloat16()[None], b.bfloat16()[None])
-    assert dispatch.count("matmul", "wgmma_bf16") == 2
-    assert dispatch.count("matmul", "mm") == 5 and dispatch.count("matmul", "bmm") == 1
+    assert dispatch.count("matmul", "wgmma_bf16") == 2 and dispatch.count("matmul", "wgmma_s8") == 1
+    assert dispatch.count("matmul", "mm") == 6 and dispatch.count("matmul", "bmm") == 1
 
 
 def test_epilogue_dispatch_lists_every_opcode():
-    """The tensor-core kernel's epilogue dispatches an instruction once for
-    four elements through a list of the opcodes (csrc/matmul.cuh); an opcode
+    """The tensor-core kernels' epilogue and ``ew_flat`` dispatch an
+    instruction once for four elements (or once per thread) through a list
+    of the opcodes, ``SM_FOR_EACH_OPCODE`` in csrc/program.cuh; an opcode
     missing from it would still be right, but slow: the list is held to the
     kernel's opcode enum and to the port's table."""
     import pathlib
@@ -775,7 +890,8 @@ def test_epilogue_dispatch_lists_every_opcode():
     csrc = pathlib.Path(program.__file__).resolve().parent.parent / "csrc"
     enum = re.search(r"enum SmOpcode : uint8_t \{(.*?)\};", (csrc / "tiles.cuh").read_text(), re.S)
     opcodes = [name.strip() for name in enum.group(1).replace("\n", " ").split(",") if name.strip()]
-    listed = [name for name in re.findall(r"MM_CASE4\((\w+)\)", (csrc / "matmul.cuh").read_text())
-              if name != "OP"]
+    macro = re.search(r"#define SM_FOR_EACH_OPCODE\(X\)(.*?)\n\n", (csrc / "program.cuh").read_text(),
+                      re.S)
+    listed = re.findall(r"X\((\w+)\)", macro.group(1))
     assert listed == opcodes
     assert [name.lower() for name in opcodes] == [name.lower() for name in program.OPCODES]

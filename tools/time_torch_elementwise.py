@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Time the port's flat elementwise kernel (``ew_flat``) beside ``torch.add``
+on one CUDA card.
+
+    python3 tools/time_torch_elementwise.py [--root DIR] [extra nvcc flags ...]
+
+Builds the kernels of ``simplemath_tpu_torch`` (with any extra ``nvcc`` flags
+given, for example a ``-D`` switch put into a source while trying a variant),
+holds ``ew_flat`` bit for bit against the plain interpreter on a
+one-instruction program, a chain, a scalar operand on either side and a
+ragged tail, and prints device times (CUDA events, as
+``chip_smoke.py::time_ms`` takes them) with the card's name and power limit:
+
+- the 1M-float add, the same three arrays again and again (12 MB: hot in the
+  50 MB L2) and over a ring of operands and results of 192 MB (past the L2),
+  each beside ``torch.add`` timed the same way;
+- a launch on 1024 elements, beside ``torch.add``'s (what a launch costs);
+- the add and the chain ``a * b + c - a`` on 16M floats (192 and 256 MB:
+  device memory), the chain beside its plain version (three torch kernels)
+  and its bound by bytes.
+
+``--root DIR`` takes the package and ``chip_smoke.py`` from another checkout
+(the parent commit, unpacked beside this one), so that two versions are timed
+in one call on one card.  Imports no jax.
+"""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ARGS = sys.argv[1:]
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+if "--root" in ARGS:
+    i = ARGS.index("--root")
+    ROOT = pathlib.Path(ARGS[i + 1]).resolve()
+    del ARGS[i:i + 2]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from simplemath_tpu_torch import _build  # noqa: E402
+from simplemath_tpu_torch.ops import elementwise, program  # noqa: E402
+
+N_ADD = 1_000_000
+N_BIG = 16 * 1024 * 1024
+RING = 16  # sets of (a, b, result) of the 1M add: 192 MB
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("time_torch_elementwise: no CUDA device is visible", file=sys.stderr)
+        return 1
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(ARGS)
+    _build.library()
+    for line in _build.BUILD_LOG.splitlines():
+        if "ew_flat" in line:
+            print("ptxas:", line.strip()[:160])
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev, rng = torch.device("cuda"), np.random.default_rng(0)
+
+    def f32(n):
+        return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+
+    def run(prog, *operands):
+        shape = max((tuple(o.shape) for o in operands), key=len)
+        return elementwise.elementwise(prog, shape, prog.dtype, *operands)
+
+    def lowered(fn, *shapes):
+        leaves = [program.leaf(s, torch.float32) for s in shapes]
+        return program.lower(fn(*leaves), leaves)
+
+    n = 4096 * 5 + 3
+    x, y, z, s0 = f32(n), f32(n), f32(n), f32(1).reshape(())
+    cases = {
+        "add": (lowered(lambda a, b: a + b, (n,), (n,)), [x, y]),
+        "chain": (lowered(lambda a, b, c: a * b + c - a, (n,), (n,), (n,)), [x, y, z]),
+        "scalar right": (lowered(lambda a, s: a / s, (n,), ()), [x, s0]),
+        "scalar left": (lowered(lambda s, a: s - a, (), (n,)), [s0, x]),
+        "constant": (lowered(lambda a: a * 2.5, (n,)), [x]),
+    }
+    for label, (prog, operands) in cases.items():
+        k = run(prog, *operands)
+        want = program.run_plain(prog, operands, (n,))
+        if not torch.equal(k.view(torch.int32), want.view(torch.int32)):
+            print(f"time_torch_elementwise: {label} differs from the plain interpreter",
+                  file=sys.stderr)
+            return 1
+
+    add = lowered(lambda a, b: a + b, (N_ADD,), (N_ADD,))
+    a, b = f32(N_ADD), f32(N_ADD)
+    ring = [(f32(N_ADD), f32(N_ADD)) for _ in range(RING)]
+    kept = [None] * RING  # results stay alive, so each call writes other memory
+    turn = [0]
+
+    def rotated(fn):
+        def call():
+            i = turn[0] = (turn[0] + 1) % RING
+            kept[i] = fn(*ring[i])
+        return call
+
+    small = lowered(lambda p, q: p + q, (1024,), (1024,))
+    sa, sb = f32(1024), f32(1024)
+    big = [f32(N_BIG) for _ in range(3)]
+    add_big = lowered(lambda p, q: p + q, (N_BIG,), (N_BIG,))
+    chain = lowered(lambda p, q, r: p * q + r - p, (N_BIG,), (N_BIG,), (N_BIG,))
+    t = chip_smoke.time_ms
+    times = {
+        "add_hot_ms": t(lambda: run(add, a, b), n=100),
+        "add_hot_library_ms": t(lambda: torch.add(a, b), n=100),
+        "add_past_l2_ms": t(rotated(lambda p, q: run(add, p, q)), n=100),
+        "add_past_l2_library_ms": t(rotated(torch.add), n=100),
+        "launch_1024_ms": t(lambda: run(small, sa, sb), n=100),
+        "launch_1024_library_ms": t(lambda: torch.add(sa, sb), n=100),
+        "add_16m_ms": t(lambda: run(add_big, big[0], big[1]), n=10),
+        "add_16m_library_ms": t(lambda: torch.add(big[0], big[1]), n=10),
+        "chain_16m_ms": t(lambda: run(chain, *big), n=10),
+        "chain_16m_plain_ms": t(lambda: program.run_plain(chain, big, (N_BIG,)), n=10),
+        "chain_16m_bound_ms": chip_smoke.bound(16 * N_BIG, 3 * N_BIG)[0],
+    }
+    times["add_hot_over_library"] = times["add_hot_ms"] / times["add_hot_library_ms"]
+    times["add_past_l2_over_library"] = times["add_past_l2_ms"] / times["add_past_l2_library_ms"]
+    print(f"{card}: " + json.dumps({"root": str(ROOT), "flags": ARGS, **times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

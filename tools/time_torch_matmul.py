@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 matmul kernel beside ``torch.matmul`` on one CUDA card.
+"""Time the port's tensor-core matmul kernels beside the library's calls on
+one CUDA card.
 
-    python3 tools/time_torch_matmul.py [extra nvcc flags ...]
+    python3 tools/time_torch_matmul.py [--root DIR] [extra nvcc flags ...]
 
 Builds the kernels of ``simplemath_tpu_torch`` (with any extra ``nvcc`` flags
-given, for example a ``-D`` switch put into a source while trying a variant),
-holds the bf16 product to its tolerance at a few shapes, and prints device
-times (CUDA events, as ``chip_smoke.py::time_ms`` takes them) of the bare and
-the fused bf16 product at 2048^3, (8, 1024, 1024) and 4096^3 beside the
-library call's, with the card's name and power limit.  It is a workbench for
-trying one change to ``csrc/matmul_wgmma.cu`` at a time; ``chip_smoke.py`` is
-the check.  Imports no jax.
+given, for example a ``-D`` switch put into a source while trying a variant:
+the loads-only, multiplies-only and store-only builds are made that way),
+holds the bf16 product to its tolerance and the int8 product to exactness at
+a few shapes, and prints device times (CUDA events, as
+``chip_smoke.py::time_ms`` takes them) of the bare and the fused bf16 product
+at 2048^3, (8, 1024, 1024) and 4096^3 beside ``torch.matmul``'s, and of the
+int8 product (row-major, each operand a transposed view, one byte off, with
+``scale=``, rank 3, 4096^3) beside ``torch._int_mm``'s, with the card's name
+and power limit.  ``--root DIR`` takes the package and ``chip_smoke.py`` from
+another checkout (the parent commit, unpacked beside this one), so that two
+versions are timed in one call on one card.  It is a workbench for trying one
+change to ``csrc/matmul_wgmma*.cu`` at a time; ``chip_smoke.py`` is the
+check.  A build that compiles a part of a kernel out gives wrong products:
+pass ``--no-check`` with it.  Imports no jax.
 """
 
 import json
@@ -21,7 +29,15 @@ import sys
 import numpy as np
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+ARGS = sys.argv[1:]
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+if "--root" in ARGS:
+    i = ARGS.index("--root")
+    ROOT = pathlib.Path(ARGS[i + 1]).resolve()
+    del ARGS[i:i + 2]
+CHECK = "--no-check" not in ARGS
+ARGS = [a for a in ARGS if a != "--no-check"]
+sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 import simplemath_tpu_torch as sm  # noqa: E402
@@ -33,7 +49,7 @@ def main():
     if not torch.cuda.is_available():
         print("time_torch_matmul: no CUDA device is visible", file=sys.stderr)
         return 1
-    _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(sys.argv[1:])
+    _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(ARGS)
     _build.library()
     for line in _build.BUILD_LOG.splitlines():
         if "mm_wgmma" in line or ("Used" in line and "registers" in line) or "spill" in line:
@@ -58,7 +74,22 @@ def main():
         "element by element": error(bf16(300, 270), bf16(270, 515)),
         "2048^3": error(bf16(2048, 2048), bf16(2048, 2048)),
     }
-    if max(errors.values()) > 1.0:
+    def i8(dtype, *shape):
+        info = np.iinfo(dtype)
+        return torch.from_numpy(rng.integers(info.min, info.max + 1, shape).astype(dtype)).to(dev)
+
+    def wrong(a, b):
+        """Elements of the int8 product that differ from the exact one."""
+        return int((matmul.matmul(a, b, torch.int32) != matmul.int_product(a, b)).sum())
+
+    errors.update({
+        "int8 @ uint8, 16-byte reads, ragged": wrong(i8("int8", 300, 272)[:, :270],
+                                                     i8("uint8", 270, 528)[:, :515]),
+        "uint8 @ int8, transposed views": wrong(i8("uint8", 270, 304).T[:300], i8("int8", 515, 272).T[:270]),
+        "int8, byte by byte": wrong(i8("int8", 300, 270), i8("int8", 270, 515)),
+        "int8 2048^3": wrong(i8("int8", 2048, 2048), i8("int8", 2048, 2048)),
+    })
+    if CHECK and max(errors.values()) > 1.0:
         print(f"time_torch_matmul: beyond tolerance: {errors}", file=sys.stderr)
         return 1
 
@@ -88,7 +119,24 @@ def main():
         "mm_4096_ms": t(lambda: matmul.matmul(x4, w4, torch.bfloat16), n=5),
         "mm_4096_library_ms": t(lambda: torch.matmul(x4, w4), n=5),
     }
-    print(f"{card}: " + json.dumps({"flags": sys.argv[1:], "errors_of_tolerance": errors, **times}))
+    q, w8 = i8("int8", n, n), i8("int8", n, n)
+    q3, w83 = i8("int8", 8, 1024, 1024), i8("int8", 8, 1024, 1024)
+    q4, w84 = i8("int8", 4096, 4096), i8("int8", 4096, 4096)
+    scale = torch.from_numpy(np.abs(rng.standard_normal((1, n))).astype(np.float32)).to(dev)
+    int_mm = getattr(torch, "_int_mm", None)
+    times.update({
+        "int8_ms": t(lambda: matmul.matmul(q, w8, torch.int32), n=20),
+        "int8_library_ms": t(lambda: int_mm(q, w8), n=20) if int_mm else None,
+        "int8_b_transposed_ms": t(lambda: matmul.matmul(q, w8.T, torch.int32), n=20),
+        "int8_a_transposed_ms": t(lambda: matmul.matmul(q.T, w8, torch.int32), n=20),
+        "int8_one_byte_off_ms": t(lambda: matmul.matmul(q[:, 1:], w8[1:], torch.int32), n=5),
+        "int8_scaled_ms": t(lambda: matmul.int8_matmul(q, w8, scale=scale), n=20),
+        "int8_bmm_ms": t(lambda: matmul.matmul(q3, w83, torch.int32), n=20),
+        "int8_4096_ms": t(lambda: matmul.matmul(q4, w84, torch.int32), n=5),
+        "int8_4096_library_ms": t(lambda: int_mm(q4, w84), n=5) if int_mm else None,
+    })
+    print(f"{card}: " + json.dumps({"root": str(ROOT), "flags": ARGS,
+                                    "errors_of_tolerance": errors, **times}))
     return 0
 
 

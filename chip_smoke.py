@@ -30,6 +30,12 @@ device:
    an (R, 1) column operand, axis 0 and 1; sums and dots within
    2e-5 * sum|x| of the plain version and of float64 numpy, max/min and
    the int32 dot exact, every result bit-identical across two launches),
+   each on the path ``reduction.PATHS`` must name: ``direct`` (identity),
+   ``single`` (the f32 and int32 dots, ``x * 1.0``), ``lanes4`` (the
+   f32.int32 dot, ``x * 1.0 + 0.0``, the map-reduce), ``element`` (a view
+   one element off, a transposed view, ragged rows), for ``rd_full`` and
+   for ``rd_axis`` along both axes of a ragged (517, 1030) matrix, all
+   paths giving the bits of the direct one,
    then drives bench.py's reduction workloads through the public API at
    full size (``Array.sum()`` of 64M f32, ``sm.dot`` of two 32M vectors,
    the fused squared distance with a 0-d operand, the fused thresholded
@@ -76,12 +82,14 @@ device:
    fused batched root at (8, 1024, 1024) bf16, an int32 ``sm.dot``; one
    launch per call and no elementwise pass; the bf16 workloads through
    the bf16 tensor-core kernel, ``sm.int8_matmul`` through the int8 one and
-   the f32 and int32 ones through neither, by the variant counter; ``sm.dot``/``sm.matmul`` of f32 and complex64 through
-   ``torch.matmul``), and times them;
+   the f32 and int32 ones through neither, by the variant counter;
+   ``sm.dot``/``sm.matmul`` of f32 and complex64 through ``torch.matmul``),
+   and times them;
 8. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
-   read above 1; ``mm`` and ``bmm`` with their bf16 times, ``mm_int8`` and
+   read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
+   beside it; ``mm`` and ``bmm`` with their bf16 times, ``mm_int8`` and
    ``mm_f32`` beside them), then
    ``{"ok": true, "device": ...}``.
 
@@ -103,9 +111,14 @@ N_RAGGED = 4096 * 3 + 777
 N_SUM = 64 * 1024 * 1024   # bench.py::bench_reduce_sum
 N_DOT = 32 * 1024 * 1024   # bench.py::bench_dot1d, bench_fused_map_reduce
 N_AXIS = 8192              # bench.py::bench_reduce_axis
+RAGGED_AXIS = (517, 1030)  # rd_axis's path checks: no multiple of 4, 32 or the segment
 SEED = 0
 SOURCE = "simplemath_tpu_torch/csrc/elementwise.cu"
 RD_SOURCE = "simplemath_tpu_torch/csrc/reduction.cu"
+RD_OTHER_SOURCES = ["simplemath_tpu_torch/csrc/reduction.cuh",
+                    "simplemath_tpu_torch/csrc/reduction_full.cu",
+                    "simplemath_tpu_torch/csrc/reduction_cols.cu",
+                    "simplemath_tpu_torch/csrc/reduction_rows.cu"]
 MM_SOURCE = "simplemath_tpu_torch/csrc/matmul.cu"
 WGMMA_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma.cu"
 WGMMA_S8_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_s8.cu"
@@ -217,12 +230,22 @@ def same_bits(a, b):
 
 
 def times_one(shape):
-    """The program x * 1.0: the identity's value through the interpreter."""
+    """The program x * 1.0: the identity's value through one instruction."""
     import torch
     from simplemath_tpu_torch.ops import program
 
     leaf = program.leaf(shape, torch.float32)
     return program.lower(leaf * 1.0, [leaf])
+
+
+def times_one_plus_zero(shape):
+    """The program x * 1.0 + 0.0: the identity's value (but -0.0 gives +0.0)
+    through the interpreter."""
+    import torch
+    from simplemath_tpu_torch.ops import program
+
+    leaf = program.leaf(shape, torch.float32)
+    return program.lower(leaf * 1.0 + 0.0, [leaf])
 
 
 def reduction_checks(dev, rng, sm, elementwise, program, reduction):
@@ -237,6 +260,14 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
         torch.cuda.synchronize()
         check(same_bits(k1, k2), "a reduction differs between two launches")
         return k1
+
+    def on_path(path, fn):
+        """``fn()``, launched twice with the same bits, both on ``path``."""
+        before = dict(reduction.PATHS)
+        k = twice(fn)
+        took = {p: c - before[p] for p, c in reduction.PATHS.items() if c != before[p]}
+        check(took == {path: 2}, f"expected two launches on path {path}, counted {took}")
+        return k
 
     def agree(entry, label, k, p, ref64, absx, exact_kind):
         k64 = k.double().cpu().numpy()
@@ -254,17 +285,23 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     def full(label, x_np, x, kinds=("sum", "max", "min")):
         t = elementwise.read(x)
         x64 = x_np.astype(np.float64)
+        whole = isinstance(x, torch.Tensor)  # contiguous, at a 16-byte boundary
         for kind in kinds:
-            k = twice(lambda: reduction.reduce(x, kind))
+            k = on_path("direct" if whole else "element", lambda: reduction.reduce(x, kind))
             p = reduction._plain(t, kind)
             ref = {"sum": x64.sum, "max": x64.max, "min": x64.min}[kind]()
             agree("rd_full", f"{label} {kind}", k, p, ref, float(np.abs(x64).sum()), kind != "sum")
-            if isinstance(x, torch.Tensor):
-                # The identity's direct path and the interpreter (x * 1.0)
-                # combine in one order: the same bits.
-                k1 = reduction.map_reduce(times_one(tuple(x.shape)), kind, tuple(x.shape), x)
-                check(same_bits(k, k1), f"{label} {kind}: direct path != interpreter path")
-        log(f"check rd_full {label}: sum within 2e-5*sum|x|, max/min exact, bits repeat")
+            if whole:
+                # The identity's direct path, the hoisted loop (x * 1.0 as a
+                # sum) and the interpreter combine in one order: the same bits.
+                shape = tuple(x.shape)
+                k1 = on_path("single" if kind == "sum" else "lanes4",
+                             lambda: reduction.map_reduce(times_one(shape), kind, shape, x))
+                check(same_bits(k, k1), f"{label} {kind}: direct path != one instruction")
+                k2 = on_path("lanes4", lambda: reduction.map_reduce(times_one_plus_zero(shape), kind, shape, x))
+                check(same_bits(k, k2), f"{label} {kind}: direct path != interpreter path")
+        log(f"check rd_full {label}: sum within 2e-5*sum|x|, max/min exact, bits repeat, "
+            + ("direct = single = lanes4" if whole else "element path"))
 
     def on(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -277,16 +314,24 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     arr = sm.Array(m)
     full("transposed view", m_np.T, arr.T._operand())
     full("negative-step view", m_np[::-1, ::-2], arr[::-1, ::-2]._operand())
+    # A view one element off is gathered element by element and gives the
+    # bits of its contiguous clone.
+    longer = on(np.concatenate([np.zeros(1, np.float32), v]))
+    shifted = elementwise.View(longer, 1, (N_RAGGED,), (1,))
+    for kind in ("sum", "max", "min"):
+        k = on_path("element", lambda: reduction.reduce(shifted, kind))
+        check(same_bits(k, reduction.reduce(on(v), kind)), f"{kind}: a view one element off != its clone")
+    log(f"check rd_full view one element off, n={N_RAGGED}: element path, the clone's bits")
     vn = v.copy()
-    vn[1234] = np.nan
+    vn[N_RAGGED - 1] = np.nan
     for kind in ("max", "min", "sum"):
         check(bool(torch.isnan(twice(lambda: reduction.reduce(on(vn), kind)))),
               f"{kind} drops a NaN")
     log("check rd_full NaN: max/min/sum give NaN")
 
-    def dot(label, a_np, b_np, exact_int):
+    def dot(label, a_np, b_np, exact_int, path):
         a, b = on(a_np), on(b_np)
-        k = twice(lambda: reduction.dot1d(a, b))
+        k = on_path(path, lambda: reduction.dot1d(a, b))
         la, lb = program.leaf(a.shape, a.dtype), program.leaf(b.shape, b.dtype)
         prog = program.lower(program.apply("multiply", la, lb), [la, lb])
         vals = program.run_plain(prog, [a, b], tuple(a.shape))
@@ -299,15 +344,17 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
             p = reduction._plain(vals, "sum")
             prod = a_np.astype(np.float64) * b_np.astype(np.float64)
             agree("rd_full", label, k, p, prod.sum(), float(np.abs(prod).sum()), False)
-        log(f"check rd_full dot {label}: {'exact' if exact_int else 'within 2e-5*sum|ab|'}, bits repeat")
+        log(f"check rd_full dot {label}: {'exact' if exact_int else 'within 2e-5*sum|ab|'}, "
+            f"bits repeat, path {path}")
 
     a_np = rng.standard_normal(N_RAGGED).astype(np.float32)
     i_np = rng.integers(-1000, 1000, N_RAGGED).astype(np.int32)
     j_np = rng.integers(-1000, 1000, N_RAGGED).astype(np.int32)
-    dot("f32.f32", a_np, v, False)
-    dot("int32", i_np, j_np, True)
-    dot("int32 wraparound", np.full(70_000, 40_000, np.int32), np.full(70_000, 40_000, np.int32), True)
-    dot("f32.int32", a_np, i_np, False)
+    dot("f32.f32", a_np, v, False, "single")
+    dot("int32", i_np, j_np, True, "single")
+    dot("int32 wraparound", np.full(70_000, 40_000, np.int32), np.full(70_000, 40_000, np.int32),
+        True, "single")
+    dot("f32.int32", a_np, i_np, False, "lanes4")
 
     row_np = rng.standard_normal((1, N_AXIS)).astype(np.float32)
     col_np = rng.standard_normal((N_AXIS, 1)).astype(np.float32)
@@ -319,23 +366,56 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     vals = program.run_plain(prog, [m, row, col], shape)
     w64 = (m_np * row_np - col_np).astype(np.float64)  # f32 ops, each rounded, as the kernel's
     for kind in ("sum", "max", "min"):
-        k = twice(lambda: reduction.map_reduce(prog, kind, shape, m, row, col))
+        k = on_path("lanes4", lambda: reduction.map_reduce(prog, kind, shape, m, row, col))
         ref = {"sum": w64.sum, "max": w64.max, "min": w64.min}[kind]()
         agree("rd_full", f"map-reduce {kind}", k, reduction._plain(vals, kind), ref,
               float(np.abs(w64).sum()), kind != "sum")
         for ax in (0, 1):
-            k = twice(lambda: reduction.map_reduce_axis(prog, kind, ax, shape, m, row, col))
+            k = on_path("lanes4", lambda: reduction.map_reduce_axis(prog, kind, ax, shape, m, row, col))
             ref = {"sum": w64.sum, "max": w64.max, "min": w64.min}[kind](axis=ax)
             agree("rd_axis", f"map-reduce axis {ax} {kind}", k, reduction._plain(vals, kind, ax),
                   ref, np.abs(w64).sum(axis=ax), kind != "sum")
-            k = twice(lambda: reduction.reduce_axis(arr.T._operand(), kind, ax))
+            k = on_path("element", lambda: reduction.reduce_axis(arr.T._operand(), kind, ax))
             ref = {"sum": m_np.T.astype(np.float64).sum, "max": m_np.T.max,
                    "min": m_np.T.min}[kind](axis=ax)
             agree("rd_axis", f"transposed axis {ax} {kind}", k,
                   reduction._plain(m.T, kind, ax), ref, np.abs(m_np.T.astype(np.float64)).sum(axis=ax),
                   kind != "sum")
-    log(f"check map-reduce m*row-col ({N_AXIS},{N_AXIS}) full, axis 0 and 1, and axis "
-        "reductions of a transposed view: sums within 2e-5*sum|x|, max/min exact, bits repeat")
+    log(f"check map-reduce m*row-col ({N_AXIS},{N_AXIS}) full, axis 0 and 1 (lanes4), and axis "
+        "reductions of a transposed view (element): sums within 2e-5*sum|x|, max/min exact, "
+        "bits repeat")
+
+    # rd_axis on a ragged matrix (columns no multiple of 4, rows no multiple
+    # of the segment), every path along both axes.  Its rows start at
+    # 16-byte boundaries in a wider base, so it is read 16 bytes at a time;
+    # its contiguous clone has ragged rows and is gathered element by
+    # element; x * 1.0 as a sum runs the hoisted loop, x * 1.0 + 0.0 the
+    # interpreter: all give the direct path's bits.
+    R, C = RAGGED_AXIS
+    base = on(rng.standard_normal((R, (C + 3) // 4 * 4)).astype(np.float32))
+    rag = base[:, :C]
+    clone = rag.contiguous()
+    rag64 = rag.double().cpu().numpy()
+    for ax in (0, 1):
+        for kind in ("sum", "max", "min"):
+            k = on_path("direct", lambda: reduction.reduce_axis(rag, kind, ax))
+            ref = {"sum": rag64.sum, "max": rag64.max, "min": rag64.min}[kind](axis=ax)
+            agree("rd_axis", f"ragged axis {ax} {kind}", k, reduction._plain(rag, kind, ax), ref,
+                  np.abs(rag64).sum(axis=ax), kind != "sum")
+            others = [
+                ("element", lambda: reduction.reduce_axis(clone, kind, ax)),
+                ("single" if kind == "sum" else "lanes4",
+                 lambda: reduction.map_reduce_axis(times_one((R, C)), kind, ax, (R, C), rag)),
+                ("lanes4", lambda: reduction.map_reduce_axis(times_one_plus_zero((R, C)), kind, ax,
+                                                             (R, C), rag)),
+                ("element", lambda: reduction.map_reduce_axis(times_one_plus_zero((R, C)), kind, ax,
+                                                              (R, C), clone)),
+            ]
+            for path, fn in others:
+                check(same_bits(k, on_path(path, fn)),
+                      f"ragged axis {ax} {kind}: path {path} != the direct path")
+    log(f"check rd_axis ragged ({R},{C}) axis 0 and 1: direct = single = lanes4 = element, "
+        "sums within 2e-5*sum|x|, max/min exact, bits repeat")
     return err
 
 
@@ -920,10 +1000,14 @@ def main():
         got = {k: reduction.LAUNCHES[k] - before[k] for k in before}
         check(got == want, f"{label}: launched {got}, expected {want}")
     torch.cuda.synchronize()
-    rd_launches = dict(reduction.LAUNCHES)
+    rd_launches, rd_paths = dict(reduction.LAUNCHES), dict(reduction.PATHS)
     rd_ew = dict(elementwise.LAUNCHES)
-    log(f"reduction path launches {rd_launches} elementwise {rd_ew}")
+    log(f"reduction path launches {rd_launches} by path {rd_paths} elementwise {rd_ew}")
     check(rd_ew == {"ew_flat": 0, "ew_strided": 0}, f"the reduction path launched {rd_ew}")
+    # Array.sum() is the identity, sm.dot one instruction; the fused roots
+    # and the lazy chain are programs of two and three.
+    check(rd_paths == {"direct": 1, "single": 1, "lanes4": 4, "element": 0},
+          f"the reduction path's launches took {rd_paths}")
     for (label, _, ref, absx, _), out in zip(calls, outs):
         got = out.double().cpu().numpy()
         check(out.dtype == torch.float32 and got.shape == np.shape(ref), f"{label}: wrong result")
@@ -1009,25 +1093,39 @@ def main():
     gb = {"sum": 4 * N_SUM, "dot": 8 * N_DOT, "dist": 8 * N_DOT, "axis0": 4 * N_SUM,
           "axis1": 4 * N_SUM}
     p_one = times_one((N_SUM,))
+    p_two = times_one_plus_zero((N_SUM,))
+
+    def timed_on(path, fn):
+        """``time_ms(fn, n=20)``, every launch of it on ``path``."""
+        before = dict(reduction.PATHS)
+        ms = time_ms(fn, n=20)
+        took = {p for p, c in reduction.PATHS.items() if c != before[p]}
+        check(took == {path}, f"a timed reduction ran on {took}, not on path {path}")
+        return ms
+
     rt = {
-        "sum_ms": time_ms(lambda: reduction.reduce(xt, "sum"), n=20),
+        "sum_ms": timed_on("direct", lambda: reduction.reduce(xt, "sum")),
         "sum_plain_ms": time_ms(lambda: reduction._plain(xt, "sum"), n=20),
-        "sum_interpreter_ms": time_ms(lambda: reduction.map_reduce(p_one, "sum", (N_SUM,), xt), n=20),
-        "dot_ms": time_ms(lambda: reduction.dot1d(at_, bt_), n=20),
+        "sum_single_ms": timed_on("single", lambda: reduction.map_reduce(p_one, "sum", (N_SUM,), xt)),
+        "sum_interpreter_ms": timed_on(
+            "lanes4", lambda: reduction.map_reduce(p_two, "sum", (N_SUM,), xt)),
+        "dot_ms": timed_on("single", lambda: reduction.dot1d(at_, bt_)),
         "dot_plain_ms": time_ms(lambda: plain(p_dot, [at_, bt_], (N_DOT,)), n=20),
-        "dist_ms": time_ms(lambda: reduction.map_reduce(p_dist, "sum", (N_DOT,), at_, bt_, et), n=20),
+        "dist_ms": timed_on(
+            "lanes4", lambda: reduction.map_reduce(p_dist, "sum", (N_DOT,), at_, bt_, et)),
         "dist_plain_ms": time_ms(lambda: plain(p_dist, [at_, bt_, et], (N_DOT,)), n=20),
     }
     for ax in (0, 1):
-        rt[f"axis{ax}_ms"] = time_ms(
-            lambda: reduction.map_reduce_axis(p_thr[ax], "sum", ax, sq, mt, st), n=20)
+        rt[f"axis{ax}_ms"] = timed_on(
+            "lanes4", lambda: reduction.map_reduce_axis(p_thr[ax], "sum", ax, sq, mt, st))
         rt[f"axis{ax}_plain_ms"] = time_ms(lambda: plain(p_thr[ax], [mt, st], sq, ax), n=20)
     rt["sum_host_ms"] = host_ms(lambda: x_big.sum().torch())
     rt["dist_host_ms"] = host_ms(lambda: dist(da, db, eps).torch())
     for key, nbytes in gb.items():
         rt[f"{key}_GBps"] = nbytes / (rt[f"{key}_ms"] * 1e-3) / 1e9
         rt[f"{key}_plain_GBps"] = nbytes / (rt[f"{key}_plain_ms"] * 1e-3) / 1e9
-    rt["sum_interpreter_GBps"] = gb["sum"] / (rt["sum_interpreter_ms"] * 1e-3) / 1e9
+    for key in ("sum_single", "sum_interpreter"):
+        rt[f"{key}_GBps"] = gb["sum"] / (rt[f"{key}_ms"] * 1e-3) / 1e9
     log(f"reduction times on {card}: " + json.dumps(rt))
 
 
@@ -1039,11 +1137,18 @@ def main():
         "sum": time_ms(lambda: torch.sum(xt), n=20),
         "dot": time_ms(lambda: torch.dot(at_, bt_), n=20),
         "axis0": time_ms(lambda: torch.sum(mt, 0), n=20),
+        "axis1": time_ms(lambda: torch.sum(mt, 1), n=20),
     }
-    rt["axis0_identity_ms"] = time_ms(lambda: reduction.reduce_axis(mt, "sum", 0), n=20)
-    rt["axis0_identity_plain_ms"] = time_ms(lambda: reduction._plain(mt, "sum", 0), n=20)
+    for ax in (0, 1):
+        rt[f"axis{ax}_identity_ms"] = timed_on("direct", lambda: reduction.reduce_axis(mt, "sum", ax))
+        rt[f"axis{ax}_identity_plain_ms"] = time_ms(lambda: reduction._plain(mt, "sum", ax), n=20)
+    lib["dot_over_library"] = rt["dot_ms"] / lib["dot"]
+    lib["sum_over_library"] = rt["sum_ms"] / lib["sum"]
+    lib["axis0_over_library"] = rt["axis0_identity_ms"] / lib["axis0"]
+    lib["axis1_over_library"] = rt["axis1_identity_ms"] / lib["axis1"]
     log(f"library times on {card}: " + json.dumps(lib)
-        + f" axis0 identity kernel/plain {rt['axis0_identity_ms']}/{rt['axis0_identity_plain_ms']}")
+        + f" axis0 identity kernel/plain {rt['axis0_identity_ms']}/{rt['axis0_identity_plain_ms']}"
+        + f" axis1 identity kernel/plain {rt['axis1_identity_ms']}/{rt['axis1_identity_plain_ms']}")
 
     # ------------------------------------------------- 7. the matmul path
     err_mm = matmul_checks(dev, rng, sm, program, matmul, elementwise)
@@ -1268,6 +1373,7 @@ def main():
     b_add = bound(12 * N_ADD, N_ADD)
     b_chain = bound(4 * (3 * N_FUSED * N_FUSED + N_FUSED), 400.0 * chain_ops * N_FUSED * N_FUSED)
     b_sum = bound(4 * N_SUM, N_SUM)
+    b_dot = bound(8 * N_DOT, 2 * N_DOT)
     b_axis = bound(4 * N_SUM + 4 * N_AXIS, N_SUM)
 
     def entry(name, source, replaces, launched, err, ms, plain_ms, b, library_ms):
@@ -1286,6 +1392,11 @@ def main():
         entry("rd_full", RD_SOURCE, "simplemath_tpu/ops/reduction.py:79 :127 :210 :275 :333",
               rd_launches["rd_full"], err_rd["rd_full"], rt["sum_ms"], rt["sum_plain_ms"],
               b_sum, lib["sum"]),
+        # rd_full once more, as the dot of two 32M vectors, with the main
+        # path's launches of its loop (the hoisted one-instruction one).
+        entry("rd_full_dot", RD_SOURCE, "simplemath_tpu/ops/reduction.py:210",
+              rd_paths["single"], err_rd["rd_full"], rt["dot_ms"], rt["dot_plain_ms"],
+              b_dot, lib["dot"]),
         entry("rd_axis", RD_SOURCE, "simplemath_tpu/ops/reduction.py:482",
               rd_launches["rd_axis"], err_rd["rd_axis"], rt["axis0_identity_ms"],
               rt["axis0_identity_plain_ms"], b_axis, lib["axis0"]),
@@ -1307,8 +1418,11 @@ def main():
               mm_variants["fma_f32"], err_mm["fma_f32"], mmt["mm_f32_ms"], mmt["mm_f32_plain_ms"],
               b_f32, mmt["mm_f32_library_ms"]),
     ]
-    for k in kernels[4:6]:
-        k["other_sources"] = [WGMMA_S8_SOURCE, MM_SOURCE]
+    for k in kernels:
+        if k["name"] in ("mm", "bmm"):
+            k["other_sources"] = [WGMMA_S8_SOURCE, MM_SOURCE]
+        if k["source"] == RD_SOURCE:
+            k["other_sources"] = RD_OTHER_SOURCES
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

@@ -22,9 +22,9 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("elementwise.cu", "reduction.cu", "matmul.cu", "matmul_wgmma.cu",
-           "matmul_wgmma_s8.cu")
-HEADERS = ("tiles.cuh", "program.cuh", "matmul.cuh", "wgmma.cuh")
+SOURCES = ("elementwise.cu", "reduction.cu", "reduction_full.cu", "reduction_cols.cu",
+           "reduction_rows.cu", "matmul.cu", "matmul_wgmma.cu", "matmul_wgmma_s8.cu")
+HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh", "matmul.cuh", "wgmma.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
 # the crafted exp/log handle them); --fmad=false so each float operation
 # rounds once, as the plain torch version does (the matmul kernel's inner

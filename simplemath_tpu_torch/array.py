@@ -33,7 +33,7 @@ from .config import config
 from .slicing import Slice, process_index
 from .viewspec import ViewSpec
 
-_NOT_PORTED = "not ported yet: see ROADMAP.md, queue 1, item {}"
+_NOT_PORTED = "not ported yet: see ROADMAP.md, queue 1 (advanced indexing)"
 
 
 class _Storage:
@@ -248,8 +248,7 @@ class Array:
     def __getitem__(self, key) -> "Array":
         if _is_advanced_key(key):
             raise NotImplementedError(
-                "advanced (integer-array / boolean) indexing is "
-                + _NOT_PORTED.format(1)
+                "advanced (integer-array / boolean) indexing is " + _NOT_PORTED
             )
         key, newaxes = _split_newaxes(key, self.ndim)
         spec = self._spec.compose(_normalize_key(key, self.ndim))
@@ -265,8 +264,7 @@ class Array:
     def __setitem__(self, key, value) -> None:
         if _is_advanced_key(key):
             raise NotImplementedError(
-                "advanced (integer-array / boolean) assignment is "
-                + _NOT_PORTED.format(1)
+                "advanced (integer-array / boolean) assignment is " + _NOT_PORTED
             )
         key, newaxes = _split_newaxes(key, self.ndim)
         spec = self._spec.compose(_normalize_key(key, self.ndim))

@@ -1,13 +1,15 @@
-"""Kernel layer: op registry, expression IR, the hand-written elementwise
-kernel's wrapper, crafted transcendentals, fusion and the deferred-eager
-queue.  Reductions and matmul are not ported yet (ROADMAP.md, queue 2)."""
+"""Kernel layer: op registry, expression IR, the wrappers of the
+hand-written elementwise, map-reduce and matmul kernels, crafted
+transcendentals, fusion and the deferred-eager queue."""
 
 from . import (  # noqa: F401
     elementwise,
     engine,
     fusion,
     lazy,
+    matmul,
     program,
+    reduction,
     registry,
     transcendental,
 )

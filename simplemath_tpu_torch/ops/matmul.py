@@ -419,18 +419,20 @@ def _dequant_epilogue(rank: int) -> program.Program:
     return program.lower_epilogue(program.cast(acc, torch.float32) * scale, acc, [scale])
 
 
-def int8_matmul(a, b, scale=None) -> torch.Tensor:
+def int8_matmul(a, b, out_dtype=torch.int32, scale=None) -> torch.Tensor:
     """int8/uint8 (M, K) @ (K, N) or batched rank-3 product with exact int32
-    accumulation and an int32 result.  ``scale`` (a scalar or an array broadcastable to the
-    product, typically ``scale_a * scale_b`` from ``quantize_int8``) fuses
-    the dequantization into the kernel's epilogue: the accumulator is cast
-    to float32 and scaled at the store, and the result is float32."""
+    accumulation; the result is the int32 product cast to ``out_dtype``.
+    ``scale`` (a scalar or an array broadcastable to the product, typically
+    ``scale_a * scale_b`` from ``quantize_int8``) fuses the dequantization
+    into the kernel's epilogue: the accumulator is cast to float32 and
+    scaled at the store, and the result is float32 whatever ``out_dtype``."""
     for x in (a, b):
         if x.dtype not in (torch.int8, torch.uint8):
             raise TypeError(f"int8_matmul requires int8/uint8 operands, got {_dt.name(x.dtype)}")
     dispatch.record("matmul", "int8")
     if scale is None:
-        return matmul(a, b, torch.int32)
+        out = matmul(a, b, torch.int32)
+        return out if out_dtype == torch.int32 else out.to(out_dtype)
     s = scale if isinstance(scale, (torch.Tensor, elementwise.View)) else \
         torch.as_tensor(scale, dtype=torch.float32)
     if s.dtype != torch.float32 or s.device != a.device:

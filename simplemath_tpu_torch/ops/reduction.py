@@ -3,8 +3,10 @@ that run as plain torch.
 
 Counterpart of ``simplemath_tpu/ops/reduction.py`` and its six Pallas
 kernels.  On the card they become one CUDA kernel with two entry points
-(csrc/reduction.cu), which run the elementwise kernel's opcode program per
-element and reduce its results without storing them:
+(csrc/reduction.cu; its first passes are reduction_full.cu, _cols.cu and
+_rows.cu over reduction.cuh), which run the elementwise kernel's opcode
+program on quads of four elements and reduce its results without storing
+them:
 
 * ``rd_full`` reduces a program over operands of rank <= 8 to one scalar:
   ``reduce`` (the identity program; ``_build_reduce_1d``/``_2d``),
@@ -19,7 +21,12 @@ tensors take the kernel's plain version: ``program.run_plain``, then
 ``torch.sum/amax/amin`` accumulating in float32 (the int32 dot in int64,
 masked to 32 bits).  CUDA tensors launch the kernel or raise: there is no
 fallback.  ``LAUNCHES`` counts the calls that launched the kernel, by
-entry point.
+entry point, and ``PATHS`` the same launches by the way the kernel
+evaluated them, which ``path`` decides from the program, the shape and the
+operands' layouts: ``direct`` (the identity program), ``single`` (a sum of
+one instruction, its opcode hoisted out of the loop), ``lanes4`` (any other
+program, four elements a dispatch) or ``element`` (operands that do not
+allow 16-byte loads).
 
 The kernel accumulates in float32 whatever the float input; the int32 dot
 wraps mod 2**32.  Dispatch names are the JAX package's: ``reduce:<kind>``,
@@ -42,23 +49,35 @@ import torch
 from .. import dtypes as _dt
 from . import dispatch, elementwise, program
 
-# Kernel launches by entry point since the last reset.
+# Kernel launches by entry point since the last reset, and the same
+# launches by path.
 LAUNCHES = {"rd_full": 0, "rd_axis": 0}
+PATHS = {"direct": 0, "single": 0, "lanes4": 0, "element": 0}
+_PATH_CODE = {"direct": 0, "single": 1, "lanes4": 2, "element": 3}  # enum RdPath
+# The opcodes the kernel's hoisted loop is built for (rd_single_takes in
+# csrc/reduction.cuh): all but the transcendental and trigonometric
+# functions and the integer power.
+HOISTED = frozenset(
+    i for i, name in enumerate(program.OPCODES)
+    if name not in ("EXP_F", "LOG_F", "EXP2_F", "LOG2_F", "TANH_F", "SIN_F", "COS_F", "TAN_F",
+                    "POW_F", "IPOW_I"))
 
 KINDS = ("sum", "max", "min")
 _OP = {"sum": 0, "max": 1, "min": 2}
 _SUM_I32 = 3
 
 # Grid sizes: functions of the shape alone, so a call's order of
-# combination, and its bits, are the same every time (csrc/reduction.cu).
+# combination, and its bits, are the same every time (csrc/reduction.cuh).
 _THREADS = 256
+_WARPS = _THREADS // 32
 _MAX_BLOCKS = 132 * 8
 _MAX_SEGMENTS = 65535  # gridDim.y
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PATHS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -72,16 +91,94 @@ def full_blocks(n: int) -> int:
 
 
 def axis_grid(rows: int, cols: int, axis: int):
-    """(blocks, rows per segment) of rd_axis: axis 1 takes a block per row
-    (at most ``_MAX_BLOCKS``); axis 0 a thread per column and the rows in
-    segments of at least 32, enough of them to give ~2 * ``_MAX_BLOCKS``
-    blocks."""
+    """(blocks, rows per segment) of rd_axis.
+
+    Axis 1: a block takes a row at a time, or, where a row has at most 32
+    quads of 4 columns, 8 rows at a time (a warp each); the second value is
+    that 1 or 8, and there are at most 8 * ``_MAX_BLOCKS`` blocks, which
+    stride over the rows.
+
+    Axis 0: a block is 32 quads of columns by 8 row lanes over one segment
+    of rows; the segments are whole multiples of 32 rows (4 a row lane),
+    enough of them to give ~2 * ``_MAX_BLOCKS`` blocks."""
+    quads = _cdiv(cols, 4)
     if axis == 1:
-        return min(rows, _MAX_BLOCKS), 0
-    segs = max(1, min(_cdiv(rows, 32), _cdiv(2 * _MAX_BLOCKS, _cdiv(cols, _THREADS)),
+        per_block = _WARPS if quads <= 32 else 1
+        return min(_cdiv(rows, per_block), 8 * _MAX_BLOCKS), per_block
+    segs = max(1, min(_cdiv(rows, 32), _cdiv(2 * _MAX_BLOCKS, _cdiv(quads, 32)),
                       _MAX_SEGMENTS))
-    seg_rows = _cdiv(rows, segs)
+    seg_rows = _cdiv(_cdiv(rows, segs), 32) * 32
     return _cdiv(rows, seg_rows), seg_rows
+
+
+# ------------------------------------------------------------ the path
+def layout(operands) -> tuple:
+    """Each operand's (shape, element strides, dtype, address of its first
+    element): what ``path`` looks at."""
+    out = []
+    for o in operands:
+        buf, off, shape, strides = elementwise._describe(o)
+        out.append((shape, strides, buf.dtype, buf.data_ptr() + off * buf.element_size()))
+    return tuple(out)
+
+
+def _wide(shape, operand_layout, rows: bool) -> bool:
+    """Whether every operand of more than one element can be read 16 bytes
+    at a time: 4-byte elements and, as flat data, contiguous and full-size
+    at a 16-byte boundary; or (``rows``), over the expression's (rows,
+    cols), a column stride of 1 with 16-byte-aligned rows (full-size
+    operands and (1, C) rows) or of 0 ((R, 1) columns, read an element a
+    row)."""
+    for s, st, dt, address in operand_layout:
+        if math.prod(s) == 1:
+            continue
+        if dt.itemsize != 4:
+            return False
+        if not rows:
+            if not elementwise._is_full(s, st, shape) or address % 16:
+                return False
+            continue
+        s2, st2 = (1,) * (2 - len(s)) + tuple(s), (0,) * (2 - len(s)) + tuple(st)
+        row_stride = 0 if s2[0] == 1 else st2[0]
+        col_stride = 0 if s2[1] == 1 else st2[1]
+        if col_stride == 0:
+            continue
+        if col_stride != 1 or row_stride % 4 or address % 16:
+            return False
+    return True
+
+
+def reach(shape, operand_layout, axis=None) -> str:
+    """How the kernel reaches the operands: ``"flat"`` (rd_full: 16-byte
+    loads of flat data), ``"rows"`` (16-byte loads along the rows of a 2-D
+    expression with full-size, (1, C), (R, 1) or one-element operands:
+    rd_axis, and rd_full where an operand is broadcast) or ``"gather"``
+    (element by element through the strides)."""
+    shape = tuple(shape)
+    if axis is None and _wide(shape, operand_layout, False):
+        return "flat"
+    if len(shape) == 2 and _wide(shape, operand_layout, True):
+        return "rows"
+    return "gather"
+
+
+def path(prog, kind: str, shape, operand_layout, axis=None) -> str:
+    """The way the kernel evaluates a launch (csrc/reduction.cuh): a pure
+    function of the program, the reduction, the expression's shape and
+    ``layout(operands)``.  ``axis`` None is rd_full, 0 or 1 rd_axis."""
+    how = reach(shape, operand_layout, axis)
+    if how == "gather":
+        return "element"
+    if axis is None and how == "rows":
+        return "lanes4"  # rd_full has its loops without an interpreter for flat data only
+    n_ops = len(operand_layout)
+    if not prog.insts:
+        return "direct" if prog.result < n_ops else "lanes4"
+    codes = prog.kernel_codes
+    if (kind == "sum" and len(prog.insts) == 1 and prog.result == n_ops + len(prog.consts)
+            and codes is not None and codes[0] in HOISTED):
+        return "single"
+    return "lanes4"
 
 
 # ------------------------------------------------------------ C interface
@@ -93,7 +190,7 @@ class _RdParams(ctypes.Structure):
         ("blocks", ctypes.c_int64),
         ("seg_rows", ctypes.c_int64),
         ("axis", ctypes.c_int32),
-        ("pad", ctypes.c_int32),
+        ("path", ctypes.c_int32),
     ]
 
 
@@ -106,15 +203,22 @@ def _library():
     return lib
 
 
-def _launch(entry, prog, op, shape, operands, device, axis=0):
+def _launch(entry, prog, kind, op, shape, operands, device, axis=None):
     lib = _library()
     codes = elementwise.check_program(prog, entry)
     q = _RdParams()
     q.p, flat = elementwise.params(prog, codes, shape, operands)
     q.op = op
+    where = layout(operands)
+    taken = path(prog, kind, shape, where, axis)
+    q.path = _PATH_CODE[taken]
     if entry == "rd_full":
-        q.strided = int(not flat)
-        q.blocks = full_blocks(math.prod(shape))
+        # enum RdReach: flat data, strides over the shape (gathered), or
+        # the quads of the rows of a 2-D expression.
+        by_rows = taken != "element" and reach(shape, where) == "rows"
+        q.strided = 2 if by_rows else int(not flat)
+        q.blocks = full_blocks(shape[0] * _cdiv(shape[1], 4) * 4 if by_rows
+                               else math.prod(shape))
         out = torch.empty((), dtype=torch.int32 if op == _SUM_I32 else torch.float32,
                           device=device)
         partial = torch.empty(q.blocks, dtype=torch.int32, device=device)
@@ -123,8 +227,9 @@ def _launch(entry, prog, op, shape, operands, device, axis=0):
         q.axis = axis
         q.blocks, q.seg_rows = axis_grid(rows, cols, axis)
         out = torch.empty(cols if axis == 0 else rows, dtype=torch.float32, device=device)
-        partial = torch.empty(q.blocks * cols if axis == 0 else 1, dtype=torch.int32,
-                              device=device)
+        # Axis 0: a row of partials per segment, padded to whole quads.
+        partial = torch.empty(q.blocks * _cdiv(cols, 4) * 4 if axis == 0 else 1,
+                              dtype=torch.int32, device=device)
     launch = lib.sm_rd_full_launch if entry == "rd_full" else lib.sm_rd_axis_launch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -132,6 +237,7 @@ def _launch(entry, prog, op, shape, operands, device, axis=0):
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
     LAUNCHES[entry] += 1
+    PATHS[taken] += 1
     return out
 
 
@@ -173,7 +279,7 @@ def _full(prog, kind, shape, operands, int_acc=False):
         return _plain_sum_i32(vals) if int_acc else _plain(vals, kind)
     if device.type != "cuda":
         raise ValueError(f"the reduction kernel runs on CUDA tensors, not {device}")
-    return _launch("rd_full", prog, _SUM_I32 if int_acc else _OP[kind], shape,
+    return _launch("rd_full", prog, kind, _SUM_I32 if int_acc else _OP[kind], shape,
                    operands, device)
 
 
@@ -191,7 +297,7 @@ def _axis(prog, kind, axis, shape, operands):
         return _plain(values(prog, shape, operands, device), kind, axis)
     if device.type != "cuda":
         raise ValueError(f"the reduction kernel runs on CUDA tensors, not {device}")
-    return _launch("rd_axis", prog, _OP[kind], shape, operands, device, axis)
+    return _launch("rd_axis", prog, kind, _OP[kind], shape, operands, device, axis)
 
 
 @functools.lru_cache(maxsize=None)

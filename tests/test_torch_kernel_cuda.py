@@ -301,6 +301,204 @@ def test_reductions_through_the_api_launch_rd(cuda):
     assert abs(d - float(at[3] @ bt[5])) <= 2e-5 * float((at[3] * bt[5]).abs().sum())
 
 
+# Every path of both entry points (``reduction.PATHS`` says which one a
+# launch took): the identity's direct loop, the hoisted loop of one
+# instruction, the interpreter on four lanes, and quads gathered element by
+# element, at ragged sizes.  A thread owns the same quads on every path and
+# combines them in one order, so the same values give the same bits.
+def _aligned(dev, *shape):
+    base = torch.randn(int(np.prod(shape)) + 4, device=dev)
+    skip = (-base.data_ptr() // 4) % 4
+    t = base[skip:skip + int(np.prod(shape))].reshape(shape)
+    assert t.data_ptr() % 16 == 0
+    return t
+
+
+def _lowered(fn, *operands):
+    leaves = [program.leaf(tuple(o.shape), o.dtype) for o in operands]
+    return program.lower(fn(*leaves), leaves)
+
+
+def _rd_on(path, fn, plain):
+    k, p = _rd_both(fn, plain)
+    assert {name: c for name, c in reduction.PATHS.items() if c} == {path: 2}
+    return k, p
+
+
+def _rd_agree(kind, k, p, scale):
+    if kind == "sum":
+        assert bool(((k.double() - p.double()).abs() <= 2e-5 * scale.double() + 1e-6).all())
+    else:
+        assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("kind", ["sum", "max", "min"])
+@pytest.mark.parametrize("n", [1025, 4096 * 3 + 777, 40_002, 99_999, 1_000_003])
+def test_rd_full_every_path(cuda, kind, n):
+    x = _aligned(cuda, n)
+    p, scale = reduction._plain(x, kind), x.abs().sum()
+    direct, _ = _rd_on("direct", lambda: reduction.reduce(x, kind), p)
+    _rd_agree(kind, direct, p, scale)
+    one = _lowered(lambda a: a * 1.0, x)
+    k, _ = _rd_on("single" if kind == "sum" else "lanes4",
+                  lambda: reduction.map_reduce(one, kind, (n,), x), p)
+    assert torch.equal(k, direct)
+    two = _lowered(lambda a: a * 1.0 + 0.0, x)
+    k, _ = _rd_on("lanes4", lambda: reduction.map_reduce(two, kind, (n,), x), p)
+    assert torch.equal(k, direct)
+    shifted = torch.empty(n + 5, device=cuda)
+    off = (1 - shifted.data_ptr() // 4) % 4  # the view starts 4 bytes past a 16-byte boundary
+    view = elementwise.View(shifted, off, (n,), (1,))
+    elementwise.read(view).copy_(x)
+    for prog in (reduction._identity(torch.float32), two):
+        k, _ = _rd_on("element", lambda: reduction.map_reduce(prog, kind, (n,), view), p)
+        assert torch.equal(k, direct)
+
+
+@pytest.mark.parametrize("kind", ["sum", "max", "min"])
+def test_rd_nan_in_the_tail_on_every_path(cuda, kind):
+    n = 4096 + 3
+    x = _aligned(cuda, n)
+    x[n - 1] = float("nan")
+    progs = {"direct": reduction._identity(torch.float32), "one": _lowered(lambda a: a * 1.0, x),
+             "lanes4": _lowered(lambda a: a * 1.0 + 0.0, x)}
+    for prog in progs.values():
+        assert bool(torch.isnan(reduction.map_reduce(prog, kind, (n,), x)))
+    assert bool(torch.isnan(reduction.reduce(x.clone()[1:], kind)))  # element path
+    m = _aligned(cuda, 67, 132)[:, :131]
+    m[66, 130] = float("nan")
+    for prog in progs.values():
+        for operand in (m, m.contiguous()):  # 16-byte rows; ragged rows (element path)
+            k0 = reduction.map_reduce_axis(prog, kind, 0, (67, 131), operand)
+            k1 = reduction.map_reduce_axis(prog, kind, 1, (67, 131), operand)
+            assert bool(torch.isnan(k0[130])) and int(torch.isnan(k0).sum()) == 1
+            assert bool(torch.isnan(k1[66])) and int(torch.isnan(k1).sum()) == 1
+
+
+_SINGLE_SOURCES = {
+    "scalar on the right": (lambda a, s: a / s, "as"),
+    "scalar on the left": (lambda s, a: s - a, "sa"),
+    "constant on the right": (lambda a: a * 2.5, "a"),
+    "constant on the left": (lambda a: 2.5 - a, "a"),
+    "unary": (lambda a: sm.square(a), "a"),
+    "comparison": (lambda a, b: a > b, "ab"),
+    "cast": (lambda i: program.cast(i, torch.float32), "i"),
+    "one operand twice": (lambda a: a * a, "a"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SINGLE_SOURCES))
+def test_rd_single_sources(cuda, case):
+    """The hoisted loop's sources: full-size operands, splatted scalar
+    operands and splatted constants, on either side."""
+    fn, names = _SINGLE_SOURCES[case]
+    n = 4096 * 5 + 3
+    pool = {"a": _aligned(cuda, n), "b": _aligned(cuda, n), "s": torch.tensor(0.75, device=cuda),
+            "i": (_aligned(cuda, n) * 50).int()}
+    operands = [pool[c] for c in names]
+    prog = _lowered(fn, *operands)
+    vals = reduction.values(prog, (n,), operands, cuda)
+    k, p = _rd_on("single", lambda: reduction.map_reduce(prog, "sum", (n,), *operands),
+                  reduction._plain(vals, "sum"))
+    _rd_agree("sum", k, p, vals.float().abs().sum())
+    m = _aligned(cuda, 96, 260)
+    if names == "a":  # the same instruction along both axes of a matrix
+        prog2 = _lowered(fn, m)
+        v2 = reduction.values(prog2, (96, 260), [m], cuda)
+        for axis in (0, 1):
+            k, p = _rd_on("single", lambda: reduction.map_reduce_axis(prog2, "sum", axis, (96, 260), m),
+                          reduction._plain(v2, "sum", axis))
+            _rd_agree("sum", k, p, v2.abs().sum(axis))
+
+
+def test_rd_int32_dot_paths(cuda):
+    n = 4096 * 3 + 777
+    rng = np.random.default_rng(8)
+    a, b = (torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(cuda)
+            for _ in range(2))
+    want = reduction._plain_sum_i32(a * b)
+    k, _ = _rd_on("single", lambda: reduction.dot1d(a, b), None)
+    assert k.dtype == torch.int32 and int(k) == int(want)
+    big = torch.empty(n + 1, dtype=torch.int32, device=cuda)
+    big[1:] = b
+    k, _ = _rd_on("element", lambda: reduction.dot1d(a, elementwise.View(big, 1, (n,), (1,))), None)
+    assert int(k) == int(want)
+    f = a.float() * 1e-6
+    k, _ = _rd_on("lanes4", lambda: reduction.dot1d(b, f), None)  # a cast and a multiply
+    assert abs(float(k) - float((b.double() * f.double()).sum())) <= 2e-5 * float(
+        (b.double() * f.double()).abs().sum())
+
+
+@pytest.mark.parametrize("shape", [(300, 257), (77, 1030), (1000, 131), (33, 5)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("kind", ["sum", "max", "min"])
+def test_rd_axis_every_path(cuda, shape, axis, kind):
+    """Columns that are no multiple of 4, rows that are no multiple of the
+    segment: a matrix whose rows start at 16-byte boundaries takes the
+    16-byte paths, its contiguous clone (ragged rows) the element path,
+    and both give the same bits."""
+    R, C = shape
+    m = _aligned(cuda, R, (C + 3) // 4 * 4)[:, :C]
+    clone = m.contiguous()
+    p, scale = reduction._plain(m, kind, axis), m.abs().sum(axis)
+    direct, _ = _rd_on("direct", lambda: reduction.reduce_axis(m, kind, axis), p)
+    _rd_agree(kind, direct, p, scale)
+    k, _ = _rd_on("element", lambda: reduction.reduce_axis(clone, kind, axis), p)
+    assert torch.equal(k, direct)
+    one = _lowered(lambda a: a * 1.0, m)
+    k, _ = _rd_on("single" if kind == "sum" else "lanes4",
+                  lambda: reduction.map_reduce_axis(one, kind, axis, shape, m), p)
+    assert torch.equal(k, direct)
+    two = _lowered(lambda a: a * 1.0 + 0.0, m)
+    for operand, path in ((m, "lanes4"), (clone, "element")):
+        k, _ = _rd_on(path, lambda: reduction.map_reduce_axis(two, kind, axis, shape, operand), p)
+        assert torch.equal(k, direct)
+    t = elementwise.View(clone.T.contiguous(), 0, (R, C), (1, R))  # the same values, transposed
+    k, _ = _rd_on("element", lambda: reduction.reduce_axis(t, kind, axis), p)
+    assert torch.equal(k, direct)
+
+
+@pytest.mark.parametrize("shape", [(300, 260), (77, 1030), (5, 7), (1000, 4)])
+def test_rd_full_walks_the_rows_of_broadcast_operands(cuda, shape):
+    """rd_full of a 2-D expression with a (1, C) row and an (R, 1) column:
+    16 bytes at a time along rows that start at 16-byte boundaries
+    (lanes4), element by element otherwise."""
+    R, C = shape
+    m = _aligned(cuda, R, (C + 3) // 4 * 4)[:, :C]
+    row, col = _aligned(cuda, 1, C), _aligned(cuda, R, 1)
+    for fn, operands in ((lambda a, r, c: sm.square(a * r - c), [m, row, col]),
+                         (lambda a, r: a * r, [m, row])):
+        prog = _lowered(fn, *operands)
+        vals = reduction.values(prog, shape, operands, cuda)
+        for kind in ("sum", "max", "min"):
+            p = reduction._plain(vals, kind)
+            k, _ = _rd_on("lanes4", lambda: reduction.map_reduce(prog, kind, shape, *operands), p)
+            _rd_agree(kind, k, p, vals.abs().sum())
+            if C % 4:
+                ragged = [m.contiguous()] + operands[1:]
+                k, _ = _rd_on("element", lambda: reduction.map_reduce(prog, kind, shape, *ragged), p)
+                _rd_agree(kind, k, p, vals.abs().sum())
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_rd_axis_broadcast_operands_keep_the_16_byte_paths(cuda, axis):
+    R, C = 200, 516
+    m, row, col, one = (_aligned(cuda, *s) for s in ((R, C), (1, C), (R, 1), (1, 1)))
+    cases = [(lambda a, r: a * r, [m, row], "single"), (lambda c, a: c - a, [col, m], "single"),
+             (lambda a, s: a * s, [m, one], "single"),
+             (lambda a, r, c: sm.square(a * r - c), [m, row, col], "lanes4"),
+             (lambda a, s: sm.where(a > s, a, 0.0), [m, one], "lanes4")]
+    for fn, operands, path in cases:
+        prog = _lowered(fn, *operands)
+        vals = reduction.values(prog, (R, C), operands, cuda)
+        k, p = _rd_on(path, lambda: reduction.map_reduce_axis(prog, "sum", axis, (R, C), *operands),
+                      reduction._plain(vals, "sum", axis))
+        _rd_agree("sum", k, p, vals.abs().sum(axis))
+        km, pm = _rd_on("lanes4", lambda: reduction.map_reduce_axis(prog, "max", axis, (R, C), *operands),
+                        reduction._plain(vals, "max", axis))
+        assert torch.equal(km, pm)
+
+
 # ------------------------------------------------------ the matmul kernel
 # Tolerance: a float32 product within 2e-5 * (|A| @ |B|), elementwise, of
 # the plain version (torch.matmul, TF32 off) and of float64: both sum in

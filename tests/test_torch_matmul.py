@@ -305,6 +305,28 @@ def test_int8_matmul_of_views_exact(name, dts, scale):
     assert matmul.LAUNCHES == {"mm": 0, "bmm": 0}  # a CPU tensor launches nothing
 
 
+@pytest.mark.parametrize("out_dtype", ["int32", "float32", "int8", "int64"])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_int8_matmul_out_dtype_matches_jax(out_dtype, scaled):
+    """``ops.matmul.int8_matmul(out_dtype=)``: the exact int32 product cast
+    to ``out_dtype`` (int8 wraps), and float32 whatever it says once
+    ``scale`` is given, in both packages."""
+    from simplemath_tpu.ops import matmul as jmatmul
+
+    rng = np.random.default_rng(5)
+    a = rng.integers(-127, 128, (12, 40)).astype(np.int8)
+    b = rng.integers(-127, 128, (40, 9)).astype(np.int8)
+    scale = 0.125 if scaled else None
+    want = np.asarray(jmatmul.int8_matmul(a, b, out_dtype=jnp.dtype(out_dtype), scale=scale))
+    got = matmul.int8_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                             out_dtype=getattr(torch, out_dtype), scale=scale)
+    assert dtypes.name(got.dtype) == want.dtype.name == ("float32" if scaled else out_dtype)
+    np.testing.assert_array_equal(got.numpy(), want)
+    acc = a.astype(np.int64) @ b.astype(np.int64)
+    ref = acc.astype(np.float32) * np.float32(0.125) if scaled else acc.astype(out_dtype)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_int8_matmul_refuses_other_types():
     for mod in (jsm, sm):
         with pytest.raises(TypeError, match="int8_matmul requires int8/uint8"):

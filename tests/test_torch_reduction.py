@@ -22,7 +22,7 @@ from simplemath_tpu.config import config as jconfig
 from simplemath_tpu.ops import dispatch as jdispatch
 from simplemath_tpu_torch import dtypes
 from simplemath_tpu_torch.config import config
-from simplemath_tpu_torch.ops import dispatch, reduction
+from simplemath_tpu_torch.ops import dispatch, elementwise, program, reduction
 
 
 @pytest.fixture(autouse=True)
@@ -491,3 +491,188 @@ def test_kernel_wrappers_need_cuda_or_raise():
         reduction.reduce_axis(x.reshape(-1), "sum", 0)
     with pytest.raises(ValueError, match="non-empty"):
         reduction.reduce(torch.zeros(0), "sum")
+
+
+# ------------------------------------------- the kernel's paths and grids
+def _aligned(*shape, dtype=torch.float32):
+    """A contiguous tensor of ``shape`` whose first element lies at a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    base = torch.arange(n + 4, dtype=torch.float32).to(dtype)
+    skip = (-base.data_ptr() // base.element_size()) % (16 // base.element_size())
+    t = base[skip:skip + n].reshape(shape)
+    assert t.data_ptr() % 16 == 0
+    return t
+
+
+def _lowered(fn, *operands):
+    leaves = [program.leaf(tuple(o.shape), o.dtype) for o in operands]
+    return program.lower(fn(*leaves), leaves)
+
+
+def _path_cases():
+    n, R, C = 1000, 24, 40
+    a, b = _aligned(n), _aligned(n)
+    ia, ib = _aligned(n, dtype=torch.int32), _aligned(n, dtype=torch.int32)
+    eps = torch.tensor(1e-3)
+    m = _aligned(R, C)
+    wide = _aligned(R, C + 4)
+    row, col, one = _aligned(1, C), _aligned(R, 1), _aligned(1, 1)
+    mask = a > 3.0
+    ident = reduction._identity(torch.float32)
+    mul = lambda p, q: p * q  # noqa: E731
+    thr = lambda p, s: sm.where(p > s, p, 0.0)  # noqa: E731
+    shifted = elementwise.View(_aligned(n + 1), 1, (n,), (1,))
+    return {
+        # rd_full
+        "identity": (ident, "sum", (n,), [a], None, "direct"),
+        "identity max": (ident, "max", (n,), [a], None, "direct"),
+        "identity 2-D": (ident, "sum", (R, C), [m], None, "direct"),
+        "dot f32": (_lowered(mul, a, b), "sum", (n,), [a, b], None, "single"),
+        "dot int32": (_lowered(mul, ia, ib), "sum", (n,), [ia, ib], None, "single"),
+        "a*b max": (_lowered(mul, a, b), "max", (n,), [a, b], None, "lanes4"),
+        "a*scalar": (_lowered(mul, a, eps), "sum", (n,), [a, eps], None, "single"),
+        "a*2.5": (_lowered(lambda p: p * 2.5, a), "sum", (n,), [a], None, "single"),
+        "a>b": (_lowered(lambda p, q: p > q, a, b), "sum", (n,), [a, b], None, "single"),
+        "exp": (_lowered(lambda p: sm.exp(p), a), "sum", (n,), [a], None, "lanes4"),
+        "dot int32.f32": (_lowered(mul, ia, b), "sum", (n,), [ia, b], None, "lanes4"),
+        "distance": (_lowered(lambda p, q, e: sm.square(p + e - q), a, b, eps), "sum", (n,),
+                     [a, b, eps], None, "lanes4"),
+        "thresholded": (_lowered(thr, a, eps), "sum", (n,), [a, eps], None, "lanes4"),
+        "one element off": (ident, "sum", (n,), [shifted], None, "element"),
+        "dot, b one element off": (_lowered(mul, a, b), "sum", (n,), [a, shifted], None, "element"),
+        "transposed": (ident, "sum", (C, R), [elementwise.View(m, 0, (C, R), (1, C))], None,
+                       "element"),
+        "negative step": (ident, "sum", (n,), [elementwise.View(a, n - 1, (n,), (-1,))], None,
+                          "element"),
+        "bool operand": (_lowered(lambda k, p: sm.where(k, p, 0.0), mask, a), "sum", (n,),
+                         [mask, a], None, "element"),
+        # rd_full over the rows of a 2-D expression with broadcast operands
+        "full map row col": (_lowered(lambda p, r, c: sm.square(p * r - c), m, row, col), "sum",
+                             (R, C), [m, row, col], None, "lanes4"),
+        "full a*row": (_lowered(mul, m, row), "sum", (R, C), [m, row], None, "lanes4"),
+        "full a*row, ragged rows": (_lowered(mul, _aligned(R, C - 1), _aligned(1, C - 1)), "sum",
+                                    (R, C - 1), [_aligned(R, C - 1), _aligned(1, C - 1)], None,
+                                    "element"),
+        # rd_axis
+        "axis 0 identity": (ident, "sum", (R, C), [m], 0, "direct"),
+        "axis 1 identity min": (ident, "min", (R, C), [m], 1, "direct"),
+        "axis 0 a*row": (_lowered(mul, m, row), "sum", (R, C), [m, row], 0, "single"),
+        "axis 1 col-a": (_lowered(lambda c, p: c - p, col, m), "sum", (R, C), [col, m], 1,
+                         "single"),
+        "axis 0 a*(1,1)": (_lowered(mul, m, one), "sum", (R, C), [m, one], 0, "single"),
+        "axis 1 thresholded (1,1)": (_lowered(thr, m, one), "sum", (R, C), [m, one], 1, "lanes4"),
+        "axis 0 map row col": (_lowered(lambda p, r, c: sm.square(p * r - c), m, row, col), "max",
+                               (R, C), [m, row, col], 0, "lanes4"),
+        "axis 0 rows of a wider base": (ident, "sum", (R, C), [wide[:, :C]], 0, "direct"),
+        "axis 1 ragged columns": (ident, "sum", (R, C - 1), [_aligned(R, C - 1)], 1, "element"),
+        "axis 1 ragged columns, aligned rows": (ident, "sum", (R, C - 1), [m[:, :C - 1]], 1,
+                                                "direct"),
+        "axis 0 one column off": (ident, "sum", (R, C), [wide[:, 1:C + 1]], 0, "element"),
+        "axis 0 transposed": (ident, "sum", (C, R), [elementwise.View(m, 0, (C, R), (1, C))], 0,
+                              "element"),
+        "axis 1 negative step": (ident, "sum", (R // 2, C // 2),
+                                 [elementwise.View(m, R * C - 1, (R // 2, C // 2), (-2 * C, -2))],
+                                 1, "element"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_path_cases()))
+def test_path_table(case):
+    """``reduction.path`` decides from the program, the reduction, the shape
+    and the operands' layouts alone how the kernel evaluates a launch; and
+    on these CPU tensors the wrappers give the plain version's values and
+    count nothing."""
+    prog, kind, shape, operands, axis, want = _path_cases()[case]
+    assert reduction.path(prog, kind, shape, reduction.layout(operands), axis) == want
+    reduction.reset_launches()
+    if axis is None:
+        got = reduction.map_reduce(prog, kind, shape, *operands) if prog.dtype != torch.int32 \
+            else reduction.dot1d(*operands)
+    else:
+        got = reduction.map_reduce_axis(prog, kind, axis, shape, *operands)
+    vals = reduction.values(prog, shape, operands, torch.device("cpu"))
+    ref = {"sum": np.sum, "max": np.max, "min": np.min}[kind](
+        vals.double().numpy(), axis=axis)
+    np.testing.assert_allclose(got.double().numpy(), ref, rtol=2e-5, atol=2e-4)
+    assert not any(reduction.LAUNCHES.values()) and not any(reduction.PATHS.values())
+
+
+def test_reach_of_the_operands():
+    """flat data, the rows of a 2-D expression, or a gather: what ``path``
+    builds on."""
+    m, row, col = _aligned(24, 40), _aligned(1, 40), _aligned(24, 1)
+    where = reduction.layout
+    assert reduction.reach((24, 40), where([m])) == "flat"
+    assert reduction.reach((24, 40), where([m]), axis=0) == "rows"
+    assert reduction.reach((24, 40), where([m, row, col])) == "rows"
+    assert reduction.reach((24, 40), where([m, torch.tensor(2.0)])) == "flat"
+    assert reduction.reach((40, 24), where([elementwise.View(m, 0, (40, 24), (1, 40))])) == "gather"
+    assert reduction.reach((2, 12, 40), where([_aligned(2, 12, 40), _aligned(1, 1, 40)])) == "gather"
+
+
+def test_hoisted_opcodes_are_the_cheap_ones():
+    """The hoisted loop takes every opcode but the transcendental and
+    trigonometric functions and the integer power."""
+    left = {program.OPCODES[i] for i in range(len(program.OPCODES)) if i not in reduction.HOISTED}
+    assert left == {"EXP_F", "LOG_F", "EXP2_F", "LOG2_F", "TANH_F", "SIN_F", "COS_F", "TAN_F",
+                    "POW_F", "IPOW_I"}
+
+
+_GRID_SHAPES = [(1, 1), (7, 5), (1, 64), (64, 1), (2048, 8), (300, 257), (33, 128), (65, 132),
+                (40, 1025), (1, 100_000), (100_000, 3), (5000, 4096), (8192, 8192)]
+
+
+@pytest.mark.parametrize("shape", _GRID_SHAPES, ids=str)
+def test_axis_grids_cover_every_row_and_column_once(shape):
+    """The walks of csrc/reduction.cuh, modelled on the grids ``axis_grid``
+    gives: every row and every column is taken exactly once, and the grid
+    depends on the shape alone."""
+    rows, cols = shape
+    quads = -(-cols // 4)
+    # Axis 0: block (x, y) is 32 quads of columns by 8 row lanes (warps)
+    # over rows [y * seg_rows, (y + 1) * seg_rows).
+    segs, seg_rows = reduction.axis_grid(rows, cols, 0)
+    assert (segs, seg_rows) == reduction.axis_grid(rows, cols, 0)
+    assert 1 <= segs <= 65535 and seg_rows % 32 == 0
+    taken = np.zeros(rows, np.int64)
+    for y in range(segs):
+        lo, hi = y * seg_rows, min((y + 1) * seg_rows, rows)
+        assert lo < hi
+        for warp in range(8):
+            taken[lo + warp:hi:8] += 1
+    assert (taken == 1).all()
+    col_blocks = -(-quads // 32)
+    columns = np.arange(col_blocks * 32 * 4).reshape(col_blocks, 32, 4)
+    assert np.array_equal(columns[columns < cols], np.arange(cols))
+    # Axis 1: a block takes 1 row at a time, or 8 (a warp each) where a row
+    # has at most 32 quads; blocks stride over the rows.
+    blocks, per_block = reduction.axis_grid(rows, cols, 1)
+    assert per_block == (8 if quads <= 32 else 1) and 1 <= blocks <= 8 * reduction._MAX_BLOCKS
+    stride = blocks * per_block
+    first = (np.arange(blocks)[:, None] * per_block + np.arange(per_block)[None, :]).ravel()
+    took = first[:, None] + stride * np.arange(-(-rows // stride))[None, :]
+    taken = np.bincount(took[took < rows], minlength=rows)
+    assert (taken == 1).all() and (blocks - 1) * per_block < rows
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1024, 4096 * 3 + 777, 1_000_000, 64 * 1024 * 1024])
+def test_full_grid_covers_every_quad_once(n):
+    """rd_full: thread t of ``full_blocks(n)`` blocks of 256 owns quads
+    t, t + T, ...: every element once, no block idle, the grid a function of
+    ``n`` alone."""
+    blocks = reduction.full_blocks(n)
+    quads = -(-n // 4)
+    assert blocks == reduction.full_blocks(n) and 1 <= blocks <= reduction._MAX_BLOCKS
+    assert (blocks - 1) * 256 < quads  # the last block has a quad
+    threads = blocks * 256
+    owned = -(-(quads - np.arange(min(threads, quads))) // threads)  # quads per thread
+    assert owned.sum() == quads and owned.min() >= 1
+
+
+def test_ops_package_exposes_what_the_reference_does():
+    import simplemath_tpu.ops as jops
+    import simplemath_tpu_torch.ops as pops
+
+    for name in ("elementwise", "engine", "matmul", "reduction", "registry", "transcendental"):
+        assert hasattr(jops, name) and hasattr(pops, name), name

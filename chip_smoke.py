@@ -18,11 +18,21 @@ device:
    dispatch hoisted out of the loop); a chain, a scalar operand on either
    side, a constant, a bool store and an operand 4 bytes off (the
    per-element path) are held bit for bit against the plain interpreter
-   and against ``ew_strided`` on the same program;
+   and against ``ew_strided`` on the same program.  ``ew_strided``'s
+   kernels (the one generated for the program and compiled with NVRTC,
+   ``ops/codegen.py``, which every call takes, and the per-element
+   interpreter, ``elementwise.interpret``, kept as its reference) give the
+   same bits on every opcode and cast (float32, int32, bool; operands read
+   backwards), ranks 1 to 8 with a broadcast row and a negative-step
+   operand, a carry over 1 and 16 iterations and a program of
+   ``MAX_INSTS`` instructions, each launch on the kernel
+   ``elementwise.PATHS`` names;
 4. drives the two workloads of BASELINE.json through the public ``sm`` API
    at full size (the 1M-float ``sm.add``; ``sm.fuse(chain, donate=0,
    iterations=L)`` on 2048x2048 with L = 16 and 400), counts the kernel's
-   launches (one per call) and checks the results;
+   launches (one per call; both recurrences on ``ew_strided``'s generated
+   kernels), prints NVRTC's milliseconds per new signature and the cache's
+   counts, and checks the results;
 5. the reductions: holds the map-reduce kernel (``rd_full``, ``rd_axis``)
    against its plain version on the card (ragged 1-D, (8192, 8192), a
    transposed and a negative-step view, NaN, the f32, int32 (exact, with
@@ -45,7 +55,8 @@ device:
    reductions also in GB/s of the bytes each call must read once), and,
    as a yardstick the port never calls, the one PyTorch call that computes
    the same function where there is one (``torch.add``, ``torch.sum``,
-   ``torch.dot``, ``torch.sum(dim)``, ``torch.matmul``, ``torch._int_mm``).
+   ``torch.dot``, ``torch.sum(dim)``, ``torch.matmul``, ``torch._int_mm``),
+   and the recurrences once more on ``ew_strided``'s interpreter.
    The 1M add is timed twice, kernel and ``torch.add`` alike: on the same
    three arrays again and again (12 MB: hot in the 50 MB L2, what a caller
    who adds the same arrays sees), and over a ring of operands and results
@@ -75,22 +86,34 @@ device:
    a product of uint8 255s at K = 33,280 that wraps int32, rank 3, a view
    one byte off against its clone, and the dequantizing epilogue with a
    scalar and a per-channel scale: all exact against ``int_product``, the
-   bits repeating,
+   bits repeating; for the CUDA-core kernel (f32, mixed and int32 pairs):
+   the four operand orders at (300, 270) @ (270, 515) on both staging
+   paths (16-byte ``cp.async`` copies, element reads), negative-step,
+   transposed and 4-bytes-off views, K = 1 and K = 2048 + 5 and rank 3,
+   each the bits of its contiguous clone and, for f32, of the parent
+   kernel's order (one chain of fused multiply-adds in ascending k),
+   epilogues with every extra shape giving ``ew_strided``'s bits on the
+   stored product, and int64/uint64 products exact against the CPU's int64
+   product, wrapping,
    then drives bench.py's matmul workloads through the public API at full
    width (the fused ``relu(x @ W + bias) * s - c`` at 2048^3 in f32 and
    bf16, ``sm.int8_matmul`` at 2048^3 with and without ``scale=``, the
    fused batched root at (8, 1024, 1024) bf16, an int32 ``sm.dot``; one
    launch per call and no elementwise pass; the bf16 workloads through
    the bf16 tensor-core kernel, ``sm.int8_matmul`` through the int8 one and
-   the f32 and int32 ones through neither, by the variant counter;
+   the f32 and int32 ones through neither, by the variant counter; the
+   fused batched root at (8, 1024, 1024) in f32 and an int64 ``sm.dot`` of
+   full-range values through the CUDA-core kernel;
    ``sm.dot``/``sm.matmul`` of f32 and complex64 through ``torch.matmul``),
    and times them;
 8. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
    read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
-   beside it; ``mm`` and ``bmm`` with their bf16 times, ``mm_int8`` and
-   ``mm_f32`` beside them), then
+   beside it; ``ew_strided`` as the L = 400 recurrence on its generated
+   kernel, the interpreter's time beside it; ``mm`` and ``bmm`` with their
+   bf16 times, ``mm_int8``, ``mm_f32``, ``bmm_f32``, ``mm_int32`` and
+   ``mm_int64`` beside them), then
    ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
@@ -120,6 +143,8 @@ RD_OTHER_SOURCES = ["simplemath_tpu_torch/csrc/reduction.cuh",
                     "simplemath_tpu_torch/csrc/reduction_cols.cu",
                     "simplemath_tpu_torch/csrc/reduction_rows.cu"]
 MM_SOURCE = "simplemath_tpu_torch/csrc/matmul.cu"
+MM_OTHER_SOURCES = ["simplemath_tpu_torch/csrc/matmul_fma.cuh",
+                    "simplemath_tpu_torch/csrc/matmul_elem.cu"]
 WGMMA_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma.cu"
 WGMMA_S8_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_s8.cu"
 N_CHAIN = 16 * 1024 * 1024  # the flat chain a * b + c - a: 256 MB moved
@@ -133,6 +158,17 @@ N_INT_DOT = 512
 # its operations over the rate for their type.
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# Integer multiply-adds on the CUDA cores, which the data sheet does not
+# list: the arithmetic throughput table of NVIDIA's CUDA C++ documentation
+# gives compute capability 9.0 64 results of a 32-bit integer multiply-add
+# (and of a 32-bit add) a clock an SM, half its 128 float32 ones, so at the
+# clock of the f32 peak above int32 multiply-adds run at half of it.  A 64-bit
+# multiply-add has no instruction; the fewest 32-bit ones that make it are
+# three (IMAD.WIDE.U32 with the 64-bit addend, for the low words' product
+# and the sum; two IMAD adding the cross products into the high word), so
+# its peak is a third of the int32 rate, IMAD.WIDE counted as one issue.
+PEAK_OPS["int32"] = PEAK_OPS["f32"] / 2
+PEAK_OPS["int64"] = PEAK_OPS["int32"] / 3
 # Float operations of one crafted transcendental (counted in
 # csrc/tiles.cuh); every other opcode counts as one.
 CRAFTED_OPS = {"exp": 24, "pow": 55}
@@ -246,6 +282,82 @@ def times_one_plus_zero(shape):
 
     leaf = program.leaf(shape, torch.float32)
     return program.lower(leaf * 1.0 + 0.0, [leaf])
+
+
+def on_both_kernels(elementwise, prog, shape, operands, iterations=1, carry=0):
+    """The program on ew_strided's two kernels, the interpreter and the
+    generated one, each launch on the kernel ``elementwise.PATHS`` must
+    name; the generated result, which must be the interpreter's bit for
+    bit."""
+    import torch
+
+    outs = []
+    for name, run in (("interp", elementwise.interpret),
+                      ("generated", lambda prog, shape, *ops, **kw: elementwise.elementwise(
+                          prog, shape, prog.dtype, *ops, name="check", **kw))):
+        before = dict(elementwise.PATHS)
+        outs.append(run(prog, shape, *operands, iterations=iterations, carry=carry))
+        took = {k: v - before[k] for k, v in elementwise.PATHS.items() if v != before[k]}
+        check(took == {name: 1}, f"a strided launch meant for {name} took {took}")
+    torch.cuda.synchronize()
+    k, g = outs
+    same = torch.equal(k, g) if k.dtype == torch.bool else torch.equal(k.view(torch.int32),
+                                                                       g.view(torch.int32))
+    check(k.dtype == g.dtype and same, "the generated kernel differs from the interpreter")
+    return g
+
+
+def generated_checks(dev, rng, sm, elementwise, program):
+    """Phase 3b: ew_strided's generated kernels against its interpreter,
+    bit for bit, and against the plain version: ranks 1 to 8 with a
+    broadcast (stride 0) and a negative-step operand, a carry over 1 and 16
+    iterations, a program of MAX_INSTS instructions.  (Every opcode on
+    float32, int32 and bool is held in phase 3's opcode loop.)"""
+    import torch
+
+    for rank in range(1, 9):
+        shape = tuple(int(d) for d in rng.integers(1, 4, rank - 1)) + (37,)
+        base = torch.from_numpy(rng.standard_normal(tuple(2 * d for d in shape)).astype(np.float32)).to(dev)
+        steps = tuple(2 * st for st in base.stride())
+        view = elementwise.View(base, (shape[-1] - 1) * steps[-1], shape, steps[:-1] + (-steps[-1],))
+        row = torch.from_numpy(rng.standard_normal((1,) * (rank - 1) + (37,)).astype(np.float32)).to(dev)
+        full = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        ls = [program.leaf(shape, torch.float32), program.leaf(row.shape, torch.float32),
+              program.leaf(shape, torch.float32)]
+        prog = program.lower(sm.maximum(ls[0] * ls[1] - ls[2], 0.25) + sm.exp(ls[1] * 0.5), ls)
+        g = on_both_kernels(elementwise, prog, shape, [view, row, full])
+        p = program.run_plain(prog, [elementwise.read(view), row, full], shape)
+        check(max_ulp(g, p) <= 2.0, f"rank {rank}: the generated kernel is off the plain version")
+    log("check ew_strided generated = interpreter, ranks 1-8, a broadcast row and a "
+        "negative-step operand: bits equal, within 2 ulp of plain")
+
+    shape = (256, 520)
+    acc = torch.zeros(shape, device=dev)
+    a = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32)).to(dev)
+    e = torch.from_numpy(rng.uniform(-2.0, 2.0, (1, 520)).astype(np.float32)).to(dev)
+    ls = [program.leaf(shape, torch.float32), program.leaf(shape, torch.float32),
+          program.leaf((1, 520), torch.float32)]
+    prog = program.lower(ls[0] * np.float32(1e-3)
+                         + sm.exp(sm.pow(ls[1] + ls[0] * np.float32(1e-6), ls[2])), ls)
+    for L in (1, 16):
+        g = on_both_kernels(elementwise, prog, shape, [acc, a, e], L, 0)
+        check(max_ulp(g, program.run_plain(prog, [acc, a, e], shape, L, 0)) <= 2.0,
+              f"carry L={L}: the generated kernel is off the plain version")
+    check(bool((acc == 0).all()), "the carry wrote into its operand")
+    log("check ew_strided generated = interpreter, the recurrence with a carry at L = 1 and 16")
+
+    x, y = program.leaf((77, 50), torch.float32), program.leaf((1, 50), torch.float32)
+    root = x
+    while len(program.lower(root * y + 0.5, [x, y]).insts) <= program.MAX_INSTS:
+        root = root * y + 0.5
+    prog = program.lower(root, [x, y])
+    check(len(prog.insts) >= program.MAX_INSTS - 1, "the long program is short")
+    xs = torch.from_numpy(rng.uniform(-1, 1, (77, 50)).astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rng.uniform(-1, 1, (1, 50)).astype(np.float32)).to(dev)
+    g = on_both_kernels(elementwise, prog, (77, 50), [xs.T.contiguous().T, ys])
+    check(max_ulp(g, program.run_plain(prog, [xs, ys], (77, 50))) == 0.0,
+          "the long program is off the plain version")
+    log(f"check ew_strided generated = interpreter, a program of {len(prog.insts)} instructions")
 
 
 def reduction_checks(dev, rng, sm, elementwise, program, reduction):
@@ -421,10 +533,10 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
 
 def matmul_checks(dev, rng, sm, program, matmul, elementwise):
     """Phase 7a: the matmul kernel against its plain version on the card.
-    Returns the largest |kernel - plain| of each entry point."""
+    Returns the largest |kernel - plain| by (entry point, kernel)."""
     import torch
 
-    err = {"mm": 0.0, "bmm": 0.0, **{k: 0.0 for k in matmul.VARIANTS}}
+    err = {(e, k): 0.0 for e in ("mm", "bmm") for k in matmul.VARIANTS}
 
     def on(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -441,8 +553,8 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
         dims = matmul.product_shape(a.shape, b.shape)
         ex = [matmul._extra3(e, dims, len(a.shape) == 3) for e in extras]
         p = matmul.matmul_plain(a, b, k1.dtype, epilogue, ex)
-        for key in ("bmm" if len(a.shape) == 3 else "mm", matmul.variant(a.dtype, b.dtype)):
-            err[key] = max(err[key], float((k1.double() - p.double()).abs().max()))
+        key = ("bmm" if len(a.shape) == 3 else "mm", matmul.variant(a.dtype, b.dtype))
+        err[key] = max(err[key], float((k1.double() - p.double()).abs().max()))
         return k1, p
 
     def close(label, k, p, ref64, scale64):
@@ -545,7 +657,7 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
         matmul.reset_launches()
         k32, p32 = both(a, b, torch.float32)
         kb, _ = both(a, b, torch.bfloat16)
-        check(matmul.VARIANTS == {"wgmma_bf16": 4, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0},
+        check(matmul.VARIANTS == {"wgmma_bf16": 4, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0},
               f"{label}: launched {matmul.VARIANTS}, not the tensor-core kernel")
         at, bt = elementwise.read(a).double(), elementwise.read(b).double()
         ref, scale = at @ bt, at.abs() @ bt.abs()
@@ -622,12 +734,168 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
           "f32 @ bf16 is not the f32 product of the widened operand")
     k, p = both(x32.to(torch.int32), y32.to(torch.int8))
     check(torch.equal(k, p), "int32 @ int8 is not exact")
-    check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 2, "imad_i32": 2},
+    check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 2, "imad_i32": 2, "imad_i64": 0},
           f"mixed and int32 products launched {matmul.VARIANTS}")
     log(f"check mm bf16: largest error {worst[0]:.4f} of the tolerance 2e-5*(|A|@|B|) "
         "against float64; f32 @ bf16 and int32 @ int8 keep the CUDA-core kernels")
+    cuda_core_checks(dev, rng, sm, program, matmul, elementwise, both)
     int8_checks(dev, rng, sm, matmul, elementwise, both)
     return err
+
+
+def in_order(a, b):
+    """The parent kernel's f32 product: every element one chain of fused
+    multiply-adds from 0 in ascending k, k padded with zero products to a
+    multiple of 16.  Emulated in float64 (a product of two floats is exact
+    there) with one rounding to float32 a step."""
+    import torch
+
+    from simplemath_tpu_torch.ops import elementwise
+
+    a, b = elementwise.read(a).double(), elementwise.read(b).double()
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32, device=a.device)
+    for k in range((a.shape[1] + 15) // 16 * 16):
+        term = a[:, k:k + 1] * b[k:k + 1] if k < a.shape[1] else 0.0
+        acc = (term + acc.double()).float()
+    return acc
+
+
+def cuda_core_checks(dev, rng, sm, program, matmul, elementwise, both):
+    """Phase 7a, the CUDA-core kernel (csrc/matmul.cu): f32, mixed f32/bf16
+    and int32 products on both staging paths (16-byte cp.async copies and
+    element reads) in the four operand orders; views (transposed,
+    negative-step, 4 bytes off) give the bits of their contiguous clones
+    and f32 products the parent kernel's order; K = 1 and K = 2048 + 5;
+    rank 3; epilogues with (1, N), (M, 1), full and 0-d extras give
+    ew_strided's bits on the stored product; int64 and uint64 products exact
+    against the CPU's int64 product, wrapping.  ``both`` is matmul_checks'."""
+    import torch
+
+    def f32(*shape):
+        return torch.from_numpy(np.asarray(rng.standard_normal(shape), np.float32)).to(dev)
+
+    def i32(*shape):
+        return torch.from_numpy(np.asarray(rng.integers(-2**31, 2**31, shape), np.int32)).to(dev)
+
+    def vec16(x, contraction):
+        s3 = matmul._strides3(tuple(x.shape), tuple(x.stride()), x.dim() == 3)
+        return matmul.staging(s3, contraction, x.data_ptr(), x.element_size())[1]
+
+    def clone_bits(label, a, b, out_dtype=None):
+        k = matmul.matmul(a, b, out_dtype)
+        c = matmul.matmul(elementwise.read(a).contiguous(), elementwise.read(b).contiguous(), out_dtype)
+        torch.cuda.synchronize()
+        check(torch.equal(k, c), f"{label}: the product differs in bits from its clones'")
+        return k
+
+    widths = {"element by element": lambda n: n + 1 if n % 4 == 0 else n,
+              "16 bytes at a time": lambda n: n + (-n % 4)}
+    matmul.reset_launches()
+    for path, width in widths.items():
+        def operand(make, rows, cols, transposed):
+            if transposed:  # (rows, cols) with the rows contiguous
+                return make(cols, width(rows))[:, :rows].T
+            return make(rows, width(cols))[:, :cols]
+        for ta, tb in ((False, False), (True, False), (False, True), (True, True)):
+            label = f"{'a.T' if ta else 'a'} @ {'b.T' if tb else 'b'}, {path}"
+            a, b = operand(f32, 300, 270, ta), operand(f32, 270, 515, tb)
+            check(vec16(a, 2) == vec16(b, 1) == (path != "element by element"),
+                  f"f32 {label}: staged otherwise")
+            k = clone_bits(f"f32 {label}", a, b)
+            check(torch.equal(k, in_order(a, b)), f"f32 {label}: not the parent kernel's order")
+            ia, ib = operand(i32, 300, 270, ta), operand(i32, 270, 515, tb)
+            k = clone_bits(f"int32 {label}", ia, ib)
+            want = matmul._wrap_int32(ia.cpu().long() @ ib.cpu().long())
+            check(torch.equal(k.cpu(), want), f"int32 {label}: not the product mod 2**32")
+        # Mixed pairs: the bf16 operand widened at the load, read element by
+        # element beside a copied f32 one.
+        a, b = operand(f32, 300, 270, False), operand(f32, 270, 515, False)
+        check(torch.equal(matmul.matmul(a, b.bfloat16()), matmul.matmul(a, b.bfloat16().float())),
+              f"f32 @ bf16, {path}: not the f32 product of the widened operand")
+        k = matmul.matmul(a.to(torch.int32), b.to(torch.int8))
+        check(torch.equal(k.cpu(), matmul._wrap_int32(a.cpu().long() @ b.to(torch.int8).cpu().long())),
+              f"int32 @ int8, {path}: not exact")
+    check(matmul.VARIANTS["fma_f32"] == 20 and matmul.VARIANTS["imad_i32"] == 18
+          and sum(matmul.VARIANTS.values()) == 38, f"the CUDA-core checks launched {matmul.VARIANTS}")
+    log("check mm f32 and int32 (300,270)@(270,515), the four operand orders, 16-byte copies "
+        "and element reads: the bits of the contiguous clones, f32 in the parent kernel's "
+        "order, int32 mod 2**32; f32 @ bf16 and int32 @ int8: the widened products")
+
+    base = sm.Array(f32(540, 336))
+    a = f32(300, 270)
+    for label, b in (("negative-step", base[::-2, ::-1][:, :300]),
+                     ("4 bytes off", base[:270, 1:301]), ("transposed", base.T[:270, :300])):
+        b = b._operand()
+        k = clone_bits(f"f32 {label}", a, b)
+        check(torch.equal(k, in_order(a, b)), f"f32 {label}: not the parent kernel's order")
+    x = f32(300 * 270 + 1)[1:].reshape(300, 270)  # A's first element 4 bytes off 16
+    check(not vec16(x, 2), "the operand 4 bytes off is copied")
+    y = f32(270, 515)
+    check(torch.equal(clone_bits("f32 A 4 bytes off", x, y), in_order(x, y)),
+          "f32 A 4 bytes off: not the parent kernel's order")
+    for K in (1, N_MM + 5):
+        a, b = f32(64, K), f32(K, 72)
+        k, p = both(a, b)
+        check(torch.equal(k, in_order(a, b)), f"f32 K={K}: not the parent kernel's order")
+        scale = a.double().abs() @ b.double().abs()
+        check(bool(((k.double() - a.double() @ b.double()).abs() <= 2e-5 * scale).all()),
+              f"f32 K={K}: beyond 2e-5*(|A|@|B|) of float64")
+    a3, b3 = f32(3, 70, 33), f32(3, 136, 33).transpose(1, 2)
+    k3 = clone_bits("f32 rank 3, B a transposed view", a3, b3)
+    for i in range(3):
+        check(torch.equal(k3[i], in_order(a3[i], b3[i])), "f32 rank 3: not the parent kernel's order")
+    log(f"check mm f32 views (negative-step, 4 bytes off, transposed), K=1, K={N_MM + 5}, rank 3: "
+        "the clones' bits and the parent kernel's order")
+
+    # Epilogues over the f32 and int32 accumulators, every extra shape:
+    # the fused result is ew_strided's on the stored product, bit for bit.
+    M, K, N = 200, 70, 260
+    for dtype, make in ((torch.float32, f32), (torch.int32, lambda *s: i32(*s) >> 20)):
+        a, b = make(M, K), make(K, N)
+        extras = [make(1, N), make(M, 1), make(M, N), make()]
+        acc = program.leaf((M, N), dtype)
+        ls = [program.leaf(tuple(t.shape), dtype) for t in extras]
+        if dtype == torch.float32:
+            root = sm.tanh(sm.maximum(acc * ls[1] + ls[0], 0.0) - ls[2]) * ls[3]
+        else:
+            root = sm.maximum(acc * ls[1] + ls[0], 0) - ls[2] * ls[3]
+        fused = matmul.matmul(a, b, dtype, epilogue=program.lower_epilogue(root, acc, ls),
+                              extras=extras)
+        stored = matmul.matmul(a, b, dtype)
+        after = elementwise.elementwise(program.lower(root, [acc, *ls]), (M, N), dtype, stored,
+                                        *extras)
+        check(torch.equal(fused, after),
+              f"{dtype} epilogue: the fused product differs from ew_strided on the stored one")
+    log("check mm f32 and int32 epilogues with (1, N), (M, 1), full and 0-d extras: "
+        "ew_strided's bits on the stored product")
+
+    # 64-bit products: full-range values, wrapping mod 2**64.
+    def wide(dtype, *shape):
+        if dtype == "uint64":
+            x = rng.integers(0, 2**63, shape, dtype=np.uint64) * np.uint64(2) + np.uint64(1)
+        else:
+            x = rng.integers(-2**63, 2**63 - 1, shape, dtype=np.int64)
+        return torch.from_numpy(x).to(dev)
+
+    matmul.reset_launches()
+    for da, db in (("int64", "int64"), ("uint64", "uint64"), ("int64", "uint64")):
+        a, b = wide(da, 130, 200), wide(db, 200, 129)
+        k = matmul.matmul(a, b, torch.int64)
+        want = torch.matmul(matmul._int64(a.cpu()), matmul._int64(b.cpu()))
+        check(k.dtype == torch.int64 and torch.equal(k.cpu(), want), f"{da} @ {db} is not exact")
+    a, i8 = wide("int64", 3, 70, 33), torch.from_numpy(
+        rng.integers(-128, 128, (3, 33, 136)).astype(np.int8)).to(dev)
+    k = matmul.matmul(a, i8, torch.int64)
+    check(torch.equal(k.cpu(), torch.matmul(a.cpu(), i8.cpu().long())), "int64 @ int8 rank 3 is not exact")
+    ua = sm.Array(wide("uint64", 96, 64))
+    got = sm.matmul(ua.T, ua[::-1])
+    want = (ua.torch().cpu().view(torch.int64).T @ ua.torch().cpu().view(torch.int64).flip(0))
+    check(got.dtype == torch.uint64 and torch.equal(got.torch().cpu().view(torch.int64), want),
+          "sm.matmul of uint64 views is not exact")
+    check(matmul.VARIANTS["imad_i64"] == 5 and sum(matmul.VARIANTS.values()) == 5,
+          f"the 64-bit products launched {matmul.VARIANTS}")
+    log("check mm int64 @ int64, uint64 @ uint64, int64 @ uint64 (130,200)@(200,129), "
+        "int64 @ int8 rank 3, sm.matmul of uint64 views: the CPU's int64 product, wrapping")
 
 
 def int8_checks(dev, rng, sm, matmul, elementwise, both):
@@ -645,7 +913,7 @@ def int8_checks(dev, rng, sm, matmul, elementwise, both):
     def tensor_core(label, a, b):
         matmul.reset_launches()
         k, p = both(a, b)
-        check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0},
+        check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0},
               f"{label}: launched {matmul.VARIANTS}, not the int8 tensor-core kernel")
         want = matmul.int_product(elementwise.read(a), elementwise.read(b))
         check(k.dtype == torch.int32 and torch.equal(k, want) and torch.equal(k, p),
@@ -719,7 +987,7 @@ def main():
     import simplemath_tpu_torch as sm
     from simplemath_tpu_torch import _build
     from simplemath_tpu_torch.ops import (
-        dispatch, elementwise, engine, matmul, program, reduction, registry,
+        codegen, dispatch, elementwise, engine, matmul, program, reduction, registry,
     )
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -756,6 +1024,10 @@ def main():
 
     def on(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def backwards(x):
+        """A 1-D operand read back to front: ew_strided's operand."""
+        return elementwise.View(x, x.numel() - 1, (x.numel(),), (-1,))
 
     def binop(name, shape_a, shape_b, dtype=torch.float32):
         la, lb = program.leaf(shape_a, dtype), program.leaf(shape_b, dtype)
@@ -812,23 +1084,32 @@ def main():
                 node = program.Node(name, leaves, dt, (n,))
             else:
                 node = program.apply(name, *leaves)
-            k, p = both(program.lower(node, leaves), (n,), operands)
+            prog = program.lower(node, leaves)
+            k, p = both(prog, (n,), operands)
             if name in transcendental:
                 u = max_ulp(k, p)
                 worst_tr = max(worst_tr, u)
                 check(u <= 2.0, f"{name} {dt}: {u} ulp from its plain version")
             else:
                 check(exact(k, p), f"{name} {dt} disagrees with its plain version")
+            # ew_strided's two kernels on the operands read backwards.
+            g = on_both_kernels(elementwise, prog, (n,), [backwards(o) for o in operands])
+            check(exact(g.flip(0), k), f"{name} {dt}: ew_strided differs from ew_flat")
             n_codes += 1
     for (src, dst) in program._CASTS:
         x = {torch.float32: torch.nan_to_num(xf.clamp(-1e6, 1e6), nan=0.5),
              torch.int32: xi, torch.bool: xf > 0}[src]
         leaf = program.leaf(tuple(x.shape), src)
-        k, p = both(program.lower(program.cast(leaf, dst), [leaf]), tuple(x.shape), [x])
+        prog = program.lower(program.cast(leaf, dst), [leaf])
+        k, p = both(prog, tuple(x.shape), [x])
         check(exact(k, p), f"cast {src}->{dst} disagrees")
+        g = on_both_kernels(elementwise, prog, tuple(x.shape), [backwards(x)])
+        check(exact(g.flip(0), k), f"cast {src}->{dst}: ew_strided differs from ew_flat")
         n_codes += 1
-    log(f"check {n_codes} opcode/dtype cases: arithmetic exact, "
-        f"transcendentals within {worst_tr} ulp of the plain version")
+    log(f"check {n_codes} opcode/dtype cases (float32, int32, bool): arithmetic exact, "
+        f"transcendentals within {worst_tr} ulp of the plain version; ew_flat, ew_strided "
+        "interpreted and ew_strided generated give the same bits")
+    generated_checks(dev, rng, sm, elementwise, program)
 
     # ew_flat beyond one instruction on two full operands: bit for bit the
     # plain interpreter's values, and ew_strided's on the same program
@@ -929,9 +1210,18 @@ def main():
     outs = {L: fused[L](acc0, fa, fe).torch() for L in (16, 400)}
     torch.cuda.synchronize()
     launches = dict(elementwise.LAUNCHES)
-    log(f"main path launches {launches} dispatch {dispatch.counts()}")
+    strided_paths = dict(elementwise.PATHS)
+    log(f"main path launches {launches} ew_strided by kernel {strided_paths} "
+        f"dispatch {dispatch.counts()}")
     check(after_add == {"ew_flat": 1, "ew_strided": 0}, f"sm.add launched {after_add}")
     check(launches == {"ew_flat": 1, "ew_strided": 2}, f"main path launched {launches}")
+    check(strided_paths == {"interp": 0, "generated": 2},
+          f"the recurrences took ew_strided's kernels {strided_paths}")
+    compile_ms = list(codegen.COMPILE_MS)
+    log(f"generated kernels so far: {codegen.STATS} (NVRTC compiles, CUBINs read from "
+        f"build/kernels/generated, launches served by a loaded kernel); NVRTC ms per new "
+        f"signature: median {statistics.median(compile_ms) if compile_ms else None}, "
+        f"max {max(compile_ms, default=None)}, count {len(compile_ms)}")
     check(bool((acc0.torch() == 0).all()), "donate=0 wrote into the caller's array")
 
     err_add = float((c - (add_a.torch() + add_b.torch())).abs().max())
@@ -1063,6 +1353,10 @@ def main():
         t[f"fused{L}_plain_ms"] = time_ms(
             lambda: program.run_plain(prog, plain_in, sq, L, 0), reps=3 if L == 16 else 1)
         t[f"fused{L}_host_ms"] = host_ms(lambda: fused[L](acc0, fa, fe).torch())
+        # The same program on the same arrays through ew_strided's interpreter.
+        t[f"fused{L}_interp_ms"] = time_ms(
+            lambda: elementwise.interpret(prog, sq, *plain_in, iterations=L, carry=0),
+            n=4 if L == 16 else 1)
     log(f"times on {card}: " + json.dumps(t))
 
     # The reductions: kernel and plain version on the same inputs, each a
@@ -1164,11 +1458,16 @@ def main():
     x3 = sm.Array(on(rng.standard_normal(BMM[:1] + (BMM[1], BMM[2])).astype(np.float32)).bfloat16())
     w3 = sm.Array(on(rng.standard_normal(BMM[:1] + (BMM[2], BMM[2])).astype(np.float32)).bfloat16())
     bias3 = sm.Array(on(rng.standard_normal((1, 1, BMM[2])).astype(np.float32)).bfloat16())
+    x3f = sm.Array(on(rng.standard_normal(BMM[:1] + (BMM[1], BMM[2])).astype(np.float32)))
+    w3f = sm.Array(on(rng.standard_normal(BMM[:1] + (BMM[2], BMM[2])).astype(np.float32)))
+    bias3f = sm.Array(on(rng.standard_normal((1, 1, BMM[2])).astype(np.float32)))
     qa = sm.Array(rng.integers(-127, 128, (n, n)).astype(np.int8))
     qb = sm.Array(rng.integers(-127, 128, (n, n)).astype(np.int8))
     q_scale = sm.Array(np.abs(rng.standard_normal((1, n))).astype(np.float32) * 1e-3)
     ia = sm.Array(rng.integers(-1000, 1000, (N_INT_DOT, N_INT_DOT)).astype(np.int32))
     ib = sm.Array(rng.integers(-1000, 1000, (N_INT_DOT, N_INT_DOT)).astype(np.int32))
+    la = sm.Array(rng.integers(-2**63, 2**63 - 1, (N_INT_DOT, N_INT_DOT), dtype=np.int64))
+    lb = sm.Array(rng.integers(-2**63, 2**63 - 1, (N_INT_DOT, N_INT_DOT), dtype=np.int64))
     main_calls = [
         ("fused relu(x@W+bias)*s-c 2048^3 f32", lambda: layer(xf, wf, biasf), {"mm": 1, "bmm": 0}),
         ("fused relu(x@W+bias)*s-c 2048^3 bf16", lambda: layer(xb, wb, biasb), {"mm": 1, "bmm": 0}),
@@ -1176,7 +1475,10 @@ def main():
         ("sm.int8_matmul 2048^3 scale=(1,N)", lambda: sm.int8_matmul(qa, qb, scale=q_scale),
          {"mm": 1, "bmm": 0}),
         ("fused batched root (8,1024,1024) bf16", lambda: layer(x3, w3, bias3), {"mm": 0, "bmm": 1}),
+        ("fused batched root (8,1024,1024) f32", lambda: layer(x3f, w3f, bias3f),
+         {"mm": 0, "bmm": 1}),
         ("sm.dot int32 (512,512)", lambda: sm.dot(ia, ib), {"mm": 1, "bmm": 0}),
+        ("sm.dot int64 (512,512)", lambda: sm.dot(la, lb), {"mm": 1, "bmm": 0}),
     ]
     torch.cuda.synchronize()
     matmul.reset_launches()
@@ -1184,27 +1486,30 @@ def main():
     reduction.reset_launches()
     dispatch.reset()
     mm_outs = []
+    by_kernel = {}  # (entry point, kernel) -> launches on the main path
     for label, call, want in main_calls:
         before, before_v = dict(matmul.LAUNCHES), dict(matmul.VARIANTS)
         mm_outs.append(call().torch())
         got = {k: matmul.LAUNCHES[k] - before[k] for k in before}
         check(got == want, f"{label}: launched {got}, expected {want}")
         took = {k: v - before_v[k] for k, v in matmul.VARIANTS.items() if v != before_v[k]}
-        check(took == {"wgmma_bf16" if "bf16" in label else "fma_f32" if "f32" in label else
-                       "wgmma_s8" if "int8" in label else "imad_i32": 1},
-              f"{label}: ran {took}")
+        kernel = ("wgmma_bf16" if "bf16" in label else "fma_f32" if "f32" in label else
+                  "wgmma_s8" if "int8" in label else "imad_i64" if "int64" in label else "imad_i32")
+        check(took == {kernel: 1}, f"{label}: ran {took}")
+        entry_point = "bmm" if got["bmm"] else "mm"
+        by_kernel[entry_point, kernel] = by_kernel.get((entry_point, kernel), 0) + 1
     torch.cuda.synchronize()
     mm_launches, mm_variants = dict(matmul.LAUNCHES), dict(matmul.VARIANTS)
     counts = dispatch.counts()
     log(f"matmul path launches {mm_launches} by kernel {mm_variants} dispatch {counts}")
-    check(mm_launches == {"mm": 5, "bmm": 1}, f"the matmul path launched {mm_launches}")
+    check(mm_launches == {"mm": 6, "bmm": 2}, f"the matmul path launched {mm_launches}")
     # The two bf16 workloads took the bf16 tensor-core kernel, the two
     # int8_matmul calls the int8 one, and only they.
-    check(mm_variants == {"wgmma_bf16": 2, "wgmma_s8": 2, "fma_f32": 1, "imad_i32": 1},
+    check(mm_variants == {"wgmma_bf16": 2, "wgmma_s8": 2, "fma_f32": 2, "imad_i32": 1, "imad_i64": 1},
           f"the matmul path's kernels were {mm_variants}")
     check(counts.get("matmul:wgmma_bf16") == 2 and counts.get("matmul:wgmma_s8") == 2,
           f"matmul dispatch {counts}")
-    check(counts.get("matmul:mm_epilogue") == 3 and counts.get("matmul:bmm_epilogue") == 1
+    check(counts.get("matmul:mm_epilogue") == 3 and counts.get("matmul:bmm_epilogue") == 2
           and counts.get("matmul:int8") == 2, f"matmul dispatch {counts}")
     check(not any(k.startswith(("elementwise", "torch_path")) for k in counts),
           f"the matmul path left the matmul kernel: {counts}")
@@ -1214,7 +1519,7 @@ def main():
     def relu_layer64(x, w, bias):
         return torch.relu(x.double() @ w.double() + bias.double()) * s_c - c_c
 
-    out_f, out_b, out_q, out_qs, out_3, out_i = mm_outs
+    out_f, out_b, out_q, out_qs, out_3, out_3f, out_i, out_i64 = mm_outs
 
     # The same calls' plain versions, at the main path's shapes.
     acc_leaf = program.leaf((n, n), torch.float32)
@@ -1222,10 +1527,11 @@ def main():
     epi_f = program.lower_epilogue(sm.maximum(acc_leaf + lf, 0.0) * s_c - c_c, acc_leaf, [lf])
     epi_b = program.lower_epilogue(sm.maximum(acc_leaf + lb16, 0.0) * s_c - c_c, acc_leaf, [lb16])
     bias_f3, bias_b3 = biasf.torch().reshape(1, 1, n), biasb.torch().reshape(1, 1, n)
-    for entry, label, out, (x, w, bias), epi in (
-            ("mm", "f32 2048^3", out_f, (xf, wf, bias_f3), epi_f),
-            ("mm", "bf16 2048^3", out_b, (xb, wb, bias_b3), epi_b),
-            ("bmm", "bf16 (8,1024,1024)", out_3, (x3, w3, bias3.torch()), epi_b)):
+    for key, label, out, (x, w, bias), epi in (
+            (("mm", "fma_f32"), "f32 2048^3", out_f, (xf, wf, bias_f3), epi_f),
+            (("mm", "wgmma_bf16"), "bf16 2048^3", out_b, (xb, wb, bias_b3), epi_b),
+            (("bmm", "wgmma_bf16"), "bf16 (8,1024,1024)", out_3, (x3, w3, bias3.torch()), epi_b),
+            (("bmm", "fma_f32"), "f32 (8,1024,1024)", out_3f, (x3f, w3f, bias3f.torch()), epi_f)):
         plain = matmul.matmul_plain(x.torch(), w.torch(), out.dtype, epi, [bias])
         diff = (out.double() - plain.double()).abs()
         # f32: two f32 sums in different orders; bf16: one rounding of each on top.
@@ -1233,9 +1539,11 @@ def main():
         if out.dtype == torch.bfloat16:
             tol = tol + 2.0 ** -7 * plain.double().abs()
         check(bool((diff <= tol).all()), f"fused {label}: kernel vs plain beyond tolerance")
-        err_mm[entry] = max(err_mm[entry], float(diff.max()))
-    log("check fused f32/bf16 2048^3 and bf16 (8,1024,1024): kernel within tolerance of the "
-        "plain version at the main path's shapes")
+        err_mm[key] = max(err_mm[key], float(diff.max()))
+    log("check fused f32/bf16 2048^3 and f32/bf16 (8,1024,1024): kernel within tolerance of "
+        "the plain version at the main path's shapes")
+    check(bool(torch.isfinite(out_3f).all()) and tuple(out_3f.shape) == BMM,
+          "fused f32 (8,1024,1024): wrong result")
     prod_abs = xf.torch().double().abs() @ wf.torch().double().abs()
     check(out_f.dtype == torch.float32 and tuple(out_f.shape) == (n, n)
           and bool(torch.isfinite(out_f).all()), "fused f32: wrong result")
@@ -1266,7 +1574,15 @@ def main():
     want_i = (ia.torch().cpu().long() @ ib.torch().cpu().long())
     check(out_i.dtype == torch.int32 and torch.equal(out_i.cpu().long(), want_i),
           "sm.dot of int32 is not exact")
-    log("check sm.int8_matmul 2048^3 (exact int32; scaled: exact), sm.dot int32 (512,512): exact")
+    want_l = la.torch().cpu() @ lb.torch().cpu()  # wraps mod 2**64
+    check(out_i64.dtype == torch.int64 and torch.equal(out_i64.cpu(), want_l),
+          "sm.dot of int64 is not the CPU's int64 product")
+    for key, out, want in ((("mm", "wgmma_s8"), out_q, acc_q), (("mm", "imad_i32"), out_i, want_i),
+                           (("mm", "imad_i64"), out_i64, want_l)):
+        diff = (out.cpu().long() - want.cpu().long()).abs().max()  # 0 when equal, as checked
+        err_mm[key] = max(err_mm[key], float(diff))
+    log("check sm.int8_matmul 2048^3 (exact int32; scaled: exact), sm.dot int32 (512,512) and "
+        "int64 (512,512), full-range values: exact")
 
     # Float and complex dot/matmul go to torch.matmul: held to numpy.
     small = 512
@@ -1291,6 +1607,8 @@ def main():
     xt_, wt_, xbt, wbt = xf.torch(), wf.torch(), xb.torch(), wb.torch()
     qat, qbt = qa.torch(), qb.torch()
     qa32, qb32 = qat.int(), qbt.int()
+    qa64, qb64 = qat.long(), qbt.long()
+    x3ft, w3ft = x3f.torch(), w3f.torch()
     x3t, w3t = x3.torch(), w3.torch()
     q3a, q3b = (on(rng.integers(-127, 128, BMM[:1] + (BMM[1], BMM[2])).astype(np.int8))
                 for _ in range(2))
@@ -1323,9 +1641,18 @@ def main():
         "bmm_bf16_library_ms": time_ms(lambda: torch.matmul(x3t, w3t), n=20),
         "bmm_bf16_plain_ms": time_ms(lambda: matmul.matmul_plain(x3t, w3t, torch.bfloat16), n=5),
         "bmm_fused_bf16_ms": time_ms(lambda: layer(x3, w3, bias3).torch(), n=5),
+        # The CUDA-core kernel with the batch as a grid dimension, f32.
+        "bmm_f32_ms": time_ms(lambda: matmul.matmul(x3ft, w3ft, torch.float32), n=5),
+        "bmm_f32_library_ms": time_ms(lambda: torch.matmul(x3ft, w3ft), n=5),
+        "bmm_f32_plain_ms": time_ms(lambda: matmul.matmul_plain(x3ft, w3ft, torch.float32), n=5),
+        "bmm_fused_f32_ms": time_ms(lambda: layer(x3f, w3f, bias3f).torch(), n=5),
         # The same kernel on 4-byte integers, and reading A through a
         # transposed view: what the narrow loads and the strides cost.
         "mm_int32_ms": time_ms(lambda: matmul.matmul(qa32, qb32, torch.int32), n=3),
+        "mm_int32_plain_ms": time_ms(lambda: matmul.matmul_plain(qa32, qb32, torch.int32), n=3),
+        # 64-bit multiply-adds; the plain version is the CPU's int64 product.
+        "mm_int64_ms": time_ms(lambda: matmul.matmul(qa64, qb64, torch.int64), n=1, reps=3),
+        "mm_int64_plain_ms": host_ms(lambda: matmul.matmul_plain(qa64, qb64, torch.int64), reps=1),
         "mm_f32_transposed_a_ms": time_ms(
             lambda: matmul.matmul(xf.T._operand(), wt_, torch.float32), n=5),
         # The tensor-core kernel's other routes: f32 stored, both operands
@@ -1345,18 +1672,24 @@ def main():
     mmt["int8_library_ms"] = time_ms(lambda: int_mm(qat, qbt), n=20) if int_mm else None
     flop = 2.0 * n ** 3
     for key in ("mm_f32", "mm_bf16", "fused_f32", "fused_bf16", "mm_int8", "int8", "int8_scaled",
-                "bmm_int8", "bmm_bf16", "bmm_fused_bf16", "mm_int32", "mm_f32_transposed_a"):
+                "bmm_int8", "bmm_bf16", "bmm_fused_bf16", "mm_int32", "mm_f32_transposed_a",
+                "bmm_f32", "bmm_fused_f32", "mm_int64"):
         mmt[f"{key}_Tops"] = flop / (mmt[f"{key}_ms"] * 1e-3) / 1e12
     b_f32 = bound(3 * 4 * n * n, flop, "f32")
     b_bf16 = bound(3 * 2 * n * n, flop, "bf16")
     b_int8 = bound((2 + 4) * n * n, flop, "int8")
     b_bmm = bound(3 * 2 * BMM[0] * BMM[1] * BMM[2], flop, "bf16")
+    b_bmm_f32 = bound(3 * 4 * BMM[0] * BMM[1] * BMM[2], flop, "f32")
+    b_int32 = bound(3 * 4 * n * n, flop, "int32")
+    b_int64 = bound(3 * 8 * n * n, flop, "int64")
     for key, b in (("mm_f32", b_f32), ("fused_f32", b_f32), ("mm_bf16", b_bf16),
                    ("fused_bf16", b_bf16), ("mm_int8", b_int8), ("int8", b_int8),
-                   ("int8_scaled", b_int8), ("bmm_bf16", b_bmm), ("bmm_fused_bf16", b_bmm)):
+                   ("int8_scaled", b_int8), ("bmm_bf16", b_bmm), ("bmm_fused_bf16", b_bmm),
+                   ("bmm_f32", b_bmm_f32), ("bmm_fused_f32", b_bmm_f32), ("mm_int32", b_int32),
+                   ("mm_int64", b_int64)):
         mmt[f"{key}_bound_ms"] = b[0]
         mmt[f"{key}_share_of_bound"] = b[0] / mmt[f"{key}_ms"]
-    for key in ("mm_bf16", "bmm_bf16", "mm_f32"):
+    for key in ("mm_bf16", "bmm_bf16", "mm_f32", "bmm_f32"):
         mmt[f"{key}_over_library"] = mmt[f"{key}_ms"] / mmt[f"{key}_library_ms"]
     if int_mm:
         mmt["mm_int8_over_library"] = mmt["mm_int8_ms"] / mmt["int8_library_ms"]
@@ -1386,9 +1719,14 @@ def main():
     kernels = [
         entry("ew_flat", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
               launches["ew_flat"], err_add, t["add_ms"], t["add_plain_ms"], b_add, lib["add"]),
-        entry("ew_strided", SOURCE, "simplemath_tpu/ops/elementwise.py:225",
-              launches["ew_strided"], err_fused, t["fused400_ms"], t["fused400_plain_ms"],
-              b_chain, None),
+        # ew_strided as the L = 400 recurrence, on the main path's kernel (the
+        # one generated for the program); interp_ms: the interpreter's.
+        dict(entry("ew_strided", SOURCE, "simplemath_tpu/ops/elementwise.py:225",
+                   launches["ew_strided"], err_fused, t["fused400_ms"], t["fused400_plain_ms"],
+                   b_chain, None),
+             paths=strided_paths, interp_ms=t["fused400_interp_ms"],
+             other_sources=["simplemath_tpu_torch/ops/codegen.py",
+                            "simplemath_tpu_torch/csrc/nvrtc.cu"]),
         entry("rd_full", RD_SOURCE, "simplemath_tpu/ops/reduction.py:79 :127 :210 :275 :333",
               rd_launches["rd_full"], err_rd["rd_full"], rt["sum_ms"], rt["sum_plain_ms"],
               b_sum, lib["sum"]),
@@ -1406,21 +1744,34 @@ def main():
         # kernel) and f32 operands (the CUDA-core kernel), each with the
         # launches of its kernel on the main path.
         entry("mm", WGMMA_SOURCE, "simplemath_tpu/ops/matmul.py:134",
-              mm_launches["mm"], err_mm["mm"], mmt["mm_bf16_ms"], mmt["mm_bf16_plain_ms"],
+              mm_launches["mm"], err_mm["mm", "wgmma_bf16"], mmt["mm_bf16_ms"], mmt["mm_bf16_plain_ms"],
               b_bf16, mmt["mm_bf16_library_ms"]),
         entry("bmm", WGMMA_SOURCE, "simplemath_tpu/ops/matmul.py:209",
-              mm_launches["bmm"], err_mm["bmm"], mmt["bmm_bf16_ms"], mmt["bmm_bf16_plain_ms"],
+              mm_launches["bmm"], err_mm["bmm", "wgmma_bf16"], mmt["bmm_bf16_ms"], mmt["bmm_bf16_plain_ms"],
               b_bmm, mmt["bmm_bf16_library_ms"]),
         entry("mm_int8", WGMMA_S8_SOURCE, "simplemath_tpu/ops/matmul.py:134 :457",
-              mm_variants["wgmma_s8"], err_mm["wgmma_s8"], mmt["mm_int8_ms"], mmt["int8_plain_ms"],
+              mm_variants["wgmma_s8"], err_mm["mm", "wgmma_s8"], mmt["mm_int8_ms"], mmt["int8_plain_ms"],
               b_int8, mmt["int8_library_ms"]),
         entry("mm_f32", MM_SOURCE, "simplemath_tpu/ops/matmul.py:134",
-              mm_variants["fma_f32"], err_mm["fma_f32"], mmt["mm_f32_ms"], mmt["mm_f32_plain_ms"],
-              b_f32, mmt["mm_f32_library_ms"]),
+              by_kernel.get(("mm", "fma_f32"), 0), err_mm["mm", "fma_f32"], mmt["mm_f32_ms"],
+              mmt["mm_f32_plain_ms"], b_f32, mmt["mm_f32_library_ms"]),
+        entry("bmm_f32", MM_SOURCE, "simplemath_tpu/ops/matmul.py:209",
+              by_kernel.get(("bmm", "fma_f32"), 0), err_mm["bmm", "fma_f32"], mmt["bmm_f32_ms"],
+              mmt["bmm_f32_plain_ms"], b_bmm_f32, mmt["bmm_f32_library_ms"]),
+        entry("mm_int32", MM_SOURCE, "simplemath_tpu/ops/matmul.py:134",
+              by_kernel.get(("mm", "imad_i32"), 0), err_mm["mm", "imad_i32"], mmt["mm_int32_ms"],
+              mmt["mm_int32_plain_ms"], b_int32, None),
+        # The JAX package has no Pallas kernel for 64-bit products: jnp.dot
+        # and jnp.matmul in int64.
+        entry("mm_int64", MM_SOURCE, "simplemath_tpu/ops/engine.py:495 :557",
+              by_kernel.get(("mm", "imad_i64"), 0), err_mm["mm", "imad_i64"], mmt["mm_int64_ms"],
+              mmt["mm_int64_plain_ms"], b_int64, None),
     ]
     for k in kernels:
         if k["name"] in ("mm", "bmm"):
-            k["other_sources"] = [WGMMA_S8_SOURCE, MM_SOURCE]
+            k["other_sources"] = [WGMMA_S8_SOURCE, MM_SOURCE] + MM_OTHER_SOURCES
+        if k["source"] == MM_SOURCE:
+            k["other_sources"] = MM_OTHER_SOURCES
         if k["source"] == RD_SOURCE:
             k["other_sources"] = RD_OTHER_SOURCES
     for k in kernels:

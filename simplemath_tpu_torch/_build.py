@@ -5,7 +5,10 @@ beside the package (a directory ``.gitignore`` lists), as a shared library
 with a plain C interface loaded with ``ctypes``: one ``nvcc -c`` per source,
 all started together, then one link.  The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one
-is reused.  A failed build raises with nvcc's output.
+is reused.  A failed build raises with nvcc's output.  The library links
+NVRTC (``csrc/nvrtc.cu``), which compiles the kernels that
+``ops/codegen.py`` generates at run time; their CUBINs are cached under
+``build/kernels/generated/``.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("elementwise.cu", "reduction.cu", "reduction_full.cu", "reduction_cols.cu",
-           "reduction_rows.cu", "matmul.cu", "matmul_wgmma.cu", "matmul_wgmma_s8.cu")
-HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh", "matmul.cuh", "wgmma.cuh")
+           "reduction_rows.cu", "matmul.cu", "matmul_elem.cu", "matmul_wgmma.cu",
+           "matmul_wgmma_s8.cu", "nvrtc.cu")
+HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh", "matmul.cuh", "matmul_fma.cuh",
+           "wgmma.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
 # the crafted exp/log handle them); --fmad=false so each float operation
 # rounds once, as the plain torch version does (the matmul kernel's inner
@@ -81,7 +86,10 @@ def library() -> ctypes.CDLL:
             ]
             logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
             so = os.path.join(tmpdir, "lib.so")
-            link = [nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", so, *objs]
+            # NVRTC from the toolkit beside nvcc, found there at run time too.
+            lib64 = pathlib.Path(nvcc()).resolve().parent.parent / "lib64"
+            link = [nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", so, *objs, "-lnvrtc",
+                    "-Xlinker", f"-rpath,{lib64}"]
             if all(rc == 0 for _, _, rc in logs):
                 proc = subprocess.run(link, capture_output=True, text=True)
                 logs.append((link, proc.stdout + proc.stderr, proc.returncode))
@@ -100,6 +108,13 @@ def library() -> ctypes.CDLL:
         ("sm_mm_launch", [void_p, void_p, void_p]),
         ("sm_mm_wgmma_launch", [void_p, void_p, void_p]),
         ("sm_mm_wgmma_s8_launch", [void_p, void_p, void_p]),
+        ("sm_ew_launch_kernel", [void_p, void_p, void_p, void_p]),
+        ("sm_rtc_compile", [ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p), c_int,
+                            ctypes.c_char_p, c_int, ctypes.POINTER(void_p),
+                            ctypes.POINTER(ctypes.c_size_t)]),
+        ("sm_rtc_load", [void_p, ctypes.c_char_p, ctypes.POINTER(void_p),
+                         ctypes.POINTER(void_p)]),
+        ("sm_rtc_unload", [void_p]),
         ("sm_ew_params_size", []),
         ("sm_rd_params_size", []),
         ("sm_mm_params_size", []),
@@ -107,4 +122,6 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = c_int
+    lib.sm_rtc_free.argtypes = [void_p]
+    lib.sm_rtc_free.restype = None
     return lib

@@ -36,9 +36,18 @@
 //     4.6, 4.7, 5.0 us for the 1M-float add in a hot L2 (torch.add 3.4; H100
 //     at 700 W) and 73, 74, 74, 79 us for 16M floats.
 // Inside a case the opcode is a constant, so sm_exec folds to its body and
-// the bits are the per-element interpreter's.  Code generated per
-// expression was not taken: nvcc at run time costs seconds per new
-// expression.  ew_strided still interprets per element.
+// the bits are the per-element interpreter's.
+//
+// ew_strided interprets per element: it decodes the element's index
+// rank-deep and runs the program over a register file in local memory, an
+// instruction a dispatch.  A program that does much work per element (an
+// iterated recurrence: L times its instructions) takes the other route of
+// ew_strided instead, a kernel generated for that program and compiled at
+// run time with NVRTC (ops/codegen.py, nvrtc.cu): its registers are local
+// variables, every instruction is sm_exec with its opcode a constant, the
+// rank is a constant, and it is launched here with ew_strided's geometry
+// and parameter block (sm_ew_launch_kernel).  Which route a call takes is
+// decided on the host (elementwise.route).
 //
 // Launch: on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -169,7 +178,8 @@ __global__ void __launch_bounds__(kThreads) ew_flat(const __grid_constant__ SmPa
 // Counterpart of _build_call: contiguous output of rank <= 8; each operand
 // read in place through its own signed strides (0 = broadcast, negative =
 // a negative-step view).
-__global__ void __launch_bounds__(kThreads) ew_strided(const SmParams p, void* __restrict__ out) {
+__global__ void __launch_bounds__(kThreads) ew_strided(const __grid_constant__ SmParams p,
+                                                       void* __restrict__ out) {
   uint32_t r[SM_MAX_REGS];
   sm_load_consts(p, r);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -219,6 +229,18 @@ extern "C" int sm_ew_launch(const SmParams* p, void* out, int strided, void* str
   else
     ew_flat<<<(unsigned)blocks, kThreads, 0, s>>>(*p, out);
   return (int)cudaGetLastError();
+}
+
+// A generated kernel of ew_strided's route "generated" (nvrtc.cu loads it),
+// launched with ew_strided's geometry and parameter block.
+extern "C" int sm_ew_launch_kernel(const void* kernel, const SmParams* p, void* out, void* stream) {
+  int64_t blocks = (p->n + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  void* args[] = {const_cast<SmParams*>(p), &out};
+  const cudaError_t rc = cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3(kThreads), args, 0,
+                                          static_cast<cudaStream_t>(stream));
+  return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
 }
 
 extern "C" int sm_ew_params_size() { return (int)sizeof(SmParams); }

@@ -11,10 +11,9 @@
 // One matrix operand: its first element and its signed element strides
 // over (batch, row, column) of the product it enters: A is (b, m, k), B is
 // (b, k, n).  ``inner_fast`` says the operand is staged with its
-// contraction dimension as the fast one (the CUDA-core kernel: neighbouring
-// threads walk k; the tensor-core kernel: the K-major shared-memory layout,
-// else the MN-major one; the int8 kernel: copied as it is, else transposed
-// on the way in).  ``vec16`` (tensor-core kernels only) says the fast
+// contraction dimension as the fast one (the CUDA-core and bf16 kernels:
+// the K-major shared-memory layout, else the MN-major one; the int8 kernel:
+// copied as it is, else transposed on the way in).  ``vec16`` says the fast
 // dimension has stride 1, every other stride is a multiple of 16 bytes and
 // the base is 16-byte aligned, so a tile is read 16 bytes at a time;
 // otherwise it is read element by element through the strides.

@@ -21,8 +21,21 @@
 // undefined in C++.
 #pragma once
 
+#if defined(__CUDACC_RTC__)
+// Compiled at run time by NVRTC (ops/codegen.py), which reads no system
+// header: the fixed-width types the kernels use, as <cstdint> has them.
+typedef signed char int8_t;
+typedef unsigned char uint8_t;
+typedef short int16_t;
+typedef unsigned short uint16_t;
+typedef int int32_t;
+typedef unsigned int uint32_t;
+typedef long long int64_t;
+typedef unsigned long long uint64_t;
+#else
 #include <cstdint>
 #include <cuda_runtime.h>
+#endif
 
 #define SM_MAX_RANK 8
 #define SM_MAX_OPERANDS 16
@@ -33,9 +46,11 @@
 // Register / operand element types.  Registers hold SM_F32, SM_I32 or
 // SM_BOOL.  The narrow types exist in memory only: a load widens them
 // (bf16 to f32, exactly; int8 and uint8 to i32), and an f32 result rounds
-// to bf16 (nearest even) at the store.
+// to bf16 (nearest even) at the store.  SM_I64 (int64 or uint64: the same
+// bits mod 2^64) is an operand and result type of the CUDA-core matmul
+// kernel's 64-bit accumulator alone; no register holds it.
 enum SmDtype : int32_t {
-  SM_F32 = 0, SM_I32 = 1, SM_BOOL = 2, SM_BF16 = 3, SM_I8 = 4, SM_U8 = 5,
+  SM_F32 = 0, SM_I32 = 1, SM_BOOL = 2, SM_BF16 = 3, SM_I8 = 4, SM_U8 = 5, SM_I64 = 6,
 };
 
 // Opcodes: the same names in the same order as OPCODES in ops/program.py.
@@ -237,7 +252,7 @@ static __device__ float sm_pow(float x, float y) {
   float t1_int = rintf(t1);
   t2 = t2 + (t1 - t1_int);
   float r = sm_exp2_parts(t1_int, t2);
-  if (isinf(y)) r = ax == 1.f ? 1.f : (((ax > 1.f) == (y > 0.f)) ? SM_INF : 0.f);
+  if (fabsf(y) == SM_INF) r = ax == 1.f ? 1.f : (((ax > 1.f) == (y > 0.f)) ? SM_INF : 0.f);
 
   float y_int = rintf(y);
   bool y_is_int = y == y_int;
@@ -247,7 +262,7 @@ static __device__ float sm_pow(float x, float y) {
   if (neg && !y_is_int) out = SM_NAN;
   if (x == 0.f)
     out = y > 0.f ? (y_is_odd ? sm_sign_f(x) * 0.0f : 0.0f) : (y < 0.f ? SM_INF : 1.0f);
-  if (isinf(x))
+  if (ax == SM_INF)
     out = y > 0.f ? ((neg && y_is_odd) ? -SM_INF : SM_INF) : (y < 0.f ? 0.0f : 1.0f);
   if (y == 0.f) out = 1.0f;
   if (x == 1.0f) out = 1.0f;

@@ -10,10 +10,18 @@ read in place through a base pointer, an element offset and signed strides
 (stride 0 broadcasts; a negative stride reads a negative-step view, which
 torch itself cannot represent).
 
+``ew_strided`` runs a kernel written for its program and compiled at run
+time (ops/codegen.py), whatever the program: on an H100 that kernel is
+faster than interpreting the program per element at every length measured,
+one instruction included.  The compiled interpreter of csrc/elementwise.cu
+stays as ``interpret``, the reference the card tests and chip_smoke.py hold
+the generated kernels to, bit for bit; nothing in the package calls it.
+
 ``elementwise`` looks at the operands' device.  CPU tensors take the
 kernel's plain version, ``program.run_plain``.  CUDA tensors launch the
 kernel or raise: there is no fallback.  ``LAUNCHES`` counts kernel
-launches by entry point; only a launch adds to it.
+launches by entry point, and ``PATHS`` the launches of ``ew_strided``'s two
+kernels, ``"generated"`` and ``"interp"``; only a launch adds to them.
 """
 
 from __future__ import annotations
@@ -30,10 +38,12 @@ from .. import dtypes as _dtypes
 from ..broadcast import broadcast_shapes
 from ..config import config
 from ..viewspec import row_major_strides
-from . import dispatch, program
+from . import codegen, dispatch, program
 
-# Kernel launches by entry point since the last reset.
+# Kernel launches by entry point since the last reset, and the launches of
+# ew_strided's generated kernels and of its interpreter.
 LAUNCHES = {"ew_flat": 0, "ew_strided": 0}
+PATHS = {"interp": 0, "generated": 0}
 
 _MAX_RANK = 8
 # enum SmDtype (csrc/tiles.cuh).  Registers and this kernel's operands are
@@ -43,8 +53,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.bool: 2,
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PATHS):
+        for k in counts:
+            counts[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,22 +239,41 @@ def check_program(prog, name):
     return codes
 
 
-def _launch(prog, codes, out_shape, operands, iterations, carry, device):
+def _launch(prog, codes, out_shape, operands, iterations, carry, device, interpreted=False):
     lib = _library()
     out = torch.empty(out_shape, dtype=prog.dtype, device=device)
     if out.numel() == 0:
         return out
     p, flat = params(prog, codes, out_shape, operands, iterations, carry)
-    p.vec = int(p.vec and out.element_size() == 4)
-
-    entry = "ew_flat" if flat else "ew_strided"
+    flat = flat and not interpreted
+    p.vec = int(flat and p.vec and out.element_size() == 4)
+    taken = None if flat else "interp" if interpreted else "generated"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.sm_ew_launch(ctypes.byref(p), out.data_ptr(), int(not flat), stream)
+        if taken == "generated":
+            sig = signature(prog, codes, out_shape, operands, iterations, carry)
+            rc = lib.sm_ew_launch_kernel(codegen.kernel(lib, sig), ctypes.byref(p),
+                                         out.data_ptr(), stream)
+        else:
+            rc = lib.sm_ew_launch(ctypes.byref(p), out.data_ptr(), int(not flat), stream)
+    entry = "ew_flat" if flat else "ew_strided"
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{entry} ({taken or 'flat'}) launch failed: cudaError {rc}")
     LAUNCHES[entry] += 1
+    if taken:
+        PATHS[taken] += 1
     return out
+
+
+def signature(prog, codes, out_shape, operands, iterations=1, carry=0) -> codegen.Signature:
+    """The signature of the kernel generated for this call (``codes``:
+    ``prog.kernel_codes``): the program, the operands' types, the rank, the
+    carry; never the shape, the strides or the constants' values."""
+    descs = [_describe(o) for o in operands]
+    return codegen.signature(
+        prog, codes, [_DTYPE_CODE[buf.dtype] for buf, _, _, _ in descs], _DTYPE_CODE[prog.dtype],
+        len(out_shape), iterations, carry,
+        codegen.narrow(math.prod(out_shape), [(s, st) for _, _, s, st in descs]))
 
 
 def operand_device(prog, out_shape, operands) -> torch.device:
@@ -299,3 +329,20 @@ def elementwise(prog: program.Program, out_shape, out_dtype, *operands,
         raise ValueError(f"the elementwise kernel runs on CUDA tensors, not {device}")
     codes = check_program(prog, name)
     return _launch(prog, codes, out_shape, operands, iterations, carry, device)
+
+
+def interpret(prog: program.Program, out_shape, *operands, iterations=1, carry=0) -> torch.Tensor:
+    """``prog`` over ``operands`` as ``elementwise`` runs it, but on CUDA
+    tensors through ``ew_strided``'s interpreter, whatever the operands'
+    layout: the reference of the generated kernels.  CPU tensors take the
+    plain version."""
+    out_shape = tuple(int(s) for s in out_shape)
+    device = operand_device(prog, out_shape, operands)
+    if device.type == "cpu":
+        return program.run_plain(
+            prog, [read(o) for o in operands], out_shape, iterations, carry, device
+        )
+    if len(out_shape) > _MAX_RANK:
+        raise ValueError(f"the interpreter takes rank <= {_MAX_RANK}, got {len(out_shape)}")
+    codes = check_program(prog, "interpret")
+    return _launch(prog, codes, out_shape, operands, iterations, carry, device, interpreted=True)

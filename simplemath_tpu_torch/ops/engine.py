@@ -282,27 +282,34 @@ def _as_kernel_int(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32)
 
 
+def _as_kernel_int64(x):
+    """An integer or bool operand in a type the 64-bit accumulator reads
+    (int8, uint8, int32, int64, uint64 are read in place; the rest are
+    widened to int64 first), the value kept."""
+    if x.dtype in (torch.int8, torch.uint8, torch.int32, torch.int64, torch.uint64):
+        return x
+    return elementwise.read(x).to(torch.int64)
+
+
 def _int_product(a2, b2, shape, out, name) -> torch.Tensor:
     """The integer product of rank-2 or rank-3 ``a2 @ b2`` (tensors or view
     operands), reshaped to ``shape``, as ``out``.  Types of at most 32 bits
     run the matmul kernel with its exact int32 accumulator: the value mod
-    2**32 is the product mod 2**32 of any such type.  torch has no integer
-    matmul on CUDA, so 64-bit operands have no route there."""
+    2**32 is the product mod 2**32 of any such type.  A 64-bit result
+    (int64 or uint64) runs it with its int64 accumulator, which wraps mod
+    2**64 as the JAX package's ``jnp.dot`` in int64 does; torch has no
+    integer matmul on CUDA."""
     from . import matmul as _mm
 
     if math.prod(shape) == 0 or a2.shape[-1] == 0:
         dispatch.record("torch_path", name)
         return torch.zeros(shape, dtype=out, device=a2.device)
     if out in (torch.int64, torch.uint64):
-        if a2.device.type != "cpu":
-            raise NotImplementedError(
-                "a 64-bit integer matmul on the card is not ported: torch has no "
-                "integer matmul on CUDA and the kernel accumulates in int32 "
-                "(see ROADMAP.md, queue 1)"
-            )
-        dispatch.record("torch_path", name)
-        at, bt = elementwise.read(a2), elementwise.read(b2)
-        return torch.matmul(at.to(torch.int64), bt.to(torch.int64)).reshape(shape).to(out)
+        a2, b2 = _as_kernel_int64(a2), _as_kernel_int64(b2)
+        if a2.dtype not in _mm.WIDE_OPERANDS and b2.dtype not in _mm.WIDE_OPERANDS:
+            a2 = elementwise.read(a2).to(torch.int64)  # the accumulator follows the operands
+        acc = _mm.matmul(a2, b2, torch.int64).reshape(shape)
+        return acc.view(torch.uint64) if out == torch.uint64 else acc
     if not (a2.dtype in _mm.INT_OPERANDS and b2.dtype in _mm.INT_OPERANDS):
         a2 = _as_kernel_int(elementwise.read(a2))
         b2 = _as_kernel_int(elementwise.read(b2))

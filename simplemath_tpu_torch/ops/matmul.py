@@ -27,16 +27,24 @@ from a shape, a stride or a size, and ``VARIANTS`` counts launches by it:
 - ``fma_f32``: float32 @ float32 and the mixed float32/bfloat16 pairs, in
   exact float32 multiply-adds on the CUDA cores (csrc/matmul.cu), which is
   what bounds it (a tensor-core route would truncate a float32 operand).
+  Each operand reaches shared memory by 16-byte ``cp.async`` copies or
+  element by element through its strides (``staging``), into one layout.
 - ``imad_i32``: integer pairs with an int32 operand, 32-bit integer
   multiply-adds on the CUDA cores (csrc/matmul.cu), wrapping mod 2**32.
+- ``imad_i64``: integer pairs with an int64 operand (``dot``/``matmul`` of
+  int64 and uint64 results), 64-bit integer multiply-adds on the CUDA cores
+  (csrc/matmul.cu), wrapping mod 2**64 as the JAX package's int64
+  ``jnp.dot`` does; every operand read element by element and widened, no
+  epilogue.
 
 ``matmul(a, b, out_dtype=None, precision="default", epilogue=None,
 extras=())`` multiplies (M, K) @ (K, N) or (B, M, K) @ (B, K, N).  Operands
 and extras are tensors or ``elementwise.View``s and are read in place
 through their signed strides: a transposed, sliced or negative-step view
 costs no copy, and nothing is padded (the kernel masks the ragged edge).
-The accumulator is float32 for float32 and bfloat16 operands, and int32,
-wrapping mod 2**32, for int8, uint8 and int32 operands.  ``epilogue`` is a
+The accumulator is float32 for float32 and bfloat16 operands, int32,
+wrapping mod 2**32, for int8, uint8 and int32 operands, and int64,
+wrapping mod 2**64, when an operand is int64 or uint64.  ``epilogue`` is a
 ``program.Program`` (``program.lower_epilogue``) whose operand 0 is the
 accumulator and whose other operands are ``extras``, each broadcastable to
 the product as (1|M, 1|N) or (1|B, 1|M, 1|N) and read with stride 0 where
@@ -57,7 +65,7 @@ name.
 
 ``matmul`` looks at the operands' device.  CPU tensors take the kernel's
 plain version, ``matmul_plain``: ``torch.matmul`` in the accumulator's type
-(integers in int64, wrapped to int32), the epilogue through
+(integers in int64 on the CPU, wrapped to int32), the epilogue through
 ``program.run_plain``, then the cast.  CUDA tensors launch the kernel or
 raise: there is no fallback.  Dispatch names are the JAX package's:
 ``matmul:mm``, ``matmul:bmm``, ``matmul:mm_epilogue``,
@@ -87,17 +95,21 @@ from . import dispatch, elementwise, program
 # Kernel launches by entry point since the last reset, and the same
 # launches by the kernel they took.
 LAUNCHES = {"mm": 0, "bmm": 0}
-VARIANTS = {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0}
+VARIANTS = {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
 # The kernels that stage tiles for ``wgmma``, and the library function of each.
 _TENSOR_CORE = {"wgmma_bf16": "sm_mm_wgmma_launch", "wgmma_s8": "sm_mm_wgmma_s8_launch"}
 
 _FLOAT_OPERANDS = (torch.float32, torch.bfloat16)
 INT_OPERANDS = (torch.int8, torch.uint8, torch.int32)
+WIDE_OPERANDS = (torch.int64, torch.uint64)  # the 64-bit accumulator's own
 _BYTE_OPERANDS = (torch.int8, torch.uint8)
 # Extras the epilogue reads: the elementwise kernel's types, and bfloat16,
 # which the load widens to float32.
 EXTRA_DTYPES = frozenset(_dt.KERNEL_DTYPES | {torch.bfloat16})
-_DTYPE_CODE = elementwise._DTYPE_CODE
+# enum SmDtype (csrc/tiles.cuh): int64 and uint64 are one code, the same
+# bits mod 2**64.
+_DTYPE_CODE = {**elementwise._DTYPE_CODE, torch.int64: 6, torch.uint64: 6}
+_ACC_CODE = {torch.float32: 0, torch.int32: 1, torch.int64: 2}  # MmParams.int_acc
 PRECISIONS = ("default", "highest")
 _MAX_BATCH = 65535        # gridDim.z
 _MAX_M = 65535 * 128      # gridDim.y tiles of 128 rows
@@ -114,8 +126,9 @@ def accumulator(a_dtype, b_dtype):
     when it does not take them."""
     if a_dtype in _FLOAT_OPERANDS and b_dtype in _FLOAT_OPERANDS:
         return torch.float32
-    if a_dtype in INT_OPERANDS and b_dtype in INT_OPERANDS:
-        return torch.int32
+    ints = INT_OPERANDS + WIDE_OPERANDS
+    if a_dtype in ints and b_dtype in ints:
+        return torch.int64 if a_dtype in WIDE_OPERANDS or b_dtype in WIDE_OPERANDS else torch.int32
     return None
 
 
@@ -129,27 +142,28 @@ def variant(a_dtype, b_dtype):
     acc = accumulator(a_dtype, b_dtype)
     if acc is None:
         return None
-    return "fma_f32" if acc == torch.float32 else "imad_i32"
+    return {torch.float32: "fma_f32", torch.int32: "imad_i32", torch.int64: "imad_i64"}[acc]
 
 
 def staging(strides, contraction, address, itemsize=2):
-    """How a tensor-core kernel stages one operand: ``(k_major, vec16)``.
+    """How a matmul kernel stages one operand: ``(k_major, vec16)``.
 
     ``strides`` are the operand's signed element strides over (batch, row,
     column) as ``_strides3`` gives them (0 for a dim of size 1),
     ``contraction`` is its contraction dim (2 for A, 1 for B), ``address``
     the byte address of its first element and ``itemsize`` its element size
-    (2: bfloat16, 1: int8/uint8).  ``vec16``: the operand is read 16 bytes
-    at a time, which needs stride 1 along one matrix dim, every other
-    stride a multiple of 16 bytes (8 or 16 elements; negative or 0 alike)
-    and a 16-byte-aligned first element; otherwise it is read element by
-    element.  ``k_major``: the contraction dim is the one of stride 1, or
-    on the element path the one of the smaller step.  For bfloat16 that is
-    the contiguous dim of the shared-memory tile (``wgmma`` reads either
-    order); a 1-byte tile is always contraction-contiguous, so a ``vec16``
-    operand that is not ``k_major`` is transposed on its way in.  Either
-    way the same elements land in the same layout, so the choice never
-    shows in a result."""
+    (4: float32/int32, the CUDA-core kernel; 2: bfloat16; 1: int8/uint8).
+    ``vec16``: the operand is read 16 bytes at a time, which needs stride 1
+    along one matrix dim, every other stride a multiple of 16 bytes (4, 8
+    or 16 elements; negative or 0 alike) and a 16-byte-aligned first
+    element; otherwise it is read element by element.  ``k_major``: the
+    contraction dim is the one of stride 1, or on the element path the one
+    of the smaller step.  For 4- and 2-byte types that is the contiguous dim
+    of the shared-memory tile (the CUDA-core kernel's inner loop and
+    ``wgmma`` read either order); a 1-byte tile is always
+    contraction-contiguous, so a ``vec16`` operand that is not ``k_major``
+    is transposed on its way in.  Either way the same elements land in the
+    same layout, so the choice never shows in a result."""
     other = 3 - contraction  # dims 1 and 2 are the matrix's own
     chunk = 16 // itemsize   # elements in 16 bytes
     s_k, s_mn = strides[contraction], strides[other]
@@ -165,6 +179,8 @@ def stored_dtypes(result_dtype) -> tuple:
     """The types the kernel can store a result of ``result_dtype`` as."""
     if result_dtype == torch.float32:
         return (torch.float32, torch.bfloat16)
+    if result_dtype == torch.int64:
+        return (torch.int64,)
     return (result_dtype,) if result_dtype in _dt.KERNEL_DTYPES else ()
 
 
@@ -230,25 +246,25 @@ def _strides3(shape, strides, batched):
     return s if batched else [0] + s
 
 
-def _set_operand(dst, x, batched, contraction, tensor_core):
+def _set_operand(dst, x, batched, contraction, kernel):
     buf, off, shape, strides = elementwise._describe(x)
     dst.ptr = buf.data_ptr() + off * buf.element_size()
     s = _strides3(shape, strides, batched)
     for d in range(3):
         dst.strides[d] = s[d]
     dst.dtype = _DTYPE_CODE[buf.dtype]
-    if tensor_core:
-        k_major, vec16 = staging(s, contraction, dst.ptr, buf.element_size())
-        dst.inner_fast, dst.vec16 = int(k_major), int(vec16)
-    else:
-        other = 3 - contraction  # dims 1 and 2 are the matrix's own
-        dst.inner_fast = int(abs(s[contraction]) <= abs(s[other]))
+    if kernel == "imad_i64":  # MN-major tiles, read element by element
+        return
+    k_major, vec16 = staging(s, contraction, dst.ptr, buf.element_size())
+    # The CUDA-core kernel copies 4-byte operands alone; a narrower one of a
+    # mixed pair is widened on the element path.
+    vec16 = vec16 and (kernel in _TENSOR_CORE or buf.element_size() == 4)
+    dst.inner_fast, dst.vec16 = int(k_major), int(vec16)
 
 
 def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
     lib = _library()
     kernel = variant(a.dtype, b.dtype)
-    tensor_core = kernel in _TENSOR_CORE
     B, M, N, K = dims
     batched = len(a.shape) == 3
     out = torch.empty((B, M, N) if batched else (M, N), dtype=out_dtype, device=device)
@@ -259,10 +275,10 @@ def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
         stand_in = elementwise.View(out, 0, (1, 1, 1), (0, 0, 0))
         q.p, _ = elementwise.params(epilogue, codes, (B, M, N), [stand_in, *extras])
         q.epilogue = 1
-    _set_operand(q.a, a, batched, 2, tensor_core)
-    _set_operand(q.b, b, batched, 1, tensor_core)
+    _set_operand(q.a, a, batched, 2, kernel)
+    _set_operand(q.b, b, batched, 1, kernel)
     q.B, q.M, q.N, q.K = B, M, N, K
-    q.int_acc = int(acc == torch.int32)
+    q.int_acc = _ACC_CODE[acc]
     q.out_dtype = _DTYPE_CODE[out_dtype]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -287,6 +303,15 @@ def exact_float32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _int64(x) -> torch.Tensor:
+    """Operand ``x`` (a tensor or a view) as an int64 tensor with its value
+    mod 2**64, a uint64 one by its bits (torch flips no uint64 tensor)."""
+    if x.dtype == torch.uint64:
+        x = (elementwise.View(x.base.view(torch.int64), x.offset, x.shape, x.strides)
+             if isinstance(x, elementwise.View) else x.view(torch.int64))
+    return elementwise.read(x).to(torch.int64)
 
 
 def _wrap_int32(wide: torch.Tensor) -> torch.Tensor:
@@ -314,8 +339,14 @@ def int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def matmul_plain(a, b, out_dtype, epilogue=None, extras=()) -> torch.Tensor:
     """The plain version of the kernel: the product in the accumulator's
     type, the epilogue on it through ``program.run_plain``, then the cast."""
+    acc_dtype = accumulator(a.dtype, b.dtype)
+    if acc_dtype == torch.int64:
+        # torch has an int64 matmul on the CPU alone; it wraps mod 2**64.
+        # (No epilogue: the wrapper refuses one.)
+        at, bt = _int64(a), _int64(b)
+        return torch.matmul(at.cpu(), bt.cpu()).to(at.device)
     at, bt = elementwise.read(a), elementwise.read(b)
-    if accumulator(at.dtype, bt.dtype) == torch.int32:
+    if acc_dtype == torch.int32:
         acc = int_product(at, bt)
     else:
         with exact_float32():
@@ -364,8 +395,11 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
     if acc is None:
         raise TypeError(
             "the matmul kernel takes float32/bfloat16 or int8/uint8/int32 operands, "
-            f"got {_dt.name(a.dtype)} @ {_dt.name(b.dtype)}"
+            f"or integers with an int64/uint64 one, got {_dt.name(a.dtype)} @ "
+            f"{_dt.name(b.dtype)}"
         )
+    if acc == torch.int64 and epilogue is not None:
+        raise TypeError("the 64-bit integer product takes no epilogue")
     devices = {x.device for x in (a, b, *extras)}
     if len(devices) > 1:
         raise ValueError(f"operands are on different devices: {sorted(map(str, devices))}")

@@ -702,7 +702,7 @@ def _check_bf16(a, b):
     rounded once, every launch a wgmma launch."""
     matmul.reset_launches()
     k, p = _mm_both(a, b, torch.float32)
-    assert matmul.VARIANTS == {"wgmma_bf16": 2, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 2, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
     at, bt = elementwise.read(a).double(), elementwise.read(b).double()
     tol = 2e-5 * (at.abs() @ bt.abs())
     assert bool(((k.double() - p.double()).abs() <= tol).all())
@@ -835,11 +835,11 @@ def test_mm_mixed_and_other_types_keep_their_kernels(cuda):
     both = matmul.matmul(a, b.bfloat16().float())
     assert torch.equal(matmul.matmul(a, b.bfloat16()), both)
     assert torch.equal(matmul.matmul(a.bfloat16(), b), matmul.matmul(a.bfloat16().float(), b))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 0, "imad_i64": 0}
     matmul.matmul(a.to(torch.int8), b.to(torch.int32))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 1}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 1, "imad_i64": 0}
     matmul.matmul(a.to(torch.int8), b.to(torch.uint8))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 1, "fma_f32": 4, "imad_i32": 1}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 1, "fma_f32": 4, "imad_i32": 1, "imad_i64": 0}
 
 
 def test_bf16_root_through_the_api_takes_the_tensor_core_kernel(cuda):
@@ -874,7 +874,7 @@ def _i8(rng, dtype, shape, device):
 def _check_int8(a, b):
     matmul.reset_launches()
     k, p = _mm_both(a, b)
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
     assert k.dtype == torch.int32 and torch.equal(k, p)
     assert torch.equal(k, matmul.int_product(elementwise.read(a), elementwise.read(b)))
     return k
@@ -971,7 +971,7 @@ def test_mm_int8_dequant_epilogue_runs_in_the_tensor_core_kernel(cuda, n, batche
          else _f32(rng, (1,) * (len(lead) + 1) + (n,), cuda).abs())
     matmul.reset_launches()
     k1, k2 = matmul.int8_matmul(a, b, scale=s), matmul.int8_matmul(a, b, scale=s)
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
     assert k1.dtype == torch.float32 and torch.equal(k1, k2)
     assert torch.equal(k1, matmul.int_product(a, b).float() * s)
 
@@ -1020,7 +1020,7 @@ def test_int8_matmul_through_the_api_takes_the_tensor_core_kernel(cuda):
     d = sm.dot(qa, qb).torch()                          # the engine's integer route
     torch.cuda.synchronize()
     assert matmul.LAUNCHES == {"mm": 4, "bmm": 0}
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 4, "fma_f32": 0, "imad_i32": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 4, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
     assert sum(elementwise.LAUNCHES.values()) == 0
     assert dispatch.count("matmul", "wgmma_s8") == 4 and dispatch.count("matmul", "int8") == 3
     want = matmul.int_product(qa.torch(), qb.torch())
@@ -1093,7 +1093,314 @@ def test_ew_flat_iterated_carry(cuda):
     assert _max_ulp(k1, p1) == 0.0  # one instruction, iterated: not the hoisted loop
 
 
-def test_int64_matmul_has_no_route_on_the_card(cuda):
-    a = sm.Array(np.arange(12, dtype=np.int64).reshape(3, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sm.matmul(a, a.T)
+# ------------------------ ew_strided's generated kernels (ops/codegen.py)
+# Bit for bit the interpreter's values (``elementwise.interpret``) on every
+# opcode, rank, operand layout and carry; ``elementwise.PATHS`` says which
+# kernel a launch took.
+def _on_both_kernels(prog, shape, operands, iterations=1, carry=0):
+    """The program on ew_strided's interpreter and on its generated kernel
+    (bits equal), and its plain version."""
+    outs = []
+    for name, run in (("interp", lambda: elementwise.interpret(
+                          prog, shape, *operands, iterations=iterations, carry=carry)),
+                      ("generated", lambda: elementwise.elementwise(
+                          prog, shape, prog.dtype, *operands, iterations=iterations, carry=carry))):
+        elementwise.reset_launches()
+        outs.append(run())
+        torch.cuda.synchronize()
+        assert elementwise.LAUNCHES == {"ew_flat": 0, "ew_strided": 1}
+        assert elementwise.PATHS == {"interp": int(name == "interp"),
+                                     "generated": int(name == "generated")}
+    k, g = outs
+    assert k.dtype == g.dtype
+    assert torch.equal(k.view(torch.int32) if k.element_size() == 4 else k,
+                       g.view(torch.int32) if g.element_size() == 4 else g)
+    p = program.run_plain(prog, [elementwise.read(o) for o in operands], shape, iterations, carry)
+    return g, p
+
+
+def _backwards(x):
+    """A 1-D operand read back to front (a negative stride): the strided
+    entry point."""
+    return elementwise.View(x, x.numel() - 1, (x.numel(),), (-1,)) if x.dim() else x
+
+
+@pytest.mark.parametrize("name,dtype", _OPCODE_CASES, ids=str)
+def test_generated_every_opcode_is_the_interpreter(cuda, name, dtype):
+    op = registry.op_def(name)
+    n = 4099
+    leaves = [program.leaf((n,), dtype) for _ in range(op.arity)]
+    operands = [_inputs(dtype, n, cuda, s) for s in range(op.arity)]
+    if name == "where":
+        leaves[0] = program.leaf((n,), torch.bool)
+        operands[0] = operands[0] > 0
+    node = program.Node(name, leaves, dtype, (n,)) if name in ("pow", "ipow") else \
+        program.apply(name, *leaves)
+    g, p = _on_both_kernels(program.lower(node, leaves), (n,), [_backwards(o) for o in operands])
+    if name in _TRANSCENDENTAL:
+        assert _max_ulp(g, p) <= 2.0
+    elif g.is_floating_point():
+        assert _max_ulp(g, p) == 0.0
+    else:
+        assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("src,dst", list(program._CASTS))
+def test_generated_casts_are_the_interpreter(cuda, src, dst):
+    x = {torch.float32: _inputs(torch.float32, 4099, cuda).clamp(-1e6, 1e6).nan_to_num(0.5),
+         torch.int32: _inputs(torch.int32, 4099, cuda),
+         torch.bool: _inputs(torch.float32, 4099, cuda) > 0}[src]
+    leaf = program.leaf((4099,), src)
+    g, p = _on_both_kernels(program.lower(program.cast(leaf, dst), [leaf]), (4099,),
+                           [_backwards(x)])
+    assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("rank", range(1, 9))
+def test_generated_every_rank_with_broadcast_and_negative_steps(cuda, rank):
+    """An operand read backwards along its last dim and with every other
+    row skipped, a broadcast row (stride 0), a full operand: ranks 1 to 8."""
+    rng = np.random.default_rng(30 + rank)
+    shape = tuple(int(d) for d in rng.integers(1, 4, rank - 1)) + (37,)
+    base = torch.from_numpy(rng.standard_normal(tuple(2 * d for d in shape)).astype(np.float32)).to(cuda)
+    steps = tuple(2 * st for st in base.stride())
+    view = elementwise.View(base, (shape[-1] - 1) * steps[-1], shape, steps[:-1] + (-steps[-1],))
+    row = torch.from_numpy(rng.standard_normal((1,) * (rank - 1) + (37,)).astype(np.float32)).to(cuda)
+    full = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    ls = [program.leaf(shape, torch.float32), program.leaf(row.shape, torch.float32),
+          program.leaf(shape, torch.float32)]
+    prog = program.lower(sm.maximum(ls[0] * ls[1] - ls[2], 0.25) + sm.exp(ls[1] * 0.5), ls)
+    g, p = _on_both_kernels(prog, shape, [view, row, full])
+    assert _max_ulp(g, p) <= 2.0
+
+
+@pytest.mark.parametrize("iterations", [1, 16])
+def test_generated_iterated_carry_is_the_interpreter(cuda, iterations):
+    """The BASELINE recurrence at a small size, once and 16 times, the
+    carry in register 0."""
+    rng = np.random.default_rng(40)
+    shape = (96, 260)
+    a = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32)).to(cuda)
+    e = torch.from_numpy(rng.uniform(-2.0, 2.0, (1, 260)).astype(np.float32)).to(cuda)
+    acc = torch.zeros(shape, device=cuda)
+    ls = [program.leaf(shape, torch.float32), program.leaf(shape, torch.float32),
+          program.leaf((1, 260), torch.float32)]
+    prog = program.lower(ls[0] * np.float32(1e-3)
+                         + sm.exp(sm.pow(ls[1] + ls[0] * np.float32(1e-6), ls[2])), ls)
+    g, p = _on_both_kernels(prog, shape, [acc, a, e], iterations, 0)
+    assert _max_ulp(g, p) <= 2.0
+    assert bool((acc == 0).all())
+
+
+def test_generated_program_at_the_instruction_limit(cuda):
+    x, y = program.leaf((77, 50), torch.float32), program.leaf((1, 50), torch.float32)
+    root = x
+    while len(program.lower(root * y + 0.5, [x, y]).insts) <= program.MAX_INSTS:
+        root = root * y + 0.5
+    prog = program.lower(root, [x, y])
+    assert len(prog.insts) in (program.MAX_INSTS - 1, program.MAX_INSTS)
+    rng = np.random.default_rng(41)
+    xs = torch.from_numpy(rng.uniform(-1, 1, (77, 50)).astype(np.float32)).to(cuda)
+    ys = torch.from_numpy(rng.uniform(-1, 1, (1, 50)).astype(np.float32)).to(cuda)
+    g, p = _on_both_kernels(prog, (77, 50), [xs, ys])
+    assert _max_ulp(g, p) == 0.0
+
+
+def test_generated_kernels_are_cached_by_signature(cuda):
+    """``a + 2.0`` and ``a + 3.0`` over other shapes share one kernel; a
+    second call is served from the process's cache."""
+    from simplemath_tpu_torch.ops import codegen
+
+    x = program.leaf((33, 7), torch.float32)
+    progs = [program.lower(x * 1.5 + c, [x]) for c in (2.0, 3.0)]
+    before = dict(codegen.STATS)
+    a = _inputs(torch.float32, 33 * 7, cuda).reshape(33, 7).T.contiguous().T
+    for prog in progs:
+        elementwise.elementwise(prog, (33, 7), torch.float32, a)
+    b = _inputs(torch.float32, 40 * 9, cuda).reshape(9, 40).T  # (40, 9), a transposed view
+    y = program.leaf((40, 9), torch.float32)
+    elementwise.elementwise(program.lower(y * 1.5 + 4.0, [y]), (40, 9), torch.float32, b)
+    got = {k: codegen.STATS[k] - before[k] for k in before}
+    assert got["compiled"] + got["disk"] <= 1 and got["memory"] >= 2
+
+
+# ------------------- the CUDA-core kernel: the parent's order, bit for bit
+# Every float32 output element is one thread's chain of __fmaf_rn from 0 in
+# ascending k, k padded to a multiple of 16 with zero products: the
+# product of the kernel this one replaces, bit for bit.  Emulated here in
+# float64 (a float32 product is exact there, and the sum then rounds once
+# to float32, as the fused multiply-add does, except in cases of double
+# rounding, which these inputs do not reach: the tests compare exactly).
+def _fma_in_order(a, b):
+    a, b = elementwise.read(a).double(), elementwise.read(b).double()
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32, device=a.device)
+    for k in range((a.shape[1] + 15) // 16 * 16):
+        term = a[:, k:k + 1] * b[k:k + 1] if k < a.shape[1] else 0.0
+        acc = (term + acc.double()).float()
+    return acc
+
+
+def _f32_operand(rng, rows, cols, transposed, path, device):
+    """(rows, cols) float32, row-major or a transposed view, cut from a base
+    whose rows are a multiple of 4 elements (``chunks``: 16-byte copies) or
+    not (``elements``)."""
+    def width(n):
+        if path == "chunks":
+            return n + (-n % 4)
+        return n + 1 if n % 4 == 0 else n
+    if transposed:
+        return _f32(rng, (cols, width(rows)), device)[:, :rows].T
+    return _f32(rng, (rows, width(cols)), device)[:, :cols]
+
+
+@pytest.mark.parametrize("path", ["elements", "chunks"])
+@pytest.mark.parametrize("order", ["ab", "aTb", "abT", "aTbT"])
+def test_mm_f32_operand_orders_give_the_parent_bits(cuda, order, path):
+    """(300, 270) @ (270, 515), each operand row-major or a transposed view
+    (the four layout pairs), copied 16 bytes at a time or read element by
+    element (270, 515 and 300 are no multiples of 4): the parent kernel's
+    bits, and within 2e-5 * (|A| @ |B|) of float64."""
+    rng = np.random.default_rng(50)
+    a = _f32_operand(rng, 300, 270, order in ("aTb", "aTbT"), path, cuda)
+    b = _f32_operand(rng, 270, 515, order in ("abT", "aTbT"), path, cuda)
+    for x, contraction in ((a, 2), (b, 1)):
+        s3 = matmul._strides3(tuple(x.shape), tuple(x.stride()), False)
+        k_major, vec16 = matmul.staging(s3, contraction, x.data_ptr(), 4)
+        assert vec16 == (path == "chunks")
+        assert k_major == (x.stride(-1 if contraction == 2 else -2) == 1)
+    k, p = _mm_both(a, b, torch.float32)
+    assert matmul.VARIANTS["fma_f32"] == 2
+    assert torch.equal(k, _fma_in_order(a, b))
+    tol = 2e-5 * _abs_product(a, b)
+    assert bool(((k.double() - a.double() @ b.double()).abs() <= tol).all())
+    assert bool(((k.double() - p.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("shape", [((40, 1), (1, 24)), ((64, 2053), (2053, 72)), ((1, 1), (1, 1)),
+                                   ((129, 16), (16, 257)), ((33, 48), (48, 20)), ((7, 77), (77, 5))],
+                         ids=str)
+def test_mm_f32_edges_give_the_parent_bits(cuda, shape):
+    """K = 1, K = 2048 + 5, one element, K = 16 and K = 48 (steps of 32 k,
+    half a step left over), a ragged K of 77."""
+    rng = np.random.default_rng(51)
+    a, b = _f32(rng, shape[0], cuda), _f32(rng, shape[1], cuda)
+    assert torch.equal(matmul.matmul(a, b), _fma_in_order(a, b))
+
+
+@pytest.mark.parametrize("k", [16, 20, 48])
+def test_mm_f32_signed_zero_as_the_parent(cuda, k):
+    """A sum whose last product underflows to -0.0 stays -0.0 where the
+    parent added no padded product (K a multiple of 16) and becomes +0.0
+    where it did."""
+    a, b = torch.zeros(3, k, device=cuda), torch.zeros(k, 5, device=cuda)
+    a[:, k - 1], b[k - 1, :] = -1e-30, 1e-30
+    got = matmul.matmul(a, b)
+    assert torch.equal(got.view(torch.int32), _fma_in_order(a, b).view(torch.int32))
+    assert bool(torch.signbit(got).all()) == (k % 16 == 0)
+
+
+@pytest.mark.parametrize("case", ["transposed", "negative_step", "four_bytes_off", "broadcast",
+                                  "batched_view"])
+def test_mm_f32_view_gives_the_bits_of_its_clone(cuda, case):
+    rng = np.random.default_rng(52)
+    base = sm.Array(_f32(rng, (540, 336), cuda))
+    a = _f32(rng, (300, 270), cuda)
+    if case == "transposed":
+        b = base.T[:270, :300]._operand()
+    elif case == "negative_step":
+        b = base[::-2, ::-1][:, :300]._operand()
+    elif case == "four_bytes_off":
+        b = base[:270, 1:301]._operand()
+    elif case == "broadcast":
+        b = base.torch()[5:6, :300].expand(270, 300)
+    else:  # rank 3, B a transposed view in each batch
+        a = _f32(rng, (2, 300, 270), cuda)
+        b = _f32(rng, (2, 300, 270), cuda).transpose(1, 2)
+    k = matmul.matmul(a, b, torch.float32)
+    clone = matmul.matmul(elementwise.read(a).contiguous(), elementwise.read(b).contiguous(),
+                          torch.float32)
+    assert torch.equal(k, clone)
+    if len(a.shape) == 2:
+        assert torch.equal(k, _fma_in_order(a, b))
+
+
+@pytest.mark.parametrize("path", ["elements", "chunks"])
+def test_mm_int32_on_both_paths(cuda, path):
+    rng = np.random.default_rng(53)
+    cols = 272 if path == "chunks" else 270
+    a = torch.from_numpy(rng.integers(-2**31, 2**31, (300, cols)).astype(np.int32)).to(cuda)[:, :270]
+    b = torch.from_numpy(rng.integers(-2**31, 2**31, (270, 516)).astype(np.int32)).to(cuda)[:, :515]
+    matmul.reset_launches()
+    k, again = matmul.matmul(a, b), matmul.matmul(a, b)
+    assert matmul.VARIANTS["imad_i32"] == 2 and k.dtype == torch.int32 and torch.equal(k, again)
+    # Full-range values: the plain version's float64 product is not exact
+    # here, the CPU's int64 one wraps mod 2**64 and its low 32 bits are the
+    # int32 product.
+    want = a.cpu().long() @ b.cpu().long()
+    assert torch.equal(k.cpu(), matmul._wrap_int32(want))
+
+
+# ------------------------------------- 64-bit integer products on the card
+def _wide(rng, dtype, shape, device):
+    if dtype == "uint64":
+        x = rng.integers(0, 2**63, shape, dtype=np.uint64) * np.uint64(2) + np.uint64(1)
+    elif dtype == "int64":
+        x = rng.integers(-2**63, 2**63 - 1, shape, dtype=np.int64)
+    else:
+        info = np.iinfo(dtype)
+        x = rng.integers(info.min, info.max, shape, dtype=np.int64).astype(dtype)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("pair", [("int64", "int64"), ("uint64", "uint64"), ("int64", "int32"),
+                                  ("int8", "int64"), ("uint8", "uint64"), ("uint64", "int32")],
+                         ids=str)
+@pytest.mark.parametrize("batched", [False, True])
+def test_mm_int64_exact_and_wrapping(cuda, pair, batched):
+    """Full-range 64-bit values: every product wraps mod 2**64, exactly as
+    the CPU's int64 product."""
+    rng = np.random.default_rng(60)
+    lead = (2,) if batched else ()
+    a, b = _wide(rng, pair[0], lead + (130, 200), cuda), _wide(rng, pair[1], lead + (200, 129), cuda)
+    matmul.reset_launches()
+    k = matmul.matmul(a, b, torch.int64)
+    assert matmul.VARIANTS["imad_i64"] == 1 and k.dtype == torch.int64
+    want = torch.matmul(matmul._int64(a.cpu()), matmul._int64(b.cpu()))
+    assert torch.equal(k.cpu(), want)
+    assert torch.equal(k, matmul.matmul_plain(a, b, torch.int64))
+
+
+def test_int64_dot_and_matmul_through_the_api(cuda):
+    """``sm.dot``/``sm.matmul`` of int64 and uint64 arrays run the kernel
+    (no longer raise), views read in place, the CPU's product exactly."""
+    rng = np.random.default_rng(61)
+    a = sm.Array(_wide(rng, "int64", (64, 96), cuda))
+    u = sm.Array(_wide(rng, "uint64", (96, 40), cuda))
+    matmul.reset_launches()
+    for got, want in ((sm.matmul(a, a.T), a.torch().cpu() @ a.torch().cpu().T),
+                      (sm.dot(a[::2], a[::-3].T), a.torch().cpu()[::2] @ a.torch().cpu().flip(0)[::3].T),
+                      (sm.matmul(u.T, u), (u.torch().cpu().view(torch.int64).T
+                                           @ u.torch().cpu().view(torch.int64)).view(torch.uint64))):
+        assert got.dtype == want.dtype and torch.equal(got.torch().cpu(), want)
+    i32 = sm.Array(_wide(rng, "int32", (64, 96), cuda))
+    got = sm.matmul(i32, a.T)
+    assert got.dtype == torch.int64 and torch.equal(got.torch().cpu(),
+                                                     i32.torch().cpu().long() @ a.torch().cpu().T)
+    assert matmul.VARIANTS["imad_i64"] == 4 and sum(matmul.VARIANTS.values()) == 4
+
+
+def test_fused_int64_root_takes_the_64_bit_product(cuda):
+    """A fused root over an int64 product, as the JAX package computes it:
+    the product (here the 64-bit accumulator, wrapping), then the epilogue
+    as torch."""
+    rng = np.random.default_rng(62)
+    x = sm.Array(_wide(rng, "int64", (40, 64), cuda))
+    w = sm.Array(_wide(rng, "int64", (64, 24), cuda))
+    c = sm.Array(torch.from_numpy(rng.integers(-9, 9, (1, 24))).to(cuda))
+    matmul.reset_launches()
+    dispatch.reset()
+    got = sm.fuse(lambda a, b, e: sm.maximum(a @ b + e, 0) * 3)(x, w, c)
+    want = torch.clamp(x.torch().cpu() @ w.torch().cpu() + c.torch().cpu(), min=0) * 3
+    assert got.dtype == torch.int64 and torch.equal(got.torch().cpu(), want)
+    assert matmul.VARIANTS["imad_i64"] == 1 and sum(matmul.VARIANTS.values()) == 1
+    assert dispatch.count("torch_path", "matmul_epilogue") == 1

@@ -481,6 +481,94 @@ def test_int32_product_wraps_exactly():
         np.testing.assert_array_equal(got.numpy(), np.asarray(jsm.dot(a, b)))
 
 
+def _wide_pair(rng, name, shape):
+    """Full-range values of ``name``: int64 beyond 2**62, uint64 beyond 2**63."""
+    if name == "uint64":
+        x = rng.integers(0, 2**63, shape, dtype=np.uint64) * np.uint64(2) + np.uint64(1)
+    elif name == "int64":
+        x = rng.integers(-2**63, 2**63 - 1, shape, dtype=np.int64)
+    else:
+        info = np.iinfo(name)
+        x = rng.integers(info.min, info.max, shape, dtype=np.int64).astype(name)
+    return _pair(x)
+
+
+_WIDE_PAIRS = [("int64", "int64"), ("uint64", "uint64"), ("int64", "int32"), ("int8", "int64"),
+               ("uint64", "uint8"), ("int16", "int64"), ("bool", "int64"), ("uint32", "uint64")]
+
+
+@pytest.mark.parametrize("pair", _WIDE_PAIRS, ids=str)
+@pytest.mark.parametrize("fn", ["dot", "matmul"])
+def test_64_bit_products_wrap_as_the_jax_package(fn, pair):
+    """int64 and uint64 products of full-range values wrap mod 2**64 as the
+    JAX package's int64 ``jnp.dot`` does (x64 on), in both result types; on
+    the card they run the 64-bit accumulator of the matmul kernel
+    (``imad_i64``), here its plain version."""
+    rng = np.random.default_rng(7)
+    if pair[0] == "bool":
+        (ja, pa) = _pair(rng.standard_normal((9, 33)) > 0)
+    else:
+        (ja, pa) = _wide_pair(rng, pair[0], (9, 33))
+    (jb, pb) = _wide_pair(rng, pair[1], (33, 11))
+    want, got = getattr(jsm, fn)(ja, jb), getattr(sm, fn)(pa, pb)
+    _same_meta(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if "int64" in pair or "uint64" in pair:  # the product passes 2**63 somewhere
+        assert np.abs(np.asarray(want).astype(np.float64)).max() > 2.0**62
+
+
+def test_64_bit_batched_and_view_products_match_jax():
+    """Rank 3, a transposed and a negative-step view, int64 and uint64."""
+    rng = np.random.default_rng(8)
+    for name in ("int64", "uint64"):
+        ja, pa = _wide_pair(rng, name, (3, 12, 20))
+        jb, pb = _wide_pair(rng, name, (3, 20, 7))
+        _check_wide(sm.matmul(pa, pb), jsm.matmul(ja, jb))
+        _check_wide(sm.matmul(pa[0].T, pa[1][::-1, ::-2]), jsm.matmul(ja[0].T, ja[1][::-1, ::-2]))
+        _check_wide(sm.dot(pa[2, ::2], pb[2]), jsm.dot(ja[2, ::2], jb[2]))
+
+
+def _check_wide(got, want):
+    _same_meta(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_64_bit_product_on_the_cpu_runs_the_plain_version():
+    """The wrapper's plain version: the CPU's int64 product; a uint64 operand
+    read by its bits; no launch counted; an epilogue refused, as the
+    kernel takes none."""
+    a = torch.tensor([[2**62, 3], [-1, 2**40]], dtype=torch.int64)
+    b = torch.tensor([[4, 1], [5, 2**30]], dtype=torch.int64)
+    matmul.reset_launches()
+    got = matmul.matmul(a, b, torch.int64)
+    assert torch.equal(got, a @ b) and int(got[0, 0]) == 15  # 2**64 + 15 wraps to 15
+    u = b.view(torch.uint64)
+    assert torch.equal(matmul.matmul(a, u, torch.int64), a @ b)
+    assert matmul.VARIANTS == {k: 0 for k in matmul.VARIANTS}
+    leaf = program.leaf((2, 2), torch.int64)
+    with pytest.raises(TypeError, match="takes no epilogue"):
+        matmul.matmul(a, b, torch.int64, epilogue=program.lower_epilogue(leaf * 2, leaf, []))
+
+
+def test_fused_64_bit_root_takes_the_product_then_the_epilogue():
+    """A fused root over an int64 product: the JAX package computes the
+    product and then the epilogue (its kernel takes float types alone); the
+    port does the same, the product through ``engine.matmul`` (on the card
+    the 64-bit accumulator), the epilogue as torch."""
+    rng = np.random.default_rng(9)
+    (ja, pa), (jb, pb) = _wide_pair(rng, "int64", (8, 16)), _wide_pair(rng, "int64", (16, 5))
+    (jc, pc) = _pair(rng.integers(-9, 9, (1, 5)).astype(np.int64))
+
+    def fn(mod):
+        return mod.fuse(lambda x, w, c: mod.maximum(x @ w + c, 0) * 3)
+
+    dispatch.reset()
+    got = fn(sm)(pa, pb, pc)
+    want = fn(jsm)(ja, jb, jc)
+    _check_wide(got, want)
+    assert dispatch.count("torch_path", "matmul_epilogue") == 1
+
+
 def test_complex64_native_product_keeps_a_dominated_component():
     """The JAX package splits a complex product into real ones only because a
     TPU has no complex type, and picks the naive four-product split where
@@ -648,8 +736,10 @@ _VARIANT_PAIRS = [
     ("int8", "int8", "wgmma_s8"), ("int8", "uint8", "wgmma_s8"), ("uint8", "uint8", "wgmma_s8"),
     ("uint8", "int8", "wgmma_s8"),
     ("int32", "int32", "imad_i32"), ("int32", "int8", "imad_i32"), ("uint8", "int32", "imad_i32"),
+    ("int64", "int64", "imad_i64"), ("uint64", "uint64", "imad_i64"), ("int64", "int32", "imad_i64"),
+    ("int8", "int64", "imad_i64"), ("uint8", "uint64", "imad_i64"), ("uint64", "int64", "imad_i64"),
     ("float64", "float64", None), ("float16", "float16", None), ("bfloat16", "int8", None),
-    ("float32", "int32", None),
+    ("float32", "int32", None), ("int16", "int64", None), ("float32", "int64", None),
 ]
 
 
@@ -717,7 +807,7 @@ def test_staging_decision_per_operand(case):
         flat = torch.zeros(64, 48, dtype=torch.bfloat16)
         t = elementwise.View(flat, 63 * 48, (64, 48), (-48, 1))
     op = matmul._MmOperand()
-    matmul._set_operand(op, t, len(t.shape) == 3, contraction, True)
+    matmul._set_operand(op, t, len(t.shape) == 3, contraction, "wgmma_bf16")
     assert (bool(op.inner_fast), bool(op.vec16)) == _STAGING[case]
     # and the plain function on the same strides and address
     strides = [op.strides[d] for d in range(3)]
@@ -735,10 +825,67 @@ def test_staging_needs_aligned_batches_and_negative_inner_steps_go_element_wise(
     assert matmul.staging([0, -1, 24], 2, 0) == (False, False)
     assert matmul.staging([0, 3, 50], 1, 0) == (True, False)     # B: the smaller step leads
     assert matmul.staging([0, 50, 3], 1, 0) == (False, False)
-    # The CUDA-core kernel's operands keep their old description.
+    # The CUDA-core kernel copies its 4-byte operands 16 bytes at a time too
+    # (rows of 8 float32 are 32 bytes), and a narrower one element by element.
     op = matmul._MmOperand()
-    matmul._set_operand(op, torch.zeros(8, 8), False, 2, False)
+    matmul._set_operand(op, torch.zeros(8, 8), False, 2, "fma_f32")
+    assert (op.inner_fast, op.vec16) == (1, 1)
+    matmul._set_operand(op, torch.zeros(8, 8, dtype=torch.bfloat16), False, 2, "fma_f32")
     assert (op.inner_fast, op.vec16) == (1, 0)
+
+
+def _f32_view(case):
+    """(operand, its contraction dim, kernel) for one staging case of the
+    CUDA-core kernel; 4-byte types (and the narrow operand of a mixed
+    pair), on the CPU."""
+    base = torch.zeros(64, 48)                                 # rows of 192 bytes
+    return {
+        "a_contiguous": (base, 2, "fma_f32"),
+        "b_contiguous": (base, 1, "fma_f32"),
+        "a_transposed": (base.T, 2, "fma_f32"),               # M contiguous: MN-major copies
+        "b_transposed": (base.T, 1, "fma_f32"),
+        "int32": (base.int(), 2, "imad_i32"),
+        "rows_of_45": (torch.zeros(64, 45), 2, "fma_f32"),     # 180 bytes: not a multiple of 16
+        "four_bytes_off": (base[:, 1:45], 2, "fma_f32"),
+        "sixteen_bytes_in": (base[::2, 4:44], 2, "fma_f32"),
+        "column_step": (base[:, ::2], 2, "fma_f32"),
+        "ragged_k": (base[:, :45], 2, "fma_f32"),             # rows still start on 16 bytes
+        "broadcast_rows": (base[:1].expand(64, 48), 2, "fma_f32"),
+        "batched": (torch.zeros(3, 16, 24), 2, "fma_f32"),
+        "batched_odd_batch_stride": (torch.zeros(3, 17, 24)[:, :16], 2, "fma_f32"),  # 408 = 4 x 102
+        "bf16_beside_f32": (base.bfloat16(), 2, "fma_f32"),   # widened element by element
+        "int8_beside_int32": (base.to(torch.int8), 1, "imad_i32"),
+    }[case]
+
+
+_F32_STAGING = {
+    # case: (k_major, vec16)
+    "a_contiguous": (True, True), "b_contiguous": (False, True),
+    "a_transposed": (False, True), "b_transposed": (True, True), "int32": (True, True),
+    "rows_of_45": (True, False), "four_bytes_off": (True, False),
+    "sixteen_bytes_in": (True, True), "column_step": (True, False), "ragged_k": (True, True),
+    "broadcast_rows": (True, True), "batched": (True, True),
+    "batched_odd_batch_stride": (True, True), "bf16_beside_f32": (True, False),
+    "int8_beside_int32": (False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_F32_STAGING))
+def test_staging_decision_per_four_byte_operand(case):
+    """The CUDA-core kernel copies a 4-byte operand 16 bytes at a time where
+    one matrix dim has stride 1, every other stride is a multiple of 4
+    elements and the first element lies on 16 bytes, into a K-major or an
+    MN-major tile by ``k_major``; anything else, and any narrower operand,
+    is read element by element into the same layout."""
+    t, contraction, kernel = _f32_view(case)
+    op = matmul._MmOperand()
+    matmul._set_operand(op, t, len(t.shape) == 3, contraction, kernel)
+    assert (bool(op.inner_fast), bool(op.vec16)) == _F32_STAGING[case]
+    strides = [op.strides[d] for d in range(3)]
+    k_major, vec16 = matmul.staging(strides, contraction, op.ptr, t.element_size())
+    assert k_major == _F32_STAGING[case][0]
+    if t.element_size() == 4:  # a narrower operand is read element by element whatever it is
+        assert vec16 == _F32_STAGING[case][1]
 
 
 def _int8_view(case):
@@ -787,7 +934,7 @@ def test_staging_decision_per_one_byte_operand(case):
     byte."""
     t, contraction = _int8_view(case)
     op = matmul._MmOperand()
-    matmul._set_operand(op, t, len(t.shape) == 3, contraction, True)
+    matmul._set_operand(op, t, len(t.shape) == 3, contraction, "wgmma_s8")
     assert (bool(op.inner_fast), bool(op.vec16)) == _INT8_STAGING[case]
     strides = [op.strides[d] for d in range(3)]
     assert matmul.staging(strides, contraction, op.ptr, 1) == _INT8_STAGING[case]
@@ -848,7 +995,7 @@ def test_bf16_product_matches_jax_at_the_edges(name):
     assert np.all(np.abs(got.numpy().astype(np.float64) - w) <= 2 * tol)
     assert dispatch.count("matmul", "wgmma_bf16") == 1
     assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0,
-                               "imad_i32": 0}  # the CPU launches nothing
+                               "imad_i32": 0, "imad_i64": 0}  # the CPU launches nothing
 
 
 @pytest.mark.parametrize("name", ["k1", "k77", "a_transposed", "both_transposed", "batched"])

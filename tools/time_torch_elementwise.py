@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's flat elementwise kernel (``ew_flat``) beside ``torch.add``
-on one CUDA card.
+"""Time the port's elementwise kernels (``ew_flat`` beside ``torch.add``, and
+``ew_strided`` with its generated kernels and its interpreter) on one CUDA
+card.
 
     python3 tools/time_torch_elementwise.py [--root DIR] [extra nvcc flags ...]
 
@@ -17,7 +18,14 @@ ragged tail, and prints device times (CUDA events, as
 - a launch on 1024 elements, beside ``torch.add``'s (what a launch costs);
 - the add and the chain ``a * b + c - a`` on 16M floats (192 and 256 MB:
   device memory), the chain beside its plain version (three torch kernels)
-  and its bound by bytes.
+  and its bound by bytes;
+- ``ew_strided``: the BASELINE recurrence ``acc * 1e-3 + exp(pow(a + acc *
+  1e-6, e_row))`` on 2048x2048 with a (1, 2048) row at L = 1, 2, 4, 8, 16
+  and 400, and one-pass programs of 1 to 64 instructions over the same
+  operands, each on the interpreter and (where the package has them) on the
+  kernel generated for the program, the two held bit for bit, with the
+  NVRTC milliseconds of each new kernel: the measurement that sends every
+  program to a generated kernel.
 
 ``--root DIR`` takes the package and ``chip_smoke.py`` from another checkout
 (the parent commit, unpacked beside this one), so that two versions are timed
@@ -49,14 +57,61 @@ N_BIG = 16 * 1024 * 1024
 RING = 16  # sets of (a, b, result) of the 1M add: 192 MB
 
 
+def strided(run, f32, t):
+    """ew_strided's times with the generated kernels and with the
+    interpreter (the interpreter alone where the package has no generated
+    kernels)."""
+    sq = (2048, 2048)
+    acc, a = torch.zeros(sq, device="cuda"), f32(sq[0] * sq[1]).reshape(sq).abs() + 0.5
+    e = f32(2048).reshape(1, 2048).clamp(-2, 2)
+    leaves = [program.leaf(sq, torch.float32), program.leaf(sq, torch.float32),
+              program.leaf((1, 2048), torch.float32)]
+    chain = program.lower(leaves[0] * np.float32(1e-3) + program.apply(
+        "exp", program.Node("pow", [leaves[1] + leaves[0] * np.float32(1e-6), leaves[2]],
+                            torch.float32, sq)), leaves)
+    def interp(prog, operands, L):
+        return elementwise.elementwise(prog, sq, torch.float32, *operands, iterations=L, carry=0)
+
+    kernels = {"interp": interp}
+    if hasattr(elementwise, "interpret"):
+        kernels = {"interp": lambda prog, operands, L: elementwise.interpret(
+                       prog, sq, *operands, iterations=L, carry=0),
+                   "generated": interp}
+
+    times = {}
+    cases = [(f"recurrence{L}", chain, [acc, a, e], L) for L in (1, 2, 4, 8, 16, 400)]
+    for k in (1, 2, 4, 8, 16, 32, 64):
+        x, row = program.leaf(sq, torch.float32), program.leaf((1, 2048), torch.float32)
+        root = x
+        while len(program.lower(root, [x, row]).insts) < k:
+            root = root * row + 0.5 if len(program.lower(root, [x, row]).insts) + 2 <= k else -root
+        cases.append((f"onepass{k}", program.lower(root, [x, row]), [a, e], 1))
+    for label, prog, operands, L in cases:
+        outs = [run(prog, operands, L) for run in kernels.values()]
+        if not all(torch.equal(o.view(torch.int32), outs[0].view(torch.int32)) for o in outs):
+            raise AssertionError(f"{label}: the kernels differ")
+        for name, run in kernels.items():
+            times[f"{label}_{name}_ms"] = t(lambda: run(prog, operands, L), n=1 if L == 400 else 4,
+                                            reps=3 if L == 400 else 5)
+    if len(kernels) > 1:
+        from simplemath_tpu_torch.ops import codegen
+
+        times["nvrtc_ms"] = codegen.COMPILE_MS
+        times["generated_stats"] = codegen.STATS
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("time_torch_elementwise: no CUDA device is visible", file=sys.stderr)
         return 1
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(ARGS)
     _build.library()
+    kernel = None  # ptxas' registers, stack and spills of ew_flat and ew_strided
     for line in _build.BUILD_LOG.splitlines():
-        if "ew_flat" in line:
+        if "Compiling entry function" in line:
+            kernel = line if "ew_" in line else None
+        if kernel and ("Compiling entry" in line or "stack" in line or "registers" in line):
             print("ptxas:", line.strip()[:160])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,6 +177,7 @@ def main():
         "chain_16m_plain_ms": t(lambda: program.run_plain(chain, big, (N_BIG,)), n=10),
         "chain_16m_bound_ms": chip_smoke.bound(16 * N_BIG, 3 * N_BIG)[0],
     }
+    times.update(strided(run, f32, t))
     times["add_hot_over_library"] = times["add_hot_ms"] / times["add_hot_library_ms"]
     times["add_past_l2_over_library"] = times["add_past_l2_ms"] / times["add_past_l2_library_ms"]
     print(f"{card}: " + json.dumps({"root": str(ROOT), "flags": ARGS, **times}))

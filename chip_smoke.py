@@ -106,7 +106,26 @@ device:
    full-range values through the CUDA-core kernel;
    ``sm.dot``/``sm.matmul`` of f32 and complex64 through ``torch.matmul``),
    and times them;
-8. prints the kernels' JSON line (each kernel's launches on the main path,
+8. the solver stack (``simplemath_tpu_torch.models``, plain torch on the
+   card; BASELINE.json configs 3-5): a cartpole ``solve_batched`` (64 x
+   H=50, 5 iterations) on the card against the same call on the CPU, at
+   the CPU tests' tolerance against the JAX package; the pendulum solve in
+   float32 on the card against float64 on the CPU (controls within
+   ``rtol=0.05, atol=0.05``); then, timed by CUDA-synchronized wall time
+   after a one-iteration warm-up, the full-width workloads: cartpole
+   ``solve_batched`` 8192 x H=100 and pendulum 4096 x H=50, 10 iterations
+   each (the cartpole solve under sync debug mode ``"error"``, so a host
+   round trip inside it fails the run; every cost finite, ``cost_trace``
+   never rising, the final cost below the initial one), the cartpole
+   iteration by stage and its Riccati step's torch ops and kernels, the
+   quadrotor RTI tick at H=50 (the difference of a 20- and a 60-tick
+   closed loop) beside the 1 ms budget, ``MPCController.replan`` (H=50, 2
+   iterations), the port's ``entry()``, and a forward rollout of a
+   pendulum written in the ``sm`` API, states (2, 4096), 50 steps, which
+   must launch the elementwise kernels and take no plain-torch route, held
+   to the plain torch rollout within 1e-5 and timed beside it; prints the
+   ``solvers`` JSON line, with the card's name and power limit;
+9. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
    read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
@@ -152,6 +171,14 @@ ADD_RING = 16               # sets of (a, b, result) of the 1M add: 192 MB
 N_MM = 2048                # bench.py::bench_matmul, _epilogue, bench_int8_matmul
 BMM = (8, 1024, 1024)      # bench.py::bench_bmm
 N_INT_DOT = 512
+# The solver workloads of BASELINE.json configs 3-5 (bench.py::bench_pendulum,
+# bench_cartpole, bench_quadrotor_replan), at full width.
+CARTPOLE = (8192, 100)     # scenarios, horizon
+PENDULUM = (4096, 50)
+SOLVE_ITERS = 10
+QUAD_H = 50
+RTI_TICKS = (20, 60)       # two closed-loop lengths; their difference times a tick
+SM_ROLLOUT = (4096, 50)    # the sm-expressed pendulum: states (2, 4096), 50 steps
 
 # Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # the bound of a kernel is the larger of its bytes over the memory rate and
@@ -978,6 +1005,255 @@ def int8_checks(dev, rng, sm, matmul, elementwise, both):
         "exact product, inside the tensor-core kernel")
 
 
+def sm_pendulum_step(sm, dt=0.05):
+    """The pendulum's RK4 step written in the public ``sm`` API (as the JAX
+    package's tests/test_models.py::_make_sm_pendulum), batch-polymorphic:
+    x of shape (2, B), u of (1, B)."""
+    g, m, l, b = 9.81, 1.0, 1.0, 0.1
+
+    def f(x, u):
+        th, thd = x[0], x[1]
+        thdd = (u[0] - thd * b - sm.sin(th) * (m * g * l)) / (m * l * l)
+        return sm.stack([thd, thdd])
+
+    def step(x, u):
+        k1 = f(x, u)
+        k2 = f(x + k1 * (0.5 * dt), u)
+        k3 = f(x + k2 * (0.5 * dt), u)
+        k4 = f(x + k3 * dt, u)
+        return x + (k1 + k2 * 2.0 + k3 * 2.0 + k4) * (dt / 6.0)
+
+    return step
+
+
+def wall_s(fn, sync_debug=None):
+    """(wall seconds of one call ended by a synchronize, its result).  With
+    ``sync_debug``, the call runs under that CUDA sync debug mode, so that a
+    call that waits for the card inside raises ("error")."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode(sync_debug)
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def solver_close(card, cpu, what):
+    """The card's solve against the CPU's, at the CPU tests' tolerance
+    against the JAX package: costs within rtol 1e-4, controls within rtol
+    1e-3 and 1e-4 x the largest control.  Returns (cost rel err, us err)."""
+    c_card, c_cpu = card.cost.cpu().double(), cpu.cost.double()
+    cost_err = float(((c_card - c_cpu).abs() / c_cpu.abs()).max())
+    u_card, u_cpu = card.us.cpu().double(), cpu.us.double()
+    scale = max(1.0, float(u_cpu.abs().max()))
+    u_err = float((u_card - u_cpu).abs().max())
+    check(cost_err <= 1e-4, f"{what}: costs {cost_err} (relative) from the CPU's")
+    check(bool(((u_card - u_cpu).abs() <= 1e-3 * u_cpu.abs() + 1e-4 * scale).all()),
+          f"{what}: controls {u_err} from the CPU's")
+    return cost_err, u_err
+
+
+def solver_phase(dev, card):
+    """The solver stack on the card (BASELINE.json configs 3-5): checks
+    against the CPU and float64, then the full-width workloads, timed."""
+    import torch
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch import entry as port_entry
+    from simplemath_tpu_torch.models import (
+        ILQRConfig, MPCController, ilqr, make_cartpole, make_pendulum, make_quadrotor, rti,
+    )
+    from simplemath_tpu_torch.ops import dispatch, elementwise
+
+    rng = np.random.default_rng(SEED)
+    out = {"card": card}
+    cartpole, pendulum, quad = make_cartpole(), make_pendulum(), make_quadrotor()
+
+    # Card against CPU: a small cartpole batch, the same inputs.
+    x0 = torch.from_numpy((0.2 * rng.standard_normal((64, 4))).astype(np.float32))
+    us0 = torch.zeros((64, 50, 1))
+    cfg = ILQRConfig(iterations=5)
+    card_s, r_card = wall_s(lambda: ilqr.solve_batched(cartpole, x0.to(dev), us0.to(dev), cfg))
+    r_cpu = ilqr.solve_batched(cartpole, x0, us0, cfg)
+    errs = solver_close(r_card, r_cpu, "cartpole 64 x H=50, 5 iterations")
+    out["card_vs_cpu"] = {"batch": 64, "horizon": 50, "iterations": 5, "cost_rel_err": errs[0],
+                          "us_abs_err": errs[1], "card_s": card_s}
+    log(f"solver check: cartpole 64 x 50 on the card against the CPU: {out['card_vs_cpu']}")
+
+    # Float32 on the card against float64 on the CPU (tests/test_numerical_parity.py).
+    x0p = torch.tensor([0.4, 0.0])
+    r32 = ilqr.solve(pendulum, x0p.to(dev), torch.zeros((40, 1), device=dev),
+                     ILQRConfig(iterations=20))
+    r64 = ilqr.solve(pendulum, x0p.double(), torch.zeros((40, 1), dtype=torch.float64),
+                     ILQRConfig(iterations=20))
+    cost_rel = abs(float(r32.cost) - float(r64.cost)) / float(r64.cost)
+    check(r32.us.dtype == torch.float32 and r32.us.device.type == dev.type, "the f32 solve left the card")
+    check(cost_rel < 1e-3, f"pendulum f32 cost {cost_rel} (relative) from float64")
+    np.testing.assert_allclose(r32.us.cpu().numpy(), r64.us.numpy(), rtol=0.05, atol=0.05,
+                               err_msg="pendulum f32 controls against float64")
+    out["f32_vs_f64"] = {"cost_rel_err": cost_rel,
+                         "us_abs_err": float((r32.us.cpu().double() - r64.us).abs().max())}
+    log(f"solver check: pendulum f32 (card) against f64 (CPU): {out['f32_vs_f64']}")
+
+    # Full width, timed: one warm-up call (one iteration) first.  The
+    # cartpole solve runs under sync debug mode "error".
+    def batched(system, shape, key):
+        batch, horizon = shape
+        x0b = torch.from_numpy((0.2 * rng.standard_normal((batch, system.nx))).astype(np.float32)).to(dev)
+        usb = torch.zeros((batch, horizon, system.nu), device=dev)
+        warm_s, _ = wall_s(lambda: ilqr.solve_batched(system, x0b, usb, ILQRConfig(iterations=1)))
+        solve_s, res = wall_s(
+            lambda: ilqr.solve_batched(system, x0b, usb, ILQRConfig(iterations=SOLVE_ITERS)),
+            sync_debug="error" if key == "cartpole" else None)
+        init = torch.func.vmap(lambda x, u: ilqr.trajectory_cost(
+            system, ilqr.rollout(system.step, x, u), u))(x0b, usb)
+        trace = res.cost_trace
+        check(bool(torch.isfinite(res.cost).all()) and bool(torch.isfinite(trace).all()),
+              f"{key}: non-finite costs")
+        check(bool((trace[:, 1:] <= trace[:, :-1]).all()), f"{key}: cost_trace increased")
+        check(bool((res.cost <= init + 1e-6 * init.abs()).all())
+              and float(res.cost.sum()) < float(init.sum()),
+              f"{key}: final cost not below the initial one")
+        row = {"batch": batch, "horizon": horizon, "iterations": SOLVE_ITERS,
+               "wall_s": solve_s, "solves_per_s": batch / solve_s,
+               "s_per_iteration": solve_s / SOLVE_ITERS, "warmup_1_iteration_s": warm_s,
+               "sync_debug_mode": "error" if key == "cartpole" else "default",
+               "mean_initial_cost": float(init.mean()), "mean_final_cost": float(res.cost.mean()),
+               "improved_share": float((res.cost < init).double().mean())}
+        log(f"solver {key} {batch} x H={horizon}, {SOLVE_ITERS} iterations on {card}: {row}")
+        return row, res
+
+    out["cartpole"], rc = batched(cartpole, CARTPOLE, "cartpole")
+
+    # Where one cartpole iteration's time goes: each stage once at full
+    # width on the solved trajectory, and the Riccati step's torch ops
+    # (dispatched) and kernels (profiled) at full width.
+    cfg = ILQRConfig()
+    stages = {}
+    stages["linearize_soa"], lin = wall_s(lambda: ilqr.linearize_soa(cartpole, rc.xs, rc.us))
+    A, B, lx, lu, lxx, luu, lux, VxT, VxxT = lin
+    stages["psd_cost_hessians"], psd = wall_s(
+        lambda: ilqr.psd_cost_hessians(lxx, luu, lux, VxxT, "clamp_diag", cfg.psd_eps))
+    lxx, luu, lux, VxxT = psd
+    reg = torch.full((CARTPOLE[0],), cfg.reg_init, device=dev)
+    stages["backward_sequential_soa"], gains = wall_s(
+        lambda: ilqr.backward_sequential_soa(A, B, lx, lu, lxx, luu, lux, VxT, VxxT, reg))
+    stages["forward_linesearch_soa"], _ = wall_s(
+        lambda: ilqr.forward_linesearch_soa(cartpole, rc.xs, rc.us, *gains, cfg.alphas))
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with CountOps() as ops:
+        ilqr.backward_sequential_soa(A, B, lx, lu, lxx, luu, lux, VxT, VxxT, reg)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        ilqr.backward_sequential_soa(A, B, lx, lu, lxx, luu, lux, VxT, VxxT, reg)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    H = CARTPOLE[1]
+    out["cartpole"]["stages_s"] = stages
+    out["cartpole"]["riccati_step"] = {
+        "torch_ops": ops.n / H, "kernels": kernels / H if kernels else None,
+        "device_busy_ms": busy_ms / H if kernels else None,
+        "wall_ms": 1e3 * stages["backward_sequential_soa"] / H}
+    log(f"cartpole iteration by stage on {card}: {stages}; per Riccati step: "
+        f"{out['cartpole']['riccati_step']}")
+
+    out["pendulum"], _ = batched(pendulum, PENDULUM, "pendulum")
+
+    # Quadrotor RTI: the time of a tick is the difference of two closed-loop
+    # lengths over their difference in ticks (bench.py::bench_quadrotor_replan).
+    x0q = torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
+    rti.rti_closed_loop(quad, x0q, QUAD_H, 2)
+    loops = {}
+    for ticks in RTI_TICKS:
+        loops[ticks], res = wall_s(lambda: rti.rti_closed_loop(quad, x0q, QUAD_H, ticks))
+        check(bool(torch.isfinite(res[2]).all()), f"RTI quadrotor {ticks} ticks: non-finite costs")
+    tick_ms = 1e3 * (loops[RTI_TICKS[1]] - loops[RTI_TICKS[0]]) / (RTI_TICKS[1] - RTI_TICKS[0])
+    out["quadrotor_rti"] = {"horizon": QUAD_H, "ticks": list(RTI_TICKS),
+                            "wall_s": [loops[t] for t in RTI_TICKS], "per_tick_ms": tick_ms,
+                            "budget_ms": 1.0, "within_budget": tick_ms <= 1.0}
+    log(f"quadrotor RTI H={QUAD_H} on {card}: {out['quadrotor_rti']}")
+
+    ctrl = MPCController(quad, horizon=QUAD_H, replan_iters=2)
+    ctrl.replan(x0q)
+    times = []
+    for _ in range(5):
+        t, (u0, cost) = wall_s(lambda: ctrl.replan(x0q))
+        check(bool(torch.isfinite(u0).all()) and np.isfinite(float(cost)), "replan: non-finite")
+        times.append(1e3 * t)
+    out["quadrotor_replan"] = {"horizon": QUAD_H, "iterations": 2, "ms": statistics.median(times),
+                               "ms_all": times, "budget_ms": 1.0}
+    log(f"quadrotor MPCController.replan H={QUAD_H} on {card}: {out['quadrotor_replan']}")
+
+    step, args = port_entry.entry()
+    check(all(a.device.type == dev.type for a in args), "entry() built its arguments off the card")
+    step(*args)
+    times = []
+    for _ in range(3):
+        t, cost = wall_s(lambda: step(*args))
+        check(tuple(cost.shape) == (32,) and bool(torch.isfinite(cost).all()), "entry(): bad cost")
+        times.append(1e3 * t)
+    out["entry"] = {"batch": 32, "horizon": 20, "iterations": 3, "wall_ms": statistics.median(times),
+                    "wall_ms_all": times}
+    log(f"entry() on {card}: {out['entry']}")
+
+    # The sm-expressed pendulum, a forward rollout with no AD, batch-minor:
+    # the public sm API on the card launches the port's elementwise kernels.
+    batch, horizon = SM_ROLLOUT
+    sm_step = sm_pendulum_step(sm)
+    xs0 = torch.from_numpy((0.2 * rng.standard_normal((2, batch))).astype(np.float32)).to(dev)
+    us_r = torch.from_numpy((0.5 * rng.standard_normal((horizon, 1, batch))).astype(np.float32)).to(dev)
+
+    def sm_rollout():
+        x = sm.Array(xs0)
+        for t in range(horizon):
+            x = sm_step(x, sm.Array(us_r[t]))
+        return x.torch()
+
+    def plain_rollout():
+        x = xs0
+        for t in range(horizon):
+            x = pendulum.step(x, us_r[t])
+        return x
+
+    sm_rollout(), plain_rollout()  # warm-up: NVRTC compiles each new signature once
+    elementwise.reset_launches()
+    dispatch.reset()
+    sm_s, x_sm = wall_s(sm_rollout)
+    sm_launches, sm_paths, counts = dict(elementwise.LAUNCHES), dict(elementwise.PATHS), dispatch.counts()
+    plain_s, x_plain = wall_s(plain_rollout)
+    err = float((x_sm - x_plain).abs().max())
+    check(sm_launches["ew_flat"] + sm_launches["ew_strided"] > 0,
+          f"the sm rollout launched no elementwise kernel: {sm_launches}")
+    check(not any(k.startswith("torch_path") for k in counts),
+          f"the sm rollout took the plain torch route: {counts}")
+    # States of about 0.2-1 after 50 steps; the crafted sin is within 2 ulp
+    # of torch.sin, everything else exact.
+    check(err <= 1e-5, f"the sm rollout is {err} from the plain torch rollout")
+    out["sm_rollout"] = {"batch": batch, "horizon": horizon, "launches": sm_launches,
+                         "ew_strided_paths": sm_paths, "ms": 1e3 * sm_s, "plain_ms": 1e3 * plain_s,
+                         "max_abs_err": err,
+                         "dispatch": {k: v for k, v in counts.items() if k.startswith("engine")}}
+    log(f"sm pendulum rollout on {card}: {out['sm_rollout']}")
+    return out
+
+
 def main():
     import torch
 
@@ -1776,6 +2052,12 @@ def main():
             k["other_sources"] = RD_OTHER_SOURCES
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
+
+    # ------------------------------------------------------ 8. solvers
+    t0 = time.perf_counter()
+    solvers = solver_phase(dev, card)
+    solvers["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"solvers": solvers}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,11 @@ CPU with ``sm.configure(device="cpu")`` or ``SM_DEVICE=cpu``.
 
 Ported so far: ``Array`` with views, the op registry, the engine,
 ``sm.fuse`` and the deferred-eager queue, the reductions, ``dot`` and
-``matmul`` of every rank, the fused matmul root and ``int8_matmul``.  What
-waits is listed in ROADMAP.md.
+``matmul`` of every rank, the fused matmul root and ``int8_matmul``, and
+the solver stack as plain torch (``simplemath_tpu_torch.models``: the
+dynamics families, batched iLQR/DDP, RTI, AL-SQP MPC; ``entry.entry()``,
+the twin of ``__graft_entry__.entry()``).  What waits is listed in
+ROADMAP.md.
 """
 
 from .array import Array, asarray  # noqa: F401
@@ -37,6 +40,7 @@ from .api import (  # noqa: F401
     argmin,
     array,
     clip,
+    concatenate,
     cos,
     cumsum,
     dequantize,
@@ -68,6 +72,7 @@ from .api import (  # noqa: F401
     sin,
     sqrt,
     square,
+    stack,
     std,
     subtract,
     sum,

@@ -5,10 +5,10 @@ and transcendental free functions, the registry unaries,
 ``maximum``/``minimum``/``where``/``clip``, ``fuse``, the reductions
 ``sum/mean/max/min``, ``dot`` and ``matmul`` of every rank,
 ``int8_matmul`` with ``quantize``/``dequantize``, and the ``prod``/``var``/
-``std``/``argmax``/``argmin``/``cumsum`` façades over torch.  Factories
-create arrays on ``config.device``.  The rest of the JAX package's NumPy
-surface (the other ``jnp`` façades) is not ported yet: see ROADMAP.md,
-queue 1.
+``std``/``argmax``/``argmin``/``cumsum``/``stack``/``concatenate``
+façades over torch.  Factories create arrays on ``config.device``.  The
+rest of the JAX package's NumPy surface (the other ``jnp`` façades) is not
+ported yet: see ROADMAP.md, queue 1.
 """
 
 from __future__ import annotations
@@ -345,6 +345,29 @@ def cumsum(a, axis=None, dtype=None) -> Array:
         t, axis = t.reshape(-1), 0
     w = t.to(torch.int64) if _dtypes.is_integer(out) or out == torch.bool else t.to(out)
     return Array(w.cumsum(reduction.axes(axis, t.ndim)[0]).to(out))
+
+
+def _joined(name, arrays):
+    """The arrays' tensors, each in the type ``jnp`` gives their stack."""
+    ts = [_facade_input(name, a) for a in arrays]
+    if not ts:
+        raise ValueError(f"need at least one array to {name}")
+    out = _dtypes.result_dtype(*(t.dtype for t in ts))
+    return [t.to(out) for t in ts]
+
+
+def concatenate(arrays, axis=0) -> Array:
+    """``jnp.concatenate``: the arrays joined along an existing axis, in
+    their promoted type."""
+    ts = _joined("concatenate", arrays)
+    return Array(torch.cat(ts, dim=axis))
+
+
+def stack(arrays, axis=0) -> Array:
+    """``jnp.stack``: the arrays joined along a new axis, in their promoted
+    type."""
+    ts = _joined("stack", arrays)
+    return Array(torch.stack(ts, dim=axis))
 
 
 def fuse(fn, donate=None, iterations=1, carry=0):

@@ -430,12 +430,15 @@ class Array:
         arrays, as the JAX package sends float full and 2-D axis reductions
         to its Pallas kernels; a mean is the kernel's float32 sum divided by
         the count in float32, as there.  Every other call runs as plain
-        torch (``torch_path:<kind>``), where the JAX package runs XLA."""
-        from .ops import reduction
+        torch (``torch_path:<kind>``), where the JAX package runs XLA; so
+        does a CPU tensor under a ``torch.func`` transform (on the card such
+        a tensor raises: ``engine.transformed``)."""
+        from .ops import engine, reduction
 
         full = axis is None and not keepdims
         single = self.ndim == 2 and isinstance(axis, int) and -2 <= axis < 2
-        if self.dtype != torch.float32 or self.size == 0 or not (full or single):
+        if (engine.transformed(self) or self.dtype != torch.float32
+                or self.size == 0 or not (full or single)):
             t = self.torch()
             if kind == "mean":
                 return Array(reduction.torch_mean(t, axis, keepdims))

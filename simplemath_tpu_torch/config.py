@@ -40,8 +40,10 @@ class Config:
         default_factory=lambda: _env_str("SM_DEFERRED_EAGER", "1") not in ("", "0")
     )
 
-    # Debug-mode numerical guards (kept for parity with the JAX package's
-    # config; the guarded solvers are not ported yet).
+    # Debug-mode numerical guards: the solvers' unrolled inverses
+    # (ops/linalg_small.py, ops/soa.py) raise FloatingPointError on a
+    # non-finite result instead of letting NaN propagate.  Off, they add
+    # no work and no host sync.
     debug_checks: bool = dataclasses.field(
         default_factory=lambda: _env_str("SM_DEBUG_CHECKS", "") not in ("", "0")
     )

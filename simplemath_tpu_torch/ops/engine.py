@@ -67,10 +67,32 @@ def run(node, leaves, operands, name, donate=None, iterations=1, carry=0) -> Arr
     ))
 
 
+def transformed(x) -> bool:
+    """Whether ``x`` (a tensor or an Array) is a tensor under a
+    ``torch.func`` transform (``grad``, ``vjp``, ``jvp``, ``vmap``, ...).  No
+    kernel takes such a wrapper.  On the CPU the engine computes it as plain
+    torch, which the transform differentiates or maps; on the card this
+    raises, as every kernel wrapper does for what its kernel cannot take."""
+    if isinstance(x, Array):
+        if x._storage is None:  # a pending lazy expression: never transformed
+            return False
+        x = x._storage.buf
+    if not (isinstance(x, torch.Tensor)
+            and torch._C._functorch.is_functorch_wrapped_tensor(x)):
+        return False
+    if x.device.type != "cpu":
+        raise NotImplementedError(
+            f"an sm op on a {x.device.type} tensor under a torch.func "
+            "transform: no kernel takes a functorch wrapper, and off the CPU "
+            "the port runs no plain fallback; write the transformed function "
+            "in torch ops")
+    return True
+
+
 def _eager(name, xs, build) -> Array:
     """Leaves for the array operands, constants for Python scalars, then
     ``build(*nodes)`` run at once."""
-    leaves, operands, args = [], [], []
+    leaves, arrays, args = [], [], []
     for x in xs:
         if _scalarlike(x):
             args.append(program.const(x))
@@ -78,7 +100,7 @@ def _eager(name, xs, build) -> Array:
         a = asarray(x)
         leaf = program.leaf(a.shape, a.dtype)
         leaves.append(leaf)
-        operands.append(a._operand())
+        arrays.append(a)
         args.append(leaf)
     try:
         node = build(*args)
@@ -87,7 +109,11 @@ def _eager(name, xs, build) -> Array:
         dispatch.record("torch_path", name)
         tensors = [x if _scalarlike(x) else asarray(x).torch() for x in xs]
         return Array(torch.as_tensor(registry.get_op(name).fn(*tensors)))
-    return run(node, leaves, operands, name)
+    if any(transformed(a) for a in arrays):
+        dispatch.record("torch_path", name)
+        return Array(program.run_plain(
+            program.lower(node, leaves), [a.torch() for a in arrays], node.shape))
+    return run(node, leaves, [a._operand() for a in arrays], name)
 
 
 def binary(name: str, a: Any, b: Any) -> Array:

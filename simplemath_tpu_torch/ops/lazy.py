@@ -163,6 +163,8 @@ def enabled() -> bool:
 
 
 def _deferrable(x) -> bool:
+    if engine.transformed(x):
+        return False  # computed at once, as plain torch (engine._eager)
     return engine._scalarlike(x) or isinstance(x, (Array, np.ndarray, torch.Tensor))
 
 

@@ -82,7 +82,6 @@ runs inside that kernel.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import math
@@ -90,6 +89,7 @@ import math
 import torch
 
 from .. import dtypes as _dt
+from ..utils.precision import exact_float32
 from . import dispatch, elementwise, program
 
 # Kernel launches by entry point since the last reset, and the same
@@ -293,18 +293,6 @@ def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
 
 
 # ------------------------------------------------------- the plain version
-@contextlib.contextmanager
-def exact_float32():
-    """``torch.matmul`` of float32 in full float32 on the card, whatever
-    the caller's global TF32 setting."""
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
-
-
 def _int64(x) -> torch.Tensor:
     """Operand ``x`` (a tensor or a view) as an int64 tensor with its value
     mod 2**64, a uint64 one by its bits (torch flips no uint64 tensor)."""

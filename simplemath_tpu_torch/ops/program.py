@@ -478,6 +478,6 @@ def run_plain(prog: Program, operands, out_shape, iterations: int = 1,
         and not any(res is o for o in operands)
     ):
         return res
-    out = torch.empty(out_shape, dtype=prog.dtype, device=device)
-    out.copy_(res.broadcast_to(out_shape))
-    return out
+    # Out of place, so that a tensor under a torch.func transform passes.
+    return res.to(prog.dtype).broadcast_to(out_shape).clone(
+        memory_format=torch.contiguous_format)

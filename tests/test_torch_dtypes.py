@@ -71,6 +71,10 @@ def test_port_imports_no_jax():
     code = (
         "import sys; before = set(sys.modules)\n"
         "import simplemath_tpu_torch, simplemath_tpu_torch.ops.fusion\n"
+        "import simplemath_tpu_torch.models, simplemath_tpu_torch.entry\n"
+        "import simplemath_tpu_torch.ops.soa, simplemath_tpu_torch.ops.linalg_small\n"
+        "import simplemath_tpu_torch.utils.precision\n"
+        "from simplemath_tpu_torch.models import dynamics, ilqr, rti, scan, simulate, sqp_mpc\n"
         "new = set(sys.modules) - before\n"
         "bad = [m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'simplemath_tpu')]\n"
         "assert not bad, bad\n"

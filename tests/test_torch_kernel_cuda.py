@@ -1404,3 +1404,136 @@ def test_fused_int64_root_takes_the_64_bit_product(cuda):
     assert got.dtype == torch.int64 and torch.equal(got.torch().cpu(), want)
     assert matmul.VARIANTS["imad_i64"] == 1 and sum(matmul.VARIANTS.values()) == 1
     assert dispatch.count("torch_path", "matmul_epilogue") == 1
+
+
+# ------------------------------------------------------------ the solvers
+# The solver stack (simplemath_tpu_torch.models) is plain torch on the card,
+# held against the same calls on the CPU at the tolerance the CPU tests hold
+# it to the JAX package: costs within rtol 1e-4, controls within rtol 1e-3
+# and 1e-4 times the largest control (the card's sin/cos and its reduction
+# orders differ from the CPU's by ulps, which several iterations carry).
+def _solver_close(card, cpu):
+    np.testing.assert_allclose(card.cost.cpu().numpy(), cpu.cost.numpy(), rtol=1e-4)
+    want = cpu.us.numpy()
+    np.testing.assert_allclose(card.us.cpu().numpy(), want, rtol=1e-3,
+                               atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("name,batch,horizon", [("cartpole", 16, 20), ("quadrotor", 4, 8)])
+def test_solve_batched_on_card_matches_cpu(cuda, name, batch, horizon):
+    from simplemath_tpu_torch.models import SYSTEMS, ilqr
+
+    system = SYSTEMS[name]()
+    rng = np.random.default_rng(70)
+    x0 = torch.from_numpy((0.2 * rng.standard_normal((batch, system.nx))).astype(np.float32))
+    us = torch.zeros((batch, horizon, system.nu))
+    cfg = ilqr.ILQRConfig(iterations=3)
+    card = ilqr.solve_batched(system, x0.to(cuda), us.to(cuda), cfg)
+    cpu = ilqr.solve_batched(system, x0, us, cfg)
+    assert card.cost.device.type == cuda.type and card.us.dtype == torch.float32
+    _solver_close(card, cpu)
+
+
+@pytest.mark.parametrize("name,horizon", [("cartpole", 20), ("quadrotor", 10)])
+def test_solve_on_card_matches_cpu(cuda, name, horizon):
+    from simplemath_tpu_torch.models import SYSTEMS, ilqr
+
+    system = SYSTEMS[name]()
+    x0 = torch.from_numpy((0.3 * np.random.default_rng(71).standard_normal(system.nx)).astype(np.float32))
+    us = torch.zeros((horizon, system.nu))
+    cfg = ilqr.ILQRConfig(iterations=3)
+    _solver_close(ilqr.solve(system, x0.to(cuda), us.to(cuda), cfg), ilqr.solve(system, x0, us, cfg))
+
+
+def test_solve_batched_on_card_has_no_host_sync(cuda):
+    """The batched solve reads nothing back to the host: any synchronizing
+    call inside it raises under sync debug mode "error"."""
+    from simplemath_tpu_torch.models import ilqr, make_cartpole
+
+    system = make_cartpole()
+    x0 = 0.2 * torch.randn((32, 4), generator=torch.Generator().manual_seed(0)).to(cuda)
+    us = torch.zeros((32, 10, 1), device=cuda)
+    ilqr.solve_batched(system, x0, us, ilqr.ILQRConfig(iterations=1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = ilqr.solve_batched(system, x0, us, ilqr.ILQRConfig(iterations=2))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(r.cost).all())
+
+
+def test_cholesky_nan_masking_on_card(cuda):
+    """A non-PD matrix in a batch gives an all-NaN solve (as jnp's Cholesky
+    does), its PD neighbours the CPU's solution, with no host round trip."""
+    from simplemath_tpu_torch.models import ilqr
+
+    M = torch.tensor([[[1.0, 2.0], [2.0, 1.0]], [[2.0, 0.5], [0.5, 3.0]],
+                      [[-1.0, 0.0], [0.0, 1.0]], [[4.0, 1.0], [1.0, 2.0]]])
+    rhs = torch.tensor([[1.0, 2.0], [1.0, -1.0], [3.0, 1.0], [0.5, 0.25]])
+    Mc, rc = M.to(cuda), rhs.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ilqr._solve_psd(Mc, rc)
+        got_m = ilqr._solve_psd(Mc, rc[..., None].expand(4, 2, 3))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = ilqr._solve_psd(M, rhs)
+    nan = torch.tensor([True, False, True, False])
+    assert bool(torch.isnan(got.cpu()[nan]).all()) and bool(torch.isnan(want[nan]).all())
+    np.testing.assert_allclose(got.cpu()[~nan].numpy(), want[~nan].numpy(), rtol=1e-6, atol=1e-6)
+    assert bool(torch.isnan(got_m.cpu()[nan]).all())
+    np.testing.assert_allclose(got_m.cpu()[~nan][..., 2].numpy(), want[~nan].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("H", [1, 2, 3, 7, 20])
+def test_associative_scan_on_card_matches_fold(cuda, H):
+    from simplemath_tpu_torch.models.scan import associative_scan
+
+    rng = np.random.default_rng(H)
+    A = torch.from_numpy((0.5 * rng.standard_normal((H, 3, 3))).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((H, 3)).astype(np.float32)).to(cuda)
+
+    def affine(e1, e2):
+        return e2[0] @ e1[0], (e2[0] @ e1[1][..., None])[..., 0] + e2[1]
+
+    got = associative_scan(affine, (A, b))
+    acc = (A[:1], b[:1])
+    folds = [acc]
+    for k in range(1, H):
+        acc = affine(acc, (A[k:k + 1], b[k:k + 1]))
+        folds.append(acc)
+    for g, w in zip(got, (torch.cat([f[0] for f in folds]), torch.cat([f[1] for f in folds]))):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    ints = torch.from_numpy(rng.integers(-5, 6, H)).to(cuda)
+    tree = associative_scan(lambda x, y: (2 * x[0] + 3 * y[0],), (ints,))[0]
+    cpu_tree = associative_scan(lambda x, y: (2 * x[0] + 3 * y[0],), (ints.cpu(),))[0]
+    assert torch.equal(tree.cpu(), cpu_tree)
+
+
+def test_sm_op_under_a_transform_raises_on_card(cuda):
+    """No kernel takes a functorch wrapper and the card runs no plain
+    fallback: an sm op on a CUDA tensor under a torch.func transform raises
+    and launches nothing; outside the transform the same op launches."""
+    x = torch.linspace(-1.0, 1.0, 8, device=cuda)
+
+    def f(t):
+        a = sm.Array(t)
+        return (sm.sin(a) * a + 1.0).torch().sum()
+
+    def red(t):
+        return sm.Array(t).sum().torch()
+
+    elementwise.reset_launches()
+    reduction.reset_launches()
+    for run in (lambda: torch.func.grad(f)(x),
+                lambda: torch.func.vmap(f)(torch.stack([x, 2 * x])),
+                lambda: torch.func.jvp(f, (x,), (torch.ones_like(x),)),
+                lambda: torch.func.grad(red)(x)):
+        with pytest.raises(NotImplementedError, match="torch.func"):
+            run()
+    assert sum(elementwise.LAUNCHES.values()) == 0
+    assert sum(reduction.LAUNCHES.values()) == 0
+    f(x)
+    assert sum(elementwise.LAUNCHES.values()) >= 1

@@ -10,8 +10,13 @@ device:
 2. builds the kernels from ``simplemath_tpu_torch/csrc``, timed;
 3. holds the kernel against its plain PyTorch version on the card, same
    inputs: flat and broadcast adds, transposed and negative-step view
-   operands, every opcode on float32 and int32, int32 ``ipow`` with negative
-   exponents and static pow; arithmetic must agree exactly, transcendentals
+   operands, every opcode on float32, int32, uint32 and bfloat16 (integer
+   floor division and remainder by 0 and -1 included; a bfloat16 result
+   rounded to bfloat16 at each instruction) and every cast between them,
+   int32 ``ipow`` with negative exponents and static pow; a bfloat16 chain
+   recorded by the lazy queue gives the bits of its ops launched one by
+   one, on ``ew_flat`` and on ``ew_strided``; arithmetic must agree
+   exactly, transcendentals
    within 2 ulp; the crafted transcendentals are also held against float64
    numpy at the JAX package's "crafted" bounds.  The opcode cases run
    ``ew_flat``'s 16-byte path with a ragged tail, one instruction each (the
@@ -37,7 +42,8 @@ device:
    against its plain version on the card (ragged 1-D, (8192, 8192), a
    transposed and a negative-step view, NaN, the f32, int32 (exact, with
    its wraparound) and f32.int32 dots, a map-reduce with a (1, C) row and
-   an (R, 1) column operand, axis 0 and 1; sums and dots within
+   an (R, 1) column operand, axis 0 and 1, bfloat16 and float16 inputs
+   full and along both axes and a bfloat16 map-reduce; sums and dots within
    2e-5 * sum|x| of the plain version and of float64 numpy, max/min and
    the int32 dot exact, every result bit-identical across two launches),
    each on the path ``reduction.PATHS`` must name: ``direct`` (identity),
@@ -50,7 +56,19 @@ device:
    full size (``Array.sum()`` of 64M f32, ``sm.dot`` of two 32M vectors,
    the fused squared distance with a 0-d operand, the fused thresholded
    axis sums of (8192, 8192), a lazy ``sm.sum`` of a pending chain) and
-   counts each call's launches by entry point;
+   counts each call's launches by entry point; then, through the public
+   API too, the 1M add in bfloat16 and in uint32, int32 ``//`` of 1M, the
+   L = 400 recurrence on bfloat16 arrays, ``Array.sum()`` of the 64M
+   values in bfloat16 and ``sm.fuse``'s reduction root ``sum(a * a + a)``
+   over the 1M bfloat16 array, each one launch, none on the plain torch
+   route, held to their plain versions and to numpy;
+5c. ``sm`` ops under ``torch.func`` on each kernel family, under sync
+   debug mode ``"error"``: ``sm.fuse``'s matmul root ``tanh(x @ w + b)``
+   at (2048, 2048) @ (2048, 2048) under ``grad``, ``jvp`` and ``vmap``
+   (``mm``/``bmm`` and the epilogue's derivative programs on ``ew_*``),
+   the int32 1-D dot of 1M under ``vmap`` (``rd_axis``'s int32
+   accumulator, one pass), a float16 ``Array.sum`` under ``grad``; launches
+   counted, no plain-torch route, values held to plain torch's autograd;
 6. times every kernel and its plain version with CUDA events (the
    reductions also in GB/s of the bytes each call must read once), and,
    as a yardstick the port never calls, the one PyTorch call that computes
@@ -62,6 +80,7 @@ device:
    who adds the same arrays sees), and over a ring of operands and results
    past the L2, which is what the kernels line holds against the bound at
    the device-memory rate; and a chain of three instructions on 16M floats;
+   the bfloat16, uint32 and ``//`` workloads of phase 5b the same way;
 7. the matmul path: holds the matmul kernel against its plain version on
    the card (f32, bf16, int8/uint8 and a wrapping int32; the ragged
    (300, 270) @ (270, 515); a transposed and a negative-step view operand;
@@ -124,7 +143,15 @@ device:
    pendulum written in the ``sm`` API, states (2, 4096), 50 steps, which
    must launch the elementwise kernels and take no plain-torch route, held
    to the plain torch rollout within 1e-5 and timed beside it; prints the
-   ``solvers`` JSON line, with the card's name and power limit;
+   ``solvers`` JSON line, with the card's name and power limit; and
+   BASELINE.json config 2 as the north star writes it: the pendulum batch
+   4096 x H=50 with dynamics and costs in the ``sm`` API
+   (``models.make_sm_pendulum``) through ``solve_batched``, 10 iterations
+   under sync debug mode ``"error"``, its ``sm`` ops under ``torch.func``
+   on the kernels (ops/autodiff.py; launches counted, no plain-torch
+   route), held to the native pendulum's solve of the same inputs (costs
+   within rtol 1e-4, controls within rtol 1e-3 and 1e-4 x the largest) and
+   timed beside it;
 9. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
@@ -132,7 +159,9 @@ device:
    beside it; ``ew_strided`` as the L = 400 recurrence on its generated
    kernel, the interpreter's time beside it; ``mm`` and ``bmm`` with their
    bf16 times, ``mm_int8``, ``mm_f32``, ``bmm_f32``, ``mm_int32`` and
-   ``mm_int64`` beside them), then
+   ``mm_int64`` beside them; ``ew_flat_bf16``, ``ew_flat_uint32``,
+   ``ew_flat_idiv``, ``ew_strided_bf16`` and ``rd_full_bf16`` as phase 5b's
+   workloads), then
    ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
@@ -207,6 +236,28 @@ def bound(nbytes, ops, kind="f32"):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+# Integer operations of one rounding to bfloat16 in a register (sm_bf16r in
+# csrc/tiles.cuh): the NaN test, the tie bias, the add and the mask.
+ROUND_OPS = 4
+
+
+def program_ops(prog, program):
+    """(float operations, rounding operations) per element and pass of
+    ``prog``: each instruction once, exp and pow as CRAFTED_OPS, a copy of
+    bits (BITS) as none; ROUND_OPS for each result rounded to bfloat16."""
+    crafted = {"EXP_F": CRAFTED_OPS["exp"], "POW_F": CRAFTED_OPS["pow"], "BITS": 0}
+    f_ops = sum(crafted.get(program.OPCODES[c], 1) for c in prog.kernel_codes)
+    return f_ops, ROUND_OPS * sum(prog.kernel_rounds)
+
+
+def bound_mixed(nbytes, float_ops, int_ops):
+    """``bound`` of work with float32 and int32 operations, each at its own
+    rate, one after the other."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = float_ops / PEAK_OPS["f32"] + int_ops / PEAK_OPS["int32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -233,10 +284,31 @@ def ulp_vs_f64(got, want64):
     return float(np.max(np.abs(g - want64) / sp))
 
 
+def bits(t):
+    """``t``'s bits as a signed integer tensor of its width (torch has few
+    uint32 ops on the card)."""
+    import torch
+
+    if t.dtype == torch.bool:
+        return t
+    return t.view({4: torch.int32, 2: torch.int16, 1: torch.int8}[t.element_size()])
+
+
 def exact(got, want):
     if got.dtype.is_floating_point:
         return max_ulp(got, want) == 0.0
-    return bool((got == want).all())
+    return bool((bits(got) == bits(want)).all())
+
+
+def max_bf16_ulp(got, want):
+    """Largest distance in bfloat16 ulps (NaN == NaN)."""
+    g = got.detach().double().cpu().numpy()
+    w = want.detach().double().cpu().numpy()
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    spacing = np.maximum(np.abs(w), 2.0 ** -126) * 2.0 ** -7
+    with np.errstate(invalid="ignore"):
+        d = np.where(same, 0.0, np.abs(g - w) / spacing)
+    return float(np.nan_to_num(d, nan=np.inf).max(initial=0.0))
 
 
 def time_ms(fn, n=1, reps=5):
@@ -328,10 +400,42 @@ def on_both_kernels(elementwise, prog, shape, operands, iterations=1, carry=0):
         check(took == {name: 1}, f"a strided launch meant for {name} took {took}")
     torch.cuda.synchronize()
     k, g = outs
-    same = torch.equal(k, g) if k.dtype == torch.bool else torch.equal(k.view(torch.int32),
-                                                                       g.view(torch.int32))
-    check(k.dtype == g.dtype and same, "the generated kernel differs from the interpreter")
+    check(k.dtype == g.dtype and torch.equal(bits(k), bits(g)),
+          "the generated kernel differs from the interpreter")
     return g
+
+
+def bf16_chain_checks(dev, rng, sm, elementwise):
+    """Phase 3c: a bfloat16 chain recorded by the lazy queue (one program,
+    one launch) gives the bits of the same ops launched one by one, on
+    ew_flat and on ew_strided's generated kernel (transposed operands): the
+    kernels round every bfloat16 result, as torch's ops do."""
+    import torch
+
+    x, y, z = (torch.from_numpy(rng.standard_normal((512, 768)).astype(np.float32)).to(dev)
+               .bfloat16() for _ in range(3))
+
+    def chain(a, b, c):
+        return (a + b) * c - a / (b * b + 1.0)
+
+    for label, arrays in (("ew_flat", [sm.Array(t) for t in (x, y, z)]),
+                          ("ew_strided", [sm.Array(t).T for t in (x, y, z)])):
+        elementwise.reset_launches()
+        lazy = chain(*arrays).torch()
+        torch.cuda.synchronize()
+        launched = dict(elementwise.LAUNCHES)
+        check(launched[label] == 1 and sum(launched.values()) == 1,
+              f"the bfloat16 chain on {label} launched {launched}")
+        old = sm.config.deferred_eager
+        sm.configure(deferred_eager=False)
+        try:
+            eager = chain(*arrays).torch()
+        finally:
+            sm.configure(deferred_eager=old)
+        check(lazy.dtype == torch.bfloat16 and torch.equal(bits(lazy), bits(eager)),
+              f"the bfloat16 chain on {label} is not its ops' bits")
+    log("check a bfloat16 chain (a+b)*c - a/(b*b+1): one launch of ew_flat and of ew_strided's "
+        "generated kernel, the bits of its four ops launched one by one")
 
 
 def generated_checks(dev, rng, sm, elementwise, program):
@@ -555,6 +659,35 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
                       f"ragged axis {ax} {kind}: path {path} != the direct path")
     log(f"check rd_axis ragged ({R},{C}) axis 0 and 1: direct = single = lanes4 = element, "
         "sums within 2e-5*sum|x|, max/min exact, bits repeat")
+
+    # bfloat16 and float16 inputs: widened exactly at the load and summed in
+    # float32, on the element path (2-byte elements), full and along both
+    # axes; a map-reduce of a bfloat16 program rounds each instruction's
+    # result in the register (lanes4).
+    for dtype in (torch.bfloat16, torch.float16):
+        half = rag.to(dtype)
+        h64 = half.double().cpu().numpy()
+        for kind in ("sum", "max", "min"):
+            ref = {"sum": h64.sum, "max": h64.max, "min": h64.min}[kind]
+            k = on_path("element", lambda: reduction.reduce(half, kind))
+            agree("rd_full", f"{dtype} ({R},{C}) {kind}", k, reduction._plain(half, kind), ref(),
+                  float(np.abs(h64).sum()), kind != "sum")
+            for ax in (0, 1):
+                k = on_path("element", lambda: reduction.reduce_axis(half, kind, ax))
+                agree("rd_axis", f"{dtype} ({R},{C}) axis {ax} {kind}", k,
+                      reduction._plain(half, kind, ax), ref(axis=ax), np.abs(h64).sum(axis=ax),
+                      kind != "sum")
+    hb = rag.bfloat16()
+    lh = program.leaf((R, C), torch.bfloat16)
+    prog = program.lower(lh * lh + lh, [lh])
+    vals = reduction.values(prog, (R, C), [hb], dev)
+    v64 = vals.double().cpu().numpy()
+    k = on_path("element", lambda: reduction.map_reduce(prog, "sum", (R, C), hb))
+    agree("rd_full", "bfloat16 map-reduce x*x+x", k, reduction._plain(vals, "sum"), v64.sum(),
+          float(np.abs(v64).sum()), False)
+    log(f"check rd_full/rd_axis on bfloat16 and float16 ({R},{C}), full and axis 0 and 1 "
+        "(element path), and a bfloat16 map-reduce x*x+x: sums within 2e-5*sum|x| of the plain "
+        "version and of float64, max/min exact, bits repeat")
     return err
 
 
@@ -773,17 +906,32 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
 def in_order(a, b):
     """The parent kernel's f32 product: every element one chain of fused
     multiply-adds from 0 in ascending k, k padded with zero products to a
-    multiple of 16.  Emulated in float64 (a product of two floats is exact
-    there) with one rounding to float32 a step."""
+    multiple of 16.  Emulated in float64, where a product of two floats is
+    exact: each step's sum is rounded to odd in float64 (the nearest sum,
+    moved one float64 ulp towards the exact one where that is inexact and
+    its last bit even), then to float32, which is the exact sum rounded to
+    float32 once, as a fused multiply-add rounds it (float64 has more than
+    float32's 24 + 2 bits); rounding the float64 sum to nearest first could
+    round twice."""
     import torch
 
     from simplemath_tpu_torch.ops import elementwise
 
     a, b = elementwise.read(a).double(), elementwise.read(b).double()
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32, device=a.device)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=a.device)
     for k in range((a.shape[1] + 15) // 16 * 16):
-        term = a[:, k:k + 1] * b[k:k + 1] if k < a.shape[1] else 0.0
-        acc = (term + acc.double()).float()
+        if k >= a.shape[1]:
+            acc = acc + 0.0
+            continue
+        term, c = a[:, k:k + 1] * b[k:k + 1], acc.double()
+        total = term + c
+        back = total - term
+        err = (term - (total - back)) + (c - back)  # the exact sum is total + err
+        even = (total.view(torch.int64) & 1) == 0
+        towards = torch.where(err > 0, inf, -inf)
+        total = torch.where((err != 0) & even, torch.nextafter(total, towards), total)
+        acc = total.float()
     return acc
 
 
@@ -829,7 +977,9 @@ def cuda_core_checks(dev, rng, sm, program, matmul, elementwise, both):
             check(vec16(a, 2) == vec16(b, 1) == (path != "element by element"),
                   f"f32 {label}: staged otherwise")
             k = clone_bits(f"f32 {label}", a, b)
-            check(torch.equal(k, in_order(a, b)), f"f32 {label}: not the parent kernel's order")
+            want = in_order(a, b)
+            check(torch.equal(k, want), f"f32 {label}: not the parent kernel's order at "
+                  f"{int((k != want).sum())} elements, largest difference {max_ulp(k, want)} ulp")
             ia, ib = operand(i32, 300, 270, ta), operand(i32, 270, 515, tb)
             k = clone_bits(f"int32 {label}", ia, ib)
             want = matmul._wrap_int32(ia.cpu().long() @ ib.cpu().long())
@@ -1005,25 +1155,96 @@ def int8_checks(dev, rng, sm, matmul, elementwise, both):
         "exact product, inside the tensor-core kernel")
 
 
-def sm_pendulum_step(sm, dt=0.05):
-    """The pendulum's RK4 step written in the public ``sm`` API (as the JAX
-    package's tests/test_models.py::_make_sm_pendulum), batch-polymorphic:
-    x of shape (2, B), u of (1, B)."""
-    g, m, l, b = 9.81, 1.0, 1.0, 0.1
+def transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch):
+    """Phase 5c: an sm op under each torch.func transform on each kernel
+    family, under sync debug mode "error", counted and held to plain
+    torch's autograd (float32 products in the kernel's order: within 1e-4
+    relative and absolute at K = 2048; bfloat16 results within one
+    bfloat16 rounding)."""
+    import torch
 
-    def f(x, u):
-        th, thd = x[0], x[1]
-        thdd = (u[0] - thd * b - sm.sin(th) * (m * g * l)) / (m * l * l)
-        return sm.stack([thd, thdd])
+    def on(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
 
-    def step(x, u):
-        k1 = f(x, u)
-        k2 = f(x + k1 * (0.5 * dt), u)
-        k3 = f(x + k2 * (0.5 * dt), u)
-        k4 = f(x + k3 * dt, u)
-        return x + (k1 + k2 * 2.0 + k3 * 2.0 + k4) * (dt / 6.0)
+    n = N_MM
+    scale = n ** -0.5
+    x, t_x, w = (on((scale ** k * rng.standard_normal((n, n))).astype(np.float32))
+                 for k in (0, 0, 1))
+    b = on(rng.standard_normal((1, n)).astype(np.float32))
+    layer = sm.fuse(lambda x, w, b: sm.tanh(x @ w + b) * 2.0 - b)
 
-    return step
+    def f_sm(x, w, b):
+        return layer(x, w, b).torch()
+
+    def f_plain(x, w, b):
+        x, w, b = x.float(), w.float(), b.float()
+        return torch.tanh(x @ w + b) * 2.0 - b
+
+    def counted(label, fn):
+        for reset in (elementwise.reset_launches, reduction.reset_launches,
+                      matmul.reset_launches, dispatch.reset):
+            reset()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = dispatch.counts()
+        check(not any(k.startswith("torch_path") for k in counts),
+              f"{label} took the plain torch route: {counts}")
+        launches = {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES}
+        return got, launches, counts
+
+    out = {}
+    xb, tb, wb, bb = (v.bfloat16() for v in (x, t_x, w, b))
+    cases = (
+        ("grad f32", lambda f: torch.func.grad(lambda *a: f(*a).float().sum(), (0, 1, 2))(x, w, b), 1e-4),
+        ("jvp f32", lambda f: torch.func.jvp(f, (x, w, b), (t_x, w, b))[1], 1e-4),
+        ("vmap f32", lambda f: torch.func.vmap(f, (0, None, 0))(torch.stack([x, t_x]), w,
+                                                              torch.stack([b, -b])), 1e-4),
+        ("vmap bf16", lambda f: torch.func.vmap(f, (0, None, None))(torch.stack([xb, tb]), wb, bb),
+         2.0 ** -7),
+    )
+    with matmul.exact_float32():
+        for label, run, tol in cases:
+            got, launches, counts = counted(f"fused matmul root {label}", lambda: run(f_sm))
+            want = run(f_plain)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(float((u.float() - v.float()).abs().max()) for u, v in zip(got, want))
+            check(launches["mm"] + launches["bmm"] > 0 and counts.get("transform:matmul", 0) > 0,
+                  f"the fused matmul root under {label} launched no matmul kernel: {launches}")
+            check(label.startswith("vmap") or launches["ew_flat"] + launches["ew_strided"] > 0,
+                  f"the fused matmul root under {label} ran no derivative program: {launches}")
+            for u, v in zip(got, want):
+                check(bool(((u.float() - v.float()).abs() <= tol * (1.0 + v.float().abs())).all()),
+                      f"the fused matmul root under {label} is beyond {tol} of plain torch: {err}")
+            out[f"matmul root {label}"] = {"launches": {k: v for k, v in launches.items() if v},
+                                           "max_abs_err": err}
+    del xb, tb, wb, bb
+
+    rows, m = 16, 65536
+    a = rng.integers(-2**31, 2**31, (rows, m), dtype=np.int64).astype(np.int32)
+    c = rng.integers(-1000, 1000, m).astype(np.int32)
+    at, ct = on(a), on(c)
+    got, launches, _ = counted("int32 dot under vmap", lambda: torch.func.vmap(
+        lambda v: sm.dot(sm.Array(v), sm.Array(ct)).torch())(at))
+    want = ((a.astype(np.int64) * c).sum(1) + 2**31) % 2**32 - 2**31
+    check(launches["rd_axis"] == 1 and launches["rd_full"] == 0 and launches["ew_flat"] == 0,
+          f"the int32 dot under vmap is not one rd_axis pass: {launches}")
+    check(np.array_equal(got.cpu().numpy(), want.astype(np.int32)),
+          "the int32 dot under vmap does not wrap as numpy's int64 product mod 2**32")
+    out["int32 dot vmap (16, 65536)"] = {"launches": {k: v for k, v in launches.items() if v}}
+
+    h = on(rng.standard_normal(N_ADD).astype(np.float32)).half()
+    got, launches, _ = counted("float16 sum under grad", lambda: torch.func.grad(
+        lambda v: sm.Array(v).sum().torch().float())(h))
+    check(launches["rd_full"] > 0 and launches["ew_flat"] > 0 and got.dtype == torch.float16
+          and bool((got == 1.0).all()), f"the float16 sum's gradient: {launches}")
+    out["float16 sum grad 1M"] = {"launches": {k: v for k, v in launches.items() if v}}
+    log(f"check sm ops under torch.func (no plain-torch route, no host sync): {json.dumps(out)}")
 
 
 def wall_s(fn, sync_debug=None):
@@ -1063,12 +1284,12 @@ def solver_phase(dev, card):
     """The solver stack on the card (BASELINE.json configs 3-5): checks
     against the CPU and float64, then the full-width workloads, timed."""
     import torch
-    import simplemath_tpu_torch as sm
     from simplemath_tpu_torch import entry as port_entry
     from simplemath_tpu_torch.models import (
-        ILQRConfig, MPCController, ilqr, make_cartpole, make_pendulum, make_quadrotor, rti,
+        ILQRConfig, MPCController, ilqr, make_cartpole, make_pendulum, make_quadrotor,
+        make_sm_pendulum, rti,
     )
-    from simplemath_tpu_torch.ops import dispatch, elementwise
+    from simplemath_tpu_torch.ops import dispatch, elementwise, reduction
 
     rng = np.random.default_rng(SEED)
     out = {"card": card}
@@ -1102,14 +1323,16 @@ def solver_phase(dev, card):
 
     # Full width, timed: one warm-up call (one iteration) first.  The
     # cartpole solve runs under sync debug mode "error".
-    def batched(system, shape, key):
+    def batched(system, shape, key, x0b=None):
         batch, horizon = shape
-        x0b = torch.from_numpy((0.2 * rng.standard_normal((batch, system.nx))).astype(np.float32)).to(dev)
+        if x0b is None:
+            x0b = torch.from_numpy((0.2 * rng.standard_normal((batch, system.nx))).astype(np.float32)).to(dev)
         usb = torch.zeros((batch, horizon, system.nu), device=dev)
         warm_s, _ = wall_s(lambda: ilqr.solve_batched(system, x0b, usb, ILQRConfig(iterations=1)))
+        error_mode = key in ("cartpole", "sm_pendulum")
         solve_s, res = wall_s(
             lambda: ilqr.solve_batched(system, x0b, usb, ILQRConfig(iterations=SOLVE_ITERS)),
-            sync_debug="error" if key == "cartpole" else None)
+            sync_debug="error" if error_mode else None)
         init = torch.func.vmap(lambda x, u: ilqr.trajectory_cost(
             system, ilqr.rollout(system.step, x, u), u))(x0b, usb)
         trace = res.cost_trace
@@ -1122,7 +1345,7 @@ def solver_phase(dev, card):
         row = {"batch": batch, "horizon": horizon, "iterations": SOLVE_ITERS,
                "wall_s": solve_s, "solves_per_s": batch / solve_s,
                "s_per_iteration": solve_s / SOLVE_ITERS, "warmup_1_iteration_s": warm_s,
-               "sync_debug_mode": "error" if key == "cartpole" else "default",
+               "sync_debug_mode": "error" if error_mode else "default",
                "mean_initial_cost": float(init.mean()), "mean_final_cost": float(res.cost.mean()),
                "improved_share": float((res.cost < init).double().mean())}
         log(f"solver {key} {batch} x H={horizon}, {SOLVE_ITERS} iterations on {card}: {row}")
@@ -1174,7 +1397,42 @@ def solver_phase(dev, card):
     log(f"cartpole iteration by stage on {card}: {stages}; per Riccati step: "
         f"{out['cartpole']['riccati_step']}")
 
-    out["pendulum"], _ = batched(pendulum, PENDULUM, "pendulum")
+    x0p = torch.from_numpy((0.2 * rng.standard_normal((PENDULUM[0], 2))).astype(np.float32)).to(dev)
+    out["pendulum"], r_native = batched(pendulum, PENDULUM, "pendulum", x0p)
+
+    # BASELINE.json config 2 in the north star's form: the same pendulum
+    # batch, its dynamics and costs written in the sm API
+    # (models.make_sm_pendulum), through solve_batched: linearize_soa's jvp
+    # and forward-over-reverse and rollout_b's vmap run its sm ops through
+    # ops/autodiff.py on the kernels, under sync debug mode "error".  Held to
+    # the native solve of the same inputs at the CPU tests' tolerance.
+    elementwise.reset_launches()
+    reduction.reset_launches()
+    dispatch.reset()
+    out["sm_pendulum"], r_sm = batched(make_sm_pendulum(), PENDULUM, "sm_pendulum", x0p)
+    sm_launches = {**elementwise.LAUNCHES, **reduction.LAUNCHES}
+    counts = dispatch.counts()
+    check(elementwise.LAUNCHES["ew_flat"] + elementwise.LAUNCHES["ew_strided"] > 0,
+          f"the sm pendulum solve launched no elementwise kernel: {sm_launches}")
+    check(not any(k.startswith("torch_path") for k in counts),
+          f"the sm pendulum solve took the plain torch route: "
+          f"{ {k: v for k, v in counts.items() if k.startswith('torch_path')} }")
+    transforms = sum(v for k, v in counts.items() if k.startswith("transform:"))
+    check(transforms > 0, "the sm pendulum solve ran no sm op under a transform")
+    native_cpu = ilqr.ILQRResult(*(t.cpu() for t in r_native))
+    cost_err, u_err = solver_close(r_sm, native_cpu, "sm pendulum against the native pendulum")
+    c_sm, c_nat = r_sm.cost.double().cpu(), r_native.cost.double().cpu()
+    u_sm, u_nat = r_sm.us.double().cpu(), r_native.us.double().cpu()
+    strict = float(((u_sm - u_nat).abs() - (1e-3 * u_nat.abs() + 1e-4)).clamp(min=0).max())
+    out["sm_pendulum"].update({
+        "launches": sm_launches, "transform_calls": transforms,
+        "cost_rel_err_vs_native": cost_err, "us_abs_err_vs_native": u_err,
+        "us_beyond_rtol_1e-3_atol_1e-4": strict,
+        "max_abs_control": float(u_nat.abs().max()),
+        "native_solves_per_s": out["pendulum"]["solves_per_s"],
+        "over_native": out["sm_pendulum"]["wall_s"] / out["pendulum"]["wall_s"]})
+    check(float(((c_sm - c_nat).abs() / c_nat.abs()).max()) <= 1e-4, "sm pendulum costs")
+    log(f"sm pendulum (config 2) against the native pendulum on {card}: {out['sm_pendulum']}")
 
     # Quadrotor RTI: the time of a tick is the difference of two closed-loop
     # lengths over their difference in ticks (bench.py::bench_quadrotor_replan).
@@ -1216,15 +1474,15 @@ def solver_phase(dev, card):
     # The sm-expressed pendulum, a forward rollout with no AD, batch-minor:
     # the public sm API on the card launches the port's elementwise kernels.
     batch, horizon = SM_ROLLOUT
-    sm_step = sm_pendulum_step(sm)
+    sm_step = make_sm_pendulum().step
     xs0 = torch.from_numpy((0.2 * rng.standard_normal((2, batch))).astype(np.float32)).to(dev)
     us_r = torch.from_numpy((0.5 * rng.standard_normal((horizon, 1, batch))).astype(np.float32)).to(dev)
 
     def sm_rollout():
-        x = sm.Array(xs0)
+        x = xs0
         for t in range(horizon):
-            x = sm_step(x, sm.Array(us_r[t]))
-        return x.torch()
+            x = sm_step(x, us_r[t])
+        return x
 
     def plain_rollout():
         x = xs0
@@ -1342,27 +1600,39 @@ def main():
     xi = on(np.concatenate([rng.integers(-100, 100, 1 << 19), ints]).astype(np.int32))
     yi = on(np.concatenate([rng.integers(-5, 31, 1 << 19),
                             [0, 5, -3, 2, 2, -1, 0, 31, 40, 2, -2**31, -5]]).astype(np.int32))
+    xu = on(np.concatenate([rng.integers(0, 200, 1 << 19),
+                            [0, 1, 2**32 - 1, 2**31, 2**31 - 1, 7, 3, 5, 65536, 46341, 9, 2]])
+            .astype(np.int64)).to(torch.uint32)
+    yu = on(np.concatenate([rng.integers(0, 31, 1 << 19),
+                            [0, 5, 3, 2, 2, 0, 0, 31, 40, 2, 2**32 - 1, 7]]).astype(np.int64)).to(torch.uint32)
+    xb, yb = xf.bfloat16(), yf.bfloat16()
     transcendental = {"exp", "log", "exp2", "log2", "tanh", "sin", "cos", "tan", "pow"}
     worst_tr = 0.0
     n_codes = 0
     ops = list(registry.registered_ops().items()) + list(registry.INTERNAL.items())
     for name, op in ops:
-        for dt, (x, y) in ((torch.float32, (xf, yf)), (torch.int32, (xi, yi))):
-            if dt not in op.opcodes:
+        for dt, (x, y) in ((torch.float32, (xf, yf)), (torch.int32, (xi, yi)),
+                           (torch.uint32, (xu, yu)), (torch.bfloat16, (xb, yb))):
+            if program.register_type(dt) not in op.opcodes:
                 continue
+            if dt == torch.bfloat16 and name in ("pow", "ipow"):
+                continue  # the engine computes pow in float32 (pow_expr)
             n = x.numel()
             leaves = [program.leaf((n,), dt) for _ in range(op.arity)]
             operands = [x, y][: op.arity]
             if name == "where":
                 leaves[0] = program.leaf((n,), torch.bool)
-                operands = [x > 0, x, y]
+                operands = [bits(x) > 0, x, y]
             if name in ("pow", "ipow"):
                 node = program.Node(name, leaves, dt, (n,))
             else:
                 node = program.apply(name, *leaves)
             prog = program.lower(node, leaves)
             k, p = both(prog, (n,), operands)
-            if name in transcendental:
+            if name in transcendental and dt == torch.bfloat16:
+                u = max_bf16_ulp(k, p)
+                check(u <= 1.0, f"{name} {dt}: {u} bfloat16 ulp from its plain version")
+            elif name in transcendental:
                 u = max_ulp(k, p)
                 worst_tr = max(worst_tr, u)
                 check(u <= 2.0, f"{name} {dt}: {u} ulp from its plain version")
@@ -1370,21 +1640,32 @@ def main():
                 check(exact(k, p), f"{name} {dt} disagrees with its plain version")
             # ew_strided's two kernels on the operands read backwards.
             g = on_both_kernels(elementwise, prog, (n,), [backwards(o) for o in operands])
-            check(exact(g.flip(0), k), f"{name} {dt}: ew_strided differs from ew_flat")
+            check(torch.equal(bits(g).flip(0), bits(k)), f"{name} {dt}: ew_strided differs from ew_flat")
             n_codes += 1
-    for (src, dst) in program._CASTS:
-        x = {torch.float32: torch.nan_to_num(xf.clamp(-1e6, 1e6), nan=0.5),
-             torch.int32: xi, torch.bool: xf > 0}[src]
+    casts = [(src, dst) for src, dst in program._CASTS if src != dst] + [
+        (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+        (torch.int32, torch.bfloat16), (torch.uint32, torch.bfloat16),
+        (torch.bool, torch.bfloat16), (torch.bfloat16, torch.int32),
+        (torch.bfloat16, torch.uint32), (torch.bfloat16, torch.bool)]
+    for (src, dst) in casts:
+        x = {torch.float32: xf, torch.bfloat16: xb, torch.int32: xi, torch.uint32: xu,
+             torch.bool: xf > 0}[src]
+        if src.is_floating_point and dst not in (torch.float32, torch.bfloat16, torch.bool):
+            # Within the destination's range: beyond it C++ leaves the value unspecified.
+            x = torch.nan_to_num(x.float().clamp(0.0 if dst == torch.uint32 else -1e6, 1e6),
+                                 nan=0.5).to(src)
         leaf = program.leaf(tuple(x.shape), src)
         prog = program.lower(program.cast(leaf, dst), [leaf])
         k, p = both(prog, tuple(x.shape), [x])
         check(exact(k, p), f"cast {src}->{dst} disagrees")
         g = on_both_kernels(elementwise, prog, tuple(x.shape), [backwards(x)])
-        check(exact(g.flip(0), k), f"cast {src}->{dst}: ew_strided differs from ew_flat")
+        check(torch.equal(bits(g).flip(0), bits(k)), f"cast {src}->{dst}: ew_strided differs from ew_flat")
         n_codes += 1
-    log(f"check {n_codes} opcode/dtype cases (float32, int32, bool): arithmetic exact, "
-        f"transcendentals within {worst_tr} ulp of the plain version; ew_flat, ew_strided "
-        "interpreted and ew_strided generated give the same bits")
+    log(f"check {n_codes} opcode/dtype cases (float32, int32, uint32, bfloat16, bool; int32 "
+        "and uint32 floor division and remainder with zero and -1 divisors): arithmetic exact, "
+        f"transcendentals within {worst_tr} ulp of the plain version (bfloat16 within 1 of its "
+        "ulps); ew_flat, ew_strided interpreted and ew_strided generated give the same bits")
+    bf16_chain_checks(dev, rng, sm, elementwise)
     generated_checks(dev, rng, sm, elementwise, program)
 
     # ew_flat beyond one instruction on two full operands: bit for bit the
@@ -1581,6 +1862,109 @@ def main():
         check(bool(np.all(np.abs(got - ref) <= 2e-5 * absx)), f"{label}: beyond 2e-5*sum|x| of float64")
         log(f"check {label}: within 2e-5*sum|x| of float64, one launch, no elementwise pass")
 
+    # ---------------------- 5b. bfloat16, uint32, integer floor division
+    # Through the public API: the 1M add in bfloat16 and in uint32, int32 //
+    # of 1M (divisors 0 and -1 among them), the L = 400 recurrence on
+    # bfloat16 arrays, and Array.sum() of the 64M values in bfloat16.
+    bf_a, bf_b = sm.Array(add_a.torch().bfloat16()), sm.Array(add_b.torch().bfloat16())
+    u_np = [rng.integers(0, 2**32, N_ADD, dtype=np.uint64).astype(np.uint32) for _ in range(2)]
+    u_a, u_b = (sm.Array(x) for x in u_np)
+    i_np = rng.integers(-2**31, 2**31, N_ADD, dtype=np.int64).astype(np.int32)
+    d_np = rng.integers(-1000, 1000, N_ADD).astype(np.int32)
+    d_np[d_np == 0] = 3
+    d_np[:4] = [0, -1, 0, -1]
+    i_np[:4] = [7, -2**31, 0, 5]
+    i_a, i_d = sm.Array(i_np), sm.Array(d_np)
+    def chain16(acc, a, e_row):  # the recurrence with weak constants: bfloat16 throughout
+        return acc * 1e-3 + sm.exp(sm.pow(a + acc * 1e-6, e_row))
+
+    sq16 = sq
+    acc16, fa16, fe16 = sm.zeros(*sq16, dtype="bfloat16"), sm.Array(fa.torch().bfloat16()), \
+        sm.Array(fe.torch().bfloat16())
+    fused16 = sm.fuse(chain16, donate=0, iterations=400)
+    x16 = sm.Array(x_big.torch().bfloat16())
+    fused16(acc16, fa16, fe16).torch()  # NVRTC compiles the bfloat16 program's kernel once
+    torch.cuda.synchronize()
+    fsum16 = sm.fuse(lambda a: sm.sum(a * a + a))
+    half_calls = [
+        ("ew_flat_bf16", "sm.add 1M bfloat16", lambda: sm.add(bf_a, bf_b)),
+        ("ew_flat_uint32", "sm.add 1M uint32", lambda: sm.add(u_a, u_b)),
+        ("ew_flat_idiv", "int32 // 1M", lambda: i_a // i_d),
+        ("ew_strided_bf16", "fused recurrence L=400 bfloat16", lambda: fused16(acc16, fa16, fe16)),
+        ("rd_full_bf16", "Array.sum() 64M bfloat16", lambda: x16.sum()),
+        ("rd_full_bf16_fused", "sm.fuse sum(a*a+a) 1M bfloat16", lambda: fsum16(bf_a)),
+    ]
+    half_out, half_launches = {}, {}
+    for key, label, call in half_calls:
+        elementwise.reset_launches()
+        reduction.reset_launches()
+        dispatch.reset()
+        half_out[key] = call().torch()
+        torch.cuda.synchronize()
+        half_launches[key] = {**elementwise.LAUNCHES, **reduction.LAUNCHES}
+        counts = dispatch.counts()
+        check(not any(k.startswith("torch_path") for k in counts),
+              f"{label} took the plain torch route: {counts}")
+        log(f"{label}: launches {half_launches[key]} dispatch {counts}")
+    check(half_launches["ew_flat_bf16"]["ew_flat"] == 1 and half_launches["ew_flat_uint32"]["ew_flat"] == 1
+          and half_launches["ew_flat_idiv"]["ew_flat"] == 1, "a 1M op did not launch ew_flat once")
+    check(half_launches["ew_strided_bf16"]["ew_strided"] == 1, "the bfloat16 recurrence did not "
+          "launch ew_strided once")
+    check(half_launches["rd_full_bf16"]["rd_full"] == 1, "the bfloat16 sum did not launch rd_full once")
+    check(half_launches["rd_full_bf16_fused"]["rd_full"] == 1
+          and half_launches["rd_full_bf16_fused"]["ew_flat"] == 0,
+          "the bfloat16 fused reduction root did not launch rd_full once, alone")
+    half_err = {}
+    want = (add_a.torch().bfloat16().float() + add_b.torch().bfloat16().float()).bfloat16()
+    check(torch.equal(bits(half_out["ew_flat_bf16"]), bits(want)), "sm.add bfloat16 is not the "
+          "float32 sum rounded once")
+    half_err["ew_flat_bf16"] = 0.0
+    want_u = (u_np[0].astype(np.uint64) + u_np[1].astype(np.uint64)) % 2**32
+    check(np.array_equal(bits(half_out["ew_flat_uint32"]).cpu().numpy().view(np.uint32),
+                         want_u.astype(np.uint32)), "sm.add uint32 does not wrap mod 2**32")
+    half_err["ew_flat_uint32"] = 0.0
+    li, ld = program.leaf((N_ADD,), torch.int32), program.leaf((N_ADD,), torch.int32)
+    idiv_prog = program.lower(li // ld, [li, ld])
+    want_i = program.run_plain(idiv_prog, [i_a.torch(), i_d.torch()], (N_ADD,))
+    check(exact(half_out["ew_flat_idiv"], want_i), "int32 // differs from its plain version")
+    q = np.floor_divide(i_np[4:].astype(np.int64), d_np[4:].astype(np.int64))
+    check(np.array_equal(half_out["ew_flat_idiv"].cpu().numpy()[4:], q.astype(np.int32)),
+          "int32 // is not numpy's floor division")
+    check(half_out["ew_flat_idiv"].cpu().numpy()[:4].tolist() == [-2, -2**31, -1, -5],
+          "int32 // by 0 and -1 is not XLA's")
+    half_err["ew_flat_idiv"] = 0.0
+    leaves16 = [program.leaf(sq16, torch.bfloat16), program.leaf(sq16, torch.bfloat16),
+                program.leaf((1, N_FUSED), torch.bfloat16)]
+    prog16 = program.lower(chain16(*leaves16), leaves16)
+    check(prog16.dtype == torch.bfloat16 and any(prog16.kernel_rounds),
+          "the bfloat16 recurrence does not compute in bfloat16")
+    plain16_in = [acc16.torch(), fa16.torch(), fe16.torch()]
+    ref16 = program.run_plain(prog16, plain16_in, sq16, 400, 0)
+    u16 = max_bf16_ulp(half_out["ew_strided_bf16"], ref16)
+    check(u16 <= 2.0, f"the bfloat16 recurrence is {u16} bfloat16 ulp from its plain version")
+    half_err["ew_strided_bf16"] = float((half_out["ew_strided_bf16"].float() - ref16.float()).abs().max())
+    x16_64 = x16.torch().double()
+    k16 = half_out["rd_full_bf16"]
+    check(k16.dtype == torch.bfloat16, "Array.sum() of bfloat16 is not bfloat16")
+    p16 = reduction._plain(x16.torch(), "sum").bfloat16()
+    check(abs(float(k16) - float(x16_64.sum())) <= 2e-5 * float(x16_64.abs().sum()),
+          "the bfloat16 sum is beyond 2e-5*sum|x| of float64")
+    half_err["rd_full_bf16"] = abs(float(k16) - float(p16))
+    la = program.leaf((N_ADD,), torch.bfloat16)
+    mapped = program.run_plain(program.lower(la * la + la, [la]), [bf_a.torch()], (N_ADD,)).double()
+    kf = half_out["rd_full_bf16_fused"]
+    check(kf.dtype == torch.bfloat16 and abs(float(kf) - float(mapped.sum()))
+          <= 2e-5 * float(mapped.abs().sum()) + 2.0 ** -8 * abs(float(mapped.sum())),
+          "the bfloat16 fused reduction root is beyond 2e-5*sum|v| and one bfloat16 rounding "
+          "of float64")
+    log(f"check bfloat16/uint32/int32 // main path: the bfloat16 add the float32 sum rounded once, "
+        f"uint32 wrapping, // numpy's floor division and XLA's at 0 and -1, the recurrence within "
+        f"{u16} bfloat16 ulp of its plain version, the sum and the fused root's within 2e-5*sum|x| "
+        f"of float64; |kernel - plain| {half_err}")
+
+    # ---------------------------------------- 5c. sm ops under torch.func
+    transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch)
+
     # -------------------------------------------------------- 6. timing
     add_prog = binop("add", (N_ADD,), (N_ADD,))
     at, bt = add_a.torch(), add_b.torch()
@@ -1689,6 +2073,14 @@ def main():
         rt[f"axis{ax}_ms"] = timed_on(
             "lanes4", lambda: reduction.map_reduce_axis(p_thr[ax], "sum", ax, sq, mt, st))
         rt[f"axis{ax}_plain_ms"] = time_ms(lambda: plain(p_thr[ax], [mt, st], sq, ax), n=20)
+    # _build_map_reduce_2d's case: a * row - col over (8192, 8192), a (1, C)
+    # row and an (R, 1) column, reduced in full along the rows (lanes4).
+    row8, col8 = on(rng.standard_normal((1, N_AXIS)).astype(np.float32)), \
+        on(rng.standard_normal((N_AXIS, 1)).astype(np.float32))
+    lm, lr, lc = leaves_of(mt, row8, col8)
+    p_rows = program.lower(lm * lr - lc, [lm, lr, lc])
+    rt["rows_ms"] = timed_on("lanes4", lambda: reduction.map_reduce(p_rows, "sum", sq, mt, row8, col8))
+    rt["rows_plain_ms"] = time_ms(lambda: plain(p_rows, [mt, row8, col8], sq), n=20)
     rt["sum_host_ms"] = host_ms(lambda: x_big.sum().torch())
     rt["dist_host_ms"] = host_ms(lambda: dist(da, db, eps).torch())
     for key, nbytes in gb.items():
@@ -1716,6 +2108,55 @@ def main():
     lib["sum_over_library"] = rt["sum_ms"] / lib["sum"]
     lib["axis0_over_library"] = rt["axis0_identity_ms"] / lib["axis0"]
     lib["axis1_over_library"] = rt["axis1_identity_ms"] / lib["axis1"]
+
+    # bfloat16, uint32 and int32 //: the 1M ops over a ring of operands and
+    # results past the L2 (as the f32 add), the L = 400 bfloat16 recurrence,
+    # the 64M bfloat16 sum; each beside its plain version and the one
+    # PyTorch call that computes it (torch.add on the int32 views of the
+    # uint32 operands, the same bits mod 2**32, as torch has no uint32 add
+    # on the card; torch.floor_divide on nonzero divisors: torch's integer
+    # division by 0 is not XLA's).
+    def ring_of(make):
+        return [make() for _ in range(ADD_RING)]
+
+    def ring_time(pairs, fn, n=100):
+        keep, at = [None] * len(pairs), [0]
+
+        def call():
+            i = at[0] = (at[0] + 1) % len(pairs)
+            keep[i] = fn(*pairs[i])
+        return time_ms(call, n=n)
+
+    bf_ring = ring_of(lambda: tuple(on(rng.standard_normal(N_ADD).astype(np.float32)).bfloat16()
+                                    for _ in range(2)))
+    u_ring = ring_of(lambda: tuple(on(rng.integers(0, 2**31, N_ADD).astype(np.int64)).to(torch.uint32)
+                                   for _ in range(2)))
+    d_ring = ring_of(lambda: (on(rng.integers(-2**31, 2**31, N_ADD, dtype=np.int64).astype(np.int32)),
+                              on(rng.choice([-7, -3, -1, 1, 2, 5, 11, 1000], N_ADD).astype(np.int32))))
+    add16 = binop("add", (N_ADD,), (N_ADD,), torch.bfloat16)
+    addu = binop("add", (N_ADD,), (N_ADD,), torch.uint32)
+
+    def u_library(a, b):  # torch has no uint32 add on the card: the same bits through int32
+        return torch.add(a.view(torch.int32), b.view(torch.int32))
+    ht = {
+        "add_bf16_ms": ring_time(bf_ring, lambda a, b: sm.add(sm.Array(a), sm.Array(b)).torch()),
+        "add_bf16_plain_ms": ring_time(bf_ring, lambda a, b: program.run_plain(add16, [a, b], (N_ADD,))),
+        "add_bf16_library_ms": ring_time(bf_ring, torch.add),
+        "add_uint32_ms": ring_time(u_ring, lambda a, b: sm.add(sm.Array(a), sm.Array(b)).torch()),
+        "add_uint32_plain_ms": ring_time(u_ring, lambda a, b: program.run_plain(addu, [a, b], (N_ADD,))),
+        "add_uint32_library_ms": ring_time(u_ring, u_library),
+        "idiv_ms": ring_time(d_ring, lambda a, b: (sm.Array(a) // sm.Array(b)).torch()),
+        "idiv_plain_ms": ring_time(d_ring, lambda a, b: program.run_plain(idiv_prog, [a, b], (N_ADD,))),
+        "idiv_library_ms": ring_time(d_ring, torch.floor_divide),
+        "fused400_bf16_ms": time_ms(lambda: fused16(acc16, fa16, fe16).torch(), n=1),
+        "fused400_bf16_plain_ms": time_ms(lambda: program.run_plain(prog16, plain16_in, sq16, 400, 0),
+                                          reps=1),
+        "sum_bf16_ms": timed_on("element", lambda: reduction.reduce(x16.torch(), "sum")),
+        "sum_bf16_plain_ms": time_ms(lambda: reduction._plain(x16.torch(), "sum"), n=20),
+        "sum_bf16_library_ms": time_ms(lambda: torch.sum(x16.torch()), n=20),
+    }
+    del bf_ring, u_ring, d_ring
+    log(f"bfloat16/uint32/int32 // times on {card}: " + json.dumps(ht))
     log(f"library times on {card}: " + json.dumps(lib)
         + f" axis0 identity kernel/plain {rt['axis0_identity_ms']}/{rt['axis0_identity_plain_ms']}"
         + f" axis1 identity kernel/plain {rt['axis1_identity_ms']}/{rt['axis1_identity_plain_ms']}")
@@ -1910,6 +2351,7 @@ def main():
         # not transposed on the way in), and an operand one byte off, read
         # byte by byte.
         "bmm_int8_ms": time_ms(lambda: matmul.matmul(q3a, q3b, torch.int32), n=20),
+        "bmm_int8_plain_ms": time_ms(lambda: matmul.matmul_plain(q3a, q3b, torch.int32), n=3),
         "mm_int8_k_major_b_ms": time_ms(lambda: matmul.matmul(qat, qbt.T, torch.int32), n=20),
         "mm_int8_one_byte_off_ms": time_ms(
             lambda: matmul.matmul(qat[:, 1:], qbt[1:], torch.int32), n=5),
@@ -1985,6 +2427,20 @@ def main():
     b_dot = bound(8 * N_DOT, 2 * N_DOT)
     b_axis = bound(4 * N_SUM + 4 * N_AXIS, N_SUM)
 
+    # bfloat16, uint32, //: the adds and the division move 12 MB (6 MB in
+    # bfloat16) and do one operation an element (// counted as one); the
+    # bfloat16 recurrence reads and writes 6 bytes an element and does, per
+    # element and pass, each instruction of its program once (exp and pow
+    # as CRAFTED_OPS, a copy of bits as none) and ROUND_OPS integer
+    # operations for each rounding to bfloat16; the sum reads 128 MiB.
+    f_ops, r_ops = program_ops(prog16, program)
+    b_add16 = bound(6 * N_ADD, N_ADD)
+    b_addu = bound(12 * N_ADD, N_ADD, "int32")
+    b_idiv = bound(12 * N_ADD, N_ADD, "int32")
+    elems = N_FUSED * N_FUSED
+    b_chain16 = bound_mixed(2 * (3 * elems + N_FUSED), 400.0 * f_ops * elems, 400.0 * r_ops * elems)
+    b_sum16 = bound(2 * N_SUM, N_SUM)
+
     def entry(name, source, replaces, launched, err, ms, plain_ms, b, library_ms):
         check(b[0] <= ms, f"{name}: {ms} ms is under its bound of {b[0]} ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2042,6 +2498,25 @@ def main():
         entry("mm_int64", MM_SOURCE, "simplemath_tpu/ops/engine.py:495 :557",
               by_kernel.get(("mm", "imad_i64"), 0), err_mm["mm", "imad_i64"], mmt["mm_int64_ms"],
               mmt["mm_int64_plain_ms"], b_int64, None),
+        # bfloat16, uint32 and int32 // on the elementwise and map-reduce
+        # kernels (phase 5b's launches).
+        entry("ew_flat_bf16", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
+              half_launches["ew_flat_bf16"]["ew_flat"], half_err["ew_flat_bf16"], ht["add_bf16_ms"],
+              ht["add_bf16_plain_ms"], b_add16, ht["add_bf16_library_ms"]),
+        entry("ew_flat_uint32", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
+              half_launches["ew_flat_uint32"]["ew_flat"], half_err["ew_flat_uint32"],
+              ht["add_uint32_ms"], ht["add_uint32_plain_ms"], b_addu, ht["add_uint32_library_ms"]),
+        entry("ew_flat_idiv", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
+              half_launches["ew_flat_idiv"]["ew_flat"], half_err["ew_flat_idiv"], ht["idiv_ms"],
+              ht["idiv_plain_ms"], b_idiv, ht["idiv_library_ms"]),
+        dict(entry("ew_strided_bf16", SOURCE, "simplemath_tpu/ops/elementwise.py:225",
+                   half_launches["ew_strided_bf16"]["ew_strided"], half_err["ew_strided_bf16"],
+                   ht["fused400_bf16_ms"], ht["fused400_bf16_plain_ms"], b_chain16, None),
+             other_sources=["simplemath_tpu_torch/ops/codegen.py",
+                            "simplemath_tpu_torch/csrc/nvrtc.cu"]),
+        entry("rd_full_bf16", RD_SOURCE, "simplemath_tpu/ops/reduction.py:79 :127",
+              half_launches["rd_full_bf16"]["rd_full"], half_err["rd_full_bf16"], ht["sum_bf16_ms"],
+              ht["sum_bf16_plain_ms"], b_sum16, ht["sum_bf16_library_ms"]),
     ]
     for k in kernels:
         if k["name"] in ("mm", "bmm"):

@@ -36,12 +36,18 @@ from .api import (  # noqa: F401
     add,
     allclose,
     arange,
+    arccos,
+    arcsin,
+    arctan,
+    arctan2,
     argmax,
     argmin,
     array,
+    ceil,
     clip,
     concatenate,
     cos,
+    cosh,
     cumsum,
     dequantize,
     divide,
@@ -49,11 +55,21 @@ from .api import (  # noqa: F401
     empty,
     exp,
     exp2,
+    expand_dims,
+    expm1,
+    eye,
+    floor,
     full,
     full_like,
     fuse,
     int8_matmul,
+    isfinite,
+    isinf,
+    isnan,
+    linspace,
     log,
+    log10,
+    log1p,
     log2,
     matmul,
     max,
@@ -68,16 +84,23 @@ from .api import (  # noqa: F401
     pow,
     prod,
     quantize,
+    repeat,
+    reshape,
+    round,
     sign,
     sin,
+    sinh,
+    sort,
     sqrt,
     square,
+    squeeze,
     stack,
     std,
     subtract,
     sum,
     tan,
     tanh,
+    transpose,
     var,
     where,
     zeros,

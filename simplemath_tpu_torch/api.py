@@ -4,11 +4,13 @@ Counterpart of ``simplemath_tpu/api.py``: the factories, the arithmetic
 and transcendental free functions, the registry unaries,
 ``maximum``/``minimum``/``where``/``clip``, ``fuse``, the reductions
 ``sum/mean/max/min``, ``dot`` and ``matmul`` of every rank,
-``int8_matmul`` with ``quantize``/``dequantize``, and the ``prod``/``var``/
-``std``/``argmax``/``argmin``/``cumsum``/``stack``/``concatenate``
-façades over torch.  Factories create arrays on ``config.device``.  The
-rest of the JAX package's NumPy surface (the other ``jnp`` façades) is not
-ported yet: see ROADMAP.md, queue 1.
+``int8_matmul`` with ``quantize``/``dequantize``, and the ``jnp`` façades
+over torch (``prod``/``var``/``std``/``argmax``/``argmin``/``cumsum``/
+``stack``/``concatenate``, ``eye``/``linspace``, ``transpose``/``reshape``/
+``repeat``/``expand_dims``/``squeeze``, ``sort``, the rounding, inverse
+trigonometric, hyperbolic, ``log10``/``log1p``/``expm1``/``arctan2`` and
+``isnan``/``isinf``/``isfinite``).  Factories create arrays on
+``config.device``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,18 @@ def ones(*shape, dtype=torch.float32) -> Array:
 
 def full(*shape, fill_value, dtype=torch.float32) -> Array:
     return _full(_shape_args(shape), fill_value, dtype)
+
+
+def eye(n, m=None, dtype=torch.float32) -> Array:
+    return Array(torch.eye(n, n if m is None else m, dtype=_dtypes.canonicalize(dtype),
+                           device=config.device))
+
+
+def linspace(start, stop, num=50, dtype=torch.float32) -> Array:
+    """``jnp.linspace``: ``num`` points from ``start`` to ``stop`` (both
+    included), computed in float64 and cast once."""
+    t = torch.linspace(float(start), float(stop), int(num), dtype=torch.float64)
+    return Array(t.to(_dtypes.canonicalize(dtype)).to(config.device))
 
 
 def arange(*args, dtype=None) -> Array:
@@ -368,6 +382,112 @@ def stack(arrays, axis=0) -> Array:
     type."""
     ts = _joined("stack", arrays)
     return Array(torch.stack(ts, dim=axis))
+
+
+def transpose(a, axes=None) -> Array:
+    """``jnp.transpose``: a new array (``Array.transpose`` is the view)."""
+    t = _facade_input("transpose", a)
+    return Array(t.permute(tuple(reversed(range(t.ndim))) if axes is None else tuple(axes))
+                 .contiguous())
+
+
+def reshape(a, newshape) -> Array:
+    _facade_input("reshape", a)
+    return asarray(a).reshape(newshape)
+
+
+def repeat(a, repeats, axis=None) -> Array:
+    _facade_input("repeat", a)
+    return asarray(a).repeat(repeats, axis)
+
+
+def expand_dims(a, axis) -> Array:
+    t = _facade_input("expand_dims", a)
+    axes = tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+    ndim = t.ndim + len(axes)
+    for d in sorted(int(x) % ndim for x in axes):
+        t = t.unsqueeze(d)
+    return Array(t.clone())
+
+
+def squeeze(a, axis=None) -> Array:
+    t = _facade_input("squeeze", a)
+    if axis is None:
+        return Array(t.squeeze().clone())
+    dims = reduction.axes(axis, t.ndim)
+    for d in dims:
+        if t.shape[d] != 1:
+            raise ValueError(f"cannot select an axis to squeeze out which has size not "
+                             f"equal to one, got shape={tuple(t.shape)} and dimensions={dims}")
+    return Array(t.squeeze(dims).clone())
+
+
+def sort(a, axis=-1) -> Array:
+    """``jnp.sort``: ascending along ``axis`` (the flattened array for
+    None), NaNs last."""
+    t = _facade_input("sort", a)
+    if axis is None:
+        t, axis = t.reshape(-1), 0
+    return Array(torch.sort(_widened(t), dim=axis).values.to(t.dtype))
+
+
+def _rounding(name, fn):
+    """``jnp.floor/ceil/round``: integers and bool unchanged."""
+
+    def wrapped(a) -> Array:
+        t = _facade_input(name, a)
+        return Array(fn(t) if t.dtype.is_floating_point else t.clone())
+
+    wrapped.__name__ = name
+    return wrapped
+
+
+floor = _rounding("floor", torch.floor)
+ceil = _rounding("ceil", torch.ceil)
+round = _rounding("round", torch.round)  # noqa: A001 - half to even, as jnp.round
+
+
+def _inexact(name, fn):
+    """A ``jnp`` float function: integer and bool inputs in
+    ``dtypes.to_inexact`` of their type."""
+
+    def wrapped(a) -> Array:
+        t = _facade_input(name, a)
+        return Array(fn(t.to(_dtypes.to_inexact(t.dtype))))
+
+    wrapped.__name__ = name
+    return wrapped
+
+
+log10 = _inexact("log10", torch.log10)
+log1p = _inexact("log1p", torch.log1p)
+expm1 = _inexact("expm1", torch.expm1)
+sinh = _inexact("sinh", torch.sinh)
+cosh = _inexact("cosh", torch.cosh)
+arcsin = _inexact("arcsin", torch.asin)
+arccos = _inexact("arccos", torch.acos)
+arctan = _inexact("arctan", torch.atan)
+
+
+def _predicate(name, fn):
+    def wrapped(a) -> Array:
+        t = _facade_input(name, a)
+        return Array(fn(t))
+
+    wrapped.__name__ = name
+    return wrapped
+
+
+isnan = _predicate("isnan", torch.isnan)
+isinf = _predicate("isinf", torch.isinf)
+isfinite = _predicate("isfinite", torch.isfinite)
+
+
+def arctan2(a, b) -> Array:
+    """``jnp.arctan2`` in the operands' promoted inexact type."""
+    x, y = _facade_input("arctan2", a), _facade_input("arctan2", b)
+    out = _dtypes.to_inexact(_dtypes.result_dtype(x.dtype, y.dtype))
+    return Array(torch.atan2(x.to(out), y.to(out)))
 
 
 def fuse(fn, donate=None, iterations=1, carry=0):

@@ -17,8 +17,9 @@ map-reduce kernel (ops/reduction.py) where the JAX package runs its Pallas
 reduction kernels, and plain torch elsewhere.  ``dot``/``@`` of rank >= 2
 follow ``numpy.dot`` (ops/engine.py::dot).
 
-Not ported yet (raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item): advanced (gather/scatter) indexing.
+Advanced indexing (integer arrays, boolean masks) reads a copy and writes
+through the view, as in the JAX package (its XLA gather and scatter are
+torch indexing here).
 """
 
 from __future__ import annotations
@@ -27,13 +28,12 @@ from typing import Any, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from . import dtypes as _dtypes
 from .config import config
 from .slicing import Slice, process_index
 from .viewspec import ViewSpec
-
-_NOT_PORTED = "not ported yet: see ROADMAP.md, queue 1 (advanced indexing)"
 
 
 class _Storage:
@@ -105,11 +105,32 @@ def _split_newaxes(key, ndim: int):
 
 
 def _is_advanced_key(key) -> bool:
+    """Whether a key uses NumPy advanced indexing (integer arrays or
+    sequences, boolean masks) rather than basic ints and slices."""
     ks = key if isinstance(key, tuple) else (key,)
     return any(
         isinstance(k, (list, np.ndarray, torch.Tensor, Array, bool, np.bool_))
         for k in ks
     )
+
+
+def _advanced_key(key, device):
+    """The key with its arrays as tensors on ``device`` (torch indexes with
+    NumPy's advanced-indexing rules: negative indices, broadcast index
+    arrays, int arrays beside slices, boolean masks)."""
+    ks = key if isinstance(key, tuple) else (key,)
+
+    def conv(k):
+        if isinstance(k, Array):
+            k = k.torch()
+        elif isinstance(k, (list, np.ndarray)):
+            k = torch.as_tensor(np.asarray(k))
+        if isinstance(k, torch.Tensor):
+            return k.to(device) if k.dtype == torch.bool else k.to(device, torch.int64)
+        return k
+
+    out = tuple(conv(k) for k in ks)
+    return out if isinstance(key, tuple) else out[0]
 
 
 def _tensor_from(data, dtype) -> torch.Tensor:
@@ -209,10 +230,13 @@ class Array:
     def _operand(self):
         """This array as a kernel operand: the base tensor, or a view read
         in place through (base, offset, signed strides)."""
-        from .ops.elementwise import View
-
         if self._spec.is_identity:
             return self._storage.buf
+        from .ops import autodiff
+        from .ops.elementwise import View
+
+        if autodiff.transformed(self._storage.buf):
+            return self.torch()  # a functorch wrapper is read through torch's views
         return View(self._storage.buf, self._spec.offset(), self.shape,
                     self._spec.strides())
 
@@ -247,9 +271,9 @@ class Array:
     # ----------------------------------------------------------- indexing
     def __getitem__(self, key) -> "Array":
         if _is_advanced_key(key):
-            raise NotImplementedError(
-                "advanced (integer-array / boolean) indexing is " + _NOT_PORTED
-            )
+            # NumPy advanced indexing returns a copy, never a view.  A
+            # gather outside any kernel, as the JAX package's XLA gather.
+            return Array(self.torch()[_advanced_key(key, self.device)].clone())
         key, newaxes = _split_newaxes(key, self.ndim)
         spec = self._spec.compose(_normalize_key(key, self.ndim))
         if newaxes:
@@ -263,9 +287,17 @@ class Array:
 
     def __setitem__(self, key, value) -> None:
         if _is_advanced_key(key):
-            raise NotImplementedError(
-                "advanced (integer-array / boolean) assignment is " + _NOT_PORTED
-            )
+            # The scatter runs on the view's values, which are then written
+            # back through the view, so the update is visible to the parent
+            # and to sibling views (NumPy's in-place semantics).
+            if isinstance(value, Array):
+                value = value.torch()
+            cur = self.torch().clone()
+            cur[_advanced_key(key, self.device)] = torch.as_tensor(
+                value, device=self.device).to(cur.dtype)
+            self._storage.thaw()
+            self._spec.write(self._storage.buf, cur)
+            return
         key, newaxes = _split_newaxes(key, self.ndim)
         spec = self._spec.compose(_normalize_key(key, self.ndim))
         if isinstance(value, Array):
@@ -425,35 +457,38 @@ class Array:
 
     # --------------------------------------------------------- reductions
     def _reduce(self, kind: str, axis, keepdims):
-        """``kind`` in sum/max/min/mean.  The map-reduce kernel takes
-        float32 full reductions and single-axis reductions of 2-D float32
-        arrays, as the JAX package sends float full and 2-D axis reductions
-        to its Pallas kernels; a mean is the kernel's float32 sum divided by
-        the count in float32, as there.  Every other call runs as plain
-        torch (``torch_path:<kind>``), where the JAX package runs XLA; so
-        does a CPU tensor under a ``torch.func`` transform (on the card such
-        a tensor raises: ``engine.transformed``)."""
-        from .ops import engine, reduction
+        """``kind`` in sum/max/min/mean.  The map-reduce kernel takes full
+        reductions and single-axis reductions of 2-D arrays of float32,
+        bfloat16 and float16, as the JAX package sends every float type but
+        float64 to its Pallas kernels: it accumulates in float32 and the
+        result is cast to the input's type; a mean is the kernel's float32
+        sum divided by the count in float32, then cast, as there.  Every other call runs as plain
+        torch (``torch_path:<kind>``), where the JAX package runs XLA.  An
+        array under a ``torch.func`` transform reduces through
+        ``autodiff.Reduce``, the same kernel with derivative and batching
+        rules (``reduction.run``)."""
+        from .ops import reduction
 
         full = axis is None and not keepdims
         single = self.ndim == 2 and isinstance(axis, int) and -2 <= axis < 2
-        if (engine.transformed(self) or self.dtype != torch.float32
-                or self.size == 0 or not (full or single)):
+        if (self.dtype not in reduction.FLOAT_INPUTS or self.size == 0
+                or not (full or single)):
             t = self.torch()
             if kind == "mean":
                 return Array(reduction.torch_mean(t, axis, keepdims))
             return Array(reduction.torch_reduce(t, kind, axis, keepdims))
         op = "sum" if kind == "mean" else kind
+        ax = None if full else axis % 2
         if full:
             out = reduction.reduce(self._operand(), op)
-            count = self.size
         else:
-            axis %= 2
-            out = reduction.reduce_axis(self._operand(), op, axis)
-            count = self.shape[axis]
-            if keepdims:
-                out = out.unsqueeze(axis)
-        return Array(reduction.divide(out, count) if kind == "mean" else out)
+            out = reduction.reduce_axis(self._operand(), op, ax)
+        count = self.size if full else self.shape[ax]
+        if kind == "mean":
+            out = reduction.divide(out, count)
+        if keepdims:
+            out = out.unsqueeze(ax)
+        return Array(out.to(self.dtype))
 
     def sum(self, axis=None, keepdims=False):
         return self._reduce("sum", axis, keepdims)
@@ -494,6 +529,21 @@ class Array:
 
     def __int__(self):
         return int(self.item())
+
+
+def _flatten(a: Array):
+    # Pytree protocol, as the JAX package's: the leaf is the materialized
+    # buffer, and unflattening builds a fresh identity view, so a
+    # transformed function sees value semantics.
+    return [a.torch()], None
+
+
+def _unflatten(children, _context) -> Array:
+    return Array(children[0])
+
+
+_pytree.register_pytree_node(Array, _flatten, _unflatten,
+                             serialized_type_name="simplemath_tpu_torch.Array")
 
 
 def asarray(x, dtype=None) -> Array:

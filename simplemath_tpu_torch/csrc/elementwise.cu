@@ -149,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) ew_flat(const __grid_constant__ SmPa
     uint4* const out4 = static_cast<uint4*>(out);
     // One instruction whose result is the program's: its opcode is chosen
     // here, once, and is a constant inside flat_single.
-    const bool single = p.n_insts == 1 && p.iterations == 1 &&
+    const bool single = p.n_insts == 1 && p.iterations == 1 && !p.insts[0].rnd &&
                         p.result == p.n_ops + p.n_consts && p.insts[0].dst == p.result;
     bool taken = false;
     if (single) {

@@ -35,19 +35,27 @@ struct SmParams {
   SmOperand ops[SM_MAX_OPERANDS];
 };
 
+// f16 bits widened to f32 bits, exactly (subnormals, infinities and NaNs
+// included).
+__device__ __forceinline__ uint32_t sm_h2f(uint32_t h) {
+  const uint32_t sign = (h & 0x8000u) << 16, e = (h >> 10) & 0x1fu, m = h & 0x3ffu;
+  if (e == 0x1fu) return sign | 0x7f800000u | (m << 13);
+  if (e != 0u) return sign | ((e + 112u) << 23) | (m << 13);
+  if (m == 0u) return sign;
+  return sign | sm_u((float)m * 5.9604644775390625e-8f);  // m * 2^-24, exact
+}
+
 __device__ __forceinline__ uint32_t sm_load(const void* ptr, int64_t i, int32_t dtype) {
-  if (dtype <= SM_I32) return static_cast<const uint32_t*>(ptr)[i];
+  if (dtype <= SM_I32 || dtype == SM_U32) return static_cast<const uint32_t*>(ptr)[i];
   if (dtype == SM_BOOL) return static_cast<const uint8_t*>(ptr)[i] != 0;
   if (dtype == SM_BF16) return (uint32_t)static_cast<const uint16_t*>(ptr)[i] << 16;
+  if (dtype == SM_F16) return sm_h2f(static_cast<const uint16_t*>(ptr)[i]);
   if (dtype == SM_I8) return (uint32_t)(int32_t)static_cast<const int8_t*>(ptr)[i];
   return static_cast<const uint8_t*>(ptr)[i];  // SM_U8
 }
 
-// f32 bits rounded to bf16, nearest even; a NaN stays a (quiet) NaN.
-__device__ __forceinline__ uint16_t sm_f2bf(uint32_t u) {
-  if ((u & 0x7fffffffu) > 0x7f800000u) return (uint16_t)((u >> 16) | 0x0040u);
-  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
-}
+// f32 bits rounded to bf16, nearest even (sm_bf16r); a NaN becomes 0x7fc0.
+__device__ __forceinline__ uint16_t sm_f2bf(uint32_t u) { return (uint16_t)(sm_bf16r(u) >> 16); }
 
 __device__ __forceinline__ void sm_store(void* out, int64_t i, int32_t dtype, uint32_t v) {
   if (dtype == SM_BOOL)
@@ -62,7 +70,8 @@ __device__ __forceinline__ uint32_t sm_run(const SmParams& p, uint32_t* r) {
   for (int it = 0; it < p.iterations; ++it) {
     for (int k = 0; k < p.n_insts; ++k) {
       const SmInst in = p.insts[k];
-      r[in.dst] = sm_exec(in.op, r[in.a], r[in.b], r[in.c]);
+      const uint32_t v = sm_exec(in.op, r[in.a], r[in.b], r[in.c]);
+      r[in.dst] = in.rnd ? sm_bf16r(v) : v;
     }
     if (p.carry >= 0) r[p.carry] = r[p.result];
   }
@@ -86,7 +95,10 @@ __device__ __forceinline__ void sm_load_consts(const SmParams& p, uint32_t* r) {
   X(EQ_F) X(NE_F) X(LT_F) X(LE_F) X(GT_F) X(GE_F)                                       \
   X(EQ_I) X(NE_I) X(LT_I) X(LE_I) X(GT_I) X(GE_I)                                       \
   X(SELECT)                                                                             \
-  X(I2F) X(F2I) X(B2F) X(B2I) X(F2B) X(I2B)
+  X(I2F) X(F2I) X(B2F) X(B2I) X(F2B) X(I2B)                                             \
+  X(LT_U) X(LE_U) X(GT_U) X(GE_U) X(MAX_U) X(MIN_U) X(SIGN_U)                           \
+  X(U2F) X(F2U) X(BITS)                                                                 \
+  X(FDIV_I) X(MOD_I) X(FDIV_U) X(MOD_U)
 
 __device__ __forceinline__ uint4 sm_splat(uint32_t v) { return make_uint4(v, v, v, v); }
 
@@ -120,7 +132,9 @@ __device__ __forceinline__ uint4 sm_run4(const SmParams& p, uint4* r) {
     for (int k = 0; k < p.n_insts; ++k) {
       const SmInst in = p.insts[k];
       const uint4 a = r[in.a], b = r[in.b], c = r[in.c];
-      r[in.dst] = sm_exec4(in.op, a, b, c);
+      const uint4 v = sm_exec4(in.op, a, b, c);
+      r[in.dst] = in.rnd ? make_uint4(sm_bf16r(v.x), sm_bf16r(v.y), sm_bf16r(v.z), sm_bf16r(v.w))
+                         : v;
     }
     if (p.carry >= 0) r[p.carry] = r[p.result];
   }

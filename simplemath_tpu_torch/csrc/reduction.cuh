@@ -22,7 +22,8 @@
 // Accumulator: f32 whatever the input float type; each mapped value is
 // cast to f32 first, as the TPU kernels do (reduction.py:300, :357).  The
 // int32 dot accumulates in uint32_t, wrapping mod 2^32 (signed overflow is
-// undefined in C++).  Identities 0, -inf, +inf; max/min propagate NaN as
+// undefined in C++), in rd_full and, for the rows of a dot under vmap, in
+// rd_axis along axis 1.  Identities 0, -inf, +inf; max/min propagate NaN as
 // jnp.max does (sm_max_f/sm_min_f, never fmaxf/fminf, which drop it).
 //
 // What bounds it on an H100: device-memory bandwidth.  The bench shapes
@@ -143,23 +144,29 @@ __device__ __forceinline__ uint32_t rd_fold(uint32_t acc, uint4 v, int nvalid) {
 }
 
 __device__ __forceinline__ uint32_t rd_i2f(uint32_t v) { return sm_u((float)(int32_t)v); }
+__device__ __forceinline__ uint32_t rd_u2f(uint32_t v) { return sm_u((float)v); }
 __device__ __forceinline__ uint32_t rd_b2f(uint32_t v) { return sm_u(v ? 1.0f : 0.0f); }
 
-// A quad of program results of type ``dtype`` as accumulator values.
+// A quad of program results of type ``dtype`` as accumulator values (a
+// bf16 or f16 result is already f32 bits in its register).
 template <int OP>
 __device__ __forceinline__ uint4 rd_value4(int32_t dtype, uint4 v) {
   if (OP == RD_SUM_I32) return v;
   if (dtype == SM_I32) return make_uint4(rd_i2f(v.x), rd_i2f(v.y), rd_i2f(v.z), rd_i2f(v.w));
+  if (dtype == SM_U32) return make_uint4(rd_u2f(v.x), rd_u2f(v.y), rd_u2f(v.z), rd_u2f(v.w));
   if (dtype == SM_BOOL) return make_uint4(rd_b2f(v.x), rd_b2f(v.y), rd_b2f(v.z), rd_b2f(v.w));
   return v;
 }
 
 // The register type an opcode writes, or -1 where it is its operands'
-// (SELECT): what lets rd_value4's branch fold in the hoisted loop.
+// (SELECT, BITS): what lets rd_value4's branch fold in the hoisted loop.
 __host__ __device__ constexpr int32_t rd_result_dtype(SmOpcode op) {
-  if (op <= POW_F || op == I2F || op == B2F) return SM_F32;
-  if ((op >= ADD_I && op <= IPOW_I) || op == F2I || op == B2I) return SM_I32;
-  if (op == SELECT) return -1;
+  if (op <= POW_F || op == I2F || op == B2F || op == U2F) return SM_F32;
+  if ((op >= ADD_I && op <= IPOW_I) || op == F2I || op == B2I || op == FDIV_I || op == MOD_I)
+    return SM_I32;
+  if (op == MAX_U || op == MIN_U || op == SIGN_U || op == F2U || op == FDIV_U || op == MOD_U)
+    return SM_U32;
+  if (op == SELECT || op == BITS) return -1;
   return SM_BOOL;
 }
 
@@ -167,11 +174,13 @@ __host__ __device__ constexpr int32_t rd_result_dtype(SmOpcode op) {
 // not the crafted transcendentals, the trigonometric functions and the
 // integer power, which cost tens to hundreds of operations an element
 // whoever dispatches them, and whose inlined bodies took nvcc 50 s (98 s
-// for these kernels with them, 48 s without); for the int32 sum the
-// integer ones.
+// for these kernels with them, 48 s without); not the unsigned, bit-copy
+// and integer-division opcodes (LT_U on), which a reduction rarely ends
+// in, so that nvcc builds no loop for them; for the int32 sum the integer
+// ones.
 template <int OP>
 __host__ __device__ constexpr bool rd_single_takes(SmOpcode op) {
-  if ((op >= EXP_F && op <= POW_F) || op == IPOW_I) return false;
+  if ((op >= EXP_F && op <= POW_F) || op == IPOW_I || op >= LT_U) return false;
   return OP == RD_SUM || (OP == RD_SUM_I32 && (rd_result_dtype(op) == SM_I32 || op == SELECT));
 }
 

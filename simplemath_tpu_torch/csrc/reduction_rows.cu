@@ -18,6 +18,7 @@ int rd_rows_launch(const RdParams& q, uint32_t* out, cudaStream_t s) {
     case RD_SUM: return launch<RD_SUM>(q, out, s);
     case RD_MAX: return launch<RD_MAX>(q, out, s);
     case RD_MIN: return launch<RD_MIN>(q, out, s);
+    case RD_SUM_I32: return launch<RD_SUM_I32>(q, out, s);  // rows of the int32 dot under vmap
   }
   return (int)cudaErrorInvalidValue;
 }

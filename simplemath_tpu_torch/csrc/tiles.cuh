@@ -43,14 +43,20 @@ typedef unsigned long long uint64_t;
 #define SM_MAX_INSTS 128
 #define SM_MAX_REGS (SM_MAX_OPERANDS + SM_MAX_CONSTS + SM_MAX_INSTS)
 
-// Register / operand element types.  Registers hold SM_F32, SM_I32 or
+// Register / operand element types.  Registers hold 32 bits: SM_F32 (a
+// bf16 value too, widened), SM_I32 (a uint32 value too: the same bits), or
 // SM_BOOL.  The narrow types exist in memory only: a load widens them
-// (bf16 to f32, exactly; int8 and uint8 to i32), and an f32 result rounds
-// to bf16 (nearest even) at the store.  SM_I64 (int64 or uint64: the same
-// bits mod 2^64) is an operand and result type of the CUDA-core matmul
-// kernel's 64-bit accumulator alone; no register holds it.
+// (bf16 and f16 to f32, exactly; int8 and uint8 to i32), and an f32 result
+// rounds to bf16 (nearest even) at the store.  An instruction whose result
+// is bf16 rounds it to bf16 in the register too (SmInst::rnd), so a fused
+// bf16 chain rounds where torch's and jnp's ops round, op by op.  SM_I64
+// (int64 or uint64: the same bits mod 2^64) is an operand and result type
+// of the CUDA-core matmul kernel's 64-bit accumulator alone; no register
+// holds it.  SM_U32 differs from SM_I32 only where a value is converted (to
+// f32 by the reductions); SM_F16 is read by the reductions alone.
 enum SmDtype : int32_t {
   SM_F32 = 0, SM_I32 = 1, SM_BOOL = 2, SM_BF16 = 3, SM_I8 = 4, SM_U8 = 5, SM_I64 = 6,
+  SM_U32 = 7, SM_F16 = 8,
 };
 
 // Opcodes: the same names in the same order as OPCODES in ops/program.py.
@@ -65,11 +71,15 @@ enum SmOpcode : uint8_t {
   EQ_I, NE_I, LT_I, LE_I, GT_I, GE_I,
   SELECT,
   I2F, F2I, B2F, B2I, F2B, I2B,
+  LT_U, LE_U, GT_U, GE_U, MAX_U, MIN_U, SIGN_U,
+  U2F, F2U, BITS,
+  FDIV_I, MOD_I, FDIV_U, MOD_U,
 };
 
-// One SSA instruction: r[dst] = op(r[a], r[b], r[c]).
+// One SSA instruction: r[dst] = op(r[a], r[b], r[c]), rounded to bf16
+// where ``rnd`` is set (its result is a bf16 value).
 struct SmInst {
-  uint8_t op, dst, a, b, c, pad0, pad1, pad2;
+  uint8_t op, dst, a, b, c, rnd, pad1, pad2;
 };
 
 // ------------------------------------------------------------- helpers
@@ -89,6 +99,30 @@ __device__ __forceinline__ float sm_max_f(float a, float b) {
 }
 __device__ __forceinline__ float sm_min_f(float a, float b) {
   return (a != a || b != b) ? SM_NAN : (a < b ? a : b);
+}
+
+// f32 bits rounded to the nearest bf16 (ties to even), kept as f32 bits:
+// a register's value after an instruction whose result is bf16.  A NaN
+// becomes the quiet NaN torch's bf16 conversion gives (0x7fc0).
+__device__ __forceinline__ uint32_t sm_bf16r(uint32_t u) {
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc00000u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+}
+
+// Integer floor division and remainder with the values of the plain rules
+// (ops/registry.py: jnp.floor_divide's and jnp.remainder's): x // 0 is -1
+// for x == 0 and -2 otherwise (all ones unsigned), x % 0 is 0, INT_MIN //
+// -1 wraps to INT_MIN and x % -1 is 0.
+__device__ __forceinline__ uint32_t sm_fdiv_i(int32_t x, int32_t y) {
+  if (y == 0) return x == 0 ? 0xffffffffu : 0xfffffffeu;
+  if (y == -1) return 0u - (uint32_t)x;
+  const int32_t q = x / y, r = x - q * y;
+  return (uint32_t)((r != 0 && ((r < 0) != (y < 0))) ? q - 1 : q);
+}
+__device__ __forceinline__ uint32_t sm_mod_i(int32_t x, int32_t y) {
+  if (y == 0 || y == -1) return 0u;
+  const int32_t r = x % y;
+  return (uint32_t)((r != 0 && ((r < 0) != (y < 0))) ? r + y : r);
 }
 
 // float -> int32 for integral-valued floats; saturating, NaN -> 0.  Lanes
@@ -352,6 +386,20 @@ __device__ __forceinline__ uint32_t sm_exec(uint8_t op, uint32_t a, uint32_t b,
     case B2I: return a;
     case F2B: return fa != 0.0f;
     case I2B: return a != 0u;
+    case LT_U: return a < b;
+    case LE_U: return a <= b;
+    case GT_U: return a > b;
+    case GE_U: return a >= b;
+    case MAX_U: return a > b ? a : b;
+    case MIN_U: return a < b ? a : b;
+    case SIGN_U: return a != 0u;
+    case U2F: return sm_u((float)a);
+    case F2U: return __float2uint_rz(fa);
+    case BITS: return a;
+    case FDIV_I: return sm_fdiv_i(ia, ib);
+    case MOD_I: return sm_mod_i(ia, ib);
+    case FDIV_U: return b == 0u ? 0xffffffffu : a / b;
+    case MOD_U: return b == 0u ? 0u : a % b;
   }
   return 0u;
 }

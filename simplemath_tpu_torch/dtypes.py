@@ -16,9 +16,12 @@ import functools
 import numpy as np
 import torch
 
-# Dtypes the hand-written elementwise kernel takes (ops/elementwise.py).
-# Comparisons write bool; every other dtype runs as plain torch.
-KERNEL_DTYPES = frozenset([torch.float32, torch.int32, torch.bool])
+# Dtypes the hand-written elementwise kernel takes (ops/elementwise.py):
+# the JAX package's PALLAS_NATIVE_DTYPES (float32, bfloat16, int32,
+# uint32), and bool, which comparisons write.  Every other dtype runs as
+# plain torch.
+KERNEL_DTYPES = frozenset([torch.float32, torch.bfloat16, torch.int32, torch.uint32,
+                           torch.bool])
 
 _NAMES = {
     torch.bool: "bool",

@@ -13,6 +13,7 @@ from .dynamics import (  # noqa: F401
     make_cartpole,
     make_pendulum,
     make_quadrotor,
+    make_sm_pendulum,
     rk4,
 )
 from .ilqr import (  # noqa: F401

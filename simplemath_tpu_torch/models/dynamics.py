@@ -110,6 +110,48 @@ def make_pendulum(dt: float = 0.05) -> System:
                   separable_cost=True, batch_polymorphic=True)
 
 
+def make_sm_pendulum(dt: float = 0.05) -> System:
+    """The pendulum with its dynamics and costs written in the ``sm`` API
+    (sm.Array in, sm ops, sm.Array out), as the JAX package's
+    tests/test_models.py::_make_sm_pendulum writes them: the north star's
+    form, "per-stage dynamics and cost math expressed through the SMArray
+    API".  Numerically ``make_pendulum``, and batch-polymorphic like it.
+    The solvers' ``torch.func`` transforms run its sm ops through
+    ops/autodiff.py, on the kernels."""
+    from .. import api as sm
+    from ..array import Array
+
+    g, m, l, b = 9.81, 1.0, 1.0, 0.1
+
+    def f(x, u):
+        th, thd = x[0], x[1]
+        thdd = (u[0] - thd * b - sm.sin(th) * (m * g * l)) / (m * l * l)
+        return sm.stack([thd, thdd])
+
+    def step(x, u):
+        k1 = f(x, u)
+        k2 = f(x + k1 * (0.5 * dt), u)
+        k3 = f(x + k2 * (0.5 * dt), u)
+        k4 = f(x + k3 * dt, u)
+        return x + (k1 + k2 * 2.0 + k3 * 2.0 + k4) * (dt / 6.0)
+
+    def stage_cost(x, u):
+        th_err = x[0] - float(np.pi)
+        return (th_err * th_err + x[1] * x[1] * 0.1 + u[0] * u[0] * 0.01) * 0.5
+
+    def final_cost(x):
+        th_err = x[0] - float(np.pi)
+        return (th_err * th_err * 100.0 + x[1] * x[1] * 10.0) * 0.5
+
+    return System(
+        "sm_pendulum", 2, 1, dt,
+        step=lambda x, u: step(Array(x), Array(u)).torch(),
+        stage_cost=lambda x, u: stage_cost(Array(x), Array(u)).torch(),
+        final_cost=lambda x: final_cost(Array(x)).torch(),
+        separable_cost=True, batch_polymorphic=True,
+    )
+
+
 # ---------------------------------------------------------------- cartpole
 def make_cartpole(dt: float = 0.02) -> System:
     """Cartpole swing-up: x = [p, pdot, theta, thetadot], theta = 0 is

@@ -10,8 +10,9 @@ which
 
 * the registers are local variables (``r7``), so they live in registers;
 * every instruction is ``sm_exec(<OPCODE>, ...)`` of csrc/tiles.cuh with the
-  opcode a literal, so the compiler keeps that opcode's code alone and the
-  values are the interpreter's, bit for bit;
+  opcode a literal (in ``sm_bf16r`` where its result is bfloat16), so the
+  compiler keeps that opcode's code alone and the values are the
+  interpreter's, bit for bit;
 * the operands are loaded and the index decoded once per element, the rank
   a constant, in 32-bit arithmetic where every offset fits;
 * with ``iterations > 1`` the loop runs the instructions and puts the
@@ -56,7 +57,8 @@ OPTIONS = ("--gpu-architecture=sm_90a", "--fmad=false", "-std=c++17")
 HEADERS = ("tiles.cuh", "program.cuh")
 CAP = 512  # as the reference's _TILE_FN_CAP
 # enum SmDtype (csrc/tiles.cuh), by code.
-DTYPE_NAMES = ("SM_F32", "SM_I32", "SM_BOOL", "SM_BF16", "SM_I8", "SM_U8")
+DTYPE_NAMES = ("SM_F32", "SM_I32", "SM_BOOL", "SM_BF16", "SM_I8", "SM_U8", "SM_I64",
+               "SM_U32", "SM_F16")
 # Largest element count and offset the 32-bit index arithmetic takes: an
 # index plus a grid's stride stays below 2**31.
 NARROW_LIMIT = (1 << 31) - (1 << 21)
@@ -73,10 +75,12 @@ _LOADED: dict = {}  # Signature -> (library handle, kernel handle)
 class Signature:
     """What a generated kernel's code depends on.  ``insts`` are
     ``(opcode, dst, a, b, c)`` with -1 for a source the instruction does not
-    read; ``operands`` the operands' dtype codes; ``carry`` is -1 unless
+    read; ``rounds`` says which instructions round their result to bfloat16;
+    ``operands`` the operands' dtype codes; ``carry`` is -1 unless
     ``iterated``; ``narrow`` says every index and offset fits 32 bits."""
 
     insts: Tuple[Tuple[int, int, int, int, int], ...]
+    rounds: Tuple[bool, ...]
     operands: Tuple[int, ...]
     n_consts: int
     result: int
@@ -97,6 +101,7 @@ def signature(prog, codes, operand_dtypes, out_dtype, rank, iterations, carry,
     iterated = iterations > 1
     return Signature(
         insts=insts,
+        rounds=prog.kernel_rounds,
         operands=tuple(operand_dtypes),
         n_consts=len(prog.consts),
         result=prog.result,
@@ -147,9 +152,12 @@ def source(sig: Signature) -> str:
         out.append("    uint32_t res = 0u;")
         out.append("    for (int it = 0; it < p.iterations; ++it) {")
         pad = "      "
-    for op, dst, *srcs in sig.insts:
+    for (op, dst, *srcs), rnd in zip(sig.insts, sig.rounds):
         args = ", ".join(f"r{r}" if r >= 0 else "0u" for r in srcs)
-        out.append(f"{pad}const uint32_t r{dst} = sm_exec({program.OPCODES[op]}, {args});")
+        value = f"sm_exec({program.OPCODES[op]}, {args})"
+        if rnd:
+            value = f"sm_bf16r({value})"
+        out.append(f"{pad}const uint32_t r{dst} = {value};")
     if sig.iterated:
         out.append(f"      res = r{sig.result};")
         out.append(f"      r{sig.carry} = res;")

@@ -46,10 +46,12 @@ LAUNCHES = {"ew_flat": 0, "ew_strided": 0}
 PATHS = {"interp": 0, "generated": 0}
 
 _MAX_RANK = 8
-# enum SmDtype (csrc/tiles.cuh).  Registers and this kernel's operands are
-# the first three; the narrow types are the matmul kernel's (ops/matmul.py).
+# enum SmDtype (csrc/tiles.cuh).  This kernel's operands are float32,
+# bfloat16, int32, uint32 and bool (dtypes.KERNEL_DTYPES); int8 and uint8
+# are the matmul kernel's (ops/matmul.py), float16 the reductions'.
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.bool: 2,
-               torch.bfloat16: 3, torch.int8: 4, torch.uint8: 5}
+               torch.bfloat16: 3, torch.int8: 4, torch.uint8: 5, torch.uint32: 7,
+               torch.float16: 8}
 
 
 def reset_launches() -> None:
@@ -102,7 +104,7 @@ def supported(out_shape, dtypes_in, out_dtype) -> bool:
 # ------------------------------------------------------------ C interface
 class _Inst(ctypes.Structure):
     _fields_ = [(f, ctypes.c_uint8) for f in
-                ("op", "dst", "a", "b", "c", "pad0", "pad1", "pad2")]
+                ("op", "dst", "a", "b", "c", "rnd", "pad1", "pad2")]
 
 
 class _Operand(ctypes.Structure):
@@ -135,8 +137,11 @@ class _Params(ctypes.Structure):
 
 
 def _const_bits(value, dtype) -> int:
-    if dtype == torch.float32:
-        return int(torch.tensor(value, dtype=torch.float32).view(torch.int32)) & 0xFFFFFFFF
+    """A constant's register bits: a float32 value's, a bfloat16 one's
+    widened to float32, an integer's mod 2**32."""
+    if dtype.is_floating_point:
+        t = torch.tensor(value, dtype=dtype).to(torch.float32)
+        return int(t.view(torch.int32)) & 0xFFFFFFFF
     return int(value) & 0xFFFFFFFF
 
 
@@ -178,9 +183,9 @@ def _template(prog, codes, out_shape, layout, iterations, carry):
     for j, (v, dt) in enumerate(prog.consts):
         p.consts[j] = _const_bits(v, dt)
     base = len(layout) + len(prog.consts)
-    for k, (code, inst) in enumerate(zip(codes, prog.insts)):
+    for k, (code, rnd, inst) in enumerate(zip(codes, prog.kernel_rounds, prog.insts)):
         a, b, c = (max(r, 0) for r in inst[3:])
-        p.insts[k].op, p.insts[k].dst = code, base + k
+        p.insts[k].op, p.insts[k].dst, p.insts[k].rnd = code, base + k, rnd
         p.insts[k].a, p.insts[k].b, p.insts[k].c = a, b, c
     for o, (shape, strides, dtype) in enumerate(layout):
         p.ops[o].dtype = _DTYPE_CODE[dtype]
@@ -222,10 +227,12 @@ def params(prog, codes, out_shape, operands, iterations=1, carry=0):
     return p, flat
 
 
-def check_program(prog, name):
-    """The opcodes of ``prog``, or ValueError when the kernels do not take it."""
+def check_program(prog, name, types=_dtypes.KERNEL_DTYPES):
+    """The opcodes of ``prog``, or ValueError when the kernels do not take
+    it: its operands and result must be of ``types`` (the elementwise
+    kernel's by default; the reductions read float16 too)."""
     codes = prog.kernel_codes
-    if codes is None:
+    if codes is None or not set(prog.leaf_dtypes) | {prog.dtype} <= types:
         raise ValueError(
             f"the kernels do not take {name!r} with dtypes "
             f"{[_dtypes.name(d) for d in prog.leaf_dtypes]} -> {_dtypes.name(prog.dtype)}"

@@ -4,10 +4,12 @@ Counterpart of ``simplemath_tpu/ops/engine.py``: operator -> ``binary`` ->
 ``broadcast_shapes`` (NumPy error semantics) -> the deferred-eager queue or
 an immediate launch.  An op is built as an IR node over its operands
 (ops/program.py) and runs through the elementwise kernel when the kernel
-takes its signature; float64, int64, bfloat16, complex, uint32 and the
-integer floor_divide/remainder run as plain torch, recorded as
+takes its signature (float32, bfloat16, int32, uint32 and bool:
+``dtypes.KERNEL_DTYPES``); float64, float16, the 8-, 16- and 64-bit
+integers and complex run as plain torch, recorded as
 ``torch_path:<name>``.  There is no size gate: on a CUDA tensor every
-signature the kernel takes launches it.
+signature the kernel takes launches it.  An operand under a ``torch.func``
+transform takes the same kernel through ``ops/autodiff.py`` (``run``).
 
 View operands pass to the kernel as (base tensor, offset, signed strides)
 and are read in place; this replaces the JAX package's
@@ -33,7 +35,7 @@ from .. import dtypes as _dt
 from ..array import Array, asarray
 from ..broadcast import broadcast_shapes
 from ..config import config
-from . import dispatch, elementwise, program, reduction, registry
+from . import autodiff, dispatch, elementwise, program, reduction, registry
 
 
 def _scalarlike(x) -> bool:
@@ -49,10 +51,20 @@ def _shape(x):
 
 def run(node, leaves, operands, name, donate=None, iterations=1, carry=0) -> Array:
     """Run the expression ``node`` over ``operands`` (one per leaf node):
-    the kernel when it takes the signature, plain torch otherwise."""
+    the elementwise kernel's one route.  The kernel when it takes the
+    signature, plain torch otherwise.  Operands under a ``torch.func``
+    transform go through ``autodiff.Elementwise`` (the same kernel, with
+    derivative and batching rules; an iterated program one application a
+    pass) where the kernel takes the program."""
     prog = program.lower(node, leaves)
     shape = node.shape
-    if prog.kernel_codes is not None and elementwise.supported(
+    if any(map(autodiff.transformed, operands)):
+        if autodiff.takes(prog, shape):
+            tensors = [elementwise.read(o) for o in operands]
+            for _ in range(iterations - 1):
+                tensors[carry] = autodiff.run(prog, shape, name, tensors)
+            return Array(autodiff.run(prog, shape, name, tensors))
+    elif prog.kernel_codes is not None and elementwise.supported(
         shape, prog.leaf_dtypes, prog.dtype
     ):
         return Array(elementwise.elementwise(
@@ -65,28 +77,6 @@ def run(node, leaves, operands, name, donate=None, iterations=1, carry=0) -> Arr
         prog, [elementwise.read(o) for o in operands], shape, iterations,
         carry, device,
     ))
-
-
-def transformed(x) -> bool:
-    """Whether ``x`` (a tensor or an Array) is a tensor under a
-    ``torch.func`` transform (``grad``, ``vjp``, ``jvp``, ``vmap``, ...).  No
-    kernel takes such a wrapper.  On the CPU the engine computes it as plain
-    torch, which the transform differentiates or maps; on the card this
-    raises, as every kernel wrapper does for what its kernel cannot take."""
-    if isinstance(x, Array):
-        if x._storage is None:  # a pending lazy expression: never transformed
-            return False
-        x = x._storage.buf
-    if not (isinstance(x, torch.Tensor)
-            and torch._C._functorch.is_functorch_wrapped_tensor(x)):
-        return False
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"an sm op on a {x.device.type} tensor under a torch.func "
-            "transform: no kernel takes a functorch wrapper, and off the CPU "
-            "the port runs no plain fallback; write the transformed function "
-            "in torch ops")
-    return True
 
 
 def _eager(name, xs, build) -> Array:
@@ -109,10 +99,6 @@ def _eager(name, xs, build) -> Array:
         dispatch.record("torch_path", name)
         tensors = [x if _scalarlike(x) else asarray(x).torch() for x in xs]
         return Array(torch.as_tensor(registry.get_op(name).fn(*tensors)))
-    if any(transformed(a) for a in arrays):
-        dispatch.record("torch_path", name)
-        return Array(program.run_plain(
-            program.lower(node, leaves), [a.torch() for a in arrays], node.shape))
     return run(node, leaves, [a._operand() for a in arrays], name)
 
 
@@ -376,12 +362,12 @@ def dot(a: Any, b: Any) -> Array:
     if a.ndim == 1 and b.ndim == 1:
         out = _dt.result_dtype(a.dtype, b.dtype)
         if (
-            out in (torch.float32, torch.int32)
+            out in (torch.float32, torch.bfloat16, torch.int32)
             and a.dtype in _dt.KERNEL_DTYPES
             and b.dtype in _dt.KERNEL_DTYPES
             and a.size > 0
         ):
-            return Array(reduction.dot1d(a._operand(), b._operand()))
+            return Array(reduction.dot1d(a._operand(), b._operand()).to(out))
         return Array(reduction.torch_dot(a.torch(), b.torch(), out))
     out = product_dtype(a.dtype, b.dtype)
     b_axis = 0 if b.ndim == 1 else b.ndim - 2

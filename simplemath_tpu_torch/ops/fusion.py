@@ -74,9 +74,11 @@ class FusedReduction:
     through ``reduction.map_reduce``, single-axis reductions of 2-D
     expressions through ``reduction.map_reduce_axis``.  Every operand is
     read once, broadcast ones in place, and the mapped expression is never
-    stored.  Float32 expressions run the kernel; the rest run as plain
-    torch with ``jnp``'s result dtypes.  A reduction result cannot be
-    composed further inside the same fused function."""
+    stored.  Float32, bfloat16 and float16 expressions with kernel opcodes
+    run the kernel (float32 accumulation, the result cast back), as the JAX
+    package sends every float type but float64 to its Pallas kernels; the
+    rest run as plain torch with ``jnp``'s result dtypes.  A reduction
+    result cannot be composed further inside the same fused function."""
 
     __slots__ = ("kind", "expr", "axis", "keepdims")
 
@@ -98,7 +100,7 @@ class FusedReduction:
         kind = "sum" if self.kind == "mean" else self.kind
         shape, dtype = expr.shape, expr.dtype
         prog = program.lower(expr, leaves)
-        kernel = (dtype == torch.float32 and math.prod(shape) > 0 and len(shape) >= 1
+        kernel = (dtype in reduction.FLOAT_INPUTS and math.prod(shape) > 0 and len(shape) >= 1
                   and prog.kernel_codes is not None)
         ax = self.axis
         if kernel and (ax is None or len(shape) == 2):
@@ -284,6 +286,7 @@ class _MatmulRoot:
             and self.shape == a.shape[:-1] + b.shape[-1:]
             and all(e.dtype in matmul.EXTRA_DTYPES for e in extras)
             and prog.kernel_codes is not None
+            and prog.dtypes <= matmul.EPILOGUE_DTYPES
             and self.dtype in matmul.stored_dtypes(prog.dtype)
         )
         if kernel:

@@ -30,10 +30,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
+from .. import array as _array
 from ..array import Array, asarray
 from ..config import config
-from . import engine, program
+from . import autodiff, engine, program
 
 # Bounds on recorded chains: past these, the lazy operand is flushed first
 # (one launch) and the chain restarts from its value.  _MAX_NODES counts IR
@@ -131,6 +133,11 @@ class LazyArray(Array):
         return super()._reduce(kind, axis, keepdims)
 
 
+# A pending expression flattens to its value, as an Array does.
+_pytree.register_pytree_node(LazyArray, _array._flatten, _array._unflatten,
+                             serialized_type_name="simplemath_tpu_torch.LazyArray")
+
+
 # ---------------------------------------------------------------- recording
 def _as_operand(x):
     """(node, leaves, operands) for one input."""
@@ -163,8 +170,8 @@ def enabled() -> bool:
 
 
 def _deferrable(x) -> bool:
-    if engine.transformed(x):
-        return False  # computed at once, as plain torch (engine._eager)
+    if autodiff.transformed(x):
+        return False  # computed at once: engine.run sends it to ops/autodiff.py
     return engine._scalarlike(x) or isinstance(x, (Array, np.ndarray, torch.Tensor))
 
 

@@ -63,7 +63,9 @@ on the tensor cores (their products are exact in the float32 accumulator;
 only the order of the sum differs from the CUDA cores'), so they need no
 name.
 
-``matmul`` looks at the operands' device.  CPU tensors take the kernel's
+An operand under a ``torch.func`` transform (or one that requires grad)
+takes ``autodiff.Product``: the same kernel, with derivative and batching
+rules.  ``matmul`` looks at the operands' device.  CPU tensors take the kernel's
 plain version, ``matmul_plain``: ``torch.matmul`` in the accumulator's type
 (integers in int64 on the CPU, wrapped to int32), the epilogue through
 ``program.run_plain``, then the cast.  CUDA tensors launch the kernel or
@@ -105,7 +107,11 @@ WIDE_OPERANDS = (torch.int64, torch.uint64)  # the 64-bit accumulator's own
 _BYTE_OPERANDS = (torch.int8, torch.uint8)
 # Extras the epilogue reads: the elementwise kernel's types, and bfloat16,
 # which the load widens to float32.
-EXTRA_DTYPES = frozenset(_dt.KERNEL_DTYPES | {torch.bfloat16})
+# Register types of the epilogue program (the kernels' evaluator takes
+# more; the epilogue's stores and its checks were built for these), and the
+# extras it reads.
+EPILOGUE_DTYPES = frozenset([torch.float32, torch.int32, torch.bool])
+EXTRA_DTYPES = frozenset(EPILOGUE_DTYPES | {torch.bfloat16})
 # enum SmDtype (csrc/tiles.cuh): int64 and uint64 are one code, the same
 # bits mod 2**64.
 _DTYPE_CODE = {**elementwise._DTYPE_CODE, torch.int64: 6, torch.uint64: 6}
@@ -181,7 +187,7 @@ def stored_dtypes(result_dtype) -> tuple:
         return (torch.float32, torch.bfloat16)
     if result_dtype == torch.int64:
         return (torch.int64,)
-    return (result_dtype,) if result_dtype in _dt.KERNEL_DTYPES else ()
+    return (result_dtype,) if result_dtype in EPILOGUE_DTYPES else ()
 
 
 def product_shape(a_shape, b_shape) -> tuple:
@@ -373,6 +379,8 @@ def _extra3(x, dims, batched):
 def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
            extras=()) -> torch.Tensor:
     """``a @ b`` through the matmul kernel (see the module docstring)."""
+    from . import autodiff
+
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     dims = product_shape(a.shape, b.shape)
@@ -407,6 +415,9 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
         bad = [x.dtype for x in extras if x.dtype not in EXTRA_DTYPES]
         if bad:
             raise TypeError(f"the epilogue does not read {bad}")
+        if not epilogue.dtypes <= EPILOGUE_DTYPES:
+            raise TypeError(f"the epilogue does not compute in "
+                            f"{sorted(map(_dt.name, epilogue.dtypes - EPILOGUE_DTYPES))}")
         result = epilogue.dtype
     if out_dtype is None:
         out_dtype = result
@@ -416,6 +427,11 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
         raise TypeError(
             f"a {_dt.name(result)} result cannot be stored as {_dt.name(out_dtype)}"
         )
+    if any(map(autodiff.transformed, (a, b, *extras))):
+        # The kernel's one route under a torch.func transform: the same
+        # kernel, with derivative and batching rules.
+        return autodiff.product(epilogue, out_dtype,
+                                *(elementwise.read(x) for x in (a, b, *extras)))
     extras = [_extra3(x, dims, batched) for x in extras]
     dispatch.record("matmul", "bmm" if batched else "mm")
     if epilogue is not None:

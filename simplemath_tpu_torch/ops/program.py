@@ -46,9 +46,17 @@ OPCODES = (
     "EQ_I", "NE_I", "LT_I", "LE_I", "GT_I", "GE_I",
     "SELECT",
     "I2F", "F2I", "B2F", "B2I", "F2B", "I2B",
+    "LT_U", "LE_U", "GT_U", "GE_U", "MAX_U", "MIN_U", "SIGN_U",
+    "U2F", "F2U", "BITS",
+    "FDIV_I", "MOD_I", "FDIV_U", "MOD_U",
 )
 OPCODE_INDEX = {name: i for i, name in enumerate(OPCODES)}
 
+# Casts by register type (``register_type``): a bfloat16 register holds its
+# value widened to float32, so bfloat16 <-> float32 is a copy of the bits
+# (BITS) and the instruction's rounding step (``Program.kernel_rounds``)
+# rounds to bfloat16 where the result is bfloat16; uint32 and int32 are the
+# same bits.
 _CASTS = {
     (torch.int32, torch.float32): "I2F",
     (torch.float32, torch.int32): "F2I",
@@ -56,7 +64,20 @@ _CASTS = {
     (torch.bool, torch.int32): "B2I",
     (torch.float32, torch.bool): "F2B",
     (torch.int32, torch.bool): "I2B",
+    (torch.float32, torch.float32): "BITS",
+    (torch.int32, torch.uint32): "BITS",
+    (torch.uint32, torch.int32): "BITS",
+    (torch.uint32, torch.float32): "U2F",
+    (torch.float32, torch.uint32): "F2U",
+    (torch.bool, torch.uint32): "B2I",
+    (torch.uint32, torch.bool): "I2B",
 }
+
+
+def register_type(dtype):
+    """The type of the kernel register that holds a ``dtype`` value:
+    bfloat16 values are held as float32."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 # Kernel limits (csrc/tiles.cuh): a program beyond them raises on CUDA.
 MAX_OPERANDS = 16
@@ -238,7 +259,8 @@ def cast(n: Node, dtype) -> Node:
     return Node("cast", (n,), dtype, n.shape, ctype=n.dtype)
 
 
-def _shape(*args) -> tuple:
+def broadcast_all(*args) -> tuple:
+    """The broadcast shape of the nodes ``args``."""
     out = ()
     for a in args:
         out = broadcast_shapes(out, a.shape).result_shape
@@ -254,7 +276,7 @@ def apply(name: str, *args: Node) -> Node:
     rule = op.rule
     if rule == "user":
         return _trace_user(op, args)
-    shape = _shape(*args)
+    shape = broadcast_all(*args)
     if rule == "clip":
         a, lo, hi = args
         return apply("minimum", apply("maximum", a, lo), hi)
@@ -326,20 +348,38 @@ class Program:
     @functools.cached_property
     def kernel_codes(self) -> Optional[tuple]:
         """Opcode per instruction, or None when some instruction, constant
-        or register type has no kernel form."""
+        or register type has no kernel form.  A float16 operand has one (a
+        load widens it) but no instruction computes in float16: it is the
+        reductions' input, and the elementwise kernel stores no float16
+        (``elementwise.check_program``)."""
         types = list(self.leaf_dtypes) + [d for _, d in self.consts] + [self.dtype]
-        if any(t not in _dt.KERNEL_DTYPES for t in types):
+        if any(t not in _dt.KERNEL_DTYPES and t != torch.float16 for t in types):
             return None
         codes = []
         for op, ctype, dtype, *_ in self.insts:
             if op == "cast":
-                code = _CASTS.get((ctype, dtype))
+                code = _CASTS.get((register_type(ctype), register_type(dtype)))
             else:
-                code = registry.op_def(op).opcodes.get(ctype)
+                code = registry.op_def(op).opcodes.get(register_type(ctype))
             if code is None:
                 return None
             codes.append(OPCODE_INDEX[code])
         return tuple(codes)
+
+    @functools.cached_property
+    def kernel_rounds(self) -> tuple:
+        """Per instruction, whether the kernel rounds its result to
+        bfloat16: every instruction whose result is bfloat16, as torch's
+        and jnp's bfloat16 ops compute in float32 and round once."""
+        return tuple(dtype == torch.bfloat16 for _, _, dtype, *_ in self.insts)
+
+    @functools.cached_property
+    def dtypes(self) -> frozenset:
+        """Every type the program reads, computes in or writes."""
+        types = set(self.leaf_dtypes) | {d for _, d in self.consts} | {self.dtype}
+        for _, ctype, dtype, *_ in self.insts:
+            types |= {ctype, dtype}
+        return frozenset(types)
 
     def within_limits(self) -> bool:
         return (
@@ -401,7 +441,7 @@ def lower_epilogue(root: Node, product: Node, extras: Sequence[Node]) -> Program
     to float32 at the load, which is exact, so such a leaf enters the
     program as float32 and the cast the trace put on it is dropped.  An
     instruction that computes in bfloat16 is kept as it is; the program
-    then has no kernel form (``kernel_codes`` is None)."""
+    then has a type the epilogue does not take (``matmul.EPILOGUE_DTYPES``)."""
     prog = lower(root, [product, *extras])
     wide = {i for i, dt in enumerate(prog.leaf_dtypes) if i > 0 and dt == torch.bfloat16}
     if not wide:

@@ -56,13 +56,17 @@ PATHS = {"direct": 0, "single": 0, "lanes4": 0, "element": 0}
 _PATH_CODE = {"direct": 0, "single": 1, "lanes4": 2, "element": 3}  # enum RdPath
 # The opcodes the kernel's hoisted loop is built for (rd_single_takes in
 # csrc/reduction.cuh): all but the transcendental and trigonometric
-# functions and the integer power.
+# functions, the integer power, and the unsigned, bit-copy and
+# integer-division opcodes (LT_U on).
 HOISTED = frozenset(
-    i for i, name in enumerate(program.OPCODES)
+    i for i, name in enumerate(program.OPCODES[:program.OPCODE_INDEX["LT_U"]])
     if name not in ("EXP_F", "LOG_F", "EXP2_F", "LOG2_F", "TANH_F", "SIN_F", "COS_F", "TAN_F",
                     "POW_F", "IPOW_I"))
 
 KINDS = ("sum", "max", "min")
+# The input types the kernel reduces (in float32) for Array.sum/max/min/mean:
+# every float type but float64, as the JAX package's Pallas reductions.
+FLOAT_INPUTS = frozenset([torch.float32, torch.bfloat16, torch.float16])
 _OP = {"sum": 0, "max": 1, "min": 2}
 _SUM_I32 = 3
 
@@ -176,7 +180,7 @@ def path(prog, kind: str, shape, operand_layout, axis=None) -> str:
         return "direct" if prog.result < n_ops else "lanes4"
     codes = prog.kernel_codes
     if (kind == "sum" and len(prog.insts) == 1 and prog.result == n_ops + len(prog.consts)
-            and codes is not None and codes[0] in HOISTED):
+            and codes is not None and codes[0] in HOISTED and not prog.kernel_rounds[0]):
         return "single"
     return "lanes4"
 
@@ -205,7 +209,7 @@ def _library():
 
 def _launch(entry, prog, kind, op, shape, operands, device, axis=None):
     lib = _library()
-    codes = elementwise.check_program(prog, entry)
+    codes = elementwise.check_program(prog, entry, _dt.KERNEL_DTYPES | FLOAT_INPUTS)
     q = _RdParams()
     q.p, flat = elementwise.params(prog, codes, shape, operands)
     q.op = op
@@ -226,7 +230,8 @@ def _launch(entry, prog, kind, op, shape, operands, device, axis=None):
         rows, cols = shape
         q.axis = axis
         q.blocks, q.seg_rows = axis_grid(rows, cols, axis)
-        out = torch.empty(cols if axis == 0 else rows, dtype=torch.float32, device=device)
+        out = torch.empty(cols if axis == 0 else rows,
+                          dtype=torch.int32 if op == _SUM_I32 else torch.float32, device=device)
         # Axis 0: a row of partials per segment, padded to whole quads.
         partial = torch.empty(q.blocks * _cdiv(cols, 4) * 4 if axis == 0 else 1,
                               dtype=torch.int32, device=device)
@@ -257,51 +262,51 @@ def _plain(vals, kind, dim=None):
     return fn(v) if dim is None else fn(v, dim)
 
 
-def _plain_sum_i32(vals):
-    """Sum of int32 ``vals`` wrapping mod 2**32 (no int64 overflow: each
-    term is masked to 32 bits first)."""
-    s = (vals.to(torch.int64) & 0xFFFFFFFF).sum() & 0xFFFFFFFF
+def _plain_sum_i32(vals, dim=None):
+    """Sum of int32 ``vals`` (along ``dim``) wrapping mod 2**32 (no int64
+    overflow: each term is masked to 32 bits first)."""
+    masked = vals.to(torch.int64) & 0xFFFFFFFF
+    s = (masked.sum() if dim is None else masked.sum(dim)) & 0xFFFFFFFF
     return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
 
 
 # ------------------------------------------------------------- entries
-def _full(prog, kind, shape, operands, int_acc=False):
+def run(prog, kind, axis, shape, operands, int_acc=False) -> torch.Tensor:
+    """The ``kind`` reduction of the expression ``prog`` over ``operands``
+    (shape ``shape``), full (``axis`` None, any rank) or along axis 0 or 1
+    of a 2-D expression: a float32 result, or with ``int_acc`` the int32
+    sum wrapping mod 2**32.  The map-reduce kernel's one route: operands
+    under a ``torch.func`` transform go through ``autodiff.Reduce`` (the
+    same kernel with derivative and batching rules), the rest to the
+    kernel, or to its plain version on the CPU.  Records no dispatch: the
+    entries below do."""
+    from . import autodiff
+
     shape = tuple(int(s) for s in shape)
     if kind not in KINDS:
         raise ValueError(f"unknown reduction {kind!r}; expected one of {KINDS}")
-    device = elementwise.operand_device(prog, shape, operands)
-    if math.prod(shape) == 0:
-        raise ValueError("the reduction kernel takes a non-empty expression")
-    if int_acc and (kind != "sum" or prog.dtype != torch.int32):
-        raise ValueError("the int32 accumulator takes an int32 sum")
-    if device.type == "cpu":
-        vals = values(prog, shape, operands, device)
-        return _plain_sum_i32(vals) if int_acc else _plain(vals, kind)
-    if device.type != "cuda":
-        raise ValueError(f"the reduction kernel runs on CUDA tensors, not {device}")
-    return _launch("rd_full", prog, kind, _SUM_I32 if int_acc else _OP[kind], shape,
-                   operands, device)
-
-
-def _axis(prog, kind, axis, shape, operands):
-    shape = tuple(int(s) for s in shape)
-    if kind not in KINDS:
-        raise ValueError(f"unknown reduction {kind!r}; expected one of {KINDS}")
-    if len(shape) != 2 or axis not in (0, 1):
+    if axis is not None and (len(shape) != 2 or axis not in (0, 1)):
         raise ValueError(f"the axis kernel reduces axis 0 or 1 of a 2-D expression; "
                          f"got axis {axis} of shape {shape}")
+    if int_acc and (kind != "sum" or prog.dtype != torch.int32 or axis == 0):
+        raise ValueError("the int32 accumulator takes an int32 sum, full or along axis 1")
+    if any(map(autodiff.transformed, operands)):
+        return autodiff.reduce(prog, kind, axis, shape,
+                               [elementwise.read(o) for o in operands], int_acc)
     device = elementwise.operand_device(prog, shape, operands)
     if math.prod(shape) == 0:
         raise ValueError("the reduction kernel takes a non-empty expression")
     if device.type == "cpu":
-        return _plain(values(prog, shape, operands, device), kind, axis)
+        vals = values(prog, shape, operands, device)
+        return _plain_sum_i32(vals, axis) if int_acc else _plain(vals, kind, axis)
     if device.type != "cuda":
         raise ValueError(f"the reduction kernel runs on CUDA tensors, not {device}")
-    return _launch("rd_axis", prog, kind, _OP[kind], shape, operands, device, axis)
+    return _launch("rd_full" if axis is None else "rd_axis", prog, kind,
+                   _SUM_I32 if int_acc else _OP[kind], shape, operands, device, axis)
 
 
 @functools.lru_cache(maxsize=None)
-def _identity(dtype) -> program.Program:
+def identity(dtype) -> program.Program:
     leaf = program.leaf((), dtype)
     return program.lower(leaf, [leaf])
 
@@ -310,14 +315,26 @@ def reduce(x, kind: str = "sum") -> torch.Tensor:
     """Full sum/max/min of ``x`` as a 0-d float32 tensor (float32
     accumulation).  Counterpart of ``pallas_reduce``."""
     dispatch.record("reduce", kind)
-    return _full(_identity(x.dtype), kind, x.shape, [x])
+    return run(identity(x.dtype), kind, None, x.shape, [x])
 
 
 def reduce_axis(x, kind: str, axis: int) -> torch.Tensor:
     """Sum/max/min of the 2-D ``x`` along ``axis`` as a 1-D float32 tensor.
     Counterpart of ``pallas_reduce_axis``."""
     dispatch.record("reduce_axis", f"{kind}{axis}")
-    return _axis(_identity(x.dtype), kind, axis, x.shape, [x])
+    return run(identity(x.dtype), kind, axis, x.shape, [x])
+
+
+def dot_program(a_shape, a_dtype, b_shape, b_dtype) -> program.Program:
+    """The product ``a*b`` of the 1-D dot: in the operands' promoted type,
+    a float one in float32 (bfloat16 operands are multiplied in float32, as
+    ``_build_dot1d`` multiplies in its accumulator's type)."""
+    la, lb = program.leaf(tuple(a_shape), a_dtype), program.leaf(tuple(b_shape), b_dtype)
+    prod = program.apply("multiply", la, lb)
+    if prod.dtype.is_floating_point and prod.dtype != torch.float32:
+        prod = program.apply("multiply", program.cast(la, torch.float32),
+                             program.cast(lb, torch.float32))
+    return program.lower(prod, [la, lb])
 
 
 def dot1d(a, b) -> torch.Tensor:
@@ -328,9 +345,8 @@ def dot1d(a, b) -> torch.Tensor:
     if len(a.shape) != 1 or tuple(a.shape) != tuple(b.shape):
         raise ValueError(f"dot1d takes two 1-D operands of one length, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
-    la, lb = program.leaf(tuple(a.shape), a.dtype), program.leaf(tuple(b.shape), b.dtype)
-    prog = program.lower(program.apply("multiply", la, lb), [la, lb])
-    return _full(prog, "sum", a.shape, [a, b], int_acc=prog.dtype == torch.int32)
+    prog = dot_program(a.shape, a.dtype, b.shape, b.dtype)
+    return run(prog, "sum", None, a.shape, [a, b], int_acc=prog.dtype == torch.int32)
 
 
 def map_reduce(prog: program.Program, kind: str, out_shape, *operands) -> torch.Tensor:
@@ -338,7 +354,7 @@ def map_reduce(prog: program.Program, kind: str, out_shape, *operands) -> torch.
     (shape ``out_shape``) as a 0-d float32 tensor, in one pass.
     Counterpart of ``pallas_map_reduce``."""
     dispatch.record("reduce_fused", kind)
-    return _full(prog, kind, out_shape, operands)
+    return run(prog, kind, None, out_shape, operands)
 
 
 def map_reduce_axis(prog: program.Program, kind: str, axis: int, out_shape,
@@ -347,7 +363,7 @@ def map_reduce_axis(prog: program.Program, kind: str, axis: int, out_shape,
     (1|R, 1|C) ``operands`` as a 1-D float32 tensor, in one pass.
     Counterpart of ``pallas_map_reduce_axis``."""
     dispatch.record("reduce_axis", f"{kind}{axis}")
-    return _axis(prog, kind, axis, out_shape, operands)
+    return run(prog, kind, axis, out_shape, operands)
 
 
 # ------------------------------------------------------ the torch path

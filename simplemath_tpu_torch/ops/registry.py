@@ -25,7 +25,7 @@ import torch
 
 from . import transcendental as _tr
 
-F32, I32 = torch.float32, torch.int32
+F32, I32, U32 = torch.float32, torch.int32, torch.uint32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +35,9 @@ class Op:
     arity: int = 2
     # Dtype rule (ops/program.py::apply); "user" ops are traced instead.
     rule: str = "user"
-    # Kernel opcode name per compute dtype; empty = plain torch only.
+    # Kernel opcode name per register type (program.register_type: a
+    # bfloat16 op takes the float32 opcode, the kernel then rounds);
+    # empty = plain torch only.
     opcodes: Dict[torch.dtype, str] = dataclasses.field(default_factory=dict)
     # Whether the elementwise kernel may execute this op.
     pallas_ok: bool = True
@@ -76,12 +78,15 @@ def registered_ops():
 
 
 def _builtin(name, fn, rule, arity=2, f32: Optional[str] = None,
-             i32: Optional[str] = None, table=_REGISTRY, unsigned_fn=None):
+             i32: Optional[str] = None, u32: Optional[str] = None, table=_REGISTRY,
+             unsigned_fn=None):
     codes = {}
     if f32:
         codes[F32] = f32
     if i32:
         codes[I32] = i32
+    if u32:
+        codes[U32] = u32
     table[name] = Op(name=name, fn=fn, arity=arity, rule=rule, opcodes=codes,
                      unsigned_fn=unsigned_fn)
 
@@ -121,38 +126,42 @@ def _remainder(x, y):
 
 # ---------------------------------------------------------------- built-ins
 # Binary arithmetic.  True division follows NumPy (int/int -> float).
-# floor_divide/remainder run as plain torch (no kernel opcode yet).
-_builtin("add", torch.add, "promote", f32="ADD_F", i32="ADD_I")
-_builtin("subtract", torch.sub, "promote", f32="SUB_F", i32="SUB_I")
-_builtin("multiply", torch.mul, "promote", f32="MUL_F", i32="MUL_I")
+# uint32 takes the int32 opcode wherever the bits are the same (wrapping
+# arithmetic, equality, select) and an unsigned one elsewhere.  Floor
+# division and remainder have integer opcodes only; float ones run as
+# plain torch.
+_builtin("add", torch.add, "promote", f32="ADD_F", i32="ADD_I", u32="ADD_I")
+_builtin("subtract", torch.sub, "promote", f32="SUB_F", i32="SUB_I", u32="SUB_I")
+_builtin("multiply", torch.mul, "promote", f32="MUL_F", i32="MUL_I", u32="MUL_I")
 _builtin("divide", torch.div, "inexact", f32="DIV_F")
-_builtin("floor_divide", _floor_divide, "promote", unsigned_fn=_floor_divide_unsigned)
-_builtin("remainder", _remainder, "promote")
-_builtin("maximum", torch.maximum, "promote", f32="MAX_F", i32="MAX_I")
-_builtin("minimum", torch.minimum, "promote", f32="MIN_F", i32="MIN_I")
+_builtin("floor_divide", _floor_divide, "promote", i32="FDIV_I", u32="FDIV_U",
+         unsigned_fn=_floor_divide_unsigned)
+_builtin("remainder", _remainder, "promote", i32="MOD_I", u32="MOD_U")
+_builtin("maximum", torch.maximum, "promote", f32="MAX_F", i32="MAX_I", u32="MAX_U")
+_builtin("minimum", torch.minimum, "promote", f32="MIN_F", i32="MIN_I", u32="MIN_U")
 
 # Comparisons write bool.
-_builtin("equal", torch.eq, "compare", f32="EQ_F", i32="EQ_I")
-_builtin("not_equal", torch.ne, "compare", f32="NE_F", i32="NE_I")
-_builtin("less", torch.lt, "compare", f32="LT_F", i32="LT_I")
-_builtin("less_equal", torch.le, "compare", f32="LE_F", i32="LE_I")
-_builtin("greater", torch.gt, "compare", f32="GT_F", i32="GT_I")
-_builtin("greater_equal", torch.ge, "compare", f32="GE_F", i32="GE_I")
+_builtin("equal", torch.eq, "compare", f32="EQ_F", i32="EQ_I", u32="EQ_I")
+_builtin("not_equal", torch.ne, "compare", f32="NE_F", i32="NE_I", u32="NE_I")
+_builtin("less", torch.lt, "compare", f32="LT_F", i32="LT_I", u32="LT_U")
+_builtin("less_equal", torch.le, "compare", f32="LE_F", i32="LE_I", u32="LE_U")
+_builtin("greater", torch.gt, "compare", f32="GT_F", i32="GT_I", u32="GT_U")
+_builtin("greater_equal", torch.ge, "compare", f32="GE_F", i32="GE_I", u32="GE_U")
 
 # Unary.
-_builtin("negative", torch.neg, "same", 1, f32="NEG_F", i32="NEG_I")
-_builtin("abs", torch.abs, "same", 1, f32="ABS_F", i32="ABS_I")
+_builtin("negative", torch.neg, "same", 1, f32="NEG_F", i32="NEG_I", u32="NEG_I")
+_builtin("abs", torch.abs, "same", 1, f32="ABS_F", i32="ABS_I", u32="BITS")
 _builtin("sqrt", torch.sqrt, "inexact", 1, f32="SQRT_F")
-_builtin("square", lambda a: a * a, "same", 1, f32="SQUARE_F", i32="SQUARE_I")
+_builtin("square", lambda a: a * a, "same", 1, f32="SQUARE_F", i32="SQUARE_I", u32="SQUARE_I")
 _builtin("sin", torch.sin, "transcendental", 1, f32="SIN_F")
 _builtin("cos", torch.cos, "transcendental", 1, f32="COS_F")
 _builtin("tan", torch.tan, "transcendental", 1, f32="TAN_F")
 _builtin("tanh", lambda a: _tr.unary("tanh", a), "transcendental", 1, f32="TANH_F")
-_builtin("sign", _tr.sign, "same", 1, f32="SIGN_F", i32="SIGN_I")
+_builtin("sign", _tr.sign, "same", 1, f32="SIGN_F", i32="SIGN_I", u32="SIGN_U")
 
 # Ternary: select and clamp (NumPy where/clip semantics).  clip lowers to
 # minimum(maximum(a, lo), hi), which is what jnp.clip computes.
-_builtin("where", torch.where, "where", 3, f32="SELECT", i32="SELECT")
+_builtin("where", torch.where, "where", 3, f32="SELECT", i32="SELECT", u32="SELECT")
 _builtin(
     "clip", lambda a, lo, hi: torch.minimum(torch.maximum(a, lo), hi), "clip", 3
 )

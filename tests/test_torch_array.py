@@ -140,19 +140,6 @@ def test_index_errors():
         a[0, 0, 0]
 
 
-@pytest.mark.parametrize("call", [
-    lambda a: a[[0, 1]], lambda a: a.__setitem__([0, 1], 1.0),
-    lambda a: a[np.array([True, False])], lambda a: a[a > 0.0],
-    lambda a: a.__setitem__(np.array([1, 0]), 1.0),
-])
-def test_not_ported_yet_raises_naming_roadmap(call):
-    """What still waits (advanced indexing) says so.  ``@``/``dot`` of
-    rank >= 2 left this list when the matmul path was ported
-    (tests/test_torch_matmul.py holds its values)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call(sm.ones(2, 2))
-
-
 def test_recorded_op_keeps_its_operand_values():
     """A deferred op snapshots its operands: a later in-place write to an
     operand does not change it (copy-on-write of the frozen buffer)."""

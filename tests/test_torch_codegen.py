@@ -151,11 +151,12 @@ def test_32_bit_index_arithmetic_only_where_every_offset_fits(n, layouts, want):
 # -------------------------------------------------------------- the source
 def _program_per_opcode():
     """One real program for each kernel opcode: every registered op on
-    float32 and int32, the casts, ``where``, ``pow`` and ``ipow``."""
+    float32, int32 and uint32, the casts (float32 <-> float32 by register
+    type is bfloat16 -> float32), ``where``, ``pow`` and ``ipow``."""
     progs = {}
     ops = list(registry.registered_ops().items()) + list(registry.INTERNAL.items())
     for name, op in ops:
-        for dt in (torch.float32, torch.int32):
+        for dt in (torch.float32, torch.int32, torch.uint32):
             if dt not in op.opcodes:
                 continue
             leaves = [program.leaf((3, 5), dt) for _ in range(op.arity)]
@@ -168,6 +169,8 @@ def _program_per_opcode():
             prog = program.lower(node, leaves)
             progs.setdefault(program.OPCODES[prog.kernel_codes[-1]], prog)
     for src, dst in program._CASTS:
+        if src == dst:
+            src = torch.bfloat16
         leaf = program.leaf((3, 5), src)
         prog = program.lower(program.cast(leaf, dst), [leaf])
         progs.setdefault(program.OPCODES[prog.kernel_codes[-1]], prog)
@@ -248,7 +251,8 @@ def test_dtype_names_follow_the_kernel_enum():
     for dtype, code in elementwise._DTYPE_CODE.items():
         assert codegen.DTYPE_NAMES[code].lower().endswith(
             {torch.float32: "f32", torch.int32: "i32", torch.bool: "bool", torch.bfloat16: "bf16",
-             torch.int8: "i8", torch.uint8: "u8"}[dtype])
+             torch.int8: "i8", torch.uint8: "u8", torch.uint32: "u32",
+             torch.float16: "f16"}[dtype])
 
 
 def test_the_disk_cache_name_follows_the_source():

@@ -56,20 +56,77 @@ def _both(prog, shape, operands, iterations=1, carry=0):
 
 def _inputs(dtype, n, device, seed=0):
     rng = np.random.default_rng(seed)
-    if dtype == torch.float32:
+    if dtype in (torch.float32, torch.bfloat16):
         special = [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40, 1.0, -1.0, 88.7]
         x = np.concatenate([rng.uniform(-8, 8, n - len(special)), special]).astype(np.float32)
-    else:
-        x = np.concatenate([rng.integers(-60, 60, n - 4), [2**31 - 1, -2**31, 0, 1]]).astype(np.int32)
+        return torch.from_numpy(x).to(device).to(dtype)
+    if dtype == torch.uint32:
+        x = np.concatenate([rng.integers(0, 120, n - 5), [2**32 - 1, 2**31, 2**31 - 1, 0, 1]])
+        return torch.from_numpy(x.astype(np.int64)).to(device).to(torch.uint32)
+    x = np.concatenate([rng.integers(-60, 60, n - 4), [2**31 - 1, -2**31, 0, 1]]).astype(np.int32)
     return torch.from_numpy(x).to(device)
 
 
+# Every registry op on every type the kernel computes in: float32, int32,
+# uint32 (its own opcodes where they differ), bfloat16 (the float32 ones,
+# each result rounded to bfloat16).  pow and ipow nodes are built as the
+# engine builds them, which never computes pow in bfloat16.
 _OPCODE_CASES = [
     (name, dtype)
     for name in sorted(set(registry.registered_ops()) | set(registry.INTERNAL))
-    for dtype in (torch.float32, torch.int32)
-    if dtype in registry.op_def(name).opcodes
+    for dtype in (torch.float32, torch.int32, torch.uint32, torch.bfloat16)
+    if program.register_type(dtype) in registry.op_def(name).opcodes
+    and not (dtype == torch.bfloat16 and name in ("pow", "ipow"))
 ]
+
+# Every cast the kernel has, by the types of its operand and result.
+_CAST_CASES = [(s, d) for s, d in program._CASTS if s != d] + [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.int32, torch.bfloat16), (torch.uint32, torch.bfloat16), (torch.bool, torch.bfloat16),
+    (torch.bfloat16, torch.int32), (torch.bfloat16, torch.uint32), (torch.bfloat16, torch.bool),
+]
+
+
+def _cast_input(src, dst, n, device):
+    """Operands of a cast within the destination's range (a float beyond
+    it converts as C++ leaves unspecified); NaN only where it converts."""
+    if src == torch.bool:
+        return _inputs(torch.float32, n, device) > 0
+    x = _inputs(src, n, device)
+    if src.is_floating_point and dst not in (torch.float32, torch.bfloat16, torch.bool):
+        low = 0.0 if dst == torch.uint32 else -1e6
+        x = x.float().clamp(low, 1e6).nan_to_num(0.5).to(src)
+    return x
+
+
+def _bits(t):
+    """A 4-byte tensor's bits as int32: torch compares no uint32 on the card."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def _bf16_ulp(got, want):
+    """Largest distance in bfloat16 ulps, NaN == NaN."""
+    g, w = got.double().cpu().numpy(), want.double().cpu().numpy()
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    spacing = np.maximum(np.abs(w), 2.0 ** -126) * 2.0 ** -7
+    with np.errstate(invalid="ignore"):
+        d = np.where(same, 0.0, np.abs(g - w) / spacing)
+    return float(np.nan_to_num(d, nan=np.inf).max(initial=0.0))
+
+
+def _hold(name, k, p):
+    """A kernel's result against its plain version: exact, but for the
+    transcendentals (2 float32 ulps; a bfloat16 result, rounded once from
+    float32 values that close, 1 bfloat16 ulp)."""
+    assert k.dtype == p.dtype
+    if name in _TRANSCENDENTAL:
+        assert (_bf16_ulp(k, p) <= 1.0) if k.dtype == torch.bfloat16 else (_max_ulp(k, p) <= 2.0)
+    elif k.is_floating_point():
+        assert _max_ulp(k, p) == 0.0
+    elif k.dtype == torch.uint32:  # compared by its bits: torch has few uint32 ops
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    else:
+        assert torch.equal(k, p)
 
 
 @pytest.mark.parametrize("name,dtype", _OPCODE_CASES, ids=str)
@@ -80,28 +137,21 @@ def test_every_opcode_matches_plain(cuda, name, dtype):
     operands = [_inputs(dtype, n, cuda, s) for s in range(op.arity)]
     if name == "where":
         leaves[0] = program.leaf((n,), torch.bool)
-        operands[0] = operands[0] > 0
+        operands[0] = _bits(operands[0]) > 0
     if name in ("pow", "ipow"):
         node = program.Node(name, leaves, dtype, (n,))
     else:
         node = program.apply(name, *leaves)
     k, p = _both(program.lower(node, leaves), (n,), operands)
-    if name in _TRANSCENDENTAL:
-        assert _max_ulp(k, p) <= 2.0
-    elif k.is_floating_point():
-        assert _max_ulp(k, p) == 0.0
-    else:
-        assert torch.equal(k, p)
+    _hold(name, k, p)
 
 
-@pytest.mark.parametrize("src,dst", list(program._CASTS))
+@pytest.mark.parametrize("src,dst", _CAST_CASES, ids=str)
 def test_casts_match_plain(cuda, src, dst):
-    x = {torch.float32: _inputs(torch.float32, 4096, cuda).clamp(-1e6, 1e6).nan_to_num(0.5),
-         torch.int32: _inputs(torch.int32, 4096, cuda),
-         torch.bool: _inputs(torch.float32, 4096, cuda) > 0}[src]
+    x = _cast_input(src, dst, 4096, cuda)
     leaf = program.leaf((4096,), src)
     k, p = _both(program.lower(program.cast(leaf, dst), [leaf]), (4096,), [x])
-    assert torch.equal(k, p)
+    _hold("cast", k, p)
 
 
 @pytest.mark.parametrize("shape_b", [(1,), (1, 96), (64, 1), (96,), (5, 1, 96)])
@@ -350,7 +400,7 @@ def test_rd_full_every_path(cuda, kind, n):
     off = (1 - shifted.data_ptr() // 4) % 4  # the view starts 4 bytes past a 16-byte boundary
     view = elementwise.View(shifted, off, (n,), (1,))
     elementwise.read(view).copy_(x)
-    for prog in (reduction._identity(torch.float32), two):
+    for prog in (reduction.identity(torch.float32), two):
         k, _ = _rd_on("element", lambda: reduction.map_reduce(prog, kind, (n,), view), p)
         assert torch.equal(k, direct)
 
@@ -360,7 +410,7 @@ def test_rd_nan_in_the_tail_on_every_path(cuda, kind):
     n = 4096 + 3
     x = _aligned(cuda, n)
     x[n - 1] = float("nan")
-    progs = {"direct": reduction._identity(torch.float32), "one": _lowered(lambda a: a * 1.0, x),
+    progs = {"direct": reduction.identity(torch.float32), "one": _lowered(lambda a: a * 1.0, x),
              "lanes4": _lowered(lambda a: a * 1.0 + 0.0, x)}
     for prog in progs.values():
         assert bool(torch.isnan(reduction.map_reduce(prog, kind, (n,), x)))
@@ -1113,8 +1163,8 @@ def _on_both_kernels(prog, shape, operands, iterations=1, carry=0):
                                      "generated": int(name == "generated")}
     k, g = outs
     assert k.dtype == g.dtype
-    assert torch.equal(k.view(torch.int32) if k.element_size() == 4 else k,
-                       g.view(torch.int32) if g.element_size() == 4 else g)
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.uint8}[k.element_size()]
+    assert torch.equal(k.view(bits), g.view(bits))
     p = program.run_plain(prog, [elementwise.read(o) for o in operands], shape, iterations, carry)
     return g, p
 
@@ -1133,27 +1183,20 @@ def test_generated_every_opcode_is_the_interpreter(cuda, name, dtype):
     operands = [_inputs(dtype, n, cuda, s) for s in range(op.arity)]
     if name == "where":
         leaves[0] = program.leaf((n,), torch.bool)
-        operands[0] = operands[0] > 0
+        operands[0] = _bits(operands[0]) > 0
     node = program.Node(name, leaves, dtype, (n,)) if name in ("pow", "ipow") else \
         program.apply(name, *leaves)
     g, p = _on_both_kernels(program.lower(node, leaves), (n,), [_backwards(o) for o in operands])
-    if name in _TRANSCENDENTAL:
-        assert _max_ulp(g, p) <= 2.0
-    elif g.is_floating_point():
-        assert _max_ulp(g, p) == 0.0
-    else:
-        assert torch.equal(g, p)
+    _hold(name, g, p)
 
 
-@pytest.mark.parametrize("src,dst", list(program._CASTS))
+@pytest.mark.parametrize("src,dst", _CAST_CASES, ids=str)
 def test_generated_casts_are_the_interpreter(cuda, src, dst):
-    x = {torch.float32: _inputs(torch.float32, 4099, cuda).clamp(-1e6, 1e6).nan_to_num(0.5),
-         torch.int32: _inputs(torch.int32, 4099, cuda),
-         torch.bool: _inputs(torch.float32, 4099, cuda) > 0}[src]
+    x = _cast_input(src, dst, 4099, cuda)
     leaf = program.leaf((4099,), src)
     g, p = _on_both_kernels(program.lower(program.cast(leaf, dst), [leaf]), (4099,),
                            [_backwards(x)])
-    assert torch.equal(g, p)
+    _hold("cast", g, p)
 
 
 @pytest.mark.parametrize("rank", range(1, 9))
@@ -1232,11 +1275,23 @@ def test_generated_kernels_are_cached_by_signature(cuda):
 # to float32, as the fused multiply-add does, except in cases of double
 # rounding, which these inputs do not reach: the tests compare exactly).
 def _fma_in_order(a, b):
+    """One chain of fused multiply-adds in ascending k, k padded to a
+    multiple of 16, emulated in float64: each exact sum rounded to odd in
+    float64 and then to float32 is the sum rounded to float32 once (a
+    nearest float64 sum first could round twice)."""
     a, b = elementwise.read(a).double(), elementwise.read(b).double()
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32, device=a.device)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=a.device)
     for k in range((a.shape[1] + 15) // 16 * 16):
-        term = a[:, k:k + 1] * b[k:k + 1] if k < a.shape[1] else 0.0
-        acc = (term + acc.double()).float()
+        if k >= a.shape[1]:
+            acc = acc + 0.0
+            continue
+        term, c = a[:, k:k + 1] * b[k:k + 1], acc.double()
+        total = term + c
+        back = total - term
+        err = (term - (total - back)) + (c - back)
+        odd = (err != 0) & ((total.view(torch.int64) & 1) == 0)
+        acc = torch.where(odd, torch.nextafter(total, torch.where(err > 0, inf, -inf)), total).float()
     return acc
 
 
@@ -1512,28 +1567,268 @@ def test_associative_scan_on_card_matches_fold(cuda, H):
     assert torch.equal(tree.cpu(), cpu_tree)
 
 
-def test_sm_op_under_a_transform_raises_on_card(cuda):
-    """No kernel takes a functorch wrapper and the card runs no plain
-    fallback: an sm op on a CUDA tensor under a torch.func transform raises
-    and launches nothing; outside the transform the same op launches."""
-    x = torch.linspace(-1.0, 1.0, 8, device=cuda)
+# ----------------------------------------- bfloat16 and float16 reductions
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("kind", ["sum", "max", "min"])
+@pytest.mark.parametrize("axis", [None, 0, 1])
+def test_rd_half_inputs_match_plain(cuda, dtype, kind, axis):
+    """bfloat16 and float16 inputs, widened exactly at the load and summed
+    in float32 (on the element path), against the plain version: sums
+    within 2e-5 * sum|x| of it and of float64, max and min exact, the bits
+    repeating."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((300, 257)).astype(np.float32)).to(cuda).to(dtype)
+    t = x
+    if axis is None:
+        fn = lambda: reduction.reduce(x, kind)  # noqa: E731
+    else:
+        fn = lambda: reduction.reduce_axis(x, kind, axis)  # noqa: E731
+    k, p = _rd_both(fn, reduction._plain(t, kind, axis))
+    assert reduction.PATHS["element"] == 2
+    ref = t.double().cpu()
+    if kind == "sum":
+        _close(k, p, ref.sum() if axis is None else ref.sum(axis), float(t.float().abs().sum()))
+    else:
+        fn64 = torch.amax if kind == "max" else torch.amin
+        want = fn64(ref) if axis is None else fn64(ref, axis)
+        assert torch.equal(k.double().cpu(), want) and torch.equal(k, p)
 
-    def f(t):
-        a = sm.Array(t)
-        return (sm.sin(a) * a + 1.0).torch().sum()
 
-    def red(t):
-        return sm.Array(t).sum().torch()
+def test_rd_rounding_program_and_integer_division(cuda):
+    """A map-reduce of a bfloat16 program (each instruction's result rounded
+    in the register) and the sum of an int32 floor division, both on
+    lanes4, against the plain version."""
+    rng = np.random.default_rng(5)
+    n = 4096 * 3 + 777
+    a = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    la, lb = program.leaf((n,), torch.bfloat16), program.leaf((n,), torch.bfloat16)
+    prog = program.lower(la * lb + la, [la, lb])
+    assert prog.kernel_rounds == (True, True)
+    k, p = _rd_both(lambda: reduction.map_reduce(prog, "sum", (n,), a, b),
+                    reduction._plain(reduction.values(prog, (n,), [a, b], cuda), "sum"))
+    vals = reduction.values(prog, (n,), [a, b], cuda)
+    _close(k, p, vals.double().cpu().sum(), float(vals.float().abs().sum()))
+    i = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32)).to(cuda)
+    li = program.leaf((n,), torch.int32)
+    div = program.lower(li // 7, [li])
+    assert reduction.path(div, "sum", (n,), reduction.layout([i])) == "lanes4"
+    k, p = _rd_both(lambda: reduction.map_reduce(div, "sum", (n,), i),
+                    reduction._plain(reduction.values(div, (n,), [i], cuda), "sum"))
+    assert float(k) == float(p)
 
+
+def test_bf16_chain_rounds_each_instruction_on_both_kernels(cuda):
+    """A lazy bfloat16 chain (one program, one launch) gives the bits of the
+    same ops launched one at a time, on ew_flat and on ew_strided's
+    generated kernel: the kernel rounds each bfloat16 result."""
+    rng = np.random.default_rng(6)
+    x, y, z = (torch.from_numpy(rng.standard_normal((64, 96)).astype(np.float32)).to(cuda)
+               .to(torch.bfloat16) for _ in range(3))
+
+    def chain(a, b, c):
+        return (a + b) * c - a / (b * b + 1.0)
+
+    for view in (lambda t: t, lambda t: t.T):
+        arrays = [sm.Array(view(t)) if view(t).is_contiguous() else sm.Array(t).T
+                  for t in (x, y, z)]
+        elementwise.reset_launches()
+        lazy = chain(*arrays).torch()
+        torch.cuda.synchronize()
+        assert sum(elementwise.LAUNCHES.values()) == 1
+        old = sm.config.deferred_eager
+        sm.configure(deferred_eager=False)
+        try:
+            eager = chain(*arrays).torch()
+        finally:
+            sm.configure(deferred_eager=old)
+        assert lazy.dtype == torch.bfloat16
+        assert torch.equal(lazy.view(torch.int16), eager.view(torch.int16))
+
+
+# ------------------------------------------------ sm ops under torch.func
+def _launches():
+    return sum(elementwise.LAUNCHES.values()), sum(reduction.LAUNCHES.values())
+
+
+def test_sm_ops_under_transforms_launch_the_kernels(cuda):
+    """grad, vmap, jvp and the hessian of an sm function run ew_* and rd_*
+    (ops/autodiff.py), take no plain-torch route and make no host sync;
+    each value equals plain torch's autograd of the same function on the
+    same CUDA tensors within 2e-5 relative (the crafted sin and the
+    kernel's summation order)."""
+    x = torch.linspace(-1.5, 2.0, 96, device=cuda)
+    y = torch.linspace(0.5, -0.5, 96, device=cuda)
+
+    def f_sm(t, u):
+        a, b = sm.Array(t), sm.Array(u)
+        return sm.sum(sm.sin(a) * b + a * a / (sm.exp(b) + 1.0) + sm.maximum(a, 0.25)).torch()
+
+    def f_plain(t, u):
+        return (torch.sin(t) * u + t * t / (torch.exp(u) + 1.0) + torch.maximum(t, torch.tensor(0.25, device=t.device))).sum()
+
+    def close(got, want):
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+    for name, run_sm, run_plain in (
+        ("grad", lambda f: torch.func.grad(f, (0, 1))(x, y), None),
+        ("vmap", lambda f: torch.func.vmap(f)(torch.stack([x, -x]), torch.stack([y, y * 2])), None),
+        ("jvp", lambda f: torch.func.jvp(f, (x, y), (torch.ones_like(x), y))[1], None),
+        ("hessian", lambda f: torch.func.hessian(lambda t: f(t, y[:8]))(x[:8].contiguous()), None),
+    ):
+        elementwise.reset_launches()
+        reduction.reset_launches()
+        dispatch.reset()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = run_sm(f_sm)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ew, rd = _launches()
+        assert ew > 0 and rd > 0, name
+        assert not any(k.startswith("torch_path") for k in dispatch.counts()), dispatch.counts()
+        if name == "hessian":
+            want = torch.func.hessian(lambda t: f_plain(t, y[:8]))(x[:8].contiguous())
+        else:
+            want = run_sm(f_plain)
+        if isinstance(got, tuple):
+            for g, w in zip(got, want):
+                close(g, w)
+        else:
+            close(got, want)
+    f_sm(x, y)
+
+
+def _under_sync_error(fn):
+    """``fn()`` with every counter at 0 and sync debug mode "error": (its
+    result, (ew, rd, mm) launches, dispatch counts)."""
     elementwise.reset_launches()
     reduction.reset_launches()
-    for run in (lambda: torch.func.grad(f)(x),
-                lambda: torch.func.vmap(f)(torch.stack([x, 2 * x])),
-                lambda: torch.func.jvp(f, (x,), (torch.ones_like(x),)),
-                lambda: torch.func.grad(red)(x)):
-        with pytest.raises(NotImplementedError, match="torch.func"):
-            run()
-    assert sum(elementwise.LAUNCHES.values()) == 0
-    assert sum(reduction.LAUNCHES.values()) == 0
-    f(x)
-    assert sum(elementwise.LAUNCHES.values()) >= 1
+    matmul.reset_launches()
+    dispatch.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = dispatch.counts()
+    assert not any(k.startswith("torch_path") for k in counts), counts
+    return out, (*_launches(), sum(matmul.LAUNCHES.values())), counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_matmul_root_under_transforms_on_card(cuda, dtype):
+    """sm.fuse's matmul root under grad, jvp and vmap runs mm/bmm
+    (autodiff.Product) and its epilogue's derivative programs on ew_*, with
+    no plain-torch route and no host sync; values equal plain torch's
+    autograd of the same function in float32 within 2e-5 relative and
+    absolute (float32 sums in the kernel's order; bfloat16 operands are
+    exact in float32), 4e-3 for bfloat16 gradients of bfloat16 operands
+    (rounded once to bfloat16)."""
+    g = torch.Generator(device="cpu").manual_seed(31)
+    x, w, b = (torch.randn(s, generator=g).to(cuda).to(dtype) for s in ((96, 40), (40, 72), (1, 72)))
+    t_x = torch.randn((96, 40), generator=g).to(cuda).to(dtype)
+    layer = sm.fuse(lambda x, w, b: sm.tanh(x @ w + b) * 2.0 - b)
+
+    def f_sm(x, w, b):
+        return layer(x, w, b).torch()
+
+    def f_plain(x, w, b):
+        x, w, b = x.float(), w.float(), b.float()
+        return torch.tanh(x @ w + b) * 2.0 - b
+
+    def close(got, want):
+        tol = 2e-5 if got.dtype == torch.float32 else 4e-3
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    with matmul.exact_float32():
+        for name, run in (
+            ("grad", lambda f: torch.func.grad(lambda *a: f(*a).float().sum(), (0, 1, 2))(x, w, b)),
+            ("jvp", lambda f: torch.func.jvp(f, (x, w, b), (t_x, w, b))[1]),
+            ("vmap", lambda f: torch.func.vmap(f, (0, None, 0))(torch.stack([x, t_x]), w,
+                                                               torch.stack([b, -b]))),
+        ):
+            got, (ew, rd, mm), counts = _under_sync_error(lambda: run(f_sm))
+            assert mm > 0 and counts.get("transform:matmul", 0) > 0, (name, counts)
+            assert name == "vmap" or ew > 0, name
+            want = run(f_plain)
+            for u, v in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                close(u, v)
+
+
+def test_integer_dot_and_product_under_vmap_on_card(cuda):
+    """The int32 1-D dot under vmap runs rd_axis's int32 accumulator along
+    the rows (one pass), and an int32 product under vmap one bmm; both
+    bit-equal to the product computed in int64 and wrapped to 32 bits."""
+    rng = np.random.default_rng(32)
+    a = rng.integers(-2**31, 2**31, (6, 1000), dtype=np.int64).astype(np.int32)
+    b = rng.integers(-1000, 1000, 1000).astype(np.int32)
+    at, bt = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    got, (ew, rd, _), _ = _under_sync_error(
+        lambda: torch.func.vmap(lambda x: sm.dot(sm.Array(x), sm.Array(bt)).torch())(at))
+    assert reduction.LAUNCHES["rd_axis"] == 1 and rd == 1 and ew == 0
+    want = ((a.astype(np.int64) * b).sum(1) + 2**31) % 2**32 - 2**31
+    np.testing.assert_array_equal(got.cpu().numpy(), want.astype(np.int32))
+    m = rng.integers(-50, 50, (3, 17, 9)).astype(np.int32)
+    k = rng.integers(-50, 50, (9, 5)).astype(np.int32)
+    mt, kt = torch.from_numpy(m).to(cuda), torch.from_numpy(k).to(cuda)
+    got, (_, _, mm), _ = _under_sync_error(
+        lambda: torch.func.vmap(lambda x: sm.matmul(sm.Array(x), sm.Array(kt)).torch())(mt))
+    assert mm == 1 and matmul.LAUNCHES["bmm"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), m @ k)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_half_reductions_under_transforms_on_card(cuda, dtype):
+    """bfloat16 and float16 sum/max under grad, jvp and vmap run rd_* (and
+    ew_* for the derivative programs, in float32), with no plain-torch
+    route; the gradient is exact (ones; the tie of the max shared) and in
+    the input's type, values within one ulp of the type of plain torch."""
+    x = torch.linspace(-2.0, 3.0, 517, device=cuda).to(dtype)
+    x[[7, 400]] = 3.0
+    ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -10
+    for kind in ("sum", "max"):
+        def f(t):
+            return getattr(sm.Array(t), kind)().torch()
+
+        grad, (ew, rd, _), _ = _under_sync_error(lambda: torch.func.grad(lambda t: f(t).float())(x))
+        assert rd > 0 and ew > 0 and grad.dtype == dtype, kind
+        want = torch.func.grad(lambda t: getattr(t.float(), "sum" if kind == "sum" else "amax")())(x)
+        torch.testing.assert_close(grad.float(), want.float(), rtol=0.0, atol=0.0)
+        (out, tan), (_, rd, _), _ = _under_sync_error(
+            lambda: torch.func.jvp(f, (x,), (torch.ones_like(x),)))
+        assert rd > 0 and tan.dtype == dtype
+        plain = x.float().sum() if kind == "sum" else x.float().amax()
+        torch.testing.assert_close(out.float(), plain.to(dtype).float(), rtol=ulp, atol=0.0)
+        rows, (_, rd, _), _ = _under_sync_error(lambda: torch.func.vmap(f)(torch.stack([x, -x])))
+        assert reduction.LAUNCHES["rd_axis"] > 0
+        want = torch.stack([x, -x]).float()
+        want = want.sum(1) if kind == "sum" else want.amax(1)
+        torch.testing.assert_close(rows.float(), want.to(dtype).float(), rtol=ulp, atol=ulp)
+
+
+def test_bfloat16_fused_reduction_root_on_card(cuda):
+    """A bfloat16 expression rooting sm.fuse runs rd_full (and rd_axis for
+    an axis root): its max bit-equal to the plain version (the mapped
+    values, float32 max), its sum within one bfloat16 ulp of it."""
+    x = torch.linspace(-3.0, 2.5, 4099, device=cuda).bfloat16()
+    y = torch.linspace(-1.0, 1.0, 40 * 33, device=cuda).reshape(40, 33).bfloat16()
+    f_sum = sm.fuse(lambda a: sm.sum(a * a + a))
+    f_max = sm.fuse(lambda a: sm.max(sm.tanh(a) * 3.0 - a))
+    f_axis = sm.fuse(lambda a: sm.sum(a * 0.5 + 1.0, axis=0))
+    for fn, kind, arg, axis in ((f_sum, "sum", x, None), (f_max, "max", x, None),
+                                (f_axis, "sum", y, 0)):
+        got, (ew, rd, _), _ = _under_sync_error(lambda: fn(arg).torch())
+        assert rd == 1 and ew == 0 and got.dtype == torch.bfloat16
+        leaf = program.leaf(tuple(arg.shape), torch.bfloat16)
+        trace = fn.__wrapped__(leaf)
+        prog = program.lower(trace.expr, [leaf])
+        vals = program.run_plain(prog, [arg], tuple(arg.shape)).float()
+        plain = (vals.sum() if axis is None else vals.sum(axis)) if kind == "sum" else vals.amax()
+        tol = 0.0 if kind == "max" else 2.0 ** -8
+        torch.testing.assert_close(got.float(), plain.bfloat16().float(), rtol=tol, atol=0.0)

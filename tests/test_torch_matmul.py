@@ -710,11 +710,19 @@ def test_epilogue_lowering_runs_like_the_traced_function(case):
 
 
 def test_epilogue_that_computes_in_bfloat16_has_no_kernel_form():
+    """The elementwise kernel takes bfloat16 instructions; the matmul
+    kernel's epilogue does not (matmul.EPILOGUE_DTYPES), and its wrapper
+    refuses such a program."""
     acc = program.leaf((4, 4), torch.float32)
     b1, b2 = program.leaf((1, 4), torch.bfloat16), program.leaf((1, 4), torch.bfloat16)
     prog = program.lower_epilogue(acc + b1 * b2, acc, [b1, b2])
     assert prog.leaf_dtypes[1:] == (torch.bfloat16, torch.bfloat16)
-    assert prog.kernel_codes is None
+    assert torch.bfloat16 in prog.dtypes and not prog.dtypes <= matmul.EPILOGUE_DTYPES
+    acc = program.leaf((4, 4), torch.float32)
+    rounded = program.lower_epilogue(
+        program.cast(program.cast(acc, torch.bfloat16) * 2.0, torch.float32), acc, [])
+    with pytest.raises(TypeError, match="does not compute in"):
+        matmul.matmul(torch.ones(4, 3), torch.ones(3, 4), epilogue=rounded)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8", "uint8", "float16"])

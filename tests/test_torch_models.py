@@ -354,50 +354,14 @@ def test_quadrotor_stabilizes():
 
 
 # -------------------------------------------------- sm ops under torch.func
-def _make_sm_pendulum() -> tm.System:
-    """Pendulum whose dynamics and costs are written END-TO-END in the sm
-    API (sm.Array in, sm.Array ops, sm.Array out).  Mirrors
-    models.make_pendulum numerically; not batch-polymorphic, so the solver
-    maps it with torch.func.vmap and differentiates it with torch.func."""
-    g, m, l, b = 9.81, 1.0, 1.0, 0.1
-    dt = 0.05
-
-    def f(x: sm.Array, u: sm.Array) -> sm.Array:
-        th, thd = x[0], x[1]
-        thdd = (u[0] - thd * b - sm.sin(th) * (m * g * l)) / (m * l * l)
-        return sm.stack([thd, thdd])
-
-    def sm_step(x: sm.Array, u: sm.Array) -> sm.Array:
-        k1 = f(x, u)
-        k2 = f(x + k1 * (0.5 * dt), u)
-        k3 = f(x + k2 * (0.5 * dt), u)
-        k4 = f(x + k3 * dt, u)
-        return x + (k1 + k2 * 2.0 + k3 * 2.0 + k4) * (dt / 6.0)
-
-    def sm_stage_cost(x: sm.Array, u: sm.Array) -> sm.Array:
-        th_err = x[0] - float(np.pi)
-        return (th_err * th_err + x[1] * x[1] * 0.1 + u[0] * u[0] * 0.01) * 0.5
-
-    def sm_final_cost(x: sm.Array) -> sm.Array:
-        th_err = x[0] - float(np.pi)
-        return (th_err * th_err * 100.0 + x[1] * x[1] * 10.0) * 0.5
-
-    return tm.System(
-        "sm_pendulum", 2, 1, dt,
-        step=lambda x, u: sm_step(sm.Array(x), sm.Array(u)).torch(),
-        stage_cost=lambda x, u: sm_stage_cost(sm.Array(x), sm.Array(u)).torch(),
-        final_cost=lambda x: sm_final_cost(sm.Array(x)).torch(),
-        separable_cost=True,
-    )
-
-
 def test_dynamics_via_sm_api():
     """iLQR through dynamics written entirely in sm ops matches the native
     pendulum solve, of the port and of the JAX package; the solver's
-    derivatives run the sm ops under torch.func, which the engine computes
-    as plain torch (torch_path:*), and the rest runs the engine's
-    ordinary route."""
-    sm_system = _make_sm_pendulum()
+    derivatives run the sm ops under torch.func through
+    ops/autodiff.py (transform:*), on the kernels' plain versions here, and
+    none as plain torch (torch_path:*); the rest runs the engine's ordinary
+    route."""
+    sm_system = tm.make_sm_pendulum()
     native = tm.make_pendulum()
     jx, x0 = _both(np.array([0.4, 0.0], np.float32))
     ju, us = _both(np.zeros((20, 1), np.float32))
@@ -411,9 +375,15 @@ def test_dynamics_via_sm_api():
     assert counts.get("engine:add", 0) > 0
     assert counts.get("engine:multiply", 0) > 0
     assert counts.get("engine:divide", 0) > 0
-    assert counts.get("torch_path:sin", 0) > 0
-    for op in ("add", "multiply", "divide", "subtract"):
-        assert counts.get(f"torch_path:{op}", 0) > 0, op
+    for op in ("sin", "add", "multiply", "divide", "subtract", "vjp"):
+        assert counts.get(f"transform:{op}", 0) > 0, op
+    # Under the transforms nothing runs as plain torch.  (Outside them the
+    # 0-d ops of the single-trajectory rollout do, as the JAX package
+    # sends a 0-d op to XLA.)
+    dispatch.reset()
+    tilqr.linearize(sm_system, res_sm.xs, res_sm.us)
+    assert dispatch.count("transform", "vjp") > 0
+    assert not any(k.startswith("torch_path") for k in dispatch.counts()), dispatch.counts()
     assert counts.get("elementwise:fused", 0) > 0  # the rollout, outside any transform
     _close(res_sm.cost, res_native.cost, 1e-4)
     _close(res_sm.us, res_native.us, 1e-3, 1e-4)
@@ -421,7 +391,7 @@ def test_dynamics_via_sm_api():
 
 
 def test_sm_ops_under_grad_and_vmap():
-    """The engine's plain route under each transform the solver uses, and
+    """The autodiff route under each transform the solver uses, and
     outside them the ordinary route; reductions too."""
     x = torch.tensor([0.3, -1.2, 2.0])
 
@@ -431,7 +401,9 @@ def test_sm_ops_under_grad_and_vmap():
 
     dispatch.reset()
     g = torch.func.grad(f)(x)
-    assert dispatch.count("torch_path", "sin") == 1
+    assert dispatch.count("transform", "sin") == 1
+    assert dispatch.count("transform", "reduce_sum") == 1
+    assert not any(k.startswith("torch_path") for k in dispatch.counts())
     _close(g, torch.cos(x) * x + torch.sin(x) + 0.5, 1e-6)
     v = torch.func.vmap(f)(torch.stack([x, 2 * x]))
     _close(v, torch.stack([f(x), f(2 * x)]), 1e-6)
@@ -444,9 +416,13 @@ def test_sm_ops_under_grad_and_vmap():
 
 @pytest.mark.parametrize("deferred", [False, True], ids=["eager", "lazy"])
 def test_sm_ops_under_a_transform_raise_off_the_cpu(deferred):
-    """Off the CPU no plain fallback takes a transformed tensor: the op
-    raises, whether the lazy queue is on or off, and so does a reduction.
-    A meta tensor stands in for a tensor on the card."""
+    """Off the CPU no plain fallback takes a transformed tensor: the op goes
+    to ops/autodiff.py (recorded as transform:<op>), whose Function hands
+    the unwrapped tensor to the kernel's wrapper, and a tensor the kernels
+    do not run on raises there, whether the lazy queue is on or off, and so
+    does a reduction.  A meta tensor stands in for a device without the
+    kernels (on the card the same route launches them:
+    tests/test_torch_kernel_cuda.py)."""
     x = torch.zeros(3, device="meta")
 
     def f(t):
@@ -463,8 +439,11 @@ def test_sm_ops_under_a_transform_raise_off_the_cpu(deferred):
                     lambda: torch.func.vmap(f)(torch.zeros(2, 3, device="meta")),
                     lambda: torch.func.jvp(f, (x,), (torch.zeros(3, device="meta"),)),
                     lambda: torch.func.grad(red)(x)):
-            with pytest.raises(NotImplementedError, match="torch.func"):
+            dispatch.reset()
+            with pytest.raises(ValueError, match="CUDA tensors, not meta"):
                 run()
+            assert any(k.startswith("transform:") for k in dispatch.counts())
+            assert not any(k.startswith("torch_path") for k in dispatch.counts())
     finally:
         sm.configure(deferred_eager=old)
 

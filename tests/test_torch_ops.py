@@ -301,8 +301,8 @@ def test_lowering_inserts_casts_and_types_comparisons():
 
 
 @pytest.mark.parametrize("dtype,kernel", [
-    (torch.float64, False), (torch.int64, False), (torch.bfloat16, False),
-    (torch.float32, True), (torch.int32, True),
+    (torch.float64, False), (torch.int64, False), (torch.bfloat16, True),
+    (torch.float32, True), (torch.int32, True), (torch.uint32, True), (torch.float16, False),
 ])
 def test_kernel_takes_only_its_dtypes(dtype, kernel):
     la, lb = program.leaf((2,), dtype), program.leaf((2,), dtype)
@@ -375,8 +375,12 @@ _U32_PROGRAMS = {
 
 @pytest.mark.parametrize("name", sorted(_U32_PROGRAMS))
 def test_uint32_runs_widened_on_the_torch_path(name):
-    """torch implements little uint32 arithmetic on the CPU: the plain path
-    widens to int64 and wraps back, matching the JAX package."""
+    """uint32 runs the kernel's opcodes (the int32 ones where the bits are
+    the same, unsigned compare, max and floor division, the U2F cast of
+    true division) and matches the JAX package.  torch implements little
+    uint32 arithmetic on the CPU, so the kernel's plain version widens to
+    int64 and wraps back; ipow, which has no uint32 opcode, runs as plain
+    torch so."""
     a = np.array([1, 5, 4294967295, 70000], np.uint32)
     b = np.array([3, 2, 2, 70000], np.uint32)
     f = _U32_PROGRAMS[name]
@@ -385,7 +389,9 @@ def test_uint32_runs_widened_on_the_torch_path(name):
     want = f(jsm, jsm.Array(a), jsm.Array(b)).numpy()
     assert dtypes.name(got.dtype) == want.dtype.name
     np.testing.assert_array_equal(got.numpy(), want)
-    assert sum(v for k, v in dispatch.counts().items() if k.startswith("torch_path")) == 1
+    counts = dispatch.counts()
+    assert sum(v for k, v in counts.items() if k.startswith("torch_path")) == (name == "ipow")
+    assert sum(v for k, v in counts.items() if k.startswith("elementwise")) == (name != "ipow")
 
 
 @pytest.mark.parametrize("name", ["add", "pow"])
@@ -399,4 +405,130 @@ def test_bfloat16_runs_on_the_torch_path(rng, name):
     want = run(jsm, jsm.Array(x, dtype="bfloat16"), jsm.Array(y, dtype="bfloat16"))
     assert got.dtype == torch.bfloat16 and want.dtype == np.dtype("bfloat16")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want.numpy(), np.float32))
-    assert sum(v for k, v in dispatch.counts().items() if k.startswith("torch_path")) == 1
+    # bfloat16 runs the kernel (float32 opcodes, each result rounded to
+    # bfloat16); this checks its plain version.
+    counts = dispatch.counts()
+    assert not any(k.startswith("torch_path") for k in counts)
+    assert sum(v for k, v in counts.items() if k.startswith("elementwise")) == 1
+
+
+# -------------------------------------- bfloat16 and uint32 on the kernel
+def _bf16_ulps(got, want):
+    """Largest distance in bfloat16 ulps (the values' own spacing), NaN ==
+    NaN."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    spacing = np.maximum(np.abs(w), 2.0 ** -126) * 2.0 ** -7
+    with np.errstate(invalid="ignore"):
+        d = np.where(same, 0.0, np.abs(g - w) / spacing)
+    return float(np.nan_to_num(d, nan=np.inf).max(initial=0.0))
+
+
+_BF16_OPS = {
+    **{n: (lambda n: lambda m, a, b: m.apply_op(n, a, b))(n) for n in _BINARY},
+    **{n: (lambda n: lambda m, a, b: getattr(m, n)(a))(n) for n in _UNARY},
+    **{n: (lambda n: lambda m, a, b: getattr(m, n)(a))(n)
+       for n in ("exp", "log", "exp2", "log2", "tanh", "sin", "cos", "tan")},
+    "where": lambda m, a, b: m.where(a > b, a, b),
+    "clip": lambda m, a, b: m.clip(a, -1.5, b),
+    "pow": lambda m, a, b: m.pow(m.abs(a), b),
+    "pow_static_3": lambda m, a, b: a ** 3,
+    "scalar": lambda m, a, b: a * 2.5 - 1.0,
+    "int32_operand": lambda m, a, b: a + m.Array(np.arange(-6, 6, dtype=np.int32).repeat(22)[:256]),
+    "float32_operand": lambda m, a, b: a * m.Array(np.linspace(-3, 3, 256, dtype=np.float32)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BF16_OPS))
+def test_bfloat16_op_by_op_matches_jax(rng, name):
+    """Every op on bfloat16 runs the kernel's float32 opcode and rounds its
+    result to bfloat16 once (casts from int32 and to float32 included):
+    the JAX package's values op by op, bit for bit, where its ops are
+    computed one at a time (deferred queue off on both sides); sin, cos and
+    tan are torch's and XLA's own, within 1 bfloat16 ulp."""
+    from simplemath_tpu.config import config as jconfig
+    from simplemath_tpu_torch.config import config
+
+    x = np.concatenate([rng.uniform(-4, 4, 250), [0.0, -0.0, 1.0, np.inf, -2.0, np.nan]])
+    y = rng.uniform(-2, 2, 256)
+    x, y = x.astype(np.float32), y.astype(np.float32)
+    f = _BF16_OPS[name]
+    old = (config.deferred_eager, jconfig.deferred_eager)
+    config.deferred_eager = jconfig.deferred_eager = False
+    try:
+        dispatch.reset()
+        got = f(sm, sm.Array(x, dtype="bfloat16"), sm.Array(y, dtype="bfloat16"))
+        counts = dispatch.counts()
+        want = f(jsm, jsm.Array(x, dtype="bfloat16"), jsm.Array(y, dtype="bfloat16"))
+    finally:
+        config.deferred_eager, jconfig.deferred_eager = old
+    want_np = np.asarray(want.numpy())
+    assert dtypes.name(got.dtype) == want_np.dtype.name
+    assert not any(k.startswith("torch_path") for k in counts), counts
+    g, w = got.numpy().astype(np.float64), want_np.astype(np.float64)
+    if name in ("sin", "cos", "tan"):
+        assert _bf16_ulps(g, w) <= 1.0
+    else:
+        np.testing.assert_array_equal(g, w)
+
+
+def test_bfloat16_chain_rounds_where_jnp_rounds(rng):
+    """A chain of bfloat16 ops recorded by the lazy queue (one program)
+    gives the bits of the same ops run one by one: the kernel rounds each
+    bfloat16 result.  XLA's CPU fusion of the JAX package's lazy chain keeps
+    a float32 intermediate where jnp's ops round (a / (b * b + 1.0) differs
+    by up to 2 bfloat16 ulps), so against it the chain is held within 3
+    ulps (2 of the division, 1 of the last rounding) of the sum of its
+    terms' magnitudes; op by op, and against the JAX package's sm.fuse, it
+    is equal."""
+    from simplemath_tpu_torch.config import config
+
+    x, y, z = (rng.standard_normal(4096).astype(np.float32) for _ in range(3))
+
+    def chain(m, a, b, c):
+        return (a + b) * c - a / (b * b + 1.0)
+
+    port = [sm.Array(v, dtype="bfloat16") for v in (x, y, z)]
+    ref = [jsm.Array(v, dtype="bfloat16") for v in (x, y, z)]
+    lazy = chain(sm, *port).numpy()
+    old = config.deferred_eager
+    config.deferred_eager = False
+    try:
+        eager = chain(sm, *port).numpy()
+    finally:
+        config.deferred_eager = old
+    np.testing.assert_array_equal(lazy, eager)
+    fused = np.asarray(jsm.fuse(lambda a, b, c: chain(jsm, a, b, c))(*ref).numpy(), np.float32)
+    np.testing.assert_array_equal(lazy, fused)
+    jax_lazy = np.asarray(chain(jsm, *ref).numpy(), np.float64)
+    fx, fy, fz = (np.asarray(r.numpy(), np.float64) for r in ref)
+    scale = np.abs((fx + fy) * fz) + np.abs(fx / (fy * fy + 1.0))
+    assert np.all(np.abs(lazy - jax_lazy) <= 3 * 2.0 ** -7 * scale)
+
+
+_U32_MORE = {
+    "remainder": lambda m, x, y: x % y, "minimum": lambda m, x, y: m.minimum(x, y),
+    "less_equal": lambda m, x, y: x <= y, "greater": lambda m, x, y: x > y,
+    "greater_equal": lambda m, x, y: x >= y, "not_equal": lambda m, x, y: x != y,
+    "abs": lambda m, x, y: m.abs(x), "sign": lambda m, x, y: m.sign(x),
+    "square": lambda m, x, y: m.square(x), "weak_int": lambda m, x, y: x * 3 + 7,
+    "bool": lambda m, x, y: x + (x > y), "float32": lambda m, x, y: x * m.Array(
+        np.array([0.5, -1.0, 2.0, 3.0, 1.0, 0.0], np.float32)),
+    "fused": lambda m, x, y: m.fuse(lambda a, b: m.where(a > b, a // b, a % b) - b)(x, y),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_U32_MORE))
+def test_uint32_opcodes_match_jax(name):
+    """The unsigned opcodes (compare, max/min, sign, abs, floor division and
+    remainder), the int32 ones uint32 shares, and the casts to float32 and
+    from bool, on values above 2**31: the JAX package's, exactly."""
+    a = np.array([1, 5, 4294967295, 70000, 2147483648, 0], np.uint32)
+    b = np.array([3, 2, 2, 70000, 7, 4294967295], np.uint32)
+    f = _U32_MORE[name]
+    dispatch.reset()
+    got = f(sm, sm.Array(a), sm.Array(b))
+    want = f(jsm, jsm.Array(a), jsm.Array(b)).numpy()
+    assert dtypes.name(got.dtype) == want.dtype.name
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not any(k.startswith("torch_path") for k in dispatch.counts())

@@ -519,7 +519,7 @@ def _path_cases():
     wide = _aligned(R, C + 4)
     row, col, one = _aligned(1, C), _aligned(R, 1), _aligned(1, 1)
     mask = a > 3.0
-    ident = reduction._identity(torch.float32)
+    ident = reduction.identity(torch.float32)
     mul = lambda p, q: p * q  # noqa: E731
     thr = lambda p, s: sm.where(p > s, p, 0.0)  # noqa: E731
     shifted = elementwise.View(_aligned(n + 1), 1, (n,), (1,))
@@ -613,10 +613,12 @@ def test_reach_of_the_operands():
 
 def test_hoisted_opcodes_are_the_cheap_ones():
     """The hoisted loop takes every opcode but the transcendental and
-    trigonometric functions and the integer power."""
+    trigonometric functions, the integer power, and the unsigned, bit-copy
+    and integer-division opcodes."""
     left = {program.OPCODES[i] for i in range(len(program.OPCODES)) if i not in reduction.HOISTED}
     assert left == {"EXP_F", "LOG_F", "EXP2_F", "LOG2_F", "TANH_F", "SIN_F", "COS_F", "TAN_F",
-                    "POW_F", "IPOW_I"}
+                    "POW_F", "IPOW_I", "LT_U", "LE_U", "GT_U", "GE_U", "MAX_U", "MIN_U",
+                    "SIGN_U", "U2F", "F2U", "BITS", "FDIV_I", "MOD_I", "FDIV_U", "MOD_U"}
 
 
 _GRID_SHAPES = [(1, 1), (7, 5), (1, 64), (64, 1), (2048, 8), (300, 257), (33, 128), (65, 132),
@@ -676,3 +678,50 @@ def test_ops_package_exposes_what_the_reference_does():
 
     for name in ("elementwise", "engine", "matmul", "reduction", "registry", "transcendental"):
         assert hasattr(jops, name) and hasattr(pops, name), name
+
+
+# ------------------------------------------- bfloat16 and float16 inputs
+def _half_ulps(got, want, dtype):
+    """Distance in units of the type's spacing at ``want`` (the values are
+    sums accumulated in float32 and rounded once)."""
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    eps = 2.0 ** (-7 if dtype == "bfloat16" else -10)
+    return float((np.abs(g - w) / np.maximum(np.abs(w) * eps, 1e-30)).max(initial=0.0))
+
+
+@pytest.mark.parametrize("kind", ["sum", "mean", "max", "min"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_half_precision_reductions_take_the_kernel(rng, dtype, kind):
+    """bfloat16 and float16 full and axis reductions run the map-reduce
+    kernel (float32 accumulation, the result cast to the input's type), as
+    the JAX package sends them to its Pallas reductions: the same dispatch
+    names, no plain torch, and the JAX package's values within one unit of
+    the type's spacing (the two float32 sums round alike but for order);
+    max and min exactly."""
+    x = rng.standard_normal((33, 47)).astype(np.float32)
+    ja, pa = jsm.Array(x, dtype=dtype), sm.Array(x, dtype=dtype)
+    for axis in (None, 0, 1, -1):
+        jdispatch.reset()
+        dispatch.reset()
+        want = getattr(ja, kind)(axis=axis)
+        got = getattr(pa, kind)(axis=axis)
+        _same_dtype(got, want)
+        assert _kernel_counts(dispatch.counts()) == _kernel_counts(jdispatch.counts())
+        assert not any(k.startswith("torch_path") for k in dispatch.counts())
+        g, w = got.numpy().astype(np.float64), np.asarray(want.numpy(), np.float64)
+        if kind in ("max", "min"):
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert _half_ulps(g, w, dtype) <= 1.0
+
+
+def test_bfloat16_dot_runs_the_kernel(rng):
+    """The 1-D dot of bfloat16 vectors: float32 products summed in float32
+    (``_build_dot1d``), the result bfloat16, through dot1d."""
+    a, b = (rng.standard_normal(4096 * 3 + 777).astype(np.float32) for _ in range(2))
+    want = jsm.dot(jsm.Array(a, dtype="bfloat16"), jsm.Array(b, dtype="bfloat16"))
+    got = sm.dot(sm.Array(a, dtype="bfloat16"), sm.Array(b, dtype="bfloat16"))
+    _same_dtype(got, want)
+    assert dispatch.count("dot1d") == 1 and not any(
+        k.startswith("torch_path") for k in dispatch.counts())
+    assert _half_ulps(float(got), float(np.asarray(want.numpy(), np.float64)), "bfloat16") <= 1.0

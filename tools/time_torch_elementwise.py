@@ -29,18 +29,29 @@ ragged tail, and prints device times (CUDA events, as
 
 ``--root DIR`` takes the package and ``chip_smoke.py`` from another checkout
 (the parent commit, unpacked beside this one), so that two versions are timed
-in one call on one card.  Imports no jax.
+in one call on one card.  ``--host`` times the public API's host cost alone:
+``sm.add`` of two arrays and of a view, a lazy chain and ``Array.sum()`` on
+4096 floats (device work of microseconds), beside ``torch.add`` and the
+elementwise wrapper called directly on the same add, each as the median wall time of
+one call ending in a synchronize (``chip_smoke.host_ms``), as the wall
+time per call of 2000 calls issued back to back, and as the least of 20
+runs of 100 such calls (the run the shared host disturbed least).  Imports
+no jax.
 """
 
 import json
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 ARGS = sys.argv[1:]
+HOST = "--host" in ARGS
+if HOST:
+    ARGS.remove("--host")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 if "--root" in ARGS:
     i = ARGS.index("--root")
@@ -101,6 +112,47 @@ def strided(run, f32, t):
     return times
 
 
+def host_times(f32):
+    """Host milliseconds of public-API calls whose device work is a few
+    microseconds."""
+    import simplemath_tpu_torch as sm
+
+    n = 4096
+    x, y = sm.Array(f32(n)), sm.Array(f32(n))
+    xt, yt = x.torch(), y.torch()
+    view = sm.Array(f32(2 * n))[::2]
+    leaves = [program.leaf((n,), torch.float32) for _ in range(2)]
+    add = program.lower(leaves[0] + leaves[1], leaves)
+    calls = {
+        # The same add by the library and by the kernel's wrapper alone:
+        # the first is the same code in both trees (the host's own drift).
+        "torch_add": lambda: torch.add(xt, yt),
+        "wrapper_add": lambda: elementwise.elementwise(add, (n,), torch.float32, xt, yt),
+        "add": lambda: sm.add(x, y).torch(),
+        "add_view": lambda: sm.add(view, y).torch(),
+        "chain": lambda: (x * y + x - y).torch(),
+        "sum": lambda: x.sum().torch(),
+    }
+    out = {}
+    for name, fn in calls.items():
+        out[f"{name}_host_ms"] = chip_smoke.host_ms(fn, reps=21)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_call"] = (time.perf_counter() - t0) / 2000 * 1e3
+        runs = []  # the least disturbed of 20 runs of 100 calls: the host's own cost
+        for _ in range(20):
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / 100 * 1e3)
+        out[f"{name}_best_ms_per_call"] = min(runs)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("time_torch_elementwise: no CUDA device is visible", file=sys.stderr)
@@ -120,6 +172,10 @@ def main():
 
     def f32(n):
         return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+
+    if HOST:
+        print(f"{card}: " + json.dumps({"root": str(ROOT), **host_times(f32)}))
+        return 0
 
     def run(prog, *operands):
         shape = max((tuple(o.shape) for o in operands), key=len)

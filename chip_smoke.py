@@ -43,7 +43,10 @@ device:
    transposed and a negative-step view, NaN, the f32, int32 (exact, with
    its wraparound) and f32.int32 dots, a map-reduce with a (1, C) row and
    an (R, 1) column operand, axis 0 and 1, bfloat16 and float16 inputs
-   full and along both axes and a bfloat16 map-reduce; sums and dots within
+   full and along both axes (8-byte quads on the ``direct`` loop where the
+   operand and its rows allow them, each the bits of the same values 2
+   bytes off, on the ``element`` path) and bfloat16 map-reduces on
+   ``lanes4`` and on ``single`` (rounded on each lane); sums and dots within
    2e-5 * sum|x| of the plain version and of float64 numpy, max/min and
    the int32 dot exact, every result bit-identical across two launches),
    each on the path ``reduction.PATHS`` must name: ``direct`` (identity),
@@ -59,9 +62,13 @@ device:
    counts each call's launches by entry point; then, through the public
    API too, the 1M add in bfloat16 and in uint32, int32 ``//`` of 1M, the
    L = 400 recurrence on bfloat16 arrays, ``Array.sum()`` of the 64M
-   values in bfloat16 and ``sm.fuse``'s reduction root ``sum(a * a + a)``
+   values in bfloat16 and in float16, their axis-0 sum as an (8192, 8192)
+   bfloat16 matrix and ``sm.fuse``'s reduction root ``sum(a * a + a)``
    over the 1M bfloat16 array, each one launch, none on the plain torch
-   route, held to their plain versions and to numpy;
+   route, held to their plain versions and to numpy; the bfloat16 add and
+   sums on the 2-byte quad paths by their counters (``ew_flat`` "wide",
+   ``rd_*`` ``direct``) and bit for bit the element path's on the same
+   values 2 bytes off;
 5c. ``sm`` ops under ``torch.func`` on each kernel family, under sync
    debug mode ``"error"``: ``sm.fuse``'s matmul root ``tanh(x @ w + b)``
    at (2048, 2048) @ (2048, 2048) under ``grad``, ``jvp`` and ``vmap``
@@ -80,7 +87,10 @@ device:
    who adds the same arrays sees), and over a ring of operands and results
    past the L2, which is what the kernels line holds against the bound at
    the device-memory rate; and a chain of three instructions on 16M floats;
-   the bfloat16, uint32 and ``//`` workloads of phase 5b the same way;
+   the bfloat16, uint32 and ``//`` workloads of phase 5b the same way,
+   the 2-byte quad paths beside their element paths (the same values 2
+   bytes off), the 16M bfloat16 add, the bfloat16 axis-0 sum and the
+   float16 sum beside ``torch.add``/``torch.sum``;
 7. the matmul path: holds the matmul kernel against its plain version on
    the card (f32, bf16, int8/uint8 and a wrapping int32; the ragged
    (300, 270) @ (270, 515); a transposed and a negative-step view operand;
@@ -160,8 +170,8 @@ device:
    kernel, the interpreter's time beside it; ``mm`` and ``bmm`` with their
    bf16 times, ``mm_int8``, ``mm_f32``, ``bmm_f32``, ``mm_int32`` and
    ``mm_int64`` beside them; ``ew_flat_bf16``, ``ew_flat_uint32``,
-   ``ew_flat_idiv``, ``ew_strided_bf16`` and ``rd_full_bf16`` as phase 5b's
-   workloads), then
+   ``ew_flat_idiv``, ``ew_strided_bf16``, ``rd_full_bf16``, ``rd_axis_bf16``
+   and ``rd_full_f16`` as phase 5b's workloads), then
    ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
@@ -362,6 +372,16 @@ def same_bits(a, b):
     import torch
 
     return torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
+
+
+def two_bytes_off(t):
+    """A contiguous copy of the 2-byte tensor ``t`` 2 bytes past a 16-byte
+    boundary: the same values on the element path."""
+    import torch
+
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    at = (-buf.data_ptr() // 2) % 8 + 1
+    return buf[at:at + t.numel()].view(t.shape).copy_(t)
 
 
 def times_one(shape):
@@ -661,33 +681,53 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
         "sums within 2e-5*sum|x|, max/min exact, bits repeat")
 
     # bfloat16 and float16 inputs: widened exactly at the load and summed in
-    # float32, on the element path (2-byte elements), full and along both
-    # axes; a map-reduce of a bfloat16 program rounds each instruction's
-    # result in the register (lanes4).
+    # float32.  ``half`` is contiguous: in full the direct loop's 8-byte
+    # quads, and along an axis, its rows of 1030 elements being no whole
+    # quads, the element path; ``rows`` keeps the rows of the wider base
+    # (whole quads): the direct loop along both axes.  Each gives the bits
+    # of the same values 2 bytes off (the element path).  A map-reduce of a
+    # bfloat16 program rounds each instruction's result in the register
+    # (lanes4), and its sum of one instruction on each lane (single).
     for dtype in (torch.bfloat16, torch.float16):
         half = rag.to(dtype)
+        wide_base = base.to(dtype)
+        rows, rows_off = wide_base[:, :C], two_bytes_off(wide_base)[:, :C]
+        half_off = two_bytes_off(half)
         h64 = half.double().cpu().numpy()
         for kind in ("sum", "max", "min"):
             ref = {"sum": h64.sum, "max": h64.max, "min": h64.min}[kind]
-            k = on_path("element", lambda: reduction.reduce(half, kind))
+            k = on_path("direct", lambda: reduction.reduce(half, kind))
             agree("rd_full", f"{dtype} ({R},{C}) {kind}", k, reduction._plain(half, kind), ref(),
                   float(np.abs(h64).sum()), kind != "sum")
+            check(same_bits(k, on_path("element", lambda: reduction.reduce(half_off, kind))),
+                  f"{dtype} ({R},{C}) {kind}: the direct path != the element path 2 bytes off")
             for ax in (0, 1):
                 k = on_path("element", lambda: reduction.reduce_axis(half, kind, ax))
                 agree("rd_axis", f"{dtype} ({R},{C}) axis {ax} {kind}", k,
                       reduction._plain(half, kind, ax), ref(axis=ax), np.abs(h64).sum(axis=ax),
                       kind != "sum")
+                k = on_path("direct", lambda: reduction.reduce_axis(rows, kind, ax))
+                agree("rd_axis", f"{dtype} rows of a wider base axis {ax} {kind}", k,
+                      reduction._plain(rows, kind, ax), ref(axis=ax), np.abs(h64).sum(axis=ax),
+                      kind != "sum")
+                check(same_bits(k, on_path("element", lambda: reduction.reduce_axis(rows_off, kind, ax))),
+                      f"{dtype} axis {ax} {kind}: the direct path != the element path 2 bytes off")
     hb = rag.bfloat16()
+    hb_off = two_bytes_off(hb)
     lh = program.leaf((R, C), torch.bfloat16)
-    prog = program.lower(lh * lh + lh, [lh])
-    vals = reduction.values(prog, (R, C), [hb], dev)
-    v64 = vals.double().cpu().numpy()
-    k = on_path("element", lambda: reduction.map_reduce(prog, "sum", (R, C), hb))
-    agree("rd_full", "bfloat16 map-reduce x*x+x", k, reduction._plain(vals, "sum"), v64.sum(),
-          float(np.abs(v64).sum()), False)
-    log(f"check rd_full/rd_axis on bfloat16 and float16 ({R},{C}), full and axis 0 and 1 "
-        "(element path), and a bfloat16 map-reduce x*x+x: sums within 2e-5*sum|x| of the plain "
-        "version and of float64, max/min exact, bits repeat")
+    for label, prog, path in (("x*x+x", program.lower(lh * lh + lh, [lh]), "lanes4"),
+                              ("x*2.5", program.lower(lh * 2.5, [lh]), "single")):
+        vals = reduction.values(prog, (R, C), [hb], dev)
+        v64 = vals.double().cpu().numpy()
+        k = on_path(path, lambda: reduction.map_reduce(prog, "sum", (R, C), hb))
+        agree("rd_full", f"bfloat16 map-reduce {label}", k, reduction._plain(vals, "sum"), v64.sum(),
+              float(np.abs(v64).sum()), False)
+        check(same_bits(k, on_path("element", lambda: reduction.map_reduce(prog, "sum", (R, C), hb_off))),
+              f"bfloat16 map-reduce {label}: path {path} != the element path 2 bytes off")
+    log(f"check rd_full/rd_axis on bfloat16 and float16 ({R},{C}): full (direct) and along axis 0 "
+        "and 1 (element; rows of whole quads: direct), and the bfloat16 map-reduces x*x+x (lanes4) "
+        "and x*2.5 (single, rounded on each lane): sums within 2e-5*sum|x| of the plain version and "
+        "of float64, max/min exact, bits repeat, each the bits of the element path 2 bytes off")
     return err
 
 
@@ -1865,7 +1905,11 @@ def main():
     # ---------------------- 5b. bfloat16, uint32, integer floor division
     # Through the public API: the 1M add in bfloat16 and in uint32, int32 //
     # of 1M (divisors 0 and -1 among them), the L = 400 recurrence on
-    # bfloat16 arrays, and Array.sum() of the 64M values in bfloat16.
+    # bfloat16 arrays, Array.sum() of the 64M values in bfloat16 and in
+    # float16, and the axis-0 sum of them as an (8192, 8192) bfloat16 matrix.
+    # The bfloat16 add and sums take the 2-byte quad paths (ew_flat "wide",
+    # rd_* "direct"), by their counters, and give the bits of the element
+    # path on the same values 2 bytes off.
     bf_a, bf_b = sm.Array(add_a.torch().bfloat16()), sm.Array(add_b.torch().bfloat16())
     u_np = [rng.integers(0, 2**32, N_ADD, dtype=np.uint64).astype(np.uint32) for _ in range(2)]
     u_a, u_b = (sm.Array(x) for x in u_np)
@@ -1883,6 +1927,8 @@ def main():
         sm.Array(fe.torch().bfloat16())
     fused16 = sm.fuse(chain16, donate=0, iterations=400)
     x16 = sm.Array(x_big.torch().bfloat16())
+    m16 = sm.Array(x16.torch().reshape(N_AXIS, N_AXIS))
+    xh = sm.Array(x_big.torch().half())
     fused16(acc16, fa16, fe16).torch()  # NVRTC compiles the bfloat16 program's kernel once
     torch.cuda.synchronize()
     fsum16 = sm.fuse(lambda a: sm.sum(a * a + a))
@@ -1892,9 +1938,11 @@ def main():
         ("ew_flat_idiv", "int32 // 1M", lambda: i_a // i_d),
         ("ew_strided_bf16", "fused recurrence L=400 bfloat16", lambda: fused16(acc16, fa16, fe16)),
         ("rd_full_bf16", "Array.sum() 64M bfloat16", lambda: x16.sum()),
+        ("rd_axis_bf16", "Array.sum(axis=0) (8192, 8192) bfloat16", lambda: m16.sum(axis=0)),
+        ("rd_full_f16", "Array.sum() 64M float16", lambda: xh.sum()),
         ("rd_full_bf16_fused", "sm.fuse sum(a*a+a) 1M bfloat16", lambda: fsum16(bf_a)),
     ]
-    half_out, half_launches = {}, {}
+    half_out, half_launches, half_paths = {}, {}, {}
     for key, label, call in half_calls:
         elementwise.reset_launches()
         reduction.reset_launches()
@@ -1902,15 +1950,23 @@ def main():
         half_out[key] = call().torch()
         torch.cuda.synchronize()
         half_launches[key] = {**elementwise.LAUNCHES, **reduction.LAUNCHES}
+        half_paths[key] = {**{f"ew_flat:{k}": v for k, v in elementwise.FLAT_PATHS.items() if v},
+                           **{f"rd:{k}": v for k, v in reduction.PATHS.items() if v}}
         counts = dispatch.counts()
         check(not any(k.startswith("torch_path") for k in counts),
               f"{label} took the plain torch route: {counts}")
-        log(f"{label}: launches {half_launches[key]} dispatch {counts}")
+        log(f"{label}: launches {half_launches[key]} paths {half_paths[key]} dispatch {counts}")
     check(half_launches["ew_flat_bf16"]["ew_flat"] == 1 and half_launches["ew_flat_uint32"]["ew_flat"] == 1
           and half_launches["ew_flat_idiv"]["ew_flat"] == 1, "a 1M op did not launch ew_flat once")
     check(half_launches["ew_strided_bf16"]["ew_strided"] == 1, "the bfloat16 recurrence did not "
           "launch ew_strided once")
     check(half_launches["rd_full_bf16"]["rd_full"] == 1, "the bfloat16 sum did not launch rd_full once")
+    check(half_launches["rd_axis_bf16"]["rd_axis"] == 1 and half_launches["rd_full_f16"]["rd_full"] == 1,
+          "the bfloat16 axis sum or the float16 sum did not launch its kernel once")
+    # The 2-byte quad paths, by their counters.
+    for key, want in (("ew_flat_bf16", {"ew_flat:wide": 1}), ("rd_full_bf16", {"rd:direct": 1}),
+                      ("rd_axis_bf16", {"rd:direct": 1}), ("rd_full_f16", {"rd:direct": 1})):
+        check(half_paths[key] == want, f"{key} took {half_paths[key]}, not {want}")
     check(half_launches["rd_full_bf16_fused"]["rd_full"] == 1
           and half_launches["rd_full_bf16_fused"]["ew_flat"] == 0,
           "the bfloat16 fused reduction root did not launch rd_full once, alone")
@@ -1919,6 +1975,31 @@ def main():
     check(torch.equal(bits(half_out["ew_flat_bf16"]), bits(want)), "sm.add bfloat16 is not the "
           "float32 sum rounded once")
     half_err["ew_flat_bf16"] = 0.0
+    # The same add and sums on the element path: the same values 2 bytes off.
+    add16 = binop("add", (N_ADD,), (N_ADD,), torch.bfloat16)
+    a_off, b_off = two_bytes_off(bf_a.torch()), two_bytes_off(bf_b.torch())
+    elementwise.reset_launches()
+    add_off = elementwise.elementwise(add16, (N_ADD,), torch.bfloat16, a_off, b_off)
+    torch.cuda.synchronize()
+    check(elementwise.FLAT_PATHS == {"wide": 0, "element": 1}, "the add 2 bytes off took "
+          f"{elementwise.FLAT_PATHS}, not the element path")
+    check(torch.equal(half_out["ew_flat_bf16"].view(torch.int16), add_off.view(torch.int16)),
+          "sm.add bfloat16 on the wide path differs from the element path")
+    x16_off = two_bytes_off(x16.torch())
+    for key, fn, fn_off in (
+            ("rd_full_bf16", lambda: reduction.reduce(x16.torch(), "sum"),
+             lambda: reduction.reduce(x16_off, "sum")),
+            ("rd_axis_bf16", lambda: reduction.reduce_axis(m16.torch(), "sum", 0),
+             lambda: reduction.reduce_axis(x16_off.view(N_AXIS, N_AXIS), "sum", 0))):
+        reduction.reset_launches()
+        k32, e32 = fn(), fn_off()
+        torch.cuda.synchronize()
+        check(reduction.PATHS == {"direct": 1, "single": 0, "lanes4": 0, "element": 1},
+              f"{key}: the quad and element runs took {reduction.PATHS}")
+        check(same_bits(k32, e32), f"{key}: the direct path differs from the element path")
+        check(torch.equal(bits(k32.bfloat16()), bits(half_out[key])), f"{key}: Array.sum is not "
+              "the kernel's float32 sum rounded once")
+    del x16_off, a_off, b_off
     want_u = (u_np[0].astype(np.uint64) + u_np[1].astype(np.uint64)) % 2**32
     check(np.array_equal(bits(half_out["ew_flat_uint32"]).cpu().numpy().view(np.uint32),
                          want_u.astype(np.uint32)), "sm.add uint32 does not wrap mod 2**32")
@@ -1950,6 +2031,19 @@ def main():
     check(abs(float(k16) - float(x16_64.sum())) <= 2e-5 * float(x16_64.abs().sum()),
           "the bfloat16 sum is beyond 2e-5*sum|x| of float64")
     half_err["rd_full_bf16"] = abs(float(k16) - float(p16))
+    m16_64 = m16.torch().double()
+    ka = half_out["rd_axis_bf16"]
+    pa16 = reduction._plain(m16.torch(), "sum", 0).bfloat16()
+    check(ka.dtype == torch.bfloat16 and bool((ka.double() - m16_64.sum(0)).abs().le(
+        2e-5 * m16_64.abs().sum(0) + 2.0 ** -8 * m16_64.sum(0).abs()).all()),
+        "the bfloat16 axis-0 sum is beyond 2e-5*sum|x| and one bfloat16 rounding of float64")
+    half_err["rd_axis_bf16"] = float((ka.float() - pa16.float()).abs().max())
+    xh64 = xh.torch().double()
+    kh = half_out["rd_full_f16"]
+    check(kh.dtype == torch.float16 and abs(float(kh) - float(xh64.sum()))
+          <= 2e-5 * float(xh64.abs().sum()) + 2.0 ** -11 * abs(float(xh64.sum())),
+          "the float16 sum is beyond 2e-5*sum|x| and one float16 rounding of float64")
+    half_err["rd_full_f16"] = abs(float(kh) - float(reduction._plain(xh.torch(), "sum").half()))
     la = program.leaf((N_ADD,), torch.bfloat16)
     mapped = program.run_plain(program.lower(la * la + la, [la]), [bf_a.torch()], (N_ADD,)).double()
     kf = half_out["rd_full_bf16_fused"]
@@ -2133,7 +2227,6 @@ def main():
                                    for _ in range(2)))
     d_ring = ring_of(lambda: (on(rng.integers(-2**31, 2**31, N_ADD, dtype=np.int64).astype(np.int32)),
                               on(rng.choice([-7, -3, -1, 1, 2, 5, 11, 1000], N_ADD).astype(np.int32))))
-    add16 = binop("add", (N_ADD,), (N_ADD,), torch.bfloat16)
     addu = binop("add", (N_ADD,), (N_ADD,), torch.uint32)
 
     def u_library(a, b):  # torch has no uint32 add on the card: the same bits through int32
@@ -2151,10 +2244,40 @@ def main():
         "fused400_bf16_ms": time_ms(lambda: fused16(acc16, fa16, fe16).torch(), n=1),
         "fused400_bf16_plain_ms": time_ms(lambda: program.run_plain(prog16, plain16_in, sq16, 400, 0),
                                           reps=1),
-        "sum_bf16_ms": timed_on("element", lambda: reduction.reduce(x16.torch(), "sum")),
+        "sum_bf16_ms": timed_on("direct", lambda: reduction.reduce(x16.torch(), "sum")),
         "sum_bf16_plain_ms": time_ms(lambda: reduction._plain(x16.torch(), "sum"), n=20),
         "sum_bf16_library_ms": time_ms(lambda: torch.sum(x16.torch()), n=20),
     }
+    # The 2-byte quad paths past the L2 beside their element paths (the same
+    # values 2 bytes off) and the library: the 1M bfloat16 add over a ring of
+    # operands so placed, the 16M add (96 MiB), the axis-0 sum of the 64M
+    # bfloat16 values as (8192, 8192), the 64M float16 sum.
+    bf_off = [(two_bytes_off(a), two_bytes_off(b)) for a, b in bf_ring]
+    ht["add_bf16_element_ms"] = ring_time(bf_off, lambda a, b: elementwise.elementwise(
+        add16, (N_ADD,), torch.bfloat16, a, b))
+    del bf_off
+    big16 = [on(rng.standard_normal(N_CHAIN).astype(np.float32)).bfloat16() for _ in range(2)]
+    add16_big = binop("add", (N_CHAIN,), (N_CHAIN,), torch.bfloat16)
+    ht["add_bf16_16m_ms"] = time_ms(lambda: sm.add(sm.Array(big16[0]), sm.Array(big16[1])).torch(), n=10)
+    ht["add_bf16_16m_plain_ms"] = time_ms(lambda: program.run_plain(add16_big, big16, (N_CHAIN,)), n=10)
+    ht["add_bf16_16m_library_ms"] = time_ms(lambda: torch.add(big16[0], big16[1]), n=10)
+    del big16
+    m16t, xht = m16.torch(), xh.torch()
+    x16_off = two_bytes_off(x16.torch())
+    ht.update({
+        "sum_bf16_element_ms": timed_on("element", lambda: reduction.reduce(x16_off, "sum")),
+        "axis0_bf16_ms": timed_on("direct", lambda: reduction.reduce_axis(m16t, "sum", 0)),
+        "axis0_bf16_element_ms": timed_on("element", lambda: reduction.reduce_axis(
+            x16_off.view(N_AXIS, N_AXIS), "sum", 0)),
+        "axis0_bf16_plain_ms": time_ms(lambda: reduction._plain(m16t, "sum", 0), n=20),
+        "axis0_bf16_library_ms": time_ms(lambda: torch.sum(m16t, 0), n=20),
+        "sum_f16_ms": timed_on("direct", lambda: reduction.reduce(xht, "sum")),
+        "sum_f16_plain_ms": time_ms(lambda: reduction._plain(xht, "sum"), n=20),
+        "sum_f16_library_ms": time_ms(lambda: torch.sum(xht), n=20),
+    })
+    del x16_off
+    for key in ("add_bf16", "add_bf16_16m", "sum_bf16", "axis0_bf16", "sum_f16"):
+        ht[f"{key}_over_library"] = ht[f"{key}_ms"] / ht[f"{key}_library_ms"]
     del bf_ring, u_ring, d_ring
     log(f"bfloat16/uint32/int32 // times on {card}: " + json.dumps(ht))
     log(f"library times on {card}: " + json.dumps(lib)
@@ -2440,6 +2563,10 @@ def main():
     elems = N_FUSED * N_FUSED
     b_chain16 = bound_mixed(2 * (3 * elems + N_FUSED), 400.0 * f_ops * elems, 400.0 * r_ops * elems)
     b_sum16 = bound(2 * N_SUM, N_SUM)
+    b_axis16 = bound(2 * N_SUM + 4 * N_AXIS, N_SUM)
+    ht["add_bf16_16m_bound_ms"] = bound(6 * N_CHAIN, N_CHAIN)[0]
+    log(f"2-byte quad paths' bounds on {card}: add 1M {b_add16[0]} ms, add 16M "
+        f"{ht['add_bf16_16m_bound_ms']} ms, sums 64M {b_sum16[0]} ms, axis 0 {b_axis16[0]} ms")
 
     def entry(name, source, replaces, launched, err, ms, plain_ms, b, library_ms):
         check(b[0] <= ms, f"{name}: {ms} ms is under its bound of {b[0]} ms")
@@ -2517,6 +2644,12 @@ def main():
         entry("rd_full_bf16", RD_SOURCE, "simplemath_tpu/ops/reduction.py:79 :127",
               half_launches["rd_full_bf16"]["rd_full"], half_err["rd_full_bf16"], ht["sum_bf16_ms"],
               ht["sum_bf16_plain_ms"], b_sum16, ht["sum_bf16_library_ms"]),
+        entry("rd_axis_bf16", RD_SOURCE, "simplemath_tpu/ops/reduction.py:482",
+              half_launches["rd_axis_bf16"]["rd_axis"], half_err["rd_axis_bf16"], ht["axis0_bf16_ms"],
+              ht["axis0_bf16_plain_ms"], b_axis16, ht["axis0_bf16_library_ms"]),
+        entry("rd_full_f16", RD_SOURCE, "simplemath_tpu/ops/reduction.py:79 :127",
+              half_launches["rd_full_f16"]["rd_full"], half_err["rd_full_f16"], ht["sum_f16_ms"],
+              ht["sum_f16_plain_ms"], b_sum16, ht["sum_f16_library_ms"]),
     ]
     for k in kernels:
         if k["name"] in ("mm", "bmm"):

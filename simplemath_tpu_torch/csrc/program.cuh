@@ -57,6 +57,53 @@ __device__ __forceinline__ uint32_t sm_load(const void* ptr, int64_t i, int32_t 
 // f32 bits rounded to bf16, nearest even (sm_bf16r); a NaN becomes 0x7fc0.
 __device__ __forceinline__ uint16_t sm_f2bf(uint32_t u) { return (uint16_t)(sm_bf16r(u) >> 16); }
 
+// ----------------------------------------------------- quads in memory
+// A quad is four consecutive elements of an operand, evaluated on the four
+// lanes of a uint4 (sm_exec4).  A 4-byte type reads a quad with one 16-byte
+// load; a 2-byte type (bf16, f16) with one 8-byte load, widened in
+// registers to the f32 bits sm_load gives element by element, so the lanes
+// hold the same bits on either path.
+
+__host__ __device__ __forceinline__ bool sm_narrow(int32_t dtype) {
+  return dtype == SM_BF16 || dtype == SM_F16;
+}
+
+// Four 2-byte elements (element 0 in the low half of h.x) as f32 bits:
+// bf16 by a shift, f16 by sm_h2f, exactly.
+__device__ __forceinline__ uint4 sm_widen4(uint2 h, int32_t dtype) {
+  if (dtype == SM_BF16)
+    return make_uint4(h.x << 16, h.x & 0xffff0000u, h.y << 16, h.y & 0xffff0000u);
+  return make_uint4(sm_h2f(h.x & 0xffffu), sm_h2f(h.x >> 16), sm_h2f(h.y & 0xffffu),
+                    sm_h2f(h.y >> 16));
+}
+
+// Quad ``q`` of a 2-byte operand (8-byte aligned): one streaming 8-byte load.
+__device__ __forceinline__ uint4 sm_load_quad2(const void* ptr, int64_t q, int32_t dtype) {
+  return sm_widen4(__ldcs(static_cast<const uint2*>(ptr) + q), dtype);
+}
+
+// sm_bf16r on each lane: the rounding step of an instruction whose result
+// is bf16.
+__device__ __forceinline__ uint4 sm_bf16r4(uint4 v) {
+  return make_uint4(sm_bf16r(v.x), sm_bf16r(v.y), sm_bf16r(v.z), sm_bf16r(v.w));
+}
+
+// Four f32 lanes rounded to bf16 (sm_f2bf, as sm_store rounds one) and
+// packed, element 0 in the low half.
+__device__ __forceinline__ uint2 sm_pack_bf16x4(uint4 v) {
+  return make_uint2((uint32_t)sm_f2bf(v.x) | (uint32_t)sm_f2bf(v.y) << 16,
+                    (uint32_t)sm_f2bf(v.z) | (uint32_t)sm_f2bf(v.w) << 16);
+}
+
+// Quad ``q`` of a result: four 4-byte values with one 16-byte store, or a
+// bf16 quad packed into one 8-byte store.
+__device__ __forceinline__ void sm_store_quad(void* out, int64_t q, int32_t dtype, uint4 v) {
+  if (dtype == SM_BF16)
+    static_cast<uint2*>(out)[q] = sm_pack_bf16x4(v);
+  else
+    static_cast<uint4*>(out)[q] = v;
+}
+
 __device__ __forceinline__ void sm_store(void* out, int64_t i, int32_t dtype, uint32_t v) {
   if (dtype == SM_BOOL)
     static_cast<uint8_t*>(out)[i] = v != 0;
@@ -133,8 +180,7 @@ __device__ __forceinline__ uint4 sm_run4(const SmParams& p, uint4* r) {
       const SmInst in = p.insts[k];
       const uint4 a = r[in.a], b = r[in.b], c = r[in.c];
       const uint4 v = sm_exec4(in.op, a, b, c);
-      r[in.dst] = in.rnd ? make_uint4(sm_bf16r(v.x), sm_bf16r(v.y), sm_bf16r(v.z), sm_bf16r(v.w))
-                         : v;
+      r[in.dst] = in.rnd ? sm_bf16r4(v) : v;
     }
     if (p.carry >= 0) r[p.carry] = r[p.result];
   }

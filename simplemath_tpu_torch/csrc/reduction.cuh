@@ -31,10 +31,12 @@
 // the fused squared distance of two 32M vectors, the (8192, 8192) axis
 // reductions), about 80 us at 3.35 TB/s, with one combine per element.  So
 // the design spends as few instructions per element as the program allows,
-// and keeps several 16-byte loads a thread in flight:
+// and keeps several quad loads a thread in flight:
 //   - the unit of work is a quad, 4 consecutive elements (of a row, for
-//     rd_axis), read with one 16-byte load per operand and evaluated on the
-//     four lanes of a uint4 at once;
+//     rd_axis), read with one 16-byte load per operand of a 4-byte type, or
+//     one 8-byte load of a 2-byte type (bf16, f16) widened in registers to
+//     the f32 bits its element-by-element load gives (sm_load_quad2), and
+//     evaluated on the four lanes of a uint4 at once;
 //   - the wrapper (ops/reduction.py::path) decides how a launch evaluates a
 //     quad, and each way is a kernel of its own, with its own registers:
 //       direct  the identity program: the operand is the value;
@@ -42,15 +44,21 @@
 //               (the dot, an eager op fused into a sum): the opcode is
 //               chosen once per thread and is a constant in the loop, the
 //               sources are operands, splatted scalars or splatted
-//               constants, and there is no register file;
+//               constants, and there is no register file; an instruction
+//               whose result is bf16 rounds each lane (sm_bf16r4), as the
+//               interpreter does;
 //       lanes4  any other program: the interpreter on uint4 registers, one
 //               dispatch per instruction for four elements, scalars and
 //               constants splatted once before the loop; rd_full also walks
 //               the rows of a 2-D expression with (1, C), (R, 1) operands
-//               so, 16 bytes at a time;
-//       element operands that do not allow 16-byte loads (strided,
-//               negative-step, unaligned, 1- and 2-byte types): the lanes4
+//               so, a quad at a time;
+//       element operands that do not allow quad loads (strided,
+//               negative-step, unaligned, 1-byte types): the lanes4
 //               evaluation on quads gathered element by element;
+//     each operand is read at the width of its own type (a uniform branch
+//     in the loaders; a 2-byte quad behind a call, but in the direct loop,
+//     whose width is a constant), so programs that mix f32 and bf16 take
+//     the same loops;
 //   - the direct loop asks for four quads a thread before it combines
 //     them, the hoisted loop for two (their loads are in flight together);
 //   - rd_axis, axis 0: a block is 32 column quads by 8 row lanes; a warp
@@ -58,7 +66,7 @@
 //     and the row lanes are combined through shared memory; (1, C)
 //     operands are loaded once before the row loop;
 //   - rd_axis, axis 1: a block a row (a warp a row where a row has at most
-//     32 quads), 16-byte loads along the row;
+//     32 quads), quad loads along the row;
 //   - a block's threads are combined by warp shuffles and one stage of
 //     shared memory.
 //
@@ -69,7 +77,9 @@
 // grid and every order depend on the shape alone, so two launches give the
 // same bits, an unaligned view gives the bits of its contiguous clone, and
 // the identity's direct path the bits of the same reduction through the
-// interpreter.
+// interpreter.  A quad's lanes hold the same bits whether it was loaded
+// whole or gathered, so a 2-byte operand's quad path gives the element
+// path's bits too.
 //
 // Launch: on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -84,13 +94,17 @@
 
 enum RdOp : int32_t { RD_SUM = 0, RD_MAX = 1, RD_MIN = 2, RD_SUM_I32 = 3 };
 // How a launch evaluates a quad (ops/reduction.py::path decides).
-enum RdPath : int32_t { RD_DIRECT = 0, RD_SINGLE = 1, RD_LANES4 = 2, RD_ELEMENT = 3 };
+// RD_DIRECT2 is the direct loop over a 2-byte operand, its width a constant:
+// the launcher takes it for path RD_DIRECT by the operand's type.
+enum RdPath : int32_t {
+  RD_DIRECT = 0, RD_SINGLE = 1, RD_LANES4 = 2, RD_ELEMENT = 3, RD_DIRECT2 = 4
+};
 // How rd_full reaches its operands: as flat data (contiguous full-size
 // operands and single elements); through their strides over p.shape, rank
 // <= 8 (the element path only); or, for a (rows, cols) expression whose
 // operands are full-size, (1, C) rows, (R, 1) columns or single elements
-// with 16-byte-aligned rows, 16 bytes at a time along the rows (the lanes4
-// path only).
+// with rows aligned to whole quads, a quad at a time along the rows (the
+// lanes4 path only).
 enum RdReach : int32_t { RD_FLAT = 0, RD_STRIDED = 1, RD_ROWS = 2 };
 
 // ``p`` is the program over the mapped expression's shape (rank 2 for
@@ -214,13 +228,15 @@ __device__ __forceinline__ uint32_t rd_block(uint32_t v) {
 // inside the data.
 
 // A source register of the direct and the hoisted loops, whose operands
-// all allow 16-byte loads: an operand read through its row stride ``rs``
-// and a column stride ``cs`` of 1 (a full operand or a (1, C) row) or 0 (an
-// (R, 1) column), or, with ``ptr`` null, the same ``splat`` for every quad
-// (a constant, a one-element operand, or a row the walk has loaded once).
+// all allow quad loads: an operand of type ``dtype`` read through its row
+// stride ``rs`` and a column stride ``cs`` of 1 (a full operand or a (1, C)
+// row) or 0 (an (R, 1) column), or, with ``ptr`` null, the same ``splat``
+// for every quad (a constant, a one-element operand, or a row the walk has
+// loaded once).
 struct RdSource {
-  const uint32_t* ptr;
+  const void* ptr;
   int64_t rs, cs;
+  int32_t dtype;
   uint4 splat;
 };
 
@@ -230,43 +246,79 @@ __device__ __forceinline__ RdSource rd_source(const SmParams& p, int reg) {
   s.ptr = nullptr;
   s.rs = 0;
   s.cs = 0;
+  s.dtype = SM_F32;
   s.splat = sm_splat(0u);
   if (reg >= p.n_ops) {
     s.splat = sm_splat(p.consts[reg - p.n_ops]);
   } else if (p.ops[reg].scalar) {
     s.splat = sm_splat(sm_load(p.ops[reg].ptr, 0, p.ops[reg].dtype));
   } else {
-    s.ptr = static_cast<const uint32_t*>(p.ops[reg].ptr);
+    s.ptr = p.ops[reg].ptr;
+    s.dtype = p.ops[reg].dtype;
     s.rs = FLAT ? 0 : p.ops[reg].strides[0];
     s.cs = FLAT ? 1 : p.ops[reg].strides[1];
   }
   return s;
 }
 
-// A quad of 4-byte elements at ``row``: one 16-byte load, or, for the
-// ragged last quad, its valid elements one by one.
-__device__ __forceinline__ uint4 rd_load_quad(const uint32_t* row, int64_t jq, int nvalid) {
+// Quad jq of the row that starts ``off`` elements into ``ptr``: one load of
+// the whole quad (16 bytes of a 4-byte type; 8 bytes of a 2-byte type,
+// NARROW, widened by sm_load_quad2), or, for the ragged last quad, its
+// valid elements one by one.
+template <bool NARROW>
+__device__ __forceinline__ uint4 rd_load_quad(const void* ptr, int64_t off, int64_t jq, int nvalid,
+                                              int32_t dtype) {
+  uint4 v = sm_splat(0u);
+  if (NARROW) {
+    if (nvalid == 4) return sm_load_quad2(static_cast<const uint16_t*>(ptr) + off, jq, dtype);
+    const int64_t e = off + jq * 4;
+    v.x = sm_load(ptr, e, dtype);
+    if (nvalid > 1) v.y = sm_load(ptr, e + 1, dtype);
+    if (nvalid > 2) v.z = sm_load(ptr, e + 2, dtype);
+    return v;
+  }
+  const uint32_t* row = static_cast<const uint32_t*>(ptr) + off;
   if (nvalid == 4) return reinterpret_cast<const uint4*>(row)[jq];
   const uint32_t* e = row + jq * 4;
-  uint4 v = sm_splat(0u);
   v.x = e[0];
   if (nvalid > 1) v.y = e[1];
   if (nvalid > 2) v.z = e[2];
   return v;
 }
 
+// The quad (or, for a column, cs = 0, the row's element) of a 2-byte
+// operand where its type is known at run time only (the hoisted and the
+// lanes4 loops), behind a call: those loops read each source in the loop
+// of each opcode, and one copy of the widening serves them all (inlined,
+// it took ptxas 54 s for the axis-0 kernel of the hoisted loop, against
+// 4 s).
+__device__ __noinline__ uint4 rd_read_narrow(const void* ptr, int64_t off, int64_t cs, int64_t jq,
+                                             int nvalid, int32_t dtype) {
+  if (cs == 0) return sm_splat(sm_load(ptr, off, dtype));
+  return rd_load_quad<true>(ptr, off, jq, nvalid, dtype);
+}
+
+// A source's quad at (i, jq).  W is the width of its type in bytes where
+// the loop knows it (4, or 2 for the direct loop over a 2-byte operand), or
+// 0: a uniform branch on the type, a 2-byte one read by rd_read_narrow.
+template <int W>
 __device__ __forceinline__ uint4 rd_read(const RdSource& s, int64_t i, int64_t jq, int nvalid) {
   if (!s.ptr) return s.splat;
-  const uint32_t* row = s.ptr + i * s.rs;
-  if (s.cs == 0) return sm_splat(row[0]);
-  return rd_load_quad(row, jq, nvalid);
+  const int64_t off = i * s.rs;
+  if (W == 0 && sm_narrow(s.dtype)) return rd_read_narrow(s.ptr, off, s.cs, jq, nvalid, s.dtype);
+  if (W == 2) {
+    if (s.cs == 0) return sm_splat(sm_load(s.ptr, off, s.dtype));
+    return rd_load_quad<true>(s.ptr, off, jq, nvalid, s.dtype);
+  }
+  if (s.cs == 0) return sm_splat(static_cast<const uint32_t*>(s.ptr)[off]);
+  return rd_load_quad<false>(s.ptr, off, jq, nvalid, s.dtype);
 }
 
 // For a thread that keeps quad column jq (axis 0): a (1, C) row is loaded
 // now, once, not again for every row.
 __device__ __forceinline__ void rd_keep_column(RdSource& s, int64_t jq, int nvalid) {
   if (s.ptr && s.rs == 0) {
-    s.splat = rd_read(s, 0, jq, nvalid);
+    s.splat = rd_read<0>(s, 0, jq, nvalid);
     s.ptr = nullptr;
   }
 }
@@ -282,8 +334,12 @@ __device__ __forceinline__ void rd_batch(const E& eval, const int64_t* i, const 
   for (int u = 0; u < E::kBatch; ++u) out[u] = eval(i[u], jq[u], nvalid);
 }
 
-// The identity program.
-template <int OP, bool FLAT>
+// The identity program, over a 4-byte operand or (NARROW) a 2-byte one, the
+// width a constant, its widening inline.  Four quads a thread at a time
+// either way: eight 8-byte quads (as many bytes in flight as four 16-byte
+// ones) took 47 registers a thread, so fewer blocks ran at once, and 0.0708
+// ms for the 64M bf16 sum against four's 0.0525 (H100, 700 W).
+template <int OP, bool FLAT, bool NARROW>
 struct RdDirect {
   static constexpr int kBatch = 4;
   RdSource x;
@@ -294,7 +350,7 @@ struct RdDirect {
     rd_keep_column(x, jq, nvalid);
   }
   __device__ __forceinline__ uint4 operator()(int64_t i, int64_t jq, int nvalid) const {
-    return rd_value4<OP>(dtype, rd_read(x, i, jq, nvalid));
+    return rd_value4<OP>(dtype, rd_read<NARROW ? 2 : 4>(x, i, jq, nvalid));
   }
 };
 
@@ -306,20 +362,23 @@ struct RdSingle {
   static constexpr int kBatch = 2;  // 64M x * 1.0: 0.0947 ms; with 4, 0.0988; the dot alike
   RdSource a, b, c;
   int32_t dtype;
+  bool rnd;
   __device__ __forceinline__ explicit RdSingle(const RdParams& q)
       : a(rd_source<FLAT>(q.p, q.p.insts[0].a)),
         b(rd_source<FLAT>(q.p, q.p.insts[0].b)),
         c(rd_source<FLAT>(q.p, q.p.insts[0].c)),
-        dtype(rd_result_dtype(OPC) >= 0 ? rd_result_dtype(OPC) : q.p.out_dtype) {}
+        dtype(rd_result_dtype(OPC) >= 0 ? rd_result_dtype(OPC) : q.p.out_dtype),
+        rnd(q.p.insts[0].rnd != 0) {}
   __device__ __forceinline__ void keep_column(int64_t jq, int nvalid) {
     rd_keep_column(a, jq, nvalid);
     rd_keep_column(b, jq, nvalid);
     rd_keep_column(c, jq, nvalid);
   }
   __device__ __forceinline__ uint4 operator()(int64_t i, int64_t jq, int nvalid) const {
-    const uint4 va = rd_read(a, i, jq, nvalid), vb = rd_read(b, i, jq, nvalid),
-                vc = rd_read(c, i, jq, nvalid);
-    return rd_value4<OP>(dtype, sm_exec_lanes(OPC, va, vb, vc));
+    const uint4 va = rd_read<0>(a, i, jq, nvalid), vb = rd_read<0>(b, i, jq, nvalid),
+                vc = rd_read<0>(c, i, jq, nvalid);
+    const uint4 v = sm_exec_lanes(OPC, va, vb, vc);
+    return rd_value4<OP>(dtype, rnd ? sm_bf16r4(v) : v);
   }
 };
 
@@ -404,9 +463,12 @@ struct RdLanes4 {
       if (FLAT && q.strided == RD_STRIDED) return rd_gather_strided(q.p, x, jq, nvalid);
       return rd_gather<FLAT>(x, i, jq, nvalid);
     }
-    const uint32_t* row = static_cast<const uint32_t*>(x.ptr) + (FLAT ? 0 : i * x.strides[0]);
+    const int64_t off = FLAT ? 0 : i * x.strides[0];
+    if (sm_narrow(x.dtype))
+      return rd_read_narrow(x.ptr, off, FLAT ? 1 : x.strides[1], jq, nvalid, x.dtype);
+    const uint32_t* row = static_cast<const uint32_t*>(x.ptr) + off;
     if (!FLAT && x.strides[1] == 0) return sm_splat(row[0]);
-    return rd_load_quad(row, jq, nvalid);
+    return rd_load_quad<false>(row, 0, jq, nvalid, x.dtype);
   }
   __device__ __forceinline__ void keep_column(int64_t jq, int nvalid) {
     const SmParams& p = q.p;
@@ -605,12 +667,12 @@ struct RdRowsWalk {
 };
 
 // The evaluator of kernel <OP, PATH>, handed to ``walk``.  PATH is
-// RD_DIRECT, RD_SINGLE or RD_LANES4; a launch on the element path runs the
-// RD_LANES4 kernel, whose loads look at q.path.
+// RD_DIRECT, RD_DIRECT2, RD_SINGLE or RD_LANES4; a launch on the element
+// path runs the RD_LANES4 kernel, whose loads look at q.path.
 template <int OP, int PATH, bool FLAT, class Walk>
 __device__ __forceinline__ void rd_run(const RdParams& q, const Walk& walk) {
-  if constexpr (PATH == RD_DIRECT) {
-    RdDirect<OP, FLAT> eval(q);
+  if constexpr (PATH == RD_DIRECT || PATH == RD_DIRECT2) {
+    RdDirect<OP, FLAT, PATH == RD_DIRECT2> eval(q);
     walk(eval);
   } else if constexpr (PATH == RD_SINGLE) {
 #define SM_CASE_RD(OPC)                         \
@@ -662,11 +724,17 @@ __global__ void __launch_bounds__(kThreads) rd_rows(const __grid_constant__ RdPa
 
 // Launch ``KERNEL``<OP, path of q> on ``grid`` blocks; cudaErrorInvalidValue
 // where the path has no kernel for OP (the hoisted loop exists for the sums
-// and its opcodes only; the element path runs the lanes4 kernel).
+// and its opcodes only; the element path runs the lanes4 kernel; the direct
+// loop over a 2-byte operand is RD_DIRECT2, for the float reductions).
 #define RD_LAUNCH_PATH(KERNEL, OP, q, grid, s, arg)                                     \
   do {                                                                                  \
     const int path_ = (q).path == RD_ELEMENT ? (int)RD_LANES4 : (q).path;               \
-    if (path_ == RD_DIRECT) {                                                           \
+    if (path_ == RD_DIRECT && sm_narrow((q).p.ops[(q).p.result].dtype)) {               \
+      if constexpr (OP != RD_SUM_I32)                                                   \
+        KERNEL<OP, RD_DIRECT2><<<grid, kThreads, 0, s>>>(q, arg);                       \
+      else                                                                              \
+        return (int)cudaErrorInvalidValue;                                              \
+    } else if (path_ == RD_DIRECT) {                                                    \
       KERNEL<OP, RD_DIRECT><<<grid, kThreads, 0, s>>>(q, arg);                          \
     } else if (path_ == RD_LANES4) {                                                    \
       KERNEL<OP, RD_LANES4><<<grid, kThreads, 0, s>>>(q, arg);                          \

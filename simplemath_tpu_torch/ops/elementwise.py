@@ -17,11 +17,20 @@ one instruction included.  The compiled interpreter of csrc/elementwise.cu
 stays as ``interpret``, the reference the card tests and chip_smoke.py hold
 the generated kernels to, bit for bit; nothing in the package calls it.
 
+``ew_flat`` reads whole quads of four elements where every full-size
+operand and the output allow it: a 4-byte type at a 16-byte boundary (one
+16-byte load), a 2-byte type (bfloat16) at an 8-byte one (one 8-byte load,
+widened in registers, and the result packed into one 8-byte store); else
+every element on its own.  ``flat_path`` decides, on the host, from the
+program, the shape and the operands' layouts.
+
 ``elementwise`` looks at the operands' device.  CPU tensors take the
 kernel's plain version, ``program.run_plain``.  CUDA tensors launch the
 kernel or raise: there is no fallback.  ``LAUNCHES`` counts kernel
-launches by entry point, and ``PATHS`` the launches of ``ew_strided``'s two
-kernels, ``"generated"`` and ``"interp"``; only a launch adds to them.
+launches by entry point, ``PATHS`` the launches of ``ew_strided``'s two
+kernels, ``"generated"`` and ``"interp"``, and ``FLAT_PATHS`` those of
+``ew_flat`` by ``flat_path``, ``"wide"`` and ``"element"``; only a launch
+adds to them.
 """
 
 from __future__ import annotations
@@ -40,10 +49,12 @@ from ..config import config
 from ..viewspec import row_major_strides
 from . import codegen, dispatch, program
 
-# Kernel launches by entry point since the last reset, and the launches of
-# ew_strided's generated kernels and of its interpreter.
+# Kernel launches by entry point since the last reset, the launches of
+# ew_strided's generated kernels and of its interpreter, and ew_flat's by
+# path.
 LAUNCHES = {"ew_flat": 0, "ew_strided": 0}
 PATHS = {"interp": 0, "generated": 0}
+FLAT_PATHS = {"wide": 0, "element": 0}
 
 _MAX_RANK = 8
 # enum SmDtype (csrc/tiles.cuh).  This kernel's operands are float32,
@@ -55,7 +66,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.bool: 2,
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PATHS):
+    for counts in (LAUNCHES, PATHS, FLAT_PATHS):
         for k in counts:
             counts[k] = 0
 
@@ -159,12 +170,48 @@ def _describe(x):
     return x, 0, tuple(x.shape), tuple(x.stride())
 
 
+def layout(operands) -> tuple:
+    """Each operand's (shape, element strides, dtype, address of its first
+    element): what ``flat_path`` and ``reduction.path`` look at."""
+    out = []
+    for o in operands:
+        buf, off, shape, strides = _describe(o)
+        out.append((shape, strides, buf.dtype, buf.data_ptr() + off * buf.element_size()))
+    return tuple(out)
+
+
+def quad_aligned(dtype, address) -> bool:
+    """Whether the kernels can read quads of four ``dtype`` elements from
+    ``address`` with one load each: a 4-byte type at a 16-byte boundary, a
+    2-byte type at an 8-byte one."""
+    return dtype.itemsize in (2, 4) and address % (4 * dtype.itemsize) == 0
+
+
+def _flat(shape, strides, out_shape) -> bool:
+    return math.prod(shape) == 1 or _is_full(shape, strides, out_shape)
+
+
+def flat_path(prog, out_shape, operand_layout):
+    """How ``ew_flat`` evaluates a call, a pure function of the program, the
+    shape and ``layout(operands)``: ``"wide"`` (whole quads, each operand
+    read at its own width: every full-size operand and the result 4 or 2
+    bytes wide and quad-aligned, ``quad_aligned``; the result, new, always
+    is), ``"element"`` (every element on its own: an unaligned operand, a
+    bool one or a bool result); None where the call is not flat (an
+    operand neither full-size nor one element: ``ew_strided``)."""
+    out_shape = tuple(out_shape)
+    if not all(_flat(s, st, out_shape) for s, st, _, _ in operand_layout):
+        return None
+    wide = quad_aligned(prog.dtype, 0) and all(
+        math.prod(s) == 1 or quad_aligned(dt, address) for s, _, dt, address in operand_layout)
+    return "wide" if wide else "element"
+
+
 @functools.lru_cache(maxsize=256)
 def _template(prog, codes, out_shape, layout, iterations, carry):
     """(parameter block without pointers, flat?) for one call signature;
     ``layout`` is each operand's (shape, strides, dtype)."""
-    flat = all(math.prod(s) == 1 or _is_full(s, st, out_shape)
-               for s, st, _ in layout)
+    flat = all(_flat(s, st, out_shape) for s, st, _ in layout)
     rank = len(out_shape)
     if not flat and rank > _MAX_RANK:
         raise ValueError(f"the strided kernel takes rank <= {_MAX_RANK}, got {rank}")
@@ -209,22 +256,18 @@ def _library():
 
 
 def params(prog, codes, out_shape, operands, iterations=1, carry=0):
-    """The parameter block of one call, operand pointers set: ``(params,
-    flat)``.  ``params.vec`` says whether every full-size operand can be
-    read with 16-byte loads (4-byte elements, 16-byte aligned); it holds
-    only on the flat path."""
-    descs = [_describe(o) for o in operands]
-    layout = tuple((s, st, buf.dtype) for buf, _, s, st in descs)
-    raw, flat = _template(prog, codes, out_shape, layout, iterations, carry)
+    """The parameter block of one call, operand pointers set, and
+    ``flat_path`` of the call (None: not flat).  ``params.vec`` says
+    whether ``ew_flat`` reads whole quads (the path ``"wide"``)."""
+    where = layout(operands)
+    raw, _ = _template(prog, codes, out_shape, tuple((s, st, dt) for s, st, dt, _ in where),
+                       iterations, carry)
     p = _Params.from_buffer_copy(raw)
-    vec = True
-    for o, (buf, off, shape, _) in enumerate(descs):
-        ptr = buf.data_ptr() + off * buf.element_size()
-        p.ops[o].ptr = ptr
-        if math.prod(shape) != 1 and (buf.element_size() != 4 or ptr % 16):
-            vec = False
-    p.vec = int(flat and vec)
-    return p, flat
+    for o, (_, _, _, address) in enumerate(where):
+        p.ops[o].ptr = address
+    taken = flat_path(prog, out_shape, where)
+    p.vec = int(taken == "wide")
+    return p, taken
 
 
 def check_program(prog, name, types=_dtypes.KERNEL_DTYPES):
@@ -251,9 +294,8 @@ def _launch(prog, codes, out_shape, operands, iterations, carry, device, interpr
     out = torch.empty(out_shape, dtype=prog.dtype, device=device)
     if out.numel() == 0:
         return out
-    p, flat = params(prog, codes, out_shape, operands, iterations, carry)
-    flat = flat and not interpreted
-    p.vec = int(flat and p.vec and out.element_size() == 4)
+    p, flat_taken = params(prog, codes, out_shape, operands, iterations, carry)
+    flat = flat_taken is not None and not interpreted
     taken = None if flat else "interp" if interpreted else "generated"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -269,6 +311,8 @@ def _launch(prog, codes, out_shape, operands, iterations, carry, device, interpr
     LAUNCHES[entry] += 1
     if taken:
         PATHS[taken] += 1
+    else:
+        FLAT_PATHS[flat_taken] += 1
     return out
 
 

@@ -26,7 +26,10 @@ evaluated them, which ``path`` decides from the program, the shape and the
 operands' layouts: ``direct`` (the identity program), ``single`` (a sum of
 one instruction, its opcode hoisted out of the loop), ``lanes4`` (any other
 program, four elements a dispatch) or ``element`` (operands that do not
-allow 16-byte loads).
+allow quad loads).  A quad is four elements read with one load: 16 bytes of
+a 4-byte type, or 8 bytes of a 2-byte type (bfloat16, float16) widened to
+float32 in registers; an operand allows it where it is quad-aligned
+(``elementwise.quad_aligned``) and, along rows, its rows are whole quads.
 
 The kernel accumulates in float32 whatever the float input; the int32 dot
 wraps mod 2**32.  Dispatch names are the JAX package's: ``reduce:<kind>``,
@@ -116,30 +119,23 @@ def axis_grid(rows: int, cols: int, axis: int):
 
 
 # ------------------------------------------------------------ the path
-def layout(operands) -> tuple:
-    """Each operand's (shape, element strides, dtype, address of its first
-    element): what ``path`` looks at."""
-    out = []
-    for o in operands:
-        buf, off, shape, strides = elementwise._describe(o)
-        out.append((shape, strides, buf.dtype, buf.data_ptr() + off * buf.element_size()))
-    return tuple(out)
+layout = elementwise.layout
 
 
 def _wide(shape, operand_layout, rows: bool) -> bool:
-    """Whether every operand of more than one element can be read 16 bytes
-    at a time: 4-byte elements and, as flat data, contiguous and full-size
-    at a 16-byte boundary; or (``rows``), over the expression's (rows,
-    cols), a column stride of 1 with 16-byte-aligned rows (full-size
-    operands and (1, C) rows) or of 0 ((R, 1) columns, read an element a
-    row)."""
+    """Whether every operand of more than one element can be read a quad
+    at a time: 4- or 2-byte elements and, as flat data, contiguous and
+    full-size at a quad-aligned address; or (``rows``), over the
+    expression's (rows, cols), a column stride of 1 with quad-aligned rows
+    (a row stride that is a multiple of 4; full-size operands and (1, C)
+    rows) or of 0 ((R, 1) columns, read an element a row)."""
     for s, st, dt, address in operand_layout:
         if math.prod(s) == 1:
             continue
-        if dt.itemsize != 4:
+        if dt.itemsize not in (2, 4):
             return False
         if not rows:
-            if not elementwise._is_full(s, st, shape) or address % 16:
+            if not elementwise._is_full(s, st, shape) or not elementwise.quad_aligned(dt, address):
                 return False
             continue
         s2, st2 = (1,) * (2 - len(s)) + tuple(s), (0,) * (2 - len(s)) + tuple(st)
@@ -147,14 +143,14 @@ def _wide(shape, operand_layout, rows: bool) -> bool:
         col_stride = 0 if s2[1] == 1 else st2[1]
         if col_stride == 0:
             continue
-        if col_stride != 1 or row_stride % 4 or address % 16:
+        if col_stride != 1 or row_stride % 4 or not elementwise.quad_aligned(dt, address):
             return False
     return True
 
 
 def reach(shape, operand_layout, axis=None) -> str:
-    """How the kernel reaches the operands: ``"flat"`` (rd_full: 16-byte
-    loads of flat data), ``"rows"`` (16-byte loads along the rows of a 2-D
+    """How the kernel reaches the operands: ``"flat"`` (rd_full: quad
+    loads of flat data), ``"rows"`` (quad loads along the rows of a 2-D
     expression with full-size, (1, C), (R, 1) or one-element operands:
     rd_axis, and rd_full where an operand is broadcast) or ``"gather"``
     (element by element through the strides)."""
@@ -180,7 +176,7 @@ def path(prog, kind: str, shape, operand_layout, axis=None) -> str:
         return "direct" if prog.result < n_ops else "lanes4"
     codes = prog.kernel_codes
     if (kind == "sum" and len(prog.insts) == 1 and prog.result == n_ops + len(prog.consts)
-            and codes is not None and codes[0] in HOISTED and not prog.kernel_rounds[0]):
+            and codes is not None and codes[0] in HOISTED):
         return "single"
     return "lanes4"
 
@@ -211,7 +207,8 @@ def _launch(entry, prog, kind, op, shape, operands, device, axis=None):
     lib = _library()
     codes = elementwise.check_program(prog, entry, _dt.KERNEL_DTYPES | FLOAT_INPUTS)
     q = _RdParams()
-    q.p, flat = elementwise.params(prog, codes, shape, operands)
+    q.p, flat_taken = elementwise.params(prog, codes, shape, operands)
+    flat = flat_taken is not None
     q.op = op
     where = layout(operands)
     taken = path(prog, kind, shape, where, axis)

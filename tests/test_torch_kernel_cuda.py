@@ -1573,9 +1573,11 @@ def test_associative_scan_on_card_matches_fold(cuda, H):
 @pytest.mark.parametrize("axis", [None, 0, 1])
 def test_rd_half_inputs_match_plain(cuda, dtype, kind, axis):
     """bfloat16 and float16 inputs, widened exactly at the load and summed
-    in float32 (on the element path), against the plain version: sums
-    within 2e-5 * sum|x| of it and of float64, max and min exact, the bits
-    repeating."""
+    in float32, against the plain version: sums within 2e-5 * sum|x| of it
+    and of float64, max and min exact, the bits repeating.  In full the
+    quad-aligned operand takes the direct loop's 8-byte quads; along an
+    axis its rows of 257 elements are no whole quads, so the element
+    path."""
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((300, 257)).astype(np.float32)).to(cuda).to(dtype)
     t = x
@@ -1584,7 +1586,10 @@ def test_rd_half_inputs_match_plain(cuda, dtype, kind, axis):
     else:
         fn = lambda: reduction.reduce_axis(x, kind, axis)  # noqa: E731
     k, p = _rd_both(fn, reduction._plain(t, kind, axis))
-    assert reduction.PATHS["element"] == 2
+    taken = "direct" if axis is None else "element"
+    assert reduction.path(reduction.identity(dtype), kind, x.shape, reduction.layout([x]),
+                          axis) == taken
+    assert reduction.PATHS[taken] == 2
     ref = t.double().cpu()
     if kind == "sum":
         _close(k, p, ref.sum() if axis is None else ref.sum(axis), float(t.float().abs().sum()))
@@ -1832,3 +1837,193 @@ def test_bfloat16_fused_reduction_root_on_card(cuda):
         plain = (vals.sum() if axis is None else vals.sum(axis)) if kind == "sum" else vals.amax()
         tol = 0.0 if kind == "max" else 2.0 ** -8
         torch.testing.assert_close(got.float(), plain.bfloat16().float(), rtol=tol, atol=0.0)
+
+
+# ------------------------------------- 2-byte operands on the quad paths
+# ew_flat and rd_* read quads of 2-byte operands with one 8-byte load,
+# widened in registers to the float32 bits the element path loads one by
+# one: the same values, the same order of combination, so the same bits.
+# Each case runs the quad path on a quad-aligned copy of the data and the
+# element path on a copy 2 bytes past a 16-byte boundary.
+def _placed(t, skip):
+    """A contiguous copy of ``t`` starting ``skip`` elements past a 16-byte
+    boundary."""
+    n, size = t.numel(), t.element_size()
+    base = torch.empty(n + 32 // size, dtype=t.dtype, device=t.device)
+    start = (-base.data_ptr() // size) % (16 // size) + skip
+    out = base[start:start + n].view(t.shape)
+    out.copy_(t)
+    assert (out.data_ptr() - skip * size) % 16 == 0
+    return out
+
+
+def _f16_inputs(n, device, seed):
+    """float16 values with the widening's edges: subnormals, the largest
+    finite values, signed zeros, infinities and NaN."""
+    rng = np.random.default_rng(seed)
+    special = [0.0, -0.0, np.inf, -np.inf, np.nan, 6e-8, -6e-8, 3e-5, 6.1e-5, 65504.0, -65504.0,
+               1.0, -1.0]
+    x = np.concatenate([rng.uniform(-8, 8, n - len(special)), special]).astype(np.float16)
+    return torch.from_numpy(rng.permutation(x)).to(device)
+
+
+def _half_programs(n):
+    x, y = program.leaf((n,), torch.bfloat16), program.leaf((n,), torch.bfloat16)
+    f, s = program.leaf((n,), torch.float32), program.leaf((), torch.bfloat16)
+    return {
+        "add": (x + y, [x, y]), "scale": (x * 2.5, [x]), "scalar_left": (s - x, [s, x]),
+        "maximum": (sm.maximum(x, y), [x, y]), "minimum": (sm.minimum(x, y), [x, y]),
+        "chain": ((x + y) * x - y, [x, y]), "exp": (sm.exp(x * 0.25), [x]),
+        "mixed_f32_out": (x + f, [x, f]),
+        "mixed_bf16_out": (x * program.cast(f, torch.bfloat16), [x, f]),
+    }
+
+
+@pytest.mark.parametrize("n", [3, 4, 1025, 1026, 1027, 1028, (1 << 16) + 5])
+@pytest.mark.parametrize("name", sorted(_half_programs(4)))
+def test_ew_flat_bf16_wide_path_is_the_element_path(cuda, name, n):
+    """A bfloat16 (or mixed bfloat16/float32) program on ew_flat's wide path
+    (one 8-byte load a quad, the result rounded and packed into one 8-byte
+    store; the last n % 4 elements one by one) gives bit for bit the
+    element path's values on the same data 2 bytes off, the interpreter's
+    (elementwise.interpret) and the plain version's; max/min propagate NaN.
+    FLAT_PATHS counts each launch on its path."""
+    root, leaves = _half_programs(n)[name]
+    prog = program.lower(root, leaves)
+    operands = [(_inputs(l.dtype, max(n, 16), cuda, seed)[:n] if l.shape else
+                 torch.tensor(1.75, device=cuda, dtype=l.dtype)) for seed, l in enumerate(leaves)]
+    wide = [_placed(o, 0) if o.dim() else o for o in operands]
+    off = [_placed(o, 1) if o.dim() and o.element_size() == 2 else o for o in operands]
+    assert elementwise.flat_path(prog, (n,), elementwise.layout(wide)) == "wide"
+    assert elementwise.flat_path(prog, (n,), elementwise.layout(off)) == "element"
+    elementwise.reset_launches()
+    k = elementwise.elementwise(prog, (n,), prog.dtype, *wide)
+    e = elementwise.elementwise(prog, (n,), prog.dtype, *off)
+    torch.cuda.synchronize()
+    assert elementwise.FLAT_PATHS == {"wide": 1, "element": 1}
+    assert elementwise.LAUNCHES == {"ew_flat": 2, "ew_strided": 0}
+    i = elementwise.interpret(prog, (n,), *wide)
+    p = program.run_plain(prog, operands, (n,))
+    as_bits = torch.int16 if prog.dtype == torch.bfloat16 else torch.int32
+    assert k.dtype == prog.dtype
+    assert torch.equal(k.view(as_bits), e.view(as_bits))
+    assert torch.equal(k.view(as_bits), i.view(as_bits))
+    _hold("exp" if name == "exp" else name, k, p)
+    if name in ("maximum", "minimum"):
+        nan = torch.isnan(operands[0].float()) | torch.isnan(operands[1].float())
+        assert bool(torch.isnan(k[nan].float()).all())
+
+
+def test_ew_flat_bf16_add_through_the_api_takes_the_wide_path(cuda):
+    """sm.add of two 1M-element bfloat16 Arrays: one ew_flat launch on the
+    wide path, the float32 sum rounded once."""
+    rng = np.random.default_rng(11)
+    a, b = (torch.from_numpy(rng.standard_normal(1_000_000).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    elementwise.reset_launches()
+    out = sm.add(sm.Array(a.bfloat16()), sm.Array(b.bfloat16())).torch()
+    torch.cuda.synchronize()
+    assert elementwise.FLAT_PATHS == {"wide": 1, "element": 0}
+    want = (a.bfloat16().float() + b.bfloat16().float()).bfloat16()
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+
+
+def _half_values(dtype, shape, cuda, seed):
+    """``shape`` values of ``dtype`` (bfloat16: ``_inputs``' with its special
+    values; float16: ``_f16_inputs``), shuffled."""
+    n = int(np.prod(shape))
+    m = max(n, 64)
+    x = _f16_inputs(m, cuda, seed) if dtype == torch.float16 else _inputs(torch.bfloat16, m, cuda, seed)
+    order = torch.from_numpy(np.random.default_rng(seed).permutation(m)[:n]).to(cuda)
+    return x[order].reshape(shape)
+
+
+@pytest.mark.parametrize("n", [4, 5, 6, 7, 4096 * 3 + 777, 1_000_003])
+@pytest.mark.parametrize("kind", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_rd_full_half_direct_is_the_element_path(cuda, dtype, kind, n):
+    """rd_full of a quad-aligned bfloat16 or float16 operand runs ``direct``
+    (eight 8-byte quads a thread in flight), and gives the bits of the same
+    values 2 bytes off (``element``) and of their contiguous clone; the
+    float16 widening is exact (subnormals, infinities, NaN: max/min
+    propagate it, as does the sum)."""
+    x = _half_values(dtype, (n,), cuda, n)
+    if kind == "sum":
+        x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))  # a finite sum to compare
+    wide, off = _placed(x, 0), _placed(x, 1)
+    p = reduction._plain(x, kind)
+    k, _ = _rd_on("direct", lambda: reduction.reduce(wide, kind), p)
+    e, _ = _rd_on("element", lambda: reduction.reduce(off, kind), p)
+    c, _ = _rd_on("direct", lambda: reduction.reduce(off.clone(), kind), p)
+    assert torch.equal(k.view(torch.int32), e.view(torch.int32))
+    assert torch.equal(k.view(torch.int32), c.view(torch.int32))
+    if kind == "sum":
+        _rd_agree(kind, k, p, x.float().abs().sum())
+    else:
+        torch.testing.assert_close(k, p, rtol=0.0, atol=0.0, equal_nan=True)
+        assert bool(torch.isnan(k)) == bool(torch.isnan(x.float()).any())
+
+
+@pytest.mark.parametrize("shape", [(300, 256), (517, 1032), (33, 4), (8, 8192)], ids=str)
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("kind", ["sum", "max"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_rd_axis_half_direct_is_the_element_path(cuda, dtype, kind, axis, shape):
+    """rd_axis along both axes of a bfloat16 or float16 matrix whose rows
+    are whole quads runs ``direct`` and gives the bits of the same values 2
+    bytes off (``element``)."""
+    m = _half_values(dtype, shape, cuda, 7)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    wide, off = _placed(m, 0), _placed(m, 1)
+    p = reduction._plain(m, kind, axis)
+    k, _ = _rd_on("direct", lambda: reduction.reduce_axis(wide, kind, axis), p)
+    e, _ = _rd_on("element", lambda: reduction.reduce_axis(off, kind, axis), p)
+    assert torch.equal(k.view(torch.int32), e.view(torch.int32))
+    _rd_agree(kind, k, p, m.float().abs().sum(axis))
+
+
+def _rounding_cases(cuda, n, R, C):
+    """(label, prog, kind, axis, shape, operands, path) of the rounding and
+    mixed-width programs on the quad paths."""
+    bf = torch.bfloat16
+    a, b = _inputs(bf, n, cuda, 1).nan_to_num(0.5, 4.0, -4.0), _inputs(bf, n, cuda, 2).nan_to_num(0.25, 3.0, -3.0)
+    f = _inputs(torch.float32, n, cuda, 3).nan_to_num(0.75, 2.0, -2.0)
+    m, row = a[:R * C].reshape(R, C), b[:C].reshape(1, C)
+    mul = lambda p, q: p * q  # noqa: E731
+    return [
+        ("bf16 a*b sum", _lowered(mul, a, b), "sum", None, (n,), [a, b], "single"),
+        ("bf16 a*2.5 sum", _lowered(lambda p: p * 2.5, a), "sum", None, (n,), [a], "single"),
+        ("bf16 a*row axis 0", _lowered(mul, m, row), "sum", 0, (R, C), [m, row], "single"),
+        ("bf16 a*row axis 1", _lowered(mul, m, row), "sum", 1, (R, C), [m, row], "single"),
+        ("bf16 a*b+a sum", _lowered(lambda p, q: p * q + p, a, b), "sum", None, (n,), [a, b],
+         "lanes4"),
+        ("f32 * bf16 sum", _lowered(mul, f, b), "sum", None, (n,), [f, b], "lanes4"),
+        ("bf16 (a+b)*a max", _lowered(lambda p, q: (p + q) * p, a, b), "max", None, (n,), [a, b],
+         "lanes4"),
+    ]
+
+
+@pytest.mark.parametrize("n", [4096 * 3 + 776, 4096 * 3 + 777])
+@pytest.mark.parametrize("case", range(7))
+def test_rd_half_programs_on_the_quad_paths_are_the_element_path(cuda, case, n):
+    """The rounding ``single`` routes (a bfloat16 instruction's result
+    rounded on each lane before it is summed), a bfloat16 program on
+    ``lanes4`` and a mixed float32/bfloat16 one: bit for bit the element
+    path's on the same values 2 bytes off, within 2e-5 * sum|v| of the
+    plain version."""
+    label, prog, kind, axis, shape, operands, want = _rounding_cases(cuda, n, 96, 128)[case]
+    wide = [_placed(o, 0) for o in operands]
+    off = [_placed(o, 1) for o in operands]
+    assert reduction.path(prog, kind, shape, reduction.layout(wide), axis) == want, label
+    vals = reduction.values(prog, shape, operands, cuda)
+    p = reduction._plain(vals, kind, axis)
+
+    def run(ops):
+        if axis is None:
+            return reduction.map_reduce(prog, kind, shape, *ops)
+        return reduction.map_reduce_axis(prog, kind, axis, shape, *ops)
+
+    k, _ = _rd_on(want, lambda: run(wide), p)
+    e, _ = _rd_on("element", lambda: run(off), p)
+    assert torch.equal(k.view(torch.int32), e.view(torch.int32)), label
+    _rd_agree(kind, k, p, vals.float().abs().sum(axis) if axis is not None else vals.float().abs().sum())

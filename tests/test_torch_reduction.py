@@ -523,6 +523,11 @@ def _path_cases():
     mul = lambda p, q: p * q  # noqa: E731
     thr = lambda p, s: sm.where(p > s, p, 0.0)  # noqa: E731
     shifted = elementwise.View(_aligned(n + 1), 1, (n,), (1,))
+    bf16 = torch.bfloat16
+    a16, b16 = _aligned(n, dtype=bf16), _aligned(n, dtype=bf16)
+    m16, row16, col16 = _aligned(R, C, dtype=bf16), _aligned(1, C, dtype=bf16), _aligned(R, 1, dtype=bf16)
+    shifted16 = elementwise.View(_aligned(n + 1, dtype=bf16), 1, (n,), (1,))
+    ident16, ident_h = reduction.identity(bf16), reduction.identity(torch.float16)
     return {
         # rd_full
         "identity": (ident, "sum", (n,), [a], None, "direct"),
@@ -574,6 +579,43 @@ def _path_cases():
         "axis 1 negative step": (ident, "sum", (R // 2, C // 2),
                                  [elementwise.View(m, R * C - 1, (R // 2, C // 2), (-2 * C, -2))],
                                  1, "element"),
+        # 2-byte operands: a quad is one 8-byte load where the operand is
+        # 8-byte aligned and, along rows, its rows are whole quads.
+        "bf16 identity": (ident16, "sum", (n,), [a16], None, "direct"),
+        "bf16 identity, ragged": (ident16, "sum", (n - 3,), [_aligned(n - 3, dtype=bf16)], None,
+                                  "direct"),
+        "bf16 identity 8 bytes off": (ident16, "sum", (n - 4,), [a16[4:]], None, "direct"),
+        "bf16 a*b": (_lowered(mul, a16, b16), "sum", (n,), [a16, b16], None, "single"),
+        "bf16 a*2.5": (_lowered(lambda p: p * 2.5, a16), "sum", (n,), [a16], None, "single"),
+        "bf16 a*b max": (_lowered(mul, a16, b16), "max", (n,), [a16, b16], None, "lanes4"),
+        "bf16 exp": (_lowered(lambda p: sm.exp(p), a16), "sum", (n,), [a16], None, "lanes4"),
+        "bf16 axis 0 (1, C) row": (ident16, "sum", (1, C), [row16], 0, "direct"),
+        "bf16 axis 0 a*row": (_lowered(mul, m16, row16), "sum", (R, C), [m16, row16], 0,
+                              "single"),
+        "bf16 axis 1 identity": (ident16, "sum", (R, C), [m16], 1, "direct"),
+        "bf16 axis 0 identity max": (ident16, "max", (R, C), [m16], 0, "direct"),
+        "bf16 full map row col": (_lowered(lambda p, r, c: sm.square(p * r - c), m16, row16, col16),
+                                  "sum", (R, C), [m16, row16, col16], None, "lanes4"),
+        "bf16 one element off": (ident16, "sum", (n,), [shifted16], None, "element"),
+        "bf16 a*b, b one element off": (_lowered(mul, a16, b16), "sum", (n,), [a16, shifted16],
+                                        None, "element"),
+        "bf16 axis 1 ragged columns": (ident16, "sum", (R, C - 1), [_aligned(R, C - 1, dtype=bf16)],
+                                       1, "element"),
+        "bf16 axis 0 ragged columns": (ident16, "sum", (R, C - 2), [_aligned(R, C - 2, dtype=bf16)],
+                                       0, "element"),
+        "bf16 axis 1 ragged columns, aligned rows": (ident16, "sum", (R, C - 1), [m16[:, :C - 1]],
+                                                     1, "direct"),
+        "f32 * bf16": (_lowered(mul, a, b16), "sum", (n,), [a, b16], None, "lanes4"),
+        "f32 * bf16 axis 1": (_lowered(mul, m, m16), "sum", (R, C), [m, m16], 1, "lanes4"),
+        "f32 * bf16, bf16 one element off": (_lowered(mul, a, b16), "sum", (n,), [a, shifted16],
+                                             None, "element"),
+        "f16 identity": (ident_h, "sum", (n,), [_aligned(n, dtype=torch.float16)], None, "direct"),
+        "f16 identity min": (ident_h, "min", (n,), [_aligned(n, dtype=torch.float16)], None,
+                             "direct"),
+        "f16 axis 1": (ident_h, "sum", (R, C), [_aligned(R, C, dtype=torch.float16)], 1, "direct"),
+        "f16 one element off": (ident_h, "sum", (n,),
+                                [elementwise.View(_aligned(n + 1, dtype=torch.float16), 1, (n,),
+                                                  (1,))], None, "element"),
     }
 
 

@@ -3,7 +3,7 @@
 ``ew_strided`` with its generated kernels and its interpreter) on one CUDA
 card.
 
-    python3 tools/time_torch_elementwise.py [--root DIR] [extra nvcc flags ...]
+    python3 tools/time_torch_elementwise.py [--root DIR] [--flat] [extra nvcc flags ...]
 
 Builds the kernels of ``simplemath_tpu_torch`` (with any extra ``nvcc`` flags
 given, for example a ``-D`` switch put into a source while trying a variant),
@@ -19,6 +19,10 @@ ragged tail, and prints device times (CUDA events, as
 - the add and the chain ``a * b + c - a`` on 16M floats (192 and 256 MB:
   device memory), the chain beside its plain version (three torch kernels)
   and its bound by bytes;
+- the bfloat16 add: 1M elements hot in the L2 and over a ring past it, and
+  16M (96 MiB), each beside ``torch.add``, and the 1M ring once more with
+  every operand 2 bytes past a 16-byte boundary (``ew_flat``'s element
+  path), held bit for bit against the plain version first;
 - ``ew_strided``: the BASELINE recurrence ``acc * 1e-3 + exp(pow(a + acc *
   1e-6, e_row))`` on 2048x2048 with a (1, 2048) row at L = 1, 2, 4, 8, 16
   and 400, and one-pass programs of 1 to 64 instructions over the same
@@ -26,6 +30,8 @@ ragged tail, and prints device times (CUDA events, as
   kernel generated for the program, the two held bit for bit, with the
   NVRTC milliseconds of each new kernel: the measurement that sends every
   program to a generated kernel.
+
+``--flat`` times ``ew_flat`` alone (no ``ew_strided`` section).
 
 ``--root DIR`` takes the package and ``chip_smoke.py`` from another checkout
 (the parent commit, unpacked beside this one), so that two versions are timed
@@ -50,8 +56,8 @@ import torch
 
 ARGS = sys.argv[1:]
 HOST = "--host" in ARGS
-if HOST:
-    ARGS.remove("--host")
+FLAT = "--flat" in ARGS
+ARGS = [a for a in ARGS if a not in ("--host", "--flat")]
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 if "--root" in ARGS:
     i = ARGS.index("--root")
@@ -65,7 +71,21 @@ from simplemath_tpu_torch.ops import elementwise, program  # noqa: E402
 
 N_ADD = 1_000_000
 N_BIG = 16 * 1024 * 1024
-RING = 16  # sets of (a, b, result) of the 1M add: 192 MB
+RING = 16  # sets of (a, b, result) of the 1M add: 192 MB (96 MB in bfloat16)
+
+
+def add16(n):
+    """The bfloat16 add of two n-element operands."""
+    leaves = [program.leaf((n,), torch.bfloat16) for _ in range(2)]
+    return program.lower(leaves[0] + leaves[1], leaves)
+
+
+def two_bytes_off(t):
+    """A contiguous copy of the 2-byte tensor ``t`` 2 bytes past a 16-byte
+    boundary: the same values on the element path."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    at = (-buf.data_ptr() // 2) % 8 + 1
+    return buf[at:at + t.numel()].view(t.shape).copy_(t)
 
 
 def strided(run, f32, t):
@@ -159,6 +179,7 @@ def main():
         return 1
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(ARGS)
     _build.library()
+    print(f"whole build: {_build.BUILD_SECONDS and round(_build.BUILD_SECONDS, 1)} s ({ROOT})")
     kernel = None  # ptxas' registers, stack and spills of ew_flat and ew_strided
     for line in _build.BUILD_LOG.splitlines():
         if "Compiling entry function" in line:
@@ -194,10 +215,14 @@ def main():
         "scalar left": (lowered(lambda s, a: s - a, (), (n,)), [s0, x]),
         "constant": (lowered(lambda a: a * 2.5, (n,)), [x]),
     }
+    xb, yb = x.bfloat16(), y.bfloat16()
+    cases["bf16 add"] = (add16(n), [xb, yb])
+    cases["bf16 add, 2 bytes off"] = (add16(n), [two_bytes_off(xb), yb])
     for label, (prog, operands) in cases.items():
         k = run(prog, *operands)
         want = program.run_plain(prog, operands, (n,))
-        if not torch.equal(k.view(torch.int32), want.view(torch.int32)):
+        bits = torch.int16 if k.dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(k.view(bits), want.view(bits)):
             print(f"time_torch_elementwise: {label} differs from the plain interpreter",
                   file=sys.stderr)
             return 1
@@ -219,6 +244,18 @@ def main():
     big = [f32(N_BIG) for _ in range(3)]
     add_big = lowered(lambda p, q: p + q, (N_BIG,), (N_BIG,))
     chain = lowered(lambda p, q, r: p * q + r - p, (N_BIG,), (N_BIG,), (N_BIG,))
+    ring16 = [(f32(N_ADD).bfloat16(), f32(N_ADD).bfloat16()) for _ in range(RING)]
+    ring16_off = [(two_bytes_off(p), two_bytes_off(q)) for p, q in ring16]
+    big16 = [t.bfloat16() for t in big[:2]]
+    add_1m16, add_big16 = add16(N_ADD), add16(N_BIG)
+    a16, b16 = a.bfloat16(), b.bfloat16()
+
+    def rotated16(pairs, fn):
+        def call():
+            i = turn[0] = (turn[0] + 1) % RING
+            kept[i] = fn(*pairs[i])
+        return call
+
     t = chip_smoke.time_ms
     times = {
         "add_hot_ms": t(lambda: run(add, a, b), n=100),
@@ -232,8 +269,26 @@ def main():
         "chain_16m_ms": t(lambda: run(chain, *big), n=10),
         "chain_16m_plain_ms": t(lambda: program.run_plain(chain, big, (N_BIG,)), n=10),
         "chain_16m_bound_ms": chip_smoke.bound(16 * N_BIG, 3 * N_BIG)[0],
+        "add_bf16_hot_ms": t(lambda: run(add_1m16, a16, b16), n=100),
+        "add_bf16_hot_library_ms": t(lambda: torch.add(a16, b16), n=100),
+        "add_bf16_past_l2_ms": t(rotated16(ring16, lambda p, q: run(add_1m16, p, q)), n=100),
+        "add_bf16_past_l2_library_ms": t(rotated16(ring16, torch.add), n=100),
+        "add_bf16_past_l2_2_bytes_off_ms": t(rotated16(ring16_off, lambda p, q: run(add_1m16, p, q)),
+                                             n=100),
+        "add_bf16_16m_ms": t(lambda: run(add_big16, *big16), n=10),
+        "add_bf16_16m_library_ms": t(lambda: torch.add(*big16), n=10),
+        "add_bf16_bound_ms": chip_smoke.bound(6 * N_ADD, N_ADD)[0],
+        "add_bf16_16m_bound_ms": chip_smoke.bound(6 * N_BIG, N_BIG)[0],
     }
-    times.update(strided(run, f32, t))
+    if hasattr(elementwise, "FLAT_PATHS"):
+        elementwise.reset_launches()
+        run(add_1m16, a16, b16)
+        run(add_1m16, *ring16_off[0])
+        times["flat_paths_of_aligned_then_off"] = dict(elementwise.FLAT_PATHS)
+    for key in ("add_bf16_hot", "add_bf16_past_l2", "add_bf16_16m"):
+        times[f"{key}_over_library"] = times[f"{key}_ms"] / times[f"{key}_library_ms"]
+    if not FLAT:
+        times.update(strided(run, f32, t))
     times["add_hot_over_library"] = times["add_hot_ms"] / times["add_hot_library_ms"]
     times["add_past_l2_over_library"] = times["add_past_l2_ms"] / times["add_past_l2_library_ms"]
     print(f"{card}: " + json.dumps({"root": str(ROOT), "flags": ARGS, **times}))

@@ -23,7 +23,13 @@ events, as ``chip_smoke.py::time_ms`` takes them: runs of 20 calls over
   ``torch.sum(dim)``, the thresholded sums ``sum(where(a > s, a, 0), axis)``
   and the map-reduce ``a * row - col`` along both axes and in full, the
   thresholded sums beside their plain version; the axis-0 sum of a
-  transposed view.
+  transposed view;
+- in bfloat16 (the same 64M values, 128 MiB): ``Array.sum()``'s reduction
+  beside ``torch.sum``, and of the values 2 bytes past a 16-byte boundary
+  (the element path), the sums along axis 0 and 1 of (8192, 8192) beside
+  ``torch.sum(dim)``; the float16 sum beside ``torch.sum``; checked first
+  against their plain versions, the 2-bytes-off sum bit for bit against
+  the aligned one.
 
 ``--root DIR`` takes the package and ``chip_smoke.py`` from another checkout
 (the parent commit, unpacked beside this one), so that two versions are
@@ -59,6 +65,14 @@ from simplemath_tpu_torch.ops import elementwise, program, reduction  # noqa: E4
 N_SUM = 64 * 1024 * 1024
 N_DOT = 32 * 1024 * 1024
 N_AXIS = 8192
+
+
+def two_bytes_off(t):
+    """A contiguous copy of the 2-byte tensor ``t`` 2 bytes past a 16-byte
+    boundary: the same values on the element path."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    at = (-buf.data_ptr() // 2) % 8 + 1
+    return buf[at:at + t.numel()].view(t.shape).copy_(t)
 
 
 def compile_alone(tag):
@@ -161,6 +175,26 @@ def main():
                           vals.sum(ax), vals.abs().sum(ax)))
             cases.append((f"max axis {ax}", lambda ax=ax: reduction.reduce_axis(m, "max", ax),
                           m.amax(ax), None))
+        xb = x.bfloat16()
+        xb_off = two_bytes_off(xb)
+        mb = m.bfloat16()
+        cases += [
+            ("bf16 sum", lambda: reduction.reduce(xb, "sum"), reduction._plain(xb, "sum"),
+             xb.float().abs().sum()),
+            ("bf16 sum 2 bytes off", lambda: reduction.reduce(xb_off, "sum"),
+             reduction._plain(xb, "sum"), xb.float().abs().sum()),
+            ("f16 sum", lambda: reduction.reduce(x.half(), "sum"), reduction._plain(x.half(), "sum"),
+             x.half().float().abs().sum()),
+            ("bf16 axis 0", lambda: reduction.reduce_axis(mb, "sum", 0), reduction._plain(mb, "sum", 0),
+             mb.float().abs().sum(0)),
+            ("bf16 max axis 1", lambda: reduction.reduce_axis(mb, "max", 1),
+             reduction._plain(mb, "max", 1), None),
+        ]
+        if not torch.equal(reduction.reduce(xb, "sum").view(torch.int32),
+                           reduction.reduce(xb_off, "sum").view(torch.int32)):
+            print("time_torch_reduction: the bf16 sum 2 bytes off differs from the aligned one",
+                  file=sys.stderr)
+            return 1
         for label, fn, want, scale in cases:
             k1, k2 = fn(), fn()
             torch.cuda.synchronize()
@@ -216,6 +250,21 @@ def main():
             lambda: reduction.map_reduce_axis(p_map, "sum", ax, sq, mat, row, col))
     times["full_map_ms"] = t(lambda: reduction.map_reduce(p_map, "sum", sq, mat, row, col))
     times["axis0_transposed_view_ms"] = t(lambda: reduction.reduce_axis(view_t, "sum", 0))
+    x16, xh = x.bfloat16(), x.half()
+    x16_off, m16 = two_bytes_off(x16), x16.reshape(N_AXIS, N_AXIS)
+    times.update({
+        "sum_bf16_ms": t(lambda: reduction.reduce(x16, "sum")),
+        "sum_bf16_library_ms": t(lambda: torch.sum(x16)),
+        "sum_bf16_2_bytes_off_ms": t(lambda: reduction.reduce(x16_off, "sum")),
+        "sum_f16_ms": t(lambda: reduction.reduce(xh, "sum")),
+        "sum_f16_library_ms": t(lambda: torch.sum(xh)),
+        "bound_128MiB_ms": chip_smoke.bound(2 * N_SUM, N_SUM)[0],
+    })
+    for ax in (0, 1):
+        times[f"axis{ax}_bf16_ms"] = t(lambda: reduction.reduce_axis(m16, "sum", ax))
+        times[f"axis{ax}_bf16_library_ms"] = t(lambda: torch.sum(m16, ax))
+    for key in ("sum_bf16", "sum_f16", "axis0_bf16", "axis1_bf16"):
+        times[f"{key}_over_library"] = times[f"{key}_ms"] / times[f"{key}_library_ms"]
     times["bound_256MB_ms"] = chip_smoke.bound(4 * N_SUM, N_SUM)[0]
     times["dot_over_library"] = times["dot_ms"] / times["dot_library_ms"]
     times["axis0_over_library"] = times["axis0_identity_ms"] / times["axis0_identity_library_ms"]

@@ -162,7 +162,25 @@ device:
    route), held to the native pendulum's solve of the same inputs (costs
    within rtol 1e-4, controls within rtol 1e-3 and 1e-4 x the largest) and
    timed beside it;
-9. prints the kernels' JSON line (each kernel's launches on the main path,
+9. the parallel layer (``simplemath_tpu_torch.parallel``): solves the
+   inputs unsharded here (which also caches the generated kernels that the
+   ranks load), then starts this script's own ranks (``--rank``, one
+   process a rank on the card): an NCCL world of one rank, which runs the
+   cartpole ``solve_batched_sharded`` (8192 x H=100, 10 iterations), and a
+   gloo world of two ranks on the one card (NCCL takes one rank a device),
+   which runs the same solve (4096 a rank), the horizon-sharded Riccati
+   backward at H=100 (101 elements over 2 ranks: the padding path) against
+   ``backward_associative`` (rtol 1e-5, atol 1e-6), the scenario-consensus
+   MPC on the quadrotor (1024 scenarios, H=50, 3 iterations: the consensus
+   ``u0`` equal on every scenario, the cost never rising; ms a consensus
+   step), the ``sm``-written pendulum sharded (4096 x H=50: ``ew_flat`` and
+   ``ew_strided`` launched in each rank, no plain-torch route) and the nine
+   workloads of tests/test_kernels_sharded.py inside each rank, each on its
+   kernel, against its plain version and followed by a collective; every
+   sharded solve's costs and controls are held to the unsharded solve's
+   (rtol 1e-5, atol 1e-6) and the psum total to their sum; no rank may
+   rebuild the kernels; prints the ``parallel`` JSON line;
+10. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
    read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
@@ -179,6 +197,7 @@ is visible.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1552,6 +1571,392 @@ def solver_phase(dev, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+# The parallel layer (simplemath_tpu_torch.parallel): worlds of processes of
+# this script (``--rank``), one device a rank.
+SHARDED_CARTPOLE = CARTPOLE  # BASELINE.json config 3's width, 10 iterations
+SCENARIO_MPC = (1024, QUAD_H, 3)  # scenarios (a count chosen here), horizon, iterations
+HORIZON_H = 100            # 101 elements over 2 ranks: the identity-padding path
+RANKS = 2
+WORLD_TIMEOUT = 420
+
+
+def _rank_args(argv):
+    opts = dict(zip(argv[::2], argv[1::2]))
+    return (int(opts["--rank"]), int(opts["--world"]), opts["--port"], opts["--backend"],
+            opts["--device"], opts["--out"], opts.get("--parts", "all").split(","))
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(dev, fn):
+    """(wall seconds of ``fn()`` ended by a synchronize after a barrier, its
+    result)."""
+    import torch.distributed as dist
+
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return time.perf_counter() - t0, out
+
+
+def _kernel_cases(dev, n, rng):
+    """The nine workloads of tests/test_kernels_sharded.py for a mesh of
+    ``n`` ranks: name -> (kernel, the sm function of a rank's blocks, its
+    plain torch version of the global inputs, in-specs, out-spec, the
+    global inputs, rtol, atol).  A reduction (out-spec ``P()``) gives each
+    rank's partial, which the rank psums; the others' blocks are
+    gathered."""
+    import torch
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    S, R = P("scenario"), P()
+
+    def t(*shape, lo=None, hi=None, scale=1.0, dtype=torch.float32):
+        x = rng.uniform(lo, hi, shape) if lo is not None else rng.standard_normal(shape) * scale
+        return torch.from_numpy(x.astype(np.float32)).to(dev).to(dtype)
+
+    f64, bf = torch.float64, torch.bfloat16
+    fused = sm.fuse(lambda x, y: sm.exp(sm.pow(x, y)))
+    product = sm.fuse(lambda x, y: x @ y)
+    layer = sm.fuse(lambda x, w, b: sm.maximum(x @ w + b, 0.0))
+    return {
+        "add": ("ew_flat", lambda a, b: sm.add(sm.Array(a), sm.Array(b)).torch(),
+                lambda a, b: a + b, (S, S), S, [t(n * 512, 1024), t(n * 512, 1024)], 0, 0),
+        "fused_exp_pow": ("ew_flat", lambda a, e: fused(a, e).torch(),
+                          lambda a, e: torch.exp(torch.pow(a.to(f64), e.to(f64))), (S, S), S,
+                          [t(n * 512, 1024, lo=0.5, hi=2.0), t(n * 512, 1024, lo=-1, hi=1)],
+                          3e-5, 0),
+        "sum": ("rd_full", lambda x: sm.Array(x).sum().torch(),
+                lambda x: x.to(f64).sum(), (S,), R, [t(n * 1024, 1000)], 1e-5, 1e-3),
+        "mm_bf16": ("mm", lambda a, b: product(a, b).torch(),
+                    lambda a, b: a.to(f64) @ b.to(f64), (S, R), S,
+                    [t(n * 1024, 1024, scale=1 / 32, dtype=bf),
+                     t(1024, 1024, scale=1 / 32, dtype=bf)], 2.0 ** -7, 1e-4),
+        "bmm_bf16": ("bmm", lambda a, b: product(a, b).torch(),
+                     lambda a, b: a.to(f64) @ b.to(f64), (S, S), S,
+                     [t(n * 4, 512, 512, scale=1 / 16, dtype=bf),
+                      t(n * 4, 512, 512, scale=1 / 16, dtype=bf)], 2.0 ** -7, 1e-4),
+        "dot": ("rd_full", lambda a, b: sm.dot(sm.Array(a), sm.Array(b)).torch(),
+                lambda a, b: torch.dot(a.to(f64), b.to(f64)), (S, S), R,
+                [t(n * (1 << 20)), t(n * (1 << 20))], 1e-5, 1e-2),
+        "matmul_epilogue": ("mm", lambda x, w, b: layer(x, w, b).torch(),
+                            lambda x, w, b: torch.clamp_min(x.to(f64) @ w.to(f64) + b.to(f64), 0.0),
+                            (S, R, R), S, [t(n * 1024, 512), t(512, 512), t(1, 512)], 1e-4, 1e-3),
+        "axis_sum": ("rd_axis", lambda a: sm.array(a).sum(axis=1).torch(),
+                     lambda a: a.to(f64).sum(dim=1), (S,), S, [t(n * 1024, 1024)], 1e-4, 1e-4),
+        "transposed_view_add": ("ew_strided", lambda a, b: sm.add(sm.Array(a).T, sm.Array(b)).torch(),
+                                lambda a, b: a.T + b, (P(None, "scenario"), S), S,
+                                [t(1024, n * 512), t(n * 512, 1024)], 0, 0),
+    }
+
+
+def _rank_kernels(dev, mesh, rng):
+    """The nine workloads inside this rank: each on its kernel (launches of
+    the call alone counted), followed by a collective (the psum of the
+    reductions' partials; of each rank's block sum for the others), held
+    against its plain version on the global inputs."""
+    import torch
+    import torch.distributed as dist
+    from simplemath_tpu_torch import parallel
+    from simplemath_tpu_torch.ops import elementwise, matmul, reduction
+    from simplemath_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    out = {}
+    cases = _kernel_cases(dev, mesh.shape["scenario"], rng)
+    for name, (kernel, fn, plain, specs, out_spec, args, rtol, atol) in cases.items():
+        def body(*blocks):
+            y = fn(*blocks)
+            if out_spec == P():  # a partial of the reduction
+                y = parallel.psum(y, "scenario")
+                return y, y.double()
+            return y, parallel.psum(torch.sum(y.double()), "scenario")
+
+        elementwise.reset_launches()
+        reduction.reset_launches()
+        matmul.reset_launches()
+        y, total = parallel.shard_map(body, mesh=mesh, in_specs=specs,
+                                      out_specs=(out_spec, P()))(*args)
+        _sync(dev)
+        launches = {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES}
+        want = plain(*args).double()
+        d = (y.double() - want).abs()
+        err = float(d.max())
+        check(bool((d <= atol + rtol * want.abs()).all()),
+              f"{name}: {err} from its plain version, rank {dist.get_rank()}")
+        whole = float(y.double().sum())  # the gathered blocks' sum, in float64
+        check(abs(float(total) - whole) <= 1e-9 * abs(whole) + 1e-9,
+              f"{name}: the collective gave {float(total)} against {whole}")
+        if dev.type == "cuda":
+            check(launches[kernel] > 0, f"{name}: no {kernel} launch in rank {dist.get_rank()}: {launches}")
+        out[name] = {"kernel": kernel, "launches": launches[kernel], "max_abs_err": err,
+                     "collective": float(total)}
+    return out
+
+
+def rank_main(argv):
+    """One rank of a phase-9 world: joins it, runs its parts and prints one
+    JSON line of results; rank 0 writes the sharded solves' results to
+    ``--out`` for the parent to hold against the unsharded ones."""
+    rank, world, port, backend, device, out_dir, parts = _rank_args(argv)
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch import _build, parallel
+    from simplemath_tpu_torch.models import (
+        ILQRConfig, ilqr, make_cartpole, make_quadrotor, make_sm_pendulum,
+    )
+    from simplemath_tpu_torch.models.sqp_mpc import make_scenario_mpc_step, scenario_mpc_solve
+    from simplemath_tpu_torch.ops import codegen, dispatch, elementwise
+    from simplemath_tpu_torch.parallel import collectives
+
+    check("jax" not in sys.modules, "a rank imported jax")
+    sm.configure(device=device)
+    res = {"rank": rank, "world": world, "backend": backend, "device": device}
+    if dev.type == "cuda":
+        _build.library()
+        res["kernel_library_rebuilt"] = _build.BUILD_SECONDS is not None
+    inputs = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    mesh = parallel.make_mesh()
+    saved = {}
+    cfg = ILQRConfig(iterations=SOLVE_ITERS)
+
+    def on(name):
+        return torch.from_numpy(inputs[name]).to(dev)
+
+    if "cartpole" in parts:
+        cartpole = make_cartpole()
+        x0, us = on("cartpole_x0"), on("cartpole_us")
+        warm_s, _ = _timed(dev, lambda: parallel.solve_batched_sharded(
+            cartpole, x0, us, ILQRConfig(iterations=1), mesh))
+        collectives.COUNTS.clear()
+        wall, (r, stats) = _timed(dev, lambda: parallel.solve_batched_sharded(
+            cartpole, x0, us, cfg, mesh))
+        saved.update(cartpole_cost=r.cost, cartpole_us=r.us, cartpole_total=stats["total_cost"])
+        res["cartpole"] = {"batch": x0.shape[0], "per_rank": x0.shape[0] // world,
+                           "horizon": us.shape[1], "iterations": SOLVE_ITERS, "wall_s": wall,
+                           "solves_per_s": x0.shape[0] / wall, "warmup_1_iteration_s": warm_s,
+                           "collectives": dict(collectives.COUNTS),
+                           "total_cost": float(stats["total_cost"])}
+    if "horizon" in parts:
+        cartpole = make_cartpole()
+        hus = 0.01 * torch.ones((HORIZON_H, 1), device=dev)
+        xs = ilqr.rollout(cartpole.step, torch.zeros(4, device=dev), hus)
+        A, B, lx, lu, lxx, luu, lux, VxT, VxxT = ilqr.linearize(cartpole, xs, hus)
+        lxx, luu, lux, VxxT = ilqr.psd_cost_hessians(lxx, luu, lux, VxxT, "clamp_diag", 1e-6)
+        args = (A, B, lx, lu, lxx, luu, lux, VxT, VxxT, torch.tensor(1e-6, device=dev))
+        hmesh = parallel.make_mesh((world,), ("h",))
+        parallel.backward_associative_sharded(hmesh, "h", *args)
+        wall, (ks, Ks) = _timed(dev, lambda: parallel.backward_associative_sharded(hmesh, "h", *args))
+        ref_s, (rk, rK) = _timed(dev, lambda: ilqr.backward_associative(*args))
+        errs = []
+        for got, want, what in ((ks, rk, "ks"), (Ks, rK, "Ks")):
+            d = (got.double() - want.double()).abs()
+            errs.append(float(d.max()))
+            check(bool((d <= 1e-6 + 1e-5 * want.double().abs()).all()),
+                  f"horizon-sharded {what} {errs[-1]} from backward_associative")
+        res["horizon"] = {"horizon": HORIZON_H, "elements": HORIZON_H + 1, "ranks": world,
+                          "padded_to": -(-(HORIZON_H + 1) // world) * world, "ms": 1e3 * wall,
+                          "one_device_ms": 1e3 * ref_s, "max_abs_err": max(errs)}
+    if "mpc" in parts:
+        quad = make_quadrotor()
+        x0, us = on("mpc_x0"), on("mpc_us")
+        step = make_scenario_mpc_step(quad, mesh)
+        warm_s, _ = _timed(dev, lambda: step(x0, us))
+        wall, (us_new, du0, history) = _timed(dev, lambda: scenario_mpc_solve(
+            quad, x0, us, mesh, iterations=SCENARIO_MPC[2]))
+        u0 = us_new[:, 0, :]
+        spread = float((u0 - u0[:1]).abs().max())
+        check(spread <= 1e-6 * max(1.0, float(u0.abs().max())),
+              f"scenario MPC: the consensus u0 differs across scenarios by {spread}")
+        check(all(b <= a + 1e-5 * abs(a) for a, b in zip(history, history[1:])),
+              f"scenario MPC: the consensus cost rose: {history}")
+        init = float(torch.func.vmap(lambda x, u: ilqr.trajectory_cost(
+            quad, ilqr.rollout(quad.step, x, u), u))(x0, us).sum())
+        check(history[0] <= init + 1e-5 * abs(init), f"scenario MPC: {history[0]} above {init}")
+        res["scenario_mpc"] = {"scenarios": x0.shape[0], "per_rank": x0.shape[0] // world,
+                               "horizon": us.shape[1], "iterations": SCENARIO_MPC[2],
+                               "initial_cost": init, "history": history,
+                               "ms_per_consensus_step": 1e3 * wall / SCENARIO_MPC[2],
+                               "first_step_ms": 1e3 * warm_s, "u0_spread": spread,
+                               "du0": du0.cpu().tolist()}
+    if "sm_pendulum" in parts:
+        sm_pend = make_sm_pendulum()
+        x0, us = on("sm_x0"), on("sm_us")
+        _timed(dev, lambda: parallel.solve_batched_sharded(sm_pend, x0, us, ILQRConfig(iterations=1), mesh))
+        elementwise.reset_launches()
+        dispatch.reset()
+        stats0 = dict(codegen.STATS)
+        wall, (r, stats) = _timed(dev, lambda: parallel.solve_batched_sharded(sm_pend, x0, us, cfg, mesh))
+        launches, counts = dict(elementwise.LAUNCHES), dispatch.counts()
+        if dev.type == "cuda":
+            check(launches["ew_flat"] > 0 and launches["ew_strided"] > 0,
+                  f"the sharded sm pendulum launched {launches} in rank {rank}")
+        check(not any(k.startswith("torch_path") for k in counts),
+              f"the sharded sm pendulum took the plain torch route in rank {rank}")
+        saved.update(sm_cost=r.cost, sm_us=r.us)
+        res["sm_pendulum"] = {"batch": x0.shape[0], "per_rank": x0.shape[0] // world,
+                              "horizon": us.shape[1], "iterations": SOLVE_ITERS, "wall_s": wall,
+                              "solves_per_s": x0.shape[0] / wall, "launches": launches,
+                              "nvrtc": {k: codegen.STATS[k] - stats0[k] for k in stats0}}
+    if "kernels" in parts:
+        res["kernels"] = _rank_kernels(dev, mesh, np.random.default_rng(SEED + 90))
+    res["nvrtc_since_start"] = dict(codegen.STATS)
+    if rank == 0 and saved:
+        np.savez(os.path.join(out_dir, f"world{world}_{backend}.npz"),
+                 **{k: v.detach().cpu().numpy() for k, v in saved.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"rank_result": res}), flush=True)
+    return 0
+
+
+def _world(n, backend, device, out_dir, parts):
+    """Run ``n`` ranks of this script; returns their results.  A rank that
+    fails or outlives WORLD_TIMEOUT fails the phase, every rank killed."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # Each rank's output goes to a file: a rank blocked on a full pipe would
+    # stall the collectives of the others.
+    logs = [(open(os.path.join(out_dir, f"{backend}{n}_rank{r}.out"), "w+"),
+             open(os.path.join(out_dir, f"{backend}{n}_rank{r}.err"), "w+")) for r in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world", str(n),
+         "--port", str(port), "--backend", backend, "--device", device, "--out", out_dir,
+         "--parts", ",".join(parts)],
+        stdout=so, stderr=se, cwd=os.path.dirname(os.path.abspath(__file__)))
+        for r, (so, se) in enumerate(logs)]
+    outs, failed = [], []
+    deadline = time.perf_counter() + WORLD_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} of the {backend} world ran past {WORLD_TIMEOUT} s")
+                continue
+            for f in logs[r]:
+                f.seek(0)
+            so, se = (f.read() for f in logs[r])
+            lines = [ln for ln in so.splitlines() if ln.startswith('{"rank_result"')]
+            if p.returncode != 0 or not lines:
+                failed.append(f"rank {r} of the {backend} world exited {p.returncode}:\n"
+                              f"{se[-3000:]}")
+            else:
+                outs.append(json.loads(lines[-1])["rank_result"])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for so, se in logs:
+            so.close()
+            se.close()
+    check(not failed, "\n".join(failed))
+    return outs
+
+
+def _close(got, want, what, rtol=1e-5, atol=1e-6):
+    """``got`` within ``rtol``/``atol`` of ``want``; returns the largest
+    difference."""
+    d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    err = float(d.max())
+    check(bool((d <= atol + rtol * np.abs(want.astype(np.float64))).all()),
+          f"{what}: {err} from the unsharded solve")
+    return err
+
+
+def parallel_phase(dev, card):
+    """Phase 9: the parallel layer on the card.  The parent (this process)
+    makes the inputs, solves them unsharded (which also builds what the
+    ranks load: the kernel library at phase 2, the generated kernels' CUBINs
+    here), then runs two worlds: NCCL over one rank, and two ranks on the
+    one card over gloo (NCCL takes one rank a device)."""
+    import tempfile
+
+    import torch
+    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole, make_sm_pendulum
+
+    rng = np.random.default_rng(SEED + 9)
+    batch, horizon = SHARDED_CARTPOLE
+    n_mpc, h_mpc, _ = SCENARIO_MPC
+    inputs = {
+        "cartpole_x0": (0.2 * rng.standard_normal((batch, 4))).astype(np.float32),
+        "cartpole_us": np.zeros((batch, horizon, 1), np.float32),
+        "sm_x0": (0.2 * rng.standard_normal((PENDULUM[0], 2))).astype(np.float32),
+        "sm_us": np.zeros((PENDULUM[0], PENDULUM[1], 1), np.float32),
+        "mpc_x0": (0.1 * rng.standard_normal((n_mpc, 12))).astype(np.float32),
+        "mpc_us": np.zeros((n_mpc, h_mpc, 4), np.float32),
+    }
+    out = {"card": card}
+    cfg = ILQRConfig(iterations=SOLVE_ITERS)
+    with tempfile.TemporaryDirectory() as out_dir:
+        np.savez(os.path.join(out_dir, "inputs.npz"), **inputs)
+        on = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+        ref_s, ref = wall_s(lambda: ilqr.solve_batched(make_cartpole(), on["cartpole_x0"],
+                                                       on["cartpole_us"], cfg))
+        sm_s, sm_ref = wall_s(lambda: ilqr.solve_batched(make_sm_pendulum(), on["sm_x0"],
+                                                         on["sm_us"], cfg))
+        out["unsharded"] = {"cartpole_wall_s": ref_s, "sm_pendulum_wall_s": sm_s}
+        # The in-rank kernel workloads once here, unsharded, so that their
+        # generated kernels' CUBINs are on disk before the ranks start.
+        for _, fn, _, _, _, args, _, _ in _kernel_cases(dev, RANKS, np.random.default_rng(SEED)).values():
+            fn(*args)
+        _sync(dev)
+        worlds = {}
+        t0 = time.perf_counter()
+        worlds["nccl_1"] = _world(1, "nccl", dev.type, out_dir, ["cartpole"])
+        worlds["gloo_2"] = _world(RANKS, "gloo", dev.type, out_dir,
+                                  ["cartpole", "horizon", "mpc", "sm_pendulum", "kernels"])
+        out["worlds_s"] = time.perf_counter() - t0
+        ref_cost, ref_us = ref.cost.cpu().numpy(), ref.us.cpu().numpy()
+        for key, ranks in worlds.items():
+            n, backend = len(ranks), ranks[0]["backend"]
+            saved = dict(np.load(os.path.join(out_dir, f"world{n}_{backend}.npz")))
+            w = {"ranks": n, "backend": backend, "device": ranks[0]["device"],
+                 "cartpole": ranks[0]["cartpole"],
+                 "cartpole_cost_err": _close(saved["cartpole_cost"], ref_cost, f"{key} costs"),
+                 "cartpole_us_err": _close(saved["cartpole_us"], ref_us, f"{key} controls"),
+                 "kernel_library_rebuilt": [r.get("kernel_library_rebuilt") for r in ranks],
+                 "nvrtc": [r["nvrtc_since_start"] for r in ranks]}
+            total = float(saved["cartpole_total"])
+            check(abs(total - float(ref_cost.astype(np.float64).sum()))
+                  <= 1e-5 * abs(float(ref_cost.sum())),
+                  f"{key}: psum total {total} against the unsharded sum")
+            w["psum_total"], w["unsharded_sum"] = total, float(ref_cost.astype(np.float64).sum())
+            if "sm_pendulum" in ranks[0]:
+                w["sm_pendulum"] = [r["sm_pendulum"] for r in ranks]
+                w["sm_cost_err"] = _close(saved["sm_cost"], sm_ref.cost.cpu().numpy(),
+                                          f"{key} sm pendulum costs")
+                w["sm_us_err"] = _close(saved["sm_us"], sm_ref.us.cpu().numpy(),
+                                        f"{key} sm pendulum controls")
+            for part in ("horizon", "scenario_mpc", "kernels"):
+                if part in ranks[0]:
+                    w[part] = [r[part] for r in ranks]
+            if dev.type == "cuda":
+                check(not any(w["kernel_library_rebuilt"]), f"{key}: a rank rebuilt the kernels")
+            out[key] = w
+            log(f"parallel {key} on {card}: {json.dumps(w)}")
+    return out
+
+
 def main():
     import torch
 
@@ -2666,6 +3071,12 @@ def main():
     solvers = solver_phase(dev, card)
     solvers["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"solvers": solvers}))
+
+    # ----------------------------------------------------- 9. parallel
+    t0 = time.perf_counter()
+    par = parallel_phase(dev, card)
+    par["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"parallel": par}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2674,4 +3085,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv else main())

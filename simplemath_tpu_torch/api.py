@@ -21,7 +21,7 @@ import torch
 from . import dtypes as _dtypes
 from .array import Array, asarray
 from .config import config
-from .ops import engine, reduction
+from .ops import engine, fusion, reduction
 
 
 def _shape_args(shape):
@@ -246,13 +246,16 @@ def where(cond, x, y) -> Array:
 
 def clip(a, a_min=None, a_max=None) -> Array:
     """NumPy ``clip``; a registered ternary op with both bounds, one
-    ``maximum``/``minimum`` with one."""
+    ``maximum``/``minimum`` with one.  With one bound the JAX package runs
+    ``jnp.clip`` at once, outside its deferred queue: so does the port,
+    but inside ``sm.fuse``."""
     if a_min is None and a_max is None:
         raise ValueError("clip needs at least one of a_min and a_max")
-    if a_max is None:
-        return maximum(a, a_min)
-    if a_min is None:
-        return minimum(a, a_max)
+    if a_min is None or a_max is None:
+        name, bound = ("maximum", a_min) if a_max is None else ("minimum", a_max)
+        if fusion.is_fused(a):
+            return fusion.binary_node(name, a, bound)
+        return engine.binary_eager(name, a, bound)
     return engine.ternary("clip", a, a_min, a_max)
 
 

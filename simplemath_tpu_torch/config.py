@@ -56,6 +56,10 @@ class Config:
         default_factory=lambda: _env_str("SM_DEVICE", "cuda")
     )
 
+    # Default mesh axis name of the distributed layer (parallel/): the
+    # scenario axis of the batched solvers.
+    data_axis: str = "scenario"
+
     def __post_init__(self):
         _check(self)
 

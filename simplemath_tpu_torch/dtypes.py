@@ -162,6 +162,12 @@ def to_inexact(dtype: torch.dtype) -> torch.dtype:
     return torch.float32
 
 
+def holds(dtype: torch.dtype, value: int) -> bool:
+    """Whether the integer type ``dtype`` holds the Python int ``value``."""
+    info = torch.iinfo(dtype)
+    return info.min <= value <= info.max
+
+
 UNSIGNED = frozenset([torch.uint8, torch.uint16, torch.uint32, torch.uint64])
 
 

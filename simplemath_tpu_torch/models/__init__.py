@@ -3,7 +3,7 @@ iLQR/DDP, RTI and AL-SQP MPC trajectory optimizers (BASELINE.json configs
 3-5), as plain torch.
 
 Counterpart of ``simplemath_tpu/models/``; the scenario-consensus MPC
-functions wait for the parallel layer (ROADMAP.md, queue 1).
+runs over the parallel layer (``simplemath_tpu_torch.parallel``).
 """
 
 from .dynamics import (  # noqa: F401
@@ -34,6 +34,9 @@ from .rti import (  # noqa: F401
 from .sqp_mpc import (  # noqa: F401
     MPCController,
     SQPConfig,
+    make_scenario_mpc_step,
+    scenario_mpc_solve,
+    scenario_mpc_step,
     solve_constrained,
 )
 from .simulate import SimResult, closed_loop  # noqa: F401

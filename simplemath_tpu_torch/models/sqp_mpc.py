@@ -11,16 +11,17 @@ Counterpart of ``simplemath_tpu/models/sqp_mpc.py``:
   constraints.  Static iteration counts, no host round trip.
 * ``MPCController``: warm-started receding-horizon wrapper, one
   ``replan(x)`` per tick.
-
-The scenario-consensus step (``make_scenario_mpc_step``,
-``scenario_mpc_step``, ``scenario_mpc_solve``) needs the parallel layer and
-is not ported yet (ROADMAP.md, queue 1).
+* ``scenario_mpc_step``: robust scenario MPC with a SHARED first control.
+  Per-scenario backward passes run sharded over the mesh's scenario axis
+  and the first-step KKT block (Quu_0, Qu_0) is summed across the ranks
+  with ``psum`` (parallel/collectives.py): the distributed QP/KKT block
+  reduction of BASELINE.json configs 4-5.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch.func import vmap
@@ -235,3 +236,125 @@ class MPCController:
 
     def reset(self):
         self.us_warm = torch.zeros_like(self.us_warm)
+
+
+@f32_matmuls
+def make_scenario_mpc_step(
+    system: System,
+    mesh,
+    axis_name: str = "scenario",
+    ilqr_config: Optional[_ilqr.ILQRConfig] = None,
+):
+    """Build the sharded scenario-consensus step once.  Returns
+    ``step(x0_batch, us_batch) -> (us', du0, stats)``; every rank is handed
+    the global batch and returns the global result.
+
+    Each scenario k runs its own backward pass; the first-step QP/KKT block
+    (Quu_0^k, Qu_0^k) is summed across the mesh (``psum``) and the
+    consensus first control update  du0 = -(Σ Quu_0^k)^{-1} Σ Qu_0^k  is
+    applied to every scenario through a mesh-wide line search.  The
+    candidates' costs are summed across the mesh in one ``psum`` of the
+    vector of them, so every rank picks the same step.
+    """
+    from ..parallel import collectives
+    from ..parallel.mesh import PartitionSpec as P
+
+    cfg = ilqr_config or _ilqr.ILQRConfig(iterations=1)
+
+    def per_scenario(x0, us):
+        xs = _ilqr.rollout(system.step, x0, us)
+        A, B, lx, lu, lxx, luu, lux, VxT, VxxT = _ilqr.linearize(system, xs, us)
+        reg = torch.full((), cfg.reg_init, dtype=us.dtype, device=us.device)
+        ks, Ks, Vx_all, Vxx_all = _ilqr.backward_associative(
+            A, B, lx, lu, lxx, luu, lux, VxT, VxxT, reg, return_values=True
+        )
+        # Exact first-step KKT block from the Riccati value at t=1.
+        I_u = torch.eye(us.shape[-1], dtype=us.dtype, device=us.device)
+        Quu0 = luu[0] + B[0].mT @ Vxx_all[1] @ B[0] + cfg.reg_init * I_u
+        Qu0 = lu[0] + B[0].mT @ Vx_all[1]
+        return ks, Ks, Quu0, Qu0, xs
+
+    def shard_fn(x0s, uss):
+        ks, Ks, Quu0, Qu0, xs = vmap(per_scenario)(x0s, uss)
+        # Distributed KKT block reduction across the scenario axis.
+        Quu_sum = collectives.psum(torch.sum(Quu0, dim=0), axis_name)
+        Qu_sum = collectives.psum(torch.sum(Qu0, dim=0), axis_name)
+        du0 = -torch.linalg.solve(Quu_sum, Qu_sum)
+
+        # Line search on the CONSENSUS objective (sum of scenario costs
+        # across the whole mesh): one shared step length scales both the
+        # consensus first-step update and the per-scenario feedforwards,
+        # with closed-loop feedback rollouts per candidate.  alpha = 0 is
+        # among the candidates, so the accepted step never increases the
+        # total cost.
+        ff = torch.cat([torch.broadcast_to(du0, ks[:, :1, :].shape), ks[:, 1:, :]], dim=1)
+        alphas = torch.cat([
+            _constant(tuple(map(float, cfg.alphas)), uss.dtype, uss.device),
+            torch.zeros((1,), dtype=uss.dtype, device=uss.device),
+        ])
+
+        def eval_alpha(alpha):
+            def per_scen(x0, us, xs_ref, f, K):
+                xs_new, us_new = _ilqr.feedback_rollout(system, xs_ref, us, f, K, alpha)
+                return us_new, _ilqr.trajectory_cost(system, xs_new, us_new)
+
+            us_a, cost_a = vmap(per_scen)(x0s, uss, xs, ff, Ks)
+            return us_a, torch.sum(cost_a)
+
+        us_c, local = vmap(eval_alpha)(alphas)
+        totals = collectives.psum(local, axis_name)
+        best = torch.argmin(totals)
+        us_new = _ilqr._take(us_c, best)
+        total = _ilqr._take(totals, best)
+        alpha_star = _ilqr._take(alphas, best)
+        return us_new, du0, {"total_cost": total, "alpha": alpha_star}
+
+    spec = P(axis_name)
+    sharded = collectives.shard_map(
+        shard_fn,
+        mesh=mesh,
+        in_specs=(spec, spec),
+        out_specs=(spec, P(), {"total_cost": P(), "alpha": P()}),
+        check_vma=False,
+    )
+    # The pin must hold while the returned step runs, not only while
+    # make_scenario_mpc_step does.
+    return f32_matmuls(sharded)
+
+
+def scenario_mpc_step(
+    system: System,
+    x0_batch,
+    us_batch,
+    mesh,
+    axis_name: str = "scenario",
+    ilqr_config: Optional[_ilqr.ILQRConfig] = None,
+):
+    """One scenario-consensus update (see :func:`make_scenario_mpc_step`;
+    for repeated stepping build the step once or use
+    :func:`scenario_mpc_solve`)."""
+    fn = make_scenario_mpc_step(system, mesh, axis_name, ilqr_config)
+    return fn(x0_batch, us_batch)
+
+
+def scenario_mpc_solve(
+    system: System,
+    x0_batch,
+    us_batch,
+    mesh,
+    iterations: int = 5,
+    axis_name: str = "scenario",
+    ilqr_config: Optional[_ilqr.ILQRConfig] = None,
+):
+    """Iterate the consensus step.  Returns ``(us, du0_last, history)``
+    where ``history`` is the per-iteration total cost (non-increasing by
+    construction of the line search).  Every iteration re-linearizes,
+    re-reduces the first-step KKT block across the mesh, and line-searches
+    the consensus step; each reads its total back to the host."""
+    step = make_scenario_mpc_step(system, mesh, axis_name, ilqr_config)
+    history = []
+    du0 = None
+    for _ in range(iterations):
+        us_batch, du0, stats = step(x0_batch, us_batch)
+        history.append(float(stats["total_cost"]))
+    return us_batch, du0, history

@@ -33,6 +33,7 @@ import torch
 from torch.utils import _pytree
 
 from .. import array as _array
+from .. import dtypes as _dt
 from ..array import Array, asarray
 from ..config import config
 from . import autodiff, engine, program
@@ -175,6 +176,31 @@ def _deferrable(x) -> bool:
     return engine._scalarlike(x) or isinstance(x, (Array, np.ndarray, torch.Tensor))
 
 
+def _by_value(xs, nodes):
+    """The reference's queue carries a Python int in int32's range as a
+    0-d int32 operand (``simplemath_tpu/ops/lazy.py``,
+    ``_narrow_weak_scalars``), so an op on an integer array whose type
+    cannot hold that int computes by value, in the promoted type, and the
+    result is cast to the type the weak rule gives: ``u32 > -1`` is all
+    True and ``maximum(u32, -1)`` is ``u32``, where the eager path wraps
+    -1 to 2**32 - 1.  An int beyond int32 stays weak, and so converts to
+    the promoted type: ``clip(u32, 1, 2**40)`` is ``maximum(u32, 1)``.  The
+    nodes with the int32-range ints made int32 constants, or None where
+    that changes no value (every int fits every integer array's type, or
+    no wider int meets a type that int32 promotes)."""
+    ints = [i for i, x in enumerate(xs)
+            if type(x) is int and -(2**31) <= x < 2**31]
+    wide = [x for x in xs if type(x) is int and not -(2**31) <= x < 2**31]
+    arrays = [n.dtype for n in nodes
+              if n.op != "const" and _dt.is_integer(n.dtype) and n.dtype != torch.uint64]
+    promoted = [dt for dt in arrays if _dt.result_dtype(dt, torch.int32) != dt]
+    if not (any(not _dt.holds(dt, xs[i]) for i in ints for dt in arrays)
+            or (ints and wide and promoted)):
+        return None
+    return [program.const(xs[i], torch.int32) if i in ints else n
+            for i, n in enumerate(nodes)]
+
+
 def _record(name, xs, build):
     """Record ``build(*nodes)`` over the inputs ``xs``; None (the caller
     computes eagerly) when the queue is off or an input cannot be
@@ -182,8 +208,12 @@ def _record(name, xs, build):
     if not (enabled() and all(_deferrable(x) for x in xs)):
         return None
     frags = [_as_operand(x) for x in xs]
+    nodes = [f[0] for f in frags]
     try:
-        node = build(*(f[0] for f in frags))
+        node = build(*nodes)
+        by_value = _by_value(xs, nodes)
+        if by_value is not None:
+            node = program.cast(build(*by_value), node.dtype)
     except program.NotLowerable:
         return None
     single = all(f[0].op in ("leaf", "const") for f in frags)

@@ -246,7 +246,9 @@ def _py(value, dtype):
         return float(value)
     if dtype.is_complex:
         return complex(value)
-    return int(value)
+    # An int the type cannot hold wraps, as XLA's conversion does.
+    info = torch.iinfo(dtype)
+    return (int(value) - info.min) % (info.max - info.min + 1) + info.min
 
 
 def cast(n: Node, dtype) -> Node:
@@ -265,6 +267,12 @@ def broadcast_all(*args) -> tuple:
     for a in args:
         out = broadcast_shapes(out, a.shape).result_shape
     return out
+
+
+# Ops that compute a bool operand as int32, as jnp does: ``square``,
+# ``floor_divide`` and ``remainder`` give int32 (``//`` and ``%`` with
+# XLA's values at a zero divisor), ``abs`` the bool unchanged.
+_BOOL_AS_INT32 = frozenset(["abs", "square", "floor_divide", "remainder"])
 
 
 def apply(name: str, *args: Node) -> Node:
@@ -286,11 +294,16 @@ def apply(name: str, *args: Node) -> Node:
         ct = _dt.weak_to_dtype(k)
         if rule == "inexact":
             ct = _dt.to_inexact(ct)
+        elif ct == torch.bool and name in _BOOL_AS_INT32:
+            ct = torch.int32
         ins = [cast(a, ct) for a in args]
         out = torch.bool if rule == "compare" else ct
         return Node(name, ins, out, shape, ctype=ct, weak=weak and rule != "compare")
     if rule == "same":
         (a,) = args
+        if a.dtype == torch.bool and name in _BOOL_AS_INT32:
+            n = Node(name, (cast(a, torch.int32),), torch.int32, shape)
+            return cast(n, torch.bool) if name == "abs" else n
         return Node(name, (a,), a.dtype, shape, weak=a.weak)
     if rule == "transcendental":
         (a,) = args

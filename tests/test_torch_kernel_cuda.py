@@ -2027,3 +2027,46 @@ def test_rd_half_programs_on_the_quad_paths_are_the_element_path(cuda, case, n):
     e, _ = _rd_on("element", lambda: run(off), p)
     assert torch.equal(k.view(torch.int32), e.view(torch.int32)), label
     _rd_agree(kind, k, p, vals.float().abs().sum(axis) if axis is not None else vals.float().abs().sum())
+
+
+_BOOL_INT_OPS = {"abs": 1, "square": 1, "floor_divide": 2, "remainder": 2}
+
+
+@pytest.mark.parametrize("op", sorted(_BOOL_INT_OPS))
+def test_bool_operands_of_integer_ops_on_the_kernels(cuda, op):
+    """abs of bool (the bool array), square, // and % of bools (int32, with
+    XLA's values at a False divisor) run on ew_flat and ew_strided and give
+    the plain version's values, and the CPU's through the public API."""
+    n = 4096 * 3 + 5
+    rng = np.random.default_rng(1)
+    a_np, b_np = rng.integers(0, 2, n).astype(bool), rng.integers(0, 2, n).astype(bool)
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    arity = _BOOL_INT_OPS[op]
+    leaves = [program.leaf((n,), torch.bool) for _ in range(arity)]
+    prog = program.lower(program.apply(op, *leaves), leaves)
+    assert prog.kernel_codes is not None
+    assert prog.dtype == (torch.bool if op == "abs" else torch.int32)
+    operands = [a, b][:arity]
+    elementwise.reset_launches()
+    k, p = _both(prog, (n,), operands)
+    assert k.dtype == p.dtype and torch.equal(k, p)
+    backwards = [elementwise.View(o, n - 1, (n,), (-1,)) for o in operands]
+    g = elementwise.elementwise(prog, (n,), prog.dtype, *backwards)
+    assert torch.equal(g.flip(0), k)
+    assert elementwise.LAUNCHES == {"ew_flat": 1, "ew_strided": 1}
+
+    f = {"abs": lambda x, y: sm.abs(x), "square": lambda x, y: sm.square(x),
+         "floor_divide": lambda x, y: x // y, "remainder": lambda x, y: x % y}[op]
+    dispatch.reset()
+    got = f(sm.Array(a), sm.Array(b)).torch()
+    assert not any(key.startswith("torch_path") for key in dispatch.counts())
+    sm.configure(device="cpu")
+    try:
+        want = f(sm.Array(a_np), sm.Array(b_np)).torch()
+    finally:
+        sm.configure(device="cuda")
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    if op == "floor_divide":
+        tf = torch.tensor([True, False, True, False], device=cuda)
+        tt = torch.tensor([True, True, False, False], device=cuda)
+        assert (sm.Array(tf) // sm.Array(tt)).torch().cpu().tolist() == [1, 0, -2, -1]

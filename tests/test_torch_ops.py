@@ -532,3 +532,124 @@ def test_uint32_opcodes_match_jax(name):
     assert dtypes.name(got.dtype) == want.dtype.name
     np.testing.assert_array_equal(got.numpy(), want)
     assert not any(k.startswith("torch_path") for k in dispatch.counts())
+
+
+def _both_modes(deferred, f):
+    """``f()`` with the deferred queue of both packages on or off."""
+    from simplemath_tpu.config import config as jconfig
+    from simplemath_tpu_torch.config import config
+
+    old = (config.deferred_eager, jconfig.deferred_eager)
+    config.deferred_eager = jconfig.deferred_eager = deferred
+    try:
+        return f()
+    finally:
+        config.deferred_eager, jconfig.deferred_eager = old
+
+
+_BOOL_A = np.array([True, False, True, False])
+_BOOL_B = np.array([True, True, False, False])
+_BOOL_OPS = {
+    "abs": lambda m, x, y: m.abs(x),
+    "square": lambda m, x, y: m.square(x),
+    "floor_divide": lambda m, x, y: x // y,
+    "remainder": lambda m, x, y: x % y,
+}
+# Operand patterns: two arrays, a broadcast column, a Python bool on either
+# side, and the op inside sm.fuse.
+_BOOL_PATTERNS = {
+    "arrays": lambda m: (m.Array(_BOOL_A), m.Array(_BOOL_B)),
+    "broadcast": lambda m: (m.Array(_BOOL_A), m.Array(_BOOL_B[:, None])),
+    "scalar_right": lambda m: (m.Array(_BOOL_A), True),
+    "scalar_left": lambda m: (True, m.Array(_BOOL_B)),
+}
+
+
+@pytest.mark.parametrize("deferred", [False, True])
+@pytest.mark.parametrize("op,pattern", [
+    (op, pattern) for op in sorted(_BOOL_OPS)
+    for pattern in sorted(_BOOL_PATTERNS) + ["fused"]
+    # a unary op reads its left operand alone
+    if not (op in ("abs", "square") and pattern in ("scalar_left", "broadcast"))])
+def test_bool_operands_of_integer_ops_match_jax(op, pattern, deferred):
+    """abs of bool is the bool array; square, // and % of bools are int32,
+    // and % with XLA's values at a False divisor ([T,F,T,F] // [T,T,F,F]
+    is [1, 0, -2, -1]); eager, deferred and inside sm.fuse."""
+    f = _BOOL_OPS[op]
+
+    def run(m):
+        if pattern == "fused":
+            return m.fuse(lambda x, y: f(m, x, y))(_BOOL_A, _BOOL_B).numpy()
+        return np.asarray(f(m, *_BOOL_PATTERNS[pattern](m)).numpy())
+
+    got, want = _both_modes(deferred, lambda: (run(sm), run(jsm)))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_bool_floor_divide_values():
+    got = (sm.Array(_BOOL_A) // sm.Array(_BOOL_B)).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, [1, 0, -2, -1])
+    np.testing.assert_array_equal((sm.Array(_BOOL_A) % sm.Array(_BOOL_B)).numpy(), [0, 0, 0, 0])
+    np.testing.assert_array_equal(sm.abs(sm.Array(_BOOL_A)).numpy(), _BOOL_A)
+
+
+_UNSIGNED_VS_INT = {
+    "greater": lambda m, x, s: x > s,
+    "greater_equal": lambda m, x, s: x >= s,
+    "less": lambda m, x, s: x < s,
+    "less_equal": lambda m, x, s: x <= s,
+    "equal": lambda m, x, s: x == s,
+    "not_equal": lambda m, x, s: x != s,
+    "reversed_less": lambda m, x, s: s < x,
+    "maximum": lambda m, x, s: m.maximum(x, s),
+    "minimum": lambda m, x, s: m.minimum(x, s),
+    "clip_low": lambda m, x, s: m.clip(x, s, 2),
+    "clip_high": lambda m, x, s: m.clip(x, 1, s),
+}
+
+
+@pytest.mark.parametrize("scalar", [-1, -300, 2**40])
+@pytest.mark.parametrize("dtype", ["uint8", "uint32"])
+@pytest.mark.parametrize("op", sorted(_UNSIGNED_VS_INT))
+def test_unsigned_against_out_of_range_int_matches_deferred_jax(op, dtype, scalar):
+    """The JAX package's deferred queue (its default) carries a Python int
+    in int32's range as an int32 operand: an unsigned array against -1 or
+    -300 compares, takes its maximum, minimum and clip by value.  2**40
+    lies outside int32 and wraps to the array's type there, as in jnp."""
+    x = np.array([0, 1, 3, 7, 255], dtype)
+    f = _UNSIGNED_VS_INT[op]
+    got, want = _both_modes(True, lambda: (
+        np.asarray(f(sm, sm.Array(x), scalar).numpy()),
+        np.asarray(f(jsm, jsm.Array(x), scalar).numpy())))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unsigned_against_negative_int_by_value():
+    u = sm.array(np.array([0, 1, 3, 7], np.uint32))
+    assert (u > -1).numpy().all()
+    np.testing.assert_array_equal(sm.maximum(u, -1).numpy(), [0, 1, 3, 7])
+    np.testing.assert_array_equal(sm.clip(u, -1, 2).numpy(), [0, 1, 2, 2])
+
+
+@pytest.mark.parametrize("op", ["greater", "maximum", "clip_low"])
+def test_eager_path_wraps_as_jnp_does(op):
+    """The JAX package's eager path (deferred_eager=False) wraps -1 to the
+    unsigned type, as plain jnp does, and so differs from its deferred
+    queue; the port's eager path follows it."""
+    x = np.array([0, 1, 3, 7], np.uint32)
+    f = _UNSIGNED_VS_INT[op]
+    got, want = _both_modes(False, lambda: (
+        np.asarray(f(sm, sm.Array(x), -1).numpy()),
+        np.asarray(f(jsm, jsm.Array(x), -1).numpy())))
+    np.testing.assert_array_equal(got, want)
+    import jax.numpy as jnp
+
+    plain = {"greater": lambda: jnp.asarray(x) > -1,
+             "maximum": lambda: jnp.maximum(jnp.asarray(x), -1),
+             "clip_low": lambda: jnp.minimum(jnp.maximum(jnp.asarray(x), -1), 2)}[op]()
+    np.testing.assert_array_equal(want, np.asarray(plain))
+    deferred = _both_modes(True, lambda: np.asarray(f(jsm, jsm.Array(x), -1).numpy()))
+    assert not np.array_equal(deferred, want)

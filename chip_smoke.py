@@ -180,7 +180,34 @@ device:
    sharded solve's costs and controls are held to the unsharded solve's
    (rtol 1e-5, atol 1e-6) and the psum total to their sum; no rank may
    rebuild the kernels; prints the ``parallel`` JSON line;
-10. prints the kernels' JSON line (each kernel's launches on the main path,
+10. the utils (``simplemath_tpu_torch.utils``): each of the six kernel
+   wrappers traced by ``utils.export`` at its main-path shape (the L = 16
+   recurrence on ``ew_strided``, the 1M add on ``ew_flat``, the 64M sum on
+   ``rd_full``, the thresholded axis-0 sum of (8192, 8192) on ``rd_axis``,
+   the fused bf16 ``relu(x @ W + bias)`` at 2048^3 on ``mm`` and at (8, 1024,
+   1024) on ``bmm``): the graph holds its ``sm::*`` op and nothing that
+   computes besides, and the artifact, loaded in a process that imports
+   torch and the port alone, launches that kernel once a call and gives
+   the live call's bits; ``export_solver_step`` of the cartpole at 8192 x
+   H=100 (``EXPORT_ITERS`` iterations: its graph is unrolled over the
+   horizon and the iterations) served within ``rtol=1e-6, atol=1e-7`` of
+   the live solve, export seconds, nodes, MB and both wall times printed;
+   ``run_elastic`` over a receding-horizon cartpole loop at 8192 x H=100
+   (one iteration and a shift a step, a checkpoint every 2 steps) with an
+   injected preemption and a transient corruption, bitwise the plain
+   loop's final state, checkpoint save and restore ms; ``benchmark`` of the
+   1M add (``bytes_moved=12e6``, roofline fraction at most 1.05), ``trace``
+   of one cartpole iteration (CUDA kernels in the Chrome trace),
+   ``MetricsLogger.log_ilqr_result`` of card tensors, ``nan_guard`` on a
+   card NaN, ``interpret_kernels()`` (no launch, the recurrence within 2 ulp
+   of the kernel's); then each example twin (``examples/torch_*.py``) at
+   its default size; prints the ``utils`` JSON line.  The cartpole step is
+   exported by this script's own process (``--serve-cartpole``, class
+   ``Exporter``), started before the build: it traces on the card while
+   phases 2-5 check (phase 6 waits for that), then exports, saves and
+   loads on the host beside phases 6-10, and serves and times the step
+   when phase 10 says so;
+11. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
    read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
@@ -1957,6 +1984,409 @@ def parallel_phase(dev, card):
     return out
 
 
+# ------------------------------------------------------------ phase 10
+EXPORT_ITERS = 1           # the served cartpole's iterations (the export time allows 1)
+ELASTIC_STEPS = 6          # receding-horizon steps of the elastic run, 2 a checkpoint
+VIEW_OPS = ("view", "alias", "slice", "expand", "reshape", "unsqueeze", "select", "permute",
+            "t", "transpose")   # ops that move no data: what else a kernel's graph may hold
+EXAMPLES = ("quickstart", "fused_pipeline", "quantized_views", "batched_cartpole",
+            "constrained_pendulum", "mpc_quadrotor", "rti_mpc")
+
+# Loads each artifact in a process that imports torch and the port alone,
+# runs it on the saved inputs, counts the wrappers' launches around each
+# call and saves the results (argv: the artifacts' directory).
+LOADER = r"""
+import json, os, sys, time
+import torch
+import simplemath_tpu_torch
+from simplemath_tpu_torch.ops import elementwise, matmul, reduction
+from simplemath_tpu_torch.utils import export
+d = sys.argv[1]
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+inputs = torch.load(os.path.join(d, "inputs.pt"))
+out, info = {}, {}
+for name, args in inputs.items():
+    t0 = time.perf_counter()
+    run = export.load_step(os.path.join(d, name + ".pt2"))
+    load_s = time.perf_counter() - t0
+    run(*args)  # the first call: an ew_strided kernel is read from the CUBIN cache here
+    sync()
+    for w in (elementwise, reduction, matmul):
+        w.reset_launches()
+    t0 = time.perf_counter()
+    out[name] = run(*args)
+    sync()
+    info[name] = {"load_s": load_s, "call_s": time.perf_counter() - t0,
+                  "launches": {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES},
+                  "nodes": len(list(run.graph.nodes))}
+torch.save(out, os.path.join(d, "outputs.pt"))
+mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "simplemath_tpu"))
+print(json.dumps({"loaded": info, "foreign_modules": mods}))
+"""
+
+
+class Exporter:
+    """The cartpole solve step exported at full width in a process of its
+    own (``--serve-cartpole DIR``), started before the build: its graph is
+    unrolled over the horizon (some 56 thousand nodes an iteration), and
+    tracing, exporting, saving and loading it takes minutes, which this
+    overlaps with phases 2-10.  The process traces on the card first (the
+    parent waits for that before timing anything, ``wait_traced``), then
+    exports, saves and loads on the host, and serves and times the step
+    only when the parent, idle, says ``go``."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)))
+        # Its output goes to files: a pipe nobody reads for minutes fills up.
+        with open(self._marker("out"), "w") as out, open(self._marker("err"), "w") as err:
+            self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                          "--serve-cartpole", self.dir], stdout=out, stderr=err)
+        import atexit
+
+        atexit.register(self.stop)
+
+    def _marker(self, name):
+        return os.path.join(self.dir, name)
+
+    def wait_traced(self, timeout=900):
+        t0 = time.perf_counter()
+        while not os.path.exists(self._marker("traced")):
+            check(self.proc.poll() is None, "the exporter died:\n" + self._read("err")[-4000:])
+            check(time.perf_counter() - t0 < timeout, "the exporter did not finish tracing")
+            time.sleep(0.5)
+        return time.perf_counter() - t0
+
+    def result(self, timeout=900):
+        """Say go, then wait for the served step: (its JSON line, the served
+        (us, cost), the inputs)."""
+        import torch
+
+        open(self._marker("go"), "w").close()
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            raise
+        check(self.proc.returncode == 0, f"the exporter failed:\n{self._read('err')[-4000:]}")
+        served = torch.load(self._marker("served.pt"))
+        return json.loads(self._read("out").strip().splitlines()[-1]), served
+
+    def _read(self, name):
+        with open(self._marker(name)) as f:
+            return f.read()
+
+    def stop(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def serve_inputs(dev):
+    import torch
+
+    batch, horizon = CARTPOLE
+    rng = np.random.default_rng(SEED + 100)
+    x0s = torch.from_numpy((0.2 * rng.standard_normal((batch, 4))).astype(np.float32)).to(dev)
+    return x0s, torch.zeros((batch, horizon, 1), device=dev)
+
+
+def serve_main(argv):
+    """``--serve-cartpole DIR``: export the cartpole step (8192 x H=100,
+    ``EXPORT_ITERS`` iterations) through ``utils.export``, load it, and on
+    ``DIR/go`` serve and time it beside the live solve."""
+    import torch
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole
+    from simplemath_tpu_torch.utils import export
+
+    d = argv[argv.index("--serve-cartpole") + 1]
+    dev = torch.device(sm.config.device)  # the card unless SM_DEVICE says otherwise
+    batch, horizon = CARTPOLE
+    system, cfg = make_cartpole(), ILQRConfig(iterations=EXPORT_ITERS)
+    marks = {}
+    traced = torch.export.export
+
+    def mark_traced(*args, **kwargs):  # export_program traced on the card; the rest is host work
+        _sync(dev)
+        marks["traced"] = time.perf_counter()
+        open(os.path.join(d, "traced"), "w").close()
+        return traced(*args, **kwargs)
+
+    torch.export.export = mark_traced
+    t0 = time.perf_counter()
+    blob = export.export_solver_step(system, cfg, batch, horizon)
+    t1 = time.perf_counter()
+    step = export.load_step(blob)
+    t2 = time.perf_counter()
+    nodes = len(list(step.graph.nodes))
+    while not os.path.exists(os.path.join(d, "go")):
+        if os.getppid() == 1:
+            return 1  # the parent is gone
+        time.sleep(0.2)
+    x0s, us0 = serve_inputs(dev)
+    step(x0s, us0)
+    served_s, (us, cost) = wall_s(lambda: step(x0s, us0))
+    ilqr.solve_batched(system, x0s, us0, cfg)
+    live_s, ref = wall_s(lambda: ilqr.solve_batched(system, x0s, us0, cfg))
+    torch.save({"us": us, "cost": cost}, os.path.join(d, "served.pt"))
+    print(json.dumps({
+        "batch": batch, "horizon": horizon, "iterations": EXPORT_ITERS,
+        "trace_s": marks["traced"] - t0, "export_and_save_s": t1 - marks["traced"],
+        "load_s": t2 - t1, "MB": len(blob) / 1e6, "nodes": nodes,
+        "served_s": served_s, "live_s": live_s,
+        "bits_equal_in_process": bool(torch.equal(us, ref.us) and torch.equal(cost, ref.cost))}))
+    return 0
+
+
+def _bits_equal(a, b):
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _export_cases(dev, rng, sm):
+    """(artifact name, function of tensors, its arguments, the sm op it
+    must be, the wrapper counter it moves): one call of each kernel
+    wrapper at its main-path shape."""
+    import torch
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def chain(acc, a, e_row):
+        return acc * np.float32(1e-3) + sm.exp(sm.pow(a + acc * np.float32(1e-6), e_row))
+
+    fused16 = sm.fuse(chain, donate=0, iterations=16)
+    axis0 = sm.fuse(lambda a, s: sm.sum(sm.where(a > s, a, 0.0), axis=0))
+    layer = sm.fuse(lambda x, w, bias: sm.maximum(x @ w + bias, 0.0))
+    sq = (N_FUSED, N_FUSED)
+    x64m = on(rng.standard_normal(N_SUM).astype(np.float32))
+    n, (b, m, k) = N_MM, BMM
+    return [
+        ("ew_strided", lambda acc, a, e: fused16(sm.Array(acc), sm.Array(a), sm.Array(e)).torch(),
+         (torch.zeros(sq, device=dev), on(rng.uniform(0.5, 2.0, sq).astype(np.float32)),
+          on(rng.uniform(-2.0, 2.0, (1, N_FUSED)).astype(np.float32))), "sm.ew_strided.default",
+         "ew_strided"),
+        ("ew_flat", lambda a, b_: sm.add(sm.Array(a), sm.Array(b_)).torch(),
+         (on(rng.standard_normal(N_ADD).astype(np.float32)),
+          on(rng.standard_normal(N_ADD).astype(np.float32))), "sm.ew_flat.default", "ew_flat"),
+        ("rd_full", lambda x: sm.Array(x).sum().torch(), (x64m,), "sm.rd_full.default", "rd_full"),
+        ("rd_axis", lambda a, s: axis0(sm.Array(a), sm.Array(s)).torch(),
+         (x64m.reshape(N_AXIS, N_AXIS), torch.full((1, 1), 0.25, device=dev)),
+         "sm.rd_axis.default", "rd_axis"),
+        ("mm", lambda x, w, bias: layer(sm.Array(x), sm.Array(w), sm.Array(bias)).torch(),
+         tuple(on(rng.standard_normal(s).astype(np.float32)).bfloat16()
+               for s in ((n, n), (n, n), (1, n))), "sm.mm.default", "mm"),
+        ("bmm", lambda x, w, bias: layer(sm.Array(x), sm.Array(w), sm.Array(bias)).torch(),
+         tuple(on(rng.standard_normal(s).astype(np.float32)).bfloat16()
+               for s in ((b, m, k), (b, k, m), (1, 1, m))), "sm.bmm.default", "bmm"),
+    ]
+
+
+def utils_phase(dev, card, exporter):
+    """Phase 10: the utils on the card.  The six kernel wrappers through
+    torch.export and a loaded artifact; the cartpole solve served from an
+    artifact; elastic checkpoint/resume of a receding-horizon cartpole run;
+    profiling, metrics and debug; the examples' twins."""
+    import io
+    import runpy
+    import tempfile
+
+    import torch
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole
+    from simplemath_tpu_torch.ops import dispatch, elementwise, library, matmul, reduction
+    from simplemath_tpu_torch.utils import (
+        ElasticConfig, MetricsLogger, benchmark, checkpoint, debug, export, run_elastic, trace,
+    )
+
+    out = {"card": card}
+    rng = np.random.default_rng(SEED + 10)
+    counters = {"ew_flat": elementwise, "ew_strided": elementwise, "rd_full": reduction,
+                "rd_axis": reduction, "mm": matmul, "bmm": matmul}
+
+    # ------------------------------------ 10a. the kernels through export
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        cases = _export_cases(dev, rng, sm)
+        live, inputs, exported = {}, {}, {}
+        for name, fn, args, op, _ in cases:
+            live[name] = fn(*args)
+            t0 = time.perf_counter()
+            ep = export.export_program(fn, *args)
+            export_s = time.perf_counter() - t0
+            nodes = [str(nd.target) for nd in ep.graph.nodes if nd.op == "call_function"]
+            computing = [t for t in nodes if t.split(".")[1] not in VIEW_OPS]
+            check(computing == [op], f"{name}: the exported graph calls {nodes}, not {op} alone")
+            buf = io.BytesIO()
+            torch.export.save(ep, buf)
+            with open(os.path.join(d, name + ".pt2"), "wb") as f:
+                f.write(buf.getvalue())
+            inputs[name] = args
+            exported[name] = {"export_s": export_s, "nodes": len(ep.graph.nodes),
+                              "MB": len(buf.getvalue()) / 1e6, "program": library.sm_nodes(ep.graph)}
+        torch.save(inputs, os.path.join(d, "inputs.pt"))
+        _sync(dev)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run([sys.executable, "-c", LOADER, d], capture_output=True, text=True,
+                              timeout=600, env=env)
+        check(proc.returncode == 0, f"the artifact loader failed:\n{proc.stderr[-4000:]}")
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(not loaded["foreign_modules"], f"the loader imported {loaded['foreign_modules']}")
+        served = torch.load(os.path.join(d, "outputs.pt"))
+    for name, _, _, op, counter in cases:
+        info = loaded["loaded"][name]
+        got = {k: v for k, v in info["launches"].items() if v}
+        check(got == {counter: 1}, f"{name}: the loaded artifact launched {got}, not {counter} once")
+        check(_bits_equal(served[name].to(dev), live[name]),
+              f"{name}: the loaded artifact's result differs from the live call's bits")
+        exported[name].update(info, op=op)
+        log(f"export {name} on {card}: {json.dumps(exported[name])}")
+    out["exported"] = exported
+
+    # ----------------- the inputs of the elastic run: the served step's
+    batch, horizon = CARTPOLE
+    system = make_cartpole()
+    x0s, us0 = serve_inputs(dev)
+
+    # ----------------------------------------- 10c. elastic at full width
+    one = ILQRConfig(iterations=1)
+
+    def mpc_step(state, i):
+        """One receding-horizon step: an iteration from the warm start,
+        then the plan shifted by one step."""
+        us_warm, k = state
+        r = ilqr.solve_batched(system, x0s, us_warm, one)
+        return torch.cat([r.us[:, 1:], r.us[:, -1:]], dim=1), k + 1
+
+    init = (us0, torch.zeros((), dtype=torch.int32, device=dev))
+    mpc_step(init, 0)  # warm-up, so that neither run below pays first-call costs
+    _sync(dev)
+    t0 = time.perf_counter()
+    plain = init
+    for i in range(ELASTIC_STEPS):
+        plain = mpc_step(plain, i)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    fired = []
+
+    def fault(i):
+        if i == 3 and "preempt" not in fired:
+            fired.append("preempt")
+            raise RuntimeError("injected preemption")
+        if i == 4 and "corrupt" not in fired:
+            fired.append("corrupt")
+            return lambda s: (s[0] + torch.inf, s[1])
+        return None
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        t0 = time.perf_counter()
+        clean = run_elastic(mpc_step, init, ELASTIC_STEPS,
+                            ElasticConfig(directory=os.path.join(d, "clean"), checkpoint_every=2))
+        elastic_s = time.perf_counter() - t0
+        faulted = run_elastic(mpc_step, init, ELASTIC_STEPS,
+                              ElasticConfig(directory=os.path.join(d, "faulted"), checkpoint_every=2),
+                              inject_fault=fault)
+        check(fired == ["preempt", "corrupt"], f"the faults fired {fired}")
+        for what, s in (("uninterrupted elastic", clean), ("faulted elastic", faulted)):
+            check(torch.equal(s[0], plain[0]) and int(s[1]) == ELASTIC_STEPS,
+                  f"{what} run: not bitwise the plain loop's final state")
+        save_ms, restore_ms = [], []
+        for r in range(5):
+            _sync(dev)
+            t0 = time.perf_counter()
+            checkpoint.save(os.path.join(d, f"ck{r}"), faulted)
+            save_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            back = checkpoint.restore(os.path.join(d, f"ck{r}"), like=faulted)
+            _sync(dev)
+            restore_ms.append(1e3 * (time.perf_counter() - t0))
+        check(torch.equal(back[0], faulted[0]), "a checkpoint did not restore the state's bits")
+        ck_mb = os.path.getsize(os.path.join(d, "ck0", "state.pt")) / 1e6
+    out["elastic"] = {"batch": batch, "horizon": horizon, "steps": ELASTIC_STEPS,
+                      "checkpoint_every": 2, "faults": fired, "bitwise": True,
+                      "plain_loop_s": plain_s, "elastic_s": elastic_s,
+                      "overhead": elastic_s / plain_s - 1.0, "checkpoint_MB": ck_mb,
+                      "save_ms": save_ms, "restore_ms": restore_ms}
+    log(f"elastic on {card}: {json.dumps(out['elastic'])}")
+
+    # --------------------------------- 10d. profiling, metrics and debug
+    a = sm.Array(rng.standard_normal(N_ADD).astype(np.float32))
+    b = sm.Array(rng.standard_normal(N_ADD).astype(np.float32))
+    res = benchmark(lambda: sm.add(a, b).torch(), warmup=5, repeats=50, bytes_moved=12e6)
+    check(res.roofline_fraction <= 1.05, f"the 1M add reads {res.roofline_fraction} of the roofline")
+    out["benchmark_add"] = {"median_s": res.median_s, "best_s": res.best_s, "gbps": res.gbps,
+                            "roofline_fraction": res.roofline_fraction}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        with trace(d) as prof:
+            r1 = ilqr.solve_batched(system, x0s, us0, one)
+        on_device = (torch.autograd.DeviceType.CUDA if dev.type == "cuda"
+                     else torch.autograd.DeviceType.CPU)
+        kernels = sorted({e.key for e in prof.key_averages() if e.device_type == on_device})
+        with open(os.path.join(d, "trace.json")) as f:
+            text = f.read()
+    check(bool(kernels) and (dev.type != "cuda" or '"kernel"' in text),
+          "the solver iteration's trace holds no CUDA kernel")
+    out["trace"] = {"cuda_kernels": len(kernels), "first": kernels[:5], "trace_MB": len(text) / 1e6}
+    mlog = MetricsLogger("cartpole")
+    mlog.log_ilqr_result(0, r1)
+    summary = mlog.summary()
+    check(np.isfinite(summary["cost"]) and np.isfinite(summary["grad_norm"]),
+          f"log_ilqr_result of card tensors: {summary}")
+    guarded = debug.nan_guard(lambda x: x / 0.0)
+    try:
+        guarded(torch.zeros(4, device=dev))
+        check(False, "nan_guard let a card NaN through")
+    except FloatingPointError:
+        pass
+    name, fn, args, _, _ = cases[0]
+    kernel_out = live[name]
+    for w in (elementwise, reduction, matmul):
+        w.reset_launches()
+    dispatch.reset()
+    with debug.interpret_kernels():
+        interp = fn(*args)
+        _sync(dev)
+    moved = {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES}
+    check(not any(moved.values()), f"interpret_kernels() launched {moved}")
+    check(dispatch.count("interpret", "elementwise") == 1, f"dispatch {dispatch.counts()}")
+    u = max_ulp(kernel_out, interp)
+    check(u <= 2.0, f"the interpreted recurrence is {u} ulp from the kernel's")
+    out["debug"] = {"metrics": summary, "nan_guard": "raised", "interpret_ulp": u,
+                    "interpret_dispatch": dispatch.counts()}
+    log(f"profiling/metrics/debug on {card}: {json.dumps({k: out[k] for k in ('benchmark_add', 'trace', 'debug')})}")
+
+    # ---------------------------------------------- 10e. the examples
+    root = os.path.dirname(os.path.abspath(__file__))
+    out["examples_s"] = {}
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        runpy.run_path(os.path.join(root, "examples", f"torch_{name}.py"))["main"](
+            [] if dev.type == "cuda" else ["--device", dev.type])
+        _sync(dev)
+        out["examples_s"][name] = time.perf_counter() - t0
+        check(sm.config.device == dev.type, f"torch_{name}.py left the device {sm.config.device}")
+    log(f"examples on {card}: {json.dumps(out['examples_s'])}")
+
+    # ------------------- 10b. the cartpole solve served from an artifact
+    served, got = exporter.result()
+    ref = ilqr.solve_batched(system, x0s, us0, ILQRConfig(iterations=EXPORT_ITERS))
+    us, cost = got["us"].to(dev), got["cost"].to(dev)
+    np.testing.assert_allclose(cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-6,
+                               err_msg="served cartpole costs")
+    np.testing.assert_allclose(us.cpu().numpy(), ref.us.cpu().numpy(), rtol=1e-6, atol=1e-7,
+                               err_msg="served cartpole controls")
+    served["bits_equal"] = bool(torch.equal(us, ref.us) and torch.equal(cost, ref.cost))
+    out["solver"] = served
+    log(f"served cartpole on {card}: {json.dumps(served)}")
+    return out
+
+
 def main():
     import torch
 
@@ -1983,6 +2413,9 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # The cartpole step exported at full width, beside phases 2-10 (phase 10).
+    exporter = Exporter()
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -2465,6 +2898,8 @@ def main():
     transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch)
 
     # -------------------------------------------------------- 6. timing
+    # Nothing is timed while the exporter traces the solve on the card.
+    log(f"waited {exporter.wait_traced():.1f} s for the exporter's trace on the card")
     add_prog = binop("add", (N_ADD,), (N_ADD,))
     at, bt = add_a.torch(), add_b.torch()
     # The add twice.  Hot: its 12 MB stay in the 50 MB L2 across a run, as
@@ -3077,6 +3512,15 @@ def main():
     par = parallel_phase(dev, card)
     par["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"parallel": par}))
+
+    # ------------------------------------------------------- 10. utils
+    t0 = time.perf_counter()
+    utils = utils_phase(dev, card, exporter)
+    utils["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"utils": utils}))
+    for k in kernels:
+        if k["name"] in utils["exported"]:
+            k["loaded_launches"] = utils["exported"][k["name"]]["launches"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3085,4 +3529,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv else main())
+    if "--rank" in sys.argv:
+        sys.exit(rank_main(sys.argv[1:]))
+    sys.exit(serve_main(sys.argv) if "--serve-cartpole" in sys.argv else main())

@@ -1,12 +1,14 @@
 """Kernel layer: op registry, expression IR, the wrappers of the
-hand-written elementwise, map-reduce and matmul kernels, crafted
-transcendentals, fusion and the deferred-eager queue."""
+hand-written elementwise, map-reduce and matmul kernels and their
+``torch.library`` ops (``sm::*``), crafted transcendentals, fusion and the
+deferred-eager queue."""
 
 from . import (  # noqa: F401
     elementwise,
     engine,
     fusion,
     lazy,
+    library,
     matmul,
     program,
     reduction,

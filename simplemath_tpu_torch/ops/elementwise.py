@@ -26,7 +26,13 @@ program, the shape and the operands' layouts.
 
 ``elementwise`` looks at the operands' device.  CPU tensors take the
 kernel's plain version, ``program.run_plain``.  CUDA tensors launch the
-kernel or raise: there is no fallback.  ``LAUNCHES`` counts kernel
+kernel or raise: there is no fallback.  Two exceptions, both asked for by
+the caller: inside ``utils.debug.interpret_kernels()``
+(``config.interpret_kernels``) CUDA tensors take the plain version too,
+counted as ``interpret:elementwise``; while a graph is traced
+(``library.tracing``) a call the kernel takes goes through
+``sm::ew_flat``/``sm::ew_strided`` (ops/library.py), whose CUDA
+implementation is ``_launch``.  ``LAUNCHES`` counts kernel
 launches by entry point, ``PATHS`` the launches of ``ew_strided``'s two
 kernels, ``"generated"`` and ``"interp"``, and ``FLAT_PATHS`` those of
 ``ew_flat`` by ``flat_path``, ``"wide"`` and ``"element"``; only a launch
@@ -47,7 +53,7 @@ from .. import dtypes as _dtypes
 from ..broadcast import broadcast_shapes
 from ..config import config
 from ..viewspec import row_major_strides
-from . import codegen, dispatch, program
+from . import codegen, dispatch, library, program
 
 # Kernel launches by entry point since the last reset, the launches of
 # ew_strided's generated kernels and of its interpreter, and ew_flat's by
@@ -372,14 +378,30 @@ def elementwise(prog: program.Program, out_shape, out_dtype, *operands,
                 f"{tuple(o.shape)}/{o.dtype} vs {out_shape}/{out_dtype}"
             )
     dispatch.record("elementwise", name)
-    if device.type == "cpu":
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the elementwise kernel runs on CUDA tensors, not {device}")
+    plain = device.type == "cpu" or config.interpret_kernels
+    if device.type == "cuda" and plain:
+        dispatch.record("interpret", "elementwise")
+    elif operands and library.tracing(operands) and (device.type == "cuda" or takes(prog, name)):
+        check_program(prog, name)
+        flat = all(_flat(s, st, out_shape) for _, _, s, st in map(_describe, operands))
+        return library.call_elementwise(prog, out_shape, operands, flat, iterations, carry)
+    if plain:
         return program.run_plain(
             prog, [read(o) for o in operands], out_shape, iterations, carry, device
         )
-    if device.type != "cuda":
-        raise ValueError(f"the elementwise kernel runs on CUDA tensors, not {device}")
     codes = check_program(prog, name)
     return _launch(prog, codes, out_shape, operands, iterations, carry, device)
+
+
+def takes(prog, name, types=_dtypes.KERNEL_DTYPES) -> bool:
+    """Whether the kernels take ``prog`` (``check_program`` passes)."""
+    try:
+        check_program(prog, name, types)
+    except ValueError:
+        return False
+    return True
 
 
 def interpret(prog: program.Program, out_shape, *operands, iterations=1, carry=0) -> torch.Tensor:

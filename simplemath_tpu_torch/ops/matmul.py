@@ -69,7 +69,9 @@ rules.  ``matmul`` looks at the operands' device.  CPU tensors take the kernel's
 plain version, ``matmul_plain``: ``torch.matmul`` in the accumulator's type
 (integers in int64 on the CPU, wrapped to int32), the epilogue through
 ``program.run_plain``, then the cast.  CUDA tensors launch the kernel or
-raise: there is no fallback.  Dispatch names are the JAX package's:
+raise: there is no fallback, but for the caller's ``interpret_kernels()``
+(the plain version, counted as ``interpret:matmul``); a traced call goes
+through ``sm::mm``/``sm::bmm`` (ops/library.py).  Dispatch names are the JAX package's:
 ``matmul:mm``, ``matmul:bmm``, ``matmul:mm_epilogue``,
 ``matmul:bmm_epilogue`` and ``matmul:int8``; the port adds
 ``matmul:wgmma_bf16`` and ``matmul:wgmma_s8`` for a product routed to a
@@ -91,8 +93,9 @@ import math
 import torch
 
 from .. import dtypes as _dt
+from ..config import config
 from ..utils.precision import exact_float32
-from . import dispatch, elementwise, program
+from . import dispatch, elementwise, library, program
 
 # Kernel launches by entry point since the last reset, and the same
 # launches by the kernel they took.
@@ -438,12 +441,17 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
         dispatch.record("matmul", "bmm_epilogue" if batched else "mm_epilogue")
     if variant(a.dtype, b.dtype) in _TENSOR_CORE:
         dispatch.record("matmul", variant(a.dtype, b.dtype))
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the matmul kernel runs on CUDA tensors, not {device}")
+    if device.type == "cuda" and config.interpret_kernels:
+        dispatch.record("interpret", "matmul")
+        return matmul_plain(a, b, out_dtype, epilogue, extras)
+    if device.type == "cuda" and (dims[0] > _MAX_BATCH or dims[1] > _MAX_M):
+        raise ValueError(f"the matmul kernel takes B <= {_MAX_BATCH} and M <= {_MAX_M}")
+    if library.tracing((a, b, *extras)):
+        return library.call_matmul(a, b, out_dtype, epilogue, extras)
     if device.type == "cpu":
         return matmul_plain(a, b, out_dtype, epilogue, extras)
-    if device.type != "cuda":
-        raise ValueError(f"the matmul kernel runs on CUDA tensors, not {device}")
-    if dims[0] > _MAX_BATCH or dims[1] > _MAX_M:
-        raise ValueError(f"the matmul kernel takes B <= {_MAX_BATCH} and M <= {_MAX_M}")
     return _launch(a, b, dims, acc, out_dtype, epilogue, extras, device)
 
 

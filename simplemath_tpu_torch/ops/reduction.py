@@ -20,7 +20,9 @@ strides (stride 0 broadcasts).  Each function looks at their device.  CPU
 tensors take the kernel's plain version: ``program.run_plain``, then
 ``torch.sum/amax/amin`` accumulating in float32 (the int32 dot in int64,
 masked to 32 bits).  CUDA tensors launch the kernel or raise: there is no
-fallback.  ``LAUNCHES`` counts the calls that launched the kernel, by
+fallback, but for the caller's ``interpret_kernels()`` (the plain version,
+counted as ``interpret:reduce``); a traced call goes through
+``sm::rd_full``/``sm::rd_axis`` (ops/library.py).  ``LAUNCHES`` counts the calls that launched the kernel, by
 entry point, and ``PATHS`` the same launches by the way the kernel
 evaluated them, which ``path`` decides from the program, the shape and the
 operands' layouts: ``direct`` (the identity program), ``single`` (a sum of
@@ -50,7 +52,8 @@ import math
 import torch
 
 from .. import dtypes as _dt
-from . import dispatch, elementwise, program
+from ..config import config
+from . import dispatch, elementwise, library, program
 
 # Kernel launches by entry point since the last reset, and the same
 # launches by path.
@@ -293,13 +296,22 @@ def run(prog, kind, axis, shape, operands, int_acc=False) -> torch.Tensor:
     device = elementwise.operand_device(prog, shape, operands)
     if math.prod(shape) == 0:
         raise ValueError("the reduction kernel takes a non-empty expression")
-    if device.type == "cpu":
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the reduction kernel runs on CUDA tensors, not {device}")
+    op = _SUM_I32 if int_acc else _OP[kind]
+    plain = device.type == "cpu" or config.interpret_kernels
+    if device.type == "cuda" and plain:
+        dispatch.record("interpret", "reduce")
+    elif library.tracing(operands) and (device.type == "cuda" or elementwise.takes(
+            prog, "reduction", _dt.KERNEL_DTYPES | FLOAT_INPUTS)):
+        elementwise.check_program(prog, "reduction", _dt.KERNEL_DTYPES | FLOAT_INPUTS)
+        return library.call_reduction(prog, op, shape, operands, axis)
+    if plain:
         vals = values(prog, shape, operands, device)
         return _plain_sum_i32(vals, axis) if int_acc else _plain(vals, kind, axis)
-    if device.type != "cuda":
-        raise ValueError(f"the reduction kernel runs on CUDA tensors, not {device}")
-    return _launch("rd_full" if axis is None else "rd_axis", prog, kind,
-                   _SUM_I32 if int_acc else _OP[kind], shape, operands, device, axis)
+    return _launch("rd_full" if axis is None else "rd_axis", prog, kind, op, shape,
+                   operands, device, axis)
+
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,7 +6,9 @@ shape ``(n, m, B)`` whose minor axis is the batch: every scalar entry
 ``A[i, j]`` is a ``(B,)`` vector, and the small-matrix algebra unrolls into
 elementwise ops over whole batches (n, m are small static ints).  Products
 accumulate in ascending k, as in the JAX package, so sums pair the same
-way there and here.
+way there and here; a product is one multiply-add over every (i, j) entry
+per k, so a Riccati step is a few hundred torch ops (and as many nodes in
+an exported graph, utils/export.py), not one per entry.
 
 Conversion helpers move the batch axis at the boundary; everything between
 stays batch-minor.
@@ -43,31 +45,24 @@ def transpose(A):
 
 def matmul(A, C):
     """(..., n, k, B) @ (..., k, m, B) -> (..., n, m, B), unrolled over the
-    static matrix dims."""
-    n, k = A.shape[-3], A.shape[-2]
-    m = C.shape[-2]
-    rows = []
-    for i in range(n):
-        cols = []
-        for j in range(m):
-            acc = A[..., i, 0, :] * C[..., 0, j, :]
-            for kk in range(1, k):
-                acc = acc + A[..., i, kk, :] * C[..., kk, j, :]
-            cols.append(acc)
-        rows.append(torch.stack(cols, dim=-2))
-    return torch.stack(rows, dim=-3)
+    contraction dim: each step multiplies a column of ``A`` by a row of
+    ``C`` over all (i, j) at once, and k ascends, so every entry is summed
+    in the JAX package's order."""
+    k = A.shape[-2]
+    acc = A[..., :, 0:1, :] * C[..., 0:1, :, :]
+    for kk in range(1, k):
+        acc = acc + A[..., :, kk:kk + 1, :] * C[..., kk:kk + 1, :, :]
+    return acc
 
 
 def matvec(A, v):
-    """(..., n, k, B) @ (..., k, B) -> (..., n, B)."""
-    n, k = A.shape[-3], A.shape[-2]
-    out = []
-    for i in range(n):
-        acc = A[..., i, 0, :] * v[..., 0, :]
-        for kk in range(1, k):
-            acc = acc + A[..., i, kk, :] * v[..., kk, :]
-        out.append(acc)
-    return torch.stack(out, dim=-2)
+    """(..., n, k, B) @ (..., k, B) -> (..., n, B), k ascending as in
+    ``matmul``."""
+    k = A.shape[-2]
+    acc = A[..., :, 0, :] * v[..., 0:1, :]
+    for kk in range(1, k):
+        acc = acc + A[..., :, kk, :] * v[..., kk:kk + 1, :]
+    return acc
 
 
 def outer(u, v):

@@ -2070,3 +2070,139 @@ def test_bool_operands_of_integer_ops_on_the_kernels(cuda, op):
         tf = torch.tensor([True, False, True, False], device=cuda)
         tt = torch.tensor([True, True, False, False], device=cuda)
         assert (sm.Array(tf) // sm.Array(tt)).torch().cpu().tolist() == [1, 0, -2, -1]
+
+
+# ------------------------------------------------ the kernels as sm::* ops
+def _op_cases(dev):
+    """(op, function of seeded card tensors, its operands, the wrapper
+    counter it moves): one call of each kernel wrapper (ops/library.py)."""
+    rng = np.random.default_rng(12)
+
+    def on(shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(dtype)
+
+    layer = sm.fuse(lambda x, w, b: sm.maximum(x @ w + b, 0.0))
+    axis0 = sm.fuse(lambda x: sm.sum(sm.where(x > 0.25, x, 0.0), axis=0))
+    rec = sm.fuse(lambda acc, x, e: acc * 0.5 + sm.exp(x * e), donate=0, iterations=4)
+    return [
+        ("sm.ew_flat.default", lambda a, b: (sm.Array(a) * sm.Array(b) + 1.0).torch(),
+         (on((300, 257)), on((300, 257))), elementwise, "ew_flat"),
+        ("sm.ew_strided.default", lambda a, b, e: rec(sm.Array(a), sm.Array(b), sm.Array(e)).torch(),
+         (on((300, 257)), on((300, 257)), on((1, 257))), elementwise, "ew_strided"),
+        ("sm.rd_full.default", lambda a: sm.Array(a).sum().torch(), (on((4096 * 3 + 7,)),),
+         reduction, "rd_full"),
+        ("sm.rd_axis.default", lambda a: axis0(sm.Array(a)).torch(), (on((517, 1030)),),
+         reduction, "rd_axis"),
+        ("sm.mm.default", lambda x, w, b: layer(sm.Array(x), sm.Array(w), sm.Array(b)).torch(),
+         (on((300, 270), torch.bfloat16), on((270, 515), torch.bfloat16), on((1, 515))),
+         matmul, "mm"),
+        ("sm.bmm.default", lambda x, w, b: layer(sm.Array(x), sm.Array(w), sm.Array(b)).torch(),
+         (on((3, 96, 64)), on((3, 64, 80)), on((1, 1, 80))), matmul, "bmm"),
+    ]
+
+
+_SM_OPS = ["sm.ew_flat.default", "sm.ew_strided.default", "sm.rd_full.default",
+           "sm.rd_axis.default", "sm.mm.default", "sm.bmm.default"]
+
+
+def _op_call(gm, name, args):
+    """The sm op node of a traced graph, its fake value and its arguments
+    on the real inputs."""
+    (node,) = [n for n in gm.graph.nodes if str(n.target) == name]
+    seen = {}
+
+    class Record(torch.fx.Interpreter):
+        def run_node(self, n):
+            out = super().run_node(n)
+            if n is node:
+                seen["args"] = [self.env[a] if isinstance(a, torch.fx.Node) else
+                                [self.env[x] if isinstance(x, torch.fx.Node) else x for x in a]
+                                if isinstance(a, (list, tuple)) else a for a in n.args]
+            return out
+
+    Record(gm).run(*args)
+    return node, node.meta["val"], seen["args"]
+
+
+@pytest.mark.parametrize("name", _SM_OPS)
+def test_sm_op_cuda_implementation_against_its_plain_version(cuda, name):
+    """Each op's CUDA implementation (the hand kernel, one launch) against
+    its CPU implementation (the plain version) on the same arguments, and
+    its fake implementation's shape and dtype against the real output.
+    Tolerance: the wrapper's own (exact for the elementwise ops but the
+    crafted exp, 2 ulp; the sums within 2e-5 of the magnitudes; the
+    product within 2e-5 * (|A| @ |B|))."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    _, fn, args, counts, entry = next(c for c in _op_cases(cuda) if c[0] == name)
+    gm = make_fx(fn, tracing_mode="fake")(*args)
+    node, fake, op_args = _op_call(gm, name, args)
+    counts.reset_launches()
+    got = node.target(*op_args)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES[entry] == 1
+    cpu_args = [[t.cpu() for t in a] if isinstance(a, list) and a and isinstance(a[0], torch.Tensor)
+                else a.cpu() if isinstance(a, torch.Tensor) else a for a in op_args]
+    want = node.target(*cpu_args)
+    assert fake.shape == got.shape == want.shape and fake.dtype == got.dtype == want.dtype
+    assert fake.device.type == "cuda"
+    if name == "sm.ew_flat.default":
+        assert torch.equal(got.cpu(), want)
+    elif name == "sm.ew_strided.default":
+        assert _max_ulp(got, want) <= 2.0
+    else:
+        absx = [a.abs().double() for a in args]
+        bound = {"sm.rd_full.default": lambda: absx[0].sum(),
+                 "sm.rd_axis.default": lambda: absx[0].sum(0),
+                 }.get(name, lambda: absx[0] @ absx[1] + absx[2])()
+        assert bool(((got.double() - want.double().to(cuda)).abs() <= 2e-5 * bound).all())
+
+
+@pytest.mark.parametrize("name", _SM_OPS)
+def test_sm_op_export_and_load_on_the_card(cuda, name, tmp_path):
+    """One call of each wrapper exported, saved, loaded back and run: the
+    graph holds its op, the loaded artifact launches the kernel once and
+    gives the live call's bits."""
+    from simplemath_tpu_torch.ops import library
+    from simplemath_tpu_torch.utils import export
+
+    _, fn, args, counts, entry = next(c for c in _op_cases(cuda) if c[0] == name)
+    live = fn(*args)
+    ep = export.export_program(fn, *args)
+    assert library.sm_nodes(ep.graph) == [name]
+    export.save_step(tmp_path / "a.pt2", fn, *args)
+    run = export.load_step(str(tmp_path / "a.pt2"))
+    run(*args)
+    counts.reset_launches()
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert counts.LAUNCHES[entry] == 1 and sum(counts.LAUNCHES.values()) == 1
+    assert got.dtype == live.dtype and torch.equal(got.reshape(-1).view(torch.uint8),
+                                                   live.reshape(-1).view(torch.uint8))
+
+
+def test_interpret_kernels_on_the_card(cuda):
+    """Inside ``interpret_kernels()`` every wrapper runs its plain version
+    on card tensors: no launch, an ``interpret:<family>`` count each, and
+    values within the kernels' tolerance; the setting comes back after."""
+    from simplemath_tpu_torch.utils import debug
+
+    cases = _op_cases(cuda)
+    live = [fn(*args) for _, fn, args, _, _ in cases]
+    for w in (elementwise, reduction, matmul):
+        w.reset_launches()
+    dispatch.reset()
+    with debug.interpret_kernels():
+        plain = [fn(*args) for _, fn, args, _, _ in cases]
+    torch.cuda.synchronize()
+    assert not any({**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES}.values())
+    counts = dispatch.counts()
+    assert counts["interpret:elementwise"] == 2 and counts["interpret:reduce"] == 2
+    assert counts["interpret:matmul"] == 2
+    assert not sm.config.interpret_kernels
+    for (name, *_), k, p in zip(cases, live, plain):
+        assert k.shape == p.shape and k.dtype == p.dtype, name
+        if name == "sm.ew_flat.default":
+            assert torch.equal(k, p)
+        else:
+            assert torch.allclose(k.double(), p.double(), rtol=1e-4, atol=1e-4), name

@@ -58,6 +58,35 @@ def test_soa_matmul_matvec_against_numpy_and_jax(rng):
                                   np.asarray(jsoa.outer(u, w)))
 
 
+def _entry_by_entry_matmul(A, C):
+    """The product one entry at a time, k ascending: the reference the
+    vectorized ``soa.matmul`` must give the bits of."""
+    n, k, m = A.shape[-3], A.shape[-2], C.shape[-2]
+    rows = []
+    for i in range(n):
+        cols = []
+        for j in range(m):
+            acc = A[..., i, 0, :] * C[..., 0, j, :]
+            for kk in range(1, k):
+                acc = acc + A[..., i, kk, :] * C[..., kk, j, :]
+            cols.append(acc)
+        rows.append(torch.stack(cols, dim=-2))
+    return torch.stack(rows, dim=-3)
+
+
+@pytest.mark.parametrize("shapes", [((4, 4, 37), (4, 4, 37)), ((3, 1, 4, 37), (3, 4, 1, 37)),
+                                    ((2, 5, 3, 9), (2, 3, 6, 9)), ((1, 4, 5), (4, 1, 1))])
+def test_soa_products_have_the_entry_by_entry_bits(rng, shapes):
+    """``matmul``/``matvec`` over all (i, j) entries at once, k ascending:
+    the same multiplies and adds in the same order as one entry at a time,
+    so the same bits (a leading time axis and a broadcast batch included)."""
+    A, C = (torch.from_numpy(_rand(rng, s)) for s in shapes)
+    assert torch.equal(soa.matmul(A, C), _entry_by_entry_matmul(A, C))
+    v = C[..., 0, :]
+    want = _entry_by_entry_matmul(A, v[..., :, None, :])[..., 0, :]
+    assert torch.equal(soa.matvec(A, v), want)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 5])
 def test_soa_inv_matches_numpy(rng, n):
     B = 17

@@ -3,7 +3,7 @@
 ``ew_strided`` with its generated kernels and its interpreter) on one CUDA
 card.
 
-    python3 tools/time_torch_elementwise.py [--root DIR] [--flat] [extra nvcc flags ...]
+    python3 tools/time_torch_elementwise.py [--root DIR] [--flat] [--host [--n N]] [extra nvcc flags ...]
 
 Builds the kernels of ``simplemath_tpu_torch`` (with any extra ``nvcc`` flags
 given, for example a ``-D`` switch put into a source while trying a variant),
@@ -37,7 +37,8 @@ ragged tail, and prints device times (CUDA events, as
 (the parent commit, unpacked beside this one), so that two versions are timed
 in one call on one card.  ``--host`` times the public API's host cost alone:
 ``sm.add`` of two arrays and of a view, a lazy chain and ``Array.sum()`` on
-4096 floats (device work of microseconds), beside ``torch.add`` and the
+4096 floats (device work of microseconds; ``--n N`` for another length, as
+the 1M add of BASELINE config 0), beside ``torch.add`` and the
 elementwise wrapper called directly on the same add, each as the median wall time of
 one call ending in a synchronize (``chip_smoke.host_ms``), as the wall
 time per call of 2000 calls issued back to back, and as the least of 20
@@ -58,6 +59,11 @@ ARGS = sys.argv[1:]
 HOST = "--host" in ARGS
 FLAT = "--flat" in ARGS
 ARGS = [a for a in ARGS if a not in ("--host", "--flat")]
+HOST_N = 4096
+if "--n" in ARGS:
+    i = ARGS.index("--n")
+    HOST_N = int(ARGS[i + 1])
+    del ARGS[i:i + 2]
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 if "--root" in ARGS:
     i = ARGS.index("--root")
@@ -137,7 +143,7 @@ def host_times(f32):
     microseconds."""
     import simplemath_tpu_torch as sm
 
-    n = 4096
+    n = HOST_N
     x, y = sm.Array(f32(n)), sm.Array(f32(n))
     xt, yt = x.torch(), y.torch()
     view = sm.Array(f32(2 * n))[::2]

@@ -201,12 +201,8 @@ device:
    ``MetricsLogger.log_ilqr_result`` of card tensors, ``nan_guard`` on a
    card NaN, ``interpret_kernels()`` (no launch, the recurrence within 2 ulp
    of the kernel's); then each example twin (``examples/torch_*.py``) at
-   its default size; prints the ``utils`` JSON line.  The cartpole step is
-   exported by this script's own process (``--serve-cartpole``, class
-   ``Exporter``), started before the build: it traces on the card while
-   phases 2-5 check (phase 6 waits for that), then exports, saves and
-   loads on the host beside phases 6-10, and serves and times the step
-   when phase 10 says so;
+   its default size; prints the ``utils`` JSON line.  Every phase runs
+   alone on the host: nothing of one overlaps the times of another;
 11. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
@@ -2025,124 +2021,6 @@ print(json.dumps({"loaded": info, "foreign_modules": mods}))
 """
 
 
-class Exporter:
-    """The cartpole solve step exported at full width in a process of its
-    own (``--serve-cartpole DIR``), started before the build: its graph is
-    unrolled over the horizon (some 56 thousand nodes an iteration), and
-    tracing, exporting, saving and loading it takes minutes, which this
-    overlaps with phases 2-10.  The process traces on the card first (the
-    parent waits for that before timing anything, ``wait_traced``), then
-    exports, saves and loads on the host, and serves and times the step
-    only when the parent, idle, says ``go``."""
-
-    def __init__(self):
-        import tempfile
-
-        self.dir = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(__file__)))
-        # Its output goes to files: a pipe nobody reads for minutes fills up.
-        with open(self._marker("out"), "w") as out, open(self._marker("err"), "w") as err:
-            self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                          "--serve-cartpole", self.dir], stdout=out, stderr=err)
-        import atexit
-
-        atexit.register(self.stop)
-
-    def _marker(self, name):
-        return os.path.join(self.dir, name)
-
-    def wait_traced(self, timeout=900):
-        t0 = time.perf_counter()
-        while not os.path.exists(self._marker("traced")):
-            check(self.proc.poll() is None, "the exporter died:\n" + self._read("err")[-4000:])
-            check(time.perf_counter() - t0 < timeout, "the exporter did not finish tracing")
-            time.sleep(0.5)
-        return time.perf_counter() - t0
-
-    def result(self, timeout=900):
-        """Say go, then wait for the served step: (its JSON line, the served
-        (us, cost), the inputs)."""
-        import torch
-
-        open(self._marker("go"), "w").close()
-        try:
-            self.proc.wait(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            self.proc.kill()
-            raise
-        check(self.proc.returncode == 0, f"the exporter failed:\n{self._read('err')[-4000:]}")
-        served = torch.load(self._marker("served.pt"))
-        return json.loads(self._read("out").strip().splitlines()[-1]), served
-
-    def _read(self, name):
-        with open(self._marker(name)) as f:
-            return f.read()
-
-    def stop(self):
-        import shutil
-
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
-        shutil.rmtree(self.dir, ignore_errors=True)
-
-
-def serve_inputs(dev):
-    import torch
-
-    batch, horizon = CARTPOLE
-    rng = np.random.default_rng(SEED + 100)
-    x0s = torch.from_numpy((0.2 * rng.standard_normal((batch, 4))).astype(np.float32)).to(dev)
-    return x0s, torch.zeros((batch, horizon, 1), device=dev)
-
-
-def serve_main(argv):
-    """``--serve-cartpole DIR``: export the cartpole step (8192 x H=100,
-    ``EXPORT_ITERS`` iterations) through ``utils.export``, load it, and on
-    ``DIR/go`` serve and time it beside the live solve."""
-    import torch
-    import simplemath_tpu_torch as sm
-    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole
-    from simplemath_tpu_torch.utils import export
-
-    d = argv[argv.index("--serve-cartpole") + 1]
-    dev = torch.device(sm.config.device)  # the card unless SM_DEVICE says otherwise
-    batch, horizon = CARTPOLE
-    system, cfg = make_cartpole(), ILQRConfig(iterations=EXPORT_ITERS)
-    marks = {}
-    traced = torch.export.export
-
-    def mark_traced(*args, **kwargs):  # export_program traced on the card; the rest is host work
-        _sync(dev)
-        marks["traced"] = time.perf_counter()
-        open(os.path.join(d, "traced"), "w").close()
-        return traced(*args, **kwargs)
-
-    torch.export.export = mark_traced
-    t0 = time.perf_counter()
-    blob = export.export_solver_step(system, cfg, batch, horizon)
-    t1 = time.perf_counter()
-    step = export.load_step(blob)
-    t2 = time.perf_counter()
-    nodes = len(list(step.graph.nodes))
-    while not os.path.exists(os.path.join(d, "go")):
-        if os.getppid() == 1:
-            return 1  # the parent is gone
-        time.sleep(0.2)
-    x0s, us0 = serve_inputs(dev)
-    step(x0s, us0)
-    served_s, (us, cost) = wall_s(lambda: step(x0s, us0))
-    ilqr.solve_batched(system, x0s, us0, cfg)
-    live_s, ref = wall_s(lambda: ilqr.solve_batched(system, x0s, us0, cfg))
-    torch.save({"us": us, "cost": cost}, os.path.join(d, "served.pt"))
-    print(json.dumps({
-        "batch": batch, "horizon": horizon, "iterations": EXPORT_ITERS,
-        "trace_s": marks["traced"] - t0, "export_and_save_s": t1 - marks["traced"],
-        "load_s": t2 - t1, "MB": len(blob) / 1e6, "nodes": nodes,
-        "served_s": served_s, "live_s": live_s,
-        "bits_equal_in_process": bool(torch.equal(us, ref.us) and torch.equal(cost, ref.cost))}))
-    return 0
-
-
 def _bits_equal(a, b):
     import torch
 
@@ -2189,7 +2067,7 @@ def _export_cases(dev, rng, sm):
     ]
 
 
-def utils_phase(dev, card, exporter):
+def utils_phase(dev, card):
     """Phase 10: the utils on the card.  The six kernel wrappers through
     torch.export and a loaded artifact; the cartpole solve served from an
     artifact; elastic checkpoint/resume of a receding-horizon cartpole run;
@@ -2249,10 +2127,32 @@ def utils_phase(dev, card, exporter):
         log(f"export {name} on {card}: {json.dumps(exported[name])}")
     out["exported"] = exported
 
-    # ----------------- the inputs of the elastic run: the served step's
+    # ------------------- 10b. the cartpole solve served from an artifact
     batch, horizon = CARTPOLE
-    system = make_cartpole()
-    x0s, us0 = serve_inputs(dev)
+    system, served_cfg = make_cartpole(), ILQRConfig(iterations=EXPORT_ITERS)
+    x0s = torch.from_numpy(
+        (0.2 * rng.standard_normal((batch, 4))).astype(np.float32)).to(dev)
+    us0 = torch.zeros((batch, horizon, 1), device=dev)
+    t0 = time.perf_counter()
+    blob = export.export_solver_step(system, served_cfg, batch, horizon)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = export.load_step(blob)
+    load_s = time.perf_counter() - t0
+    step(x0s, us0)
+    served_s, (us, cost) = wall_s(lambda: step(x0s, us0))
+    ilqr.solve_batched(system, x0s, us0, served_cfg)
+    live_s, ref = wall_s(lambda: ilqr.solve_batched(system, x0s, us0, served_cfg))
+    np.testing.assert_allclose(cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-6,
+                               err_msg="served cartpole costs")
+    np.testing.assert_allclose(us.cpu().numpy(), ref.us.cpu().numpy(), rtol=1e-6, atol=1e-7,
+                               err_msg="served cartpole controls")
+    out["solver"] = {"batch": batch, "horizon": horizon, "iterations": EXPORT_ITERS,
+                     "export_s": export_s, "load_s": load_s, "MB": len(blob) / 1e6,
+                     "nodes": len(step.graph.nodes), "served_s": served_s, "live_s": live_s,
+                     "bits_equal": bool(torch.equal(us, ref.us) and torch.equal(cost, ref.cost))}
+    del blob, step
+    log(f"served cartpole on {card}: {json.dumps(out['solver'])}")
 
     # ----------------------------------------- 10c. elastic at full width
     one = ILQRConfig(iterations=1)
@@ -2373,17 +2273,6 @@ def utils_phase(dev, card, exporter):
         check(sm.config.device == dev.type, f"torch_{name}.py left the device {sm.config.device}")
     log(f"examples on {card}: {json.dumps(out['examples_s'])}")
 
-    # ------------------- 10b. the cartpole solve served from an artifact
-    served, got = exporter.result()
-    ref = ilqr.solve_batched(system, x0s, us0, ILQRConfig(iterations=EXPORT_ITERS))
-    us, cost = got["us"].to(dev), got["cost"].to(dev)
-    np.testing.assert_allclose(cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-6,
-                               err_msg="served cartpole costs")
-    np.testing.assert_allclose(us.cpu().numpy(), ref.us.cpu().numpy(), rtol=1e-6, atol=1e-7,
-                               err_msg="served cartpole controls")
-    served["bits_equal"] = bool(torch.equal(us, ref.us) and torch.equal(cost, ref.cost))
-    out["solver"] = served
-    log(f"served cartpole on {card}: {json.dumps(served)}")
     return out
 
 
@@ -2413,9 +2302,6 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-
-    # The cartpole step exported at full width, beside phases 2-10 (phase 10).
-    exporter = Exporter()
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
@@ -2898,8 +2784,7 @@ def main():
     transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch)
 
     # -------------------------------------------------------- 6. timing
-    # Nothing is timed while the exporter traces the solve on the card.
-    log(f"waited {exporter.wait_traced():.1f} s for the exporter's trace on the card")
+    check(not dispatch.INTERPRET.get(), "the wrappers run their plain versions: nothing is timed")
     add_prog = binop("add", (N_ADD,), (N_ADD,))
     at, bt = add_a.torch(), add_b.torch()
     # The add twice.  Hot: its 12 MB stay in the 50 MB L2 across a run, as
@@ -3515,7 +3400,7 @@ def main():
 
     # ------------------------------------------------------- 10. utils
     t0 = time.perf_counter()
-    utils = utils_phase(dev, card, exporter)
+    utils = utils_phase(dev, card)
     utils["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"utils": utils}))
     for k in kernels:
@@ -3531,4 +3416,4 @@ def main():
 if __name__ == "__main__":
     if "--rank" in sys.argv:
         sys.exit(rank_main(sys.argv[1:]))
-    sys.exit(serve_main(sys.argv) if "--serve-cartpole" in sys.argv else main())
+    sys.exit(main())

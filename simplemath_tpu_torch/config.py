@@ -48,11 +48,6 @@ class Config:
         default_factory=lambda: _env_str("SM_DEBUG_CHECKS", "") not in ("", "0")
     )
 
-    # Every kernel wrapper runs its plain version, on CUDA tensors too, and
-    # launches nothing: the counterpart of the JAX package's Pallas
-    # interpret mode, set by ``utils.debug.interpret_kernels()``.
-    interpret_kernels: bool = False
-
     # Device new arrays are created on ("cuda", "cuda:1", "cpu", ...): the
     # card, unless the caller asks for the CPU (SM_DEVICE=cpu, or
     # ``configure(device="cpu")``).  Nothing probes for a card: without one,

@@ -21,14 +21,21 @@ Counting happens per call: one increment per eager op, per flushed lazy
 chain and per fused call.  The wrappers' launch counts (kernel launches on
 the card only) are ``LAUNCHES`` in ``ops.elementwise``, ``ops.reduction``
 and ``ops.matmul``.
+
+``INTERPRET`` is true only inside ``utils.debug.interpret_kernels()``:
+every kernel wrapper then runs its plain version on CUDA tensors too,
+counted as ``"interpret:<family>"``.  It is not a ``config`` field, so no
+setting of the process can send card tensors to the plain versions.
 """
 
 from __future__ import annotations
 
 import collections
+import contextvars
 from typing import Dict
 
 _COUNTS: collections.Counter = collections.Counter()
+INTERPRET: contextvars.ContextVar = contextvars.ContextVar("interpret_kernels", default=False)
 
 
 def record(kind: str, name: str = "") -> None:

@@ -28,7 +28,7 @@ program, the shape and the operands' layouts.
 kernel's plain version, ``program.run_plain``.  CUDA tensors launch the
 kernel or raise: there is no fallback.  Two exceptions, both asked for by
 the caller: inside ``utils.debug.interpret_kernels()``
-(``config.interpret_kernels``) CUDA tensors take the plain version too,
+(``dispatch.INTERPRET``) CUDA tensors take the plain version too,
 counted as ``interpret:elementwise``; while a graph is traced
 (``library.tracing``) a call the kernel takes goes through
 ``sm::ew_flat``/``sm::ew_strided`` (ops/library.py), whose CUDA
@@ -47,6 +47,7 @@ import functools
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import dtypes as _dtypes
@@ -154,12 +155,20 @@ class _Params(ctypes.Structure):
 
 
 def _const_bits(value, dtype) -> int:
-    """A constant's register bits: a float32 value's, a bfloat16 one's
-    widened to float32, an integer's mod 2**32."""
-    if dtype.is_floating_point:
-        t = torch.tensor(value, dtype=dtype).to(torch.float32)
-        return int(t.view(torch.int32)) & 0xFFFFFFFF
-    return int(value) & 0xFFFFFFFF
+    """A constant's register bits: a float32 value's, a bfloat16 or float16
+    one's widened to float32 (rounded as torch rounds a Python float to
+    the type), an integer's mod 2**32.  Host arithmetic alone: a traced
+    call records nothing for it and reads no tensor's value."""
+    if not dtype.is_floating_point:
+        return int(value) & 0xFFFFFFFF
+    with np.errstate(over="ignore"):
+        x = np.float32(value)
+        if dtype == torch.float16:
+            x = x.astype(np.float16).astype(np.float32)
+    bits = int(x.view(np.uint32))
+    if dtype == torch.bfloat16:  # to nearest even, a NaN to the quiet one
+        bits = 0x7FC00000 if np.isnan(x) else (bits + 0x7FFF + ((bits >> 16) & 1)) >> 16 << 16
+    return bits
 
 
 def _is_full(shape, strides, out_shape) -> bool:
@@ -380,7 +389,7 @@ def elementwise(prog: program.Program, out_shape, out_dtype, *operands,
     dispatch.record("elementwise", name)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the elementwise kernel runs on CUDA tensors, not {device}")
-    plain = device.type == "cpu" or config.interpret_kernels
+    plain = device.type == "cpu" or dispatch.INTERPRET.get()
     if device.type == "cuda" and plain:
         dispatch.record("interpret", "elementwise")
     elif operands and library.tracing(operands) and (device.type == "cuda" or takes(prog, name)):

@@ -93,7 +93,6 @@ import math
 import torch
 
 from .. import dtypes as _dt
-from ..config import config
 from ..utils.precision import exact_float32
 from . import dispatch, elementwise, library, program
 
@@ -443,7 +442,7 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
         dispatch.record("matmul", variant(a.dtype, b.dtype))
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the matmul kernel runs on CUDA tensors, not {device}")
-    if device.type == "cuda" and config.interpret_kernels:
+    if device.type == "cuda" and dispatch.INTERPRET.get():
         dispatch.record("interpret", "matmul")
         return matmul_plain(a, b, out_dtype, epilogue, extras)
     if device.type == "cuda" and (dims[0] > _MAX_BATCH or dims[1] > _MAX_M):

@@ -52,7 +52,6 @@ import math
 import torch
 
 from .. import dtypes as _dt
-from ..config import config
 from . import dispatch, elementwise, library, program
 
 # Kernel launches by entry point since the last reset, and the same
@@ -299,7 +298,7 @@ def run(prog, kind, axis, shape, operands, int_acc=False) -> torch.Tensor:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the reduction kernel runs on CUDA tensors, not {device}")
     op = _SUM_I32 if int_acc else _OP[kind]
-    plain = device.type == "cpu" or config.interpret_kernels
+    plain = device.type == "cpu" or dispatch.INTERPRET.get()
     if device.type == "cuda" and plain:
         dispatch.record("interpret", "reduce")
     elif library.tracing(operands) and (device.type == "cuda" or elementwise.takes(

@@ -25,7 +25,7 @@ import functools
 import torch
 from torch.utils import _pytree
 
-from ..config import config
+from ..ops import dispatch
 from .elastic import state_is_finite
 
 
@@ -66,9 +66,8 @@ def interpret_kernels():
     """Run every kernel wrapper's plain version within the context, on
     card tensors too: the kernel 'sanitizer' pass (plain PyTorch semantics,
     no launch).  The setting comes back on exit, on an exception too."""
-    old = config.interpret_kernels
-    config.interpret_kernels = True
+    token = dispatch.INTERPRET.set(True)
     try:
         yield
     finally:
-        config.interpret_kernels = old
+        dispatch.INTERPRET.reset(token)

@@ -28,6 +28,13 @@ product with a Python scalar (``0.5 * cost`` in every cost function) reads
 the scalar's storage, which a fake tensor has not ("Cannot access data
 pointer of Tensor that doesn't have storage").  Python loops are unrolled:
 the cartpole solve is a few hundred nodes a horizon step and iteration.
+
+A real-tensor trace would fix a branch on a tensor's value (``.item()``,
+``bool(x)``, ``if x.sum() > 0``) at the example's value, and the artifact
+would then give wrong answers for inputs that take the other branch.  So
+the trace raises ``DataDependentError`` at the first read of a tensor's
+value on the host, as JAX's export raises on a tracer's conversion to a
+Python value.
 """
 
 from __future__ import annotations
@@ -36,10 +43,25 @@ import io
 
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..config import config
 
 PLATFORMS = (None, ("cuda",), ("cpu",))
+
+
+class DataDependentError(RuntimeError):
+    """The traced function read a tensor's value on the host."""
+
+
+class _NoHostReads(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        # The op of every host read: ``.item()``, ``bool(x)``, ``int(x)``.
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise DataDependentError(
+                f"export: the function reads a tensor's value on the host ({func}); a "
+                "branch on it would be fixed at the example's value")
+        return func(*args, **(kwargs or {}))
 
 
 class _Traced(torch.nn.Module):
@@ -70,9 +92,16 @@ def export_program(fn, *example_args, platforms=None) -> torch.export.ExportedPr
     """``fn`` traced at the example arguments (tensors, or pytrees of
     them) as a ``torch.export.ExportedProgram``.  ``platforms`` (None,
     ``("cuda",)`` or ``("cpu",)``) only checks the example arguments'
-    device: the artifact runs where it was traced."""
+    device: the artifact runs where it was traced.  Raises
+    ``DataDependentError`` where ``fn`` reads a tensor's value on the
+    host."""
     _device(platforms, example_args)
-    graph_module = make_fx(fn, tracing_mode="real")(*example_args)
+
+    def guarded(*args):
+        with _NoHostReads():
+            return fn(*args)
+
+    graph_module = make_fx(guarded, tracing_mode="real")(*example_args)
     graph_module.graph.eliminate_dead_code()
     graph_module.recompile()
     program = torch.export.export(_Traced(graph_module), tuple(example_args), strict=False)

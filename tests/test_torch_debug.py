@@ -75,15 +75,23 @@ def test_nan_guard_on_sm_arrays():
 
 def test_interpret_kernels_context():
     with debug.interpret_kernels():
-        assert sm.config.interpret_kernels
-    assert sm.config.interpret_kernels is False
+        assert dispatch.INTERPRET.get()
+    assert dispatch.INTERPRET.get() is False
+
+
+def test_interpret_kernels_is_not_a_setting():
+    """Only the context turns the plain route on: ``configure`` knows no
+    such field."""
+    with pytest.raises(AttributeError, match="interpret_kernels"):
+        sm.configure(interpret_kernels=True)
+    assert dispatch.INTERPRET.get() is False
 
 
 def test_interpret_kernels_restores_on_exception():
     with pytest.raises(KeyError):
         with debug.interpret_kernels():
             raise KeyError("inside")
-    assert sm.config.interpret_kernels is False
+    assert dispatch.INTERPRET.get() is False
 
 
 def test_interpret_kernels_gives_the_plain_values_and_launches_nothing():

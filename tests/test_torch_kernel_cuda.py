@@ -2199,7 +2199,7 @@ def test_interpret_kernels_on_the_card(cuda):
     counts = dispatch.counts()
     assert counts["interpret:elementwise"] == 2 and counts["interpret:reduce"] == 2
     assert counts["interpret:matmul"] == 2
-    assert not sm.config.interpret_kernels
+    assert not dispatch.INTERPRET.get()
     for (name, *_), k, p in zip(cases, live, plain):
         assert k.shape == p.shape and k.dtype == p.dtype, name
         if name == "sm.ew_flat.default":

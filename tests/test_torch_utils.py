@@ -303,6 +303,20 @@ class TestAOTExport:
         with pytest.raises(Exception):
             run(torch.ones((9,)))
 
+    def test_a_branch_on_a_value_raises(self):
+        """A branch on a tensor's value cannot be exported in either
+        package: JAX raises on the tracer's conversion, the port at the
+        host read, so no artifact fixes the example's branch."""
+
+        def f(x):
+            return x * 2 if x.sum() > 0 else x
+
+        with pytest.raises(jax.errors.ConcretizationTypeError):
+            jutils.export.export_step(f, jnp.ones((8,), jnp.float32))
+        for read in (f, lambda x: x * x.sum().item(), lambda x: x + int(x[0])):
+            with pytest.raises(smx.DataDependentError):
+                smx.export_step(read, torch.ones((8,)))
+
     def test_platforms_other_than_cuda_or_cpu_raise(self):
         with pytest.raises(ValueError, match="platforms"):
             smx.export_step(lambda x: x + 1, torch.ones(2), platforms=("tpu",))
@@ -310,6 +324,22 @@ class TestAOTExport:
             smx.export_step(lambda x: x + 1, torch.ones(2), platforms=("cuda",))
         assert smx.load_step(smx.export_step(lambda x: x + 1, torch.ones(2),
                                              platforms=("cpu",)))(torch.ones(2))[0] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_constant_bits_are_torchs_rounding(dtype):
+    """A program constant's register bits, computed without a tensor (so
+    that a trace reads no value), are those of the constant converted by
+    torch and widened to float32 (a NaN's payload aside)."""
+    rng = np.random.default_rng(7)
+    values = [0.0, -0.0, 1.0, -2.5, 1e-3, 1e-45, 1e-8, 65504.0, 65520.0, 3.4e38, 3.5e38, 1e300,
+              -1e300, float("inf"), float("-inf"), float("nan"), 1.0 + 2.0 ** -8, 1.0 + 2.0 ** -9,
+              1.0 + 3 * 2.0 ** -9, *rng.standard_normal(200) * 10.0 ** rng.integers(-30, 30, 200)]
+    for v in values:
+        want = int(torch.tensor(v, dtype=dtype).to(torch.float32).view(torch.int32)) & 0xFFFFFFFF
+        got = elementwise._const_bits(v, dtype)
+        nan = [np.isnan(np.uint32(b).view(np.float32)) for b in (got, want)]
+        assert got == want or nan == [True, True], (v, dtype)
 
 
 def _mul_add_one():

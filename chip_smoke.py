@@ -189,8 +189,8 @@ device:
    computes besides, and the artifact, loaded in a process that imports
    torch and the port alone, launches that kernel once a call and gives
    the live call's bits; ``export_solver_step`` of the cartpole at 8192 x
-   H=100 (``EXPORT_ITERS`` iterations: its graph is unrolled over the
-   horizon and the iterations) served within ``rtol=1e-6, atol=1e-7`` of
+   H=50 (``EXPORT_HORIZON``, ``EXPORT_ITERS`` iterations: its graph is
+   unrolled over the horizon and the iterations) served within ``rtol=1e-6, atol=1e-7`` of
    the live solve, export seconds, nodes, MB and both wall times printed;
    ``run_elastic`` over a receding-horizon cartpole loop at 8192 x H=100
    (one iteration and a shift a step, a checkpoint every 2 steps) with an
@@ -203,7 +203,24 @@ device:
    of the kernel's); then each example twin (``examples/torch_*.py``) at
    its default size; prints the ``utils`` JSON line.  Every phase runs
    alone on the host: nothing of one overlaps the times of another;
-11. prints the kernels' JSON line (each kernel's launches on the main path,
+11. the compiled entry points (utils/graphs.py), each captured as CUDA
+   graphs at its first call and replayed: ``solve_batched_jit`` of the
+   cartpole (8192 x H=100), the pendulum and the ``sm``-written pendulum
+   (4096 x H=50), 10 iterations each, against ``solve_batched``;
+   ``MPCController.replan`` (quadrotor, H=50, 2 iterations, two replans a
+   call), the RTI closed loop (quadrotor, H=50, 20 and 60 ticks: their
+   difference times a tick) and ``entry()``'s step against their eager
+   body loops (``graphs.eager()``); in rounds of eager, compiled,
+   compiled, eager on the same inputs, every compiled result the eager
+   bits and every compiled call after the first under sync debug mode
+   ``"error"``; for each, the build's seconds (warm-up, capture,
+   instantiation), the graphs' pool MB, the kernels' launches a replay
+   (recorded at capture: the ``sm`` pendulum's graphs must hold ``ew_flat``
+   and ``ew_strided``), the card's busy share in one profiled replay of
+   the body's graph; then the six kernel wrappers, each captured once at its
+   main-path shape, their replays the eager bits; prints the ``compiled``
+   JSON line;
+12. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
    read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
@@ -1372,6 +1389,7 @@ def solver_phase(dev, card):
         make_sm_pendulum, rti,
     )
     from simplemath_tpu_torch.ops import dispatch, elementwise, reduction
+    from simplemath_tpu_torch.utils import graphs
 
     rng = np.random.default_rng(SEED)
     out = {"card": card}
@@ -1518,37 +1536,40 @@ def solver_phase(dev, card):
 
     # Quadrotor RTI: the time of a tick is the difference of two closed-loop
     # lengths over their difference in ticks (bench.py::bench_quadrotor_replan).
+    # Phase 8 times the eager loops (graphs.eager()), as before the compiled
+    # entry points; phase 11 times them compiled beside the eager ones.
     x0q = torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
-    rti.rti_closed_loop(quad, x0q, QUAD_H, 2)
-    loops = {}
-    for ticks in RTI_TICKS:
-        loops[ticks], res = wall_s(lambda: rti.rti_closed_loop(quad, x0q, QUAD_H, ticks))
-        check(bool(torch.isfinite(res[2]).all()), f"RTI quadrotor {ticks} ticks: non-finite costs")
-    tick_ms = 1e3 * (loops[RTI_TICKS[1]] - loops[RTI_TICKS[0]]) / (RTI_TICKS[1] - RTI_TICKS[0])
-    out["quadrotor_rti"] = {"horizon": QUAD_H, "ticks": list(RTI_TICKS),
-                            "wall_s": [loops[t] for t in RTI_TICKS], "per_tick_ms": tick_ms,
-                            "budget_ms": 1.0, "within_budget": tick_ms <= 1.0}
-    log(f"quadrotor RTI H={QUAD_H} on {card}: {out['quadrotor_rti']}")
+    with graphs.eager():
+        rti.rti_closed_loop(quad, x0q, QUAD_H, 2)
+        loops = {}
+        for ticks in RTI_TICKS:
+            loops[ticks], res = wall_s(lambda: rti.rti_closed_loop(quad, x0q, QUAD_H, ticks))
+            check(bool(torch.isfinite(res[2]).all()), f"RTI quadrotor {ticks} ticks: non-finite costs")
+        tick_ms = 1e3 * (loops[RTI_TICKS[1]] - loops[RTI_TICKS[0]]) / (RTI_TICKS[1] - RTI_TICKS[0])
+        out["quadrotor_rti"] = {"horizon": QUAD_H, "ticks": list(RTI_TICKS),
+                                "wall_s": [loops[t] for t in RTI_TICKS], "per_tick_ms": tick_ms,
+                                "budget_ms": 1.0, "within_budget": tick_ms <= 1.0}
+        log(f"quadrotor RTI H={QUAD_H} on {card}: {out['quadrotor_rti']}")
 
-    ctrl = MPCController(quad, horizon=QUAD_H, replan_iters=2)
-    ctrl.replan(x0q)
-    times = []
-    for _ in range(5):
-        t, (u0, cost) = wall_s(lambda: ctrl.replan(x0q))
-        check(bool(torch.isfinite(u0).all()) and np.isfinite(float(cost)), "replan: non-finite")
-        times.append(1e3 * t)
-    out["quadrotor_replan"] = {"horizon": QUAD_H, "iterations": 2, "ms": statistics.median(times),
-                               "ms_all": times, "budget_ms": 1.0}
-    log(f"quadrotor MPCController.replan H={QUAD_H} on {card}: {out['quadrotor_replan']}")
+        ctrl = MPCController(quad, horizon=QUAD_H, replan_iters=2)
+        ctrl.replan(x0q)
+        times = []
+        for _ in range(5):
+            t, (u0, cost) = wall_s(lambda: ctrl.replan(x0q))
+            check(bool(torch.isfinite(u0).all()) and np.isfinite(float(cost)), "replan: non-finite")
+            times.append(1e3 * t)
+        out["quadrotor_replan"] = {"horizon": QUAD_H, "iterations": 2, "ms": statistics.median(times),
+                                   "ms_all": times, "budget_ms": 1.0}
+        log(f"quadrotor MPCController.replan H={QUAD_H} on {card}: {out['quadrotor_replan']}")
 
-    step, args = port_entry.entry()
-    check(all(a.device.type == dev.type for a in args), "entry() built its arguments off the card")
-    step(*args)
-    times = []
-    for _ in range(3):
-        t, cost = wall_s(lambda: step(*args))
-        check(tuple(cost.shape) == (32,) and bool(torch.isfinite(cost).all()), "entry(): bad cost")
-        times.append(1e3 * t)
+        step, args = port_entry.entry()
+        check(all(a.device.type == dev.type for a in args), "entry() built its arguments off the card")
+        step(*args)
+        times = []
+        for _ in range(3):
+            t, cost = wall_s(lambda: step(*args))
+            check(tuple(cost.shape) == (32,) and bool(torch.isfinite(cost).all()), "entry(): bad cost")
+            times.append(1e3 * t)
     out["entry"] = {"batch": 32, "horizon": 20, "iterations": 3, "wall_ms": statistics.median(times),
                     "wall_ms_all": times}
     log(f"entry() on {card}: {out['entry']}")
@@ -1982,6 +2003,10 @@ def parallel_phase(dev, card):
 
 # ------------------------------------------------------------ phase 10
 EXPORT_ITERS = 1           # the served cartpole's iterations (the export time allows 1)
+# The served cartpole's horizon.  Its graph is unrolled over the horizon, and
+# tracing, exporting, saving and loading it took 448-491 s at H=100 (56.5
+# thousand nodes) of the script's 1200; at 50 it leaves phase 11 its room.
+EXPORT_HORIZON = 50
 ELASTIC_STEPS = 6          # receding-horizon steps of the elastic run, 2 a checkpoint
 VIEW_OPS = ("view", "alias", "slice", "expand", "reshape", "unsqueeze", "select", "permute",
             "t", "transpose")   # ops that move no data: what else a kernel's graph may hold
@@ -2133,21 +2158,22 @@ def utils_phase(dev, card):
     x0s = torch.from_numpy(
         (0.2 * rng.standard_normal((batch, 4))).astype(np.float32)).to(dev)
     us0 = torch.zeros((batch, horizon, 1), device=dev)
+    served_us0 = torch.zeros((batch, EXPORT_HORIZON, 1), device=dev)
     t0 = time.perf_counter()
-    blob = export.export_solver_step(system, served_cfg, batch, horizon)
+    blob = export.export_solver_step(system, served_cfg, batch, EXPORT_HORIZON)
     export_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     step = export.load_step(blob)
     load_s = time.perf_counter() - t0
-    step(x0s, us0)
-    served_s, (us, cost) = wall_s(lambda: step(x0s, us0))
-    ilqr.solve_batched(system, x0s, us0, served_cfg)
-    live_s, ref = wall_s(lambda: ilqr.solve_batched(system, x0s, us0, served_cfg))
+    step(x0s, served_us0)
+    served_s, (us, cost) = wall_s(lambda: step(x0s, served_us0))
+    ilqr.solve_batched(system, x0s, served_us0, served_cfg)
+    live_s, ref = wall_s(lambda: ilqr.solve_batched(system, x0s, served_us0, served_cfg))
     np.testing.assert_allclose(cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-6,
                                err_msg="served cartpole costs")
     np.testing.assert_allclose(us.cpu().numpy(), ref.us.cpu().numpy(), rtol=1e-6, atol=1e-7,
                                err_msg="served cartpole controls")
-    out["solver"] = {"batch": batch, "horizon": horizon, "iterations": EXPORT_ITERS,
+    out["solver"] = {"batch": batch, "horizon": EXPORT_HORIZON, "iterations": EXPORT_ITERS,
                      "export_s": export_s, "load_s": load_s, "MB": len(blob) / 1e6,
                      "nodes": len(step.graph.nodes), "served_s": served_s, "live_s": live_s,
                      "bits_equal": bool(torch.equal(us, ref.us) and torch.equal(cost, ref.cost))}
@@ -2273,6 +2299,249 @@ def utils_phase(dev, card):
         check(sm.config.device == dev.type, f"torch_{name}.py left the device {sm.config.device}")
     log(f"examples on {card}: {json.dumps(out['examples_s'])}")
 
+    return out
+
+
+# ----------------------------------------------------------- phase 11
+# The compiled entry points (utils/graphs.py): each captured as CUDA graphs
+# and replayed, held to its eager body loop on the same inputs.
+COMPILED_ROUNDS = {"cartpole": 1, "pendulum": 1, "sm_pendulum": 1, "replan": 2,
+                   "rti": 1, "entry": 2}  # rounds of eager, compiled, compiled, eager each
+
+
+def _leaves(tree):
+    import torch
+    from torch.utils import _pytree
+
+    return [t for t in _pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _same_bits(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(_bits_equal(x, y) for x, y in zip(la, lb))
+
+
+def _new_entries(programs, before):
+    """The entries of ``programs`` that are not in ``before`` (by id; its
+    values keep the entries alive, so no id is reused)."""
+    return [e for p in programs for e in p.cached() if id(e) not in before]
+
+
+def _graph_stats(entries):
+    """The stats of the graphs of ``entries``, summed: seconds, pool MB,
+    launches a replay."""
+    out = {"graphs": 0, "warmup_s": 0.0, "capture_s": 0.0, "instantiate_s": 0.0,
+           "pool_mb": 0.0, "launches": {}}
+    for entry in entries:
+        st = entry.graph.stats
+        out["graphs"] += 1
+        for k in ("warmup_s", "capture_s", "instantiate_s", "pool_mb"):
+            out[k] += st[k]
+        for k, v in st["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    return out
+
+
+def _profiled_replay(graph, reset=None):
+    """(kernels, busy ms, wall ms) of one replay of ``graph``: the CUDA
+    kernel events of torch.profiler over one replay, and the median
+    synchronized wall time of three replays without the profiler (it slows
+    the host's side of a replay of many kernels).  ``reset`` runs before
+    each replay (a scan's step counter back to its first row)."""
+    import torch
+
+    def once():
+        if reset:
+            reset()
+        graph.replay()
+
+    walls = [1e3 * wall_s(once)[0] for _ in range(3)]
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        once()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return len(kernels), busy, statistics.median(walls)
+
+
+def compiled_phase(dev, card):
+    """Phase 11: the compiled entry points on the card at full width, each
+    captured once and replayed, against its eager body loop on the same
+    inputs in alternating rounds (eager, compiled, compiled, eager): bits,
+    wall times, capture and instantiate seconds, pool MB, launches a
+    replay, the card's busy share in one profiled replay of the body's
+    graph; every compiled call after the first under sync debug mode
+    "error".  Then each
+    of the six kernel wrappers captured once, its replay the eager bits."""
+    import torch
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch import entry as port_entry
+    from simplemath_tpu_torch.models import (
+        ILQRConfig, MPCController, ilqr, make_cartpole, make_pendulum, make_quadrotor,
+        make_sm_pendulum, rti, sqp_mpc,
+    )
+    from simplemath_tpu_torch.models import dynamics
+    from simplemath_tpu_torch.ops import codegen, elementwise, matmul, reduction
+    from simplemath_tpu_torch.utils import graphs
+
+    rng = np.random.default_rng(SEED + 11)
+    out = {"card": card}
+    quad = make_quadrotor()
+
+    def workload(key, programs, eager, compiled, per, rounds):
+        """``per(seconds)``: the workload's rate from one call's seconds."""
+        before = {id(e): e for p in programs for e in p.cached()}
+        reserved = torch.cuda.memory_reserved()
+        for w in (elementwise, reduction, matmul):
+            w.reset_launches()
+        build_s, first = wall_s(compiled)
+        launches = {k: v for w in (elementwise, reduction, matmul)
+                    for k, v in w.LAUNCHES.items() if v}
+        built = _new_entries(programs, before)
+        stats = _graph_stats(built)
+        stats["per_graph"] = [e.graph.stats for e in built]
+        row = {"build_s": build_s, **stats,
+               "reserved_mb_added": (torch.cuda.memory_reserved() - reserved) / 2**20,
+               "launches_at_build": launches}
+        eager_s, compiled_s, same = [], [], True
+        for _ in range(rounds):
+            for mode in ("eager", "compiled", "compiled", "eager"):
+                if mode == "eager":
+                    t, res = wall_s(eager)
+                    eager_s.append(t)
+                else:
+                    t, res = wall_s(compiled, sync_debug="error")
+                    compiled_s.append(t)
+                same = same and _same_bits(res, first)
+        check(same, f"{key}: a compiled call differs from the eager loop's bits")
+        # The card's busy share in one replay of the program's last graph
+        # (the scan body, or the replan), its kernels, and its wall time.
+        entry = _new_entries(programs[-1:], before)[-1]
+        counter = getattr(entry, "counter", None)
+        kernels, busy, wall = _profiled_replay(entry.graph, counter.zero_ if counter is not None else None)
+        row.update({
+            "bits_equal": same, "eager_s": eager_s, "compiled_s": compiled_s,
+            "eager_median_s": statistics.median(eager_s),
+            "compiled_median_s": statistics.median(compiled_s),
+            "eager_rate": per(statistics.median(eager_s)),
+            "compiled_rate": per(statistics.median(compiled_s)),
+            "replay_kernels": kernels, "replay_busy_ms": busy, "replay_wall_ms": wall,
+            "busy_share": busy / wall})
+        log(f"compiled {key} on {card}: {row}")
+        return row, first
+
+    # Batched solves: solve_batched_jit against solve_batched.
+    solves = ilqr._BATCHED_INIT, ilqr._BATCHED_ITERATIONS
+    for key, system, (batch, horizon) in (("cartpole", make_cartpole(), CARTPOLE),
+                                          ("pendulum", make_pendulum(), PENDULUM),
+                                          ("sm_pendulum", make_sm_pendulum(), PENDULUM)):
+        x0 = torch.from_numpy((0.2 * rng.standard_normal((batch, system.nx))).astype(np.float32)).to(dev)
+        us = torch.zeros((batch, horizon, system.nu), device=dev)
+        cfg = ILQRConfig(iterations=SOLVE_ITERS)
+        row, res = workload(key, solves,
+                            lambda: ilqr.solve_batched(system, x0, us, cfg),
+                            lambda: ilqr.solve_batched_jit(system, x0, us, cfg),
+                            lambda t: batch / t, COMPILED_ROUNDS[key])
+        check(bool(torch.isfinite(res.cost).all()), f"compiled {key}: non-finite costs")
+        row.update({"batch": batch, "horizon": horizon, "iterations": SOLVE_ITERS,
+                    "rate": "solves/s"})
+        if key == "sm_pendulum":
+            for name in ("ew_flat", "ew_strided"):
+                check(row["launches"].get(name, 0) > 0,
+                      f"the sm pendulum's graphs hold no {name} launch: {row['launches']}")
+            # The graphs hold their constants and generated kernels: clear
+            # the constant cache, unload every kernel no graph pins, hand
+            # the freed memory out again overwritten, and replay.
+            pinned = set(codegen._PINS)
+            dynamics._cached_constant.cache_clear()
+            codegen._evict(elementwise._library())
+            junk = [torch.full((n,), float("nan"), device=dev)
+                    for n in (4, 64, 1 << 20) for _ in range(256)]
+            _, again = wall_s(lambda: ilqr.solve_batched_jit(system, x0, us, cfg),
+                              sync_debug="error")
+            del junk
+            evicted = _same_bits(again, res)
+            check(bool(pinned) and pinned <= set(codegen._LOADED) and evicted,
+                  "the sm pendulum's replay after the caches' eviction differs from its bits")
+            row["replay_after_eviction_bits_equal"] = evicted
+            row["pinned_kernels"] = len(pinned)
+        out[key] = row
+
+    # MPCController.replan: a controller each, the same states in turn.
+    xq = [torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
+          for _ in range(2)]
+    ctrl_c = MPCController(quad, horizon=QUAD_H, replan_iters=2)
+    ctrl_e = MPCController(quad, horizon=QUAD_H, replan_iters=2)
+
+    def replan(ctrl):
+        ctrl.reset()
+        return [ctrl.replan(x) for x in xq], ctrl.us_warm.clone()
+
+    def replan_eager():
+        with graphs.eager():
+            return replan(ctrl_e)
+
+    row, _ = workload("replan", (sqp_mpc._REPLAN,), replan_eager, lambda: replan(ctrl_c),
+                      lambda t: 1e3 * t / len(xq), COMPILED_ROUNDS["replan"])
+    row.update({"horizon": QUAD_H, "iterations": 2, "replans_a_call": len(xq),
+                "rate": "ms a replan", "budget_ms": 1.0})
+    out["replan"] = row
+
+    # The RTI tick: the difference of a 20- and a 60-tick closed loop, each
+    # a graph of its own (the tick count is a static argument).
+    x0q = torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
+    loops = {}
+    for ticks in RTI_TICKS:
+        def loop(ticks=ticks):
+            return rti.rti_closed_loop(quad, x0q, QUAD_H, ticks)
+
+        def loop_eager(loop=loop):
+            with graphs.eager():
+                return loop()
+
+        loops[ticks], res = workload(f"rti_{ticks}", (rti._TICKS,), loop_eager, loop,
+                                     lambda t: 1e3 * t, COMPILED_ROUNDS["rti"])
+        check(bool(torch.isfinite(res[2]).all()), f"compiled RTI {ticks} ticks: non-finite costs")
+    short, long_ = RTI_TICKS
+    out["rti"] = {"horizon": QUAD_H, "ticks": list(RTI_TICKS), "loops": loops, "budget_ms": 1.0,
+                  **{f"{m}_tick_ms": (loops[long_][f"{m}_median_s"] - loops[short][f"{m}_median_s"])
+                     * 1e3 / (long_ - short) for m in ("eager", "compiled")}}
+    log(f"compiled RTI tick on {card}: eager {out['rti']['eager_tick_ms']} ms, "
+        f"compiled {out['rti']['compiled_tick_ms']} ms")
+
+    # entry(): __graft_entry__.entry()'s twin step, compiled, against it eager.
+    step, args = port_entry.entry()
+
+    def step_eager():
+        with graphs.eager():
+            return step(*args)
+
+    row, cost = workload("entry", solves, step_eager, lambda: step(*args), lambda t: 1e3 * t,
+                         COMPILED_ROUNDS["entry"])
+    check(tuple(cost.shape) == (32,) and bool(torch.isfinite(cost).all()), "compiled entry(): bad cost")
+    row.update({"batch": 32, "horizon": 20, "iterations": 3, "rate": "ms a call"})
+    out["entry"] = row
+
+    # The six kernel wrappers, each captured once at its main-path shape.
+    counters = {"ew_flat": elementwise, "ew_strided": elementwise, "rd_full": reduction,
+                "rd_axis": reduction, "mm": matmul, "bmm": matmul}
+    kernels = {}
+    for name, fn, args, _, counter in _export_cases(dev, rng, sm):
+        eager = fn(*(a.clone() for a in args))  # the recurrence donates its first operand
+        program = graphs.Jit(lambda static, *a, fn=fn: fn(*a))
+        program((), *args)
+        (built,) = program.cached()
+        t, got = wall_s(lambda: program((), *args), sync_debug="error")
+        counters[counter].reset_launches()
+        same = _bits_equal(got, eager)
+        check(same, f"{name} captured: its replay differs from the eager call's bits")
+        check(built.graph.stats["launches"].get(counter, 0) > 0,
+              f"{name} captured without a launch of its kernel: {built.graph.stats['launches']}")
+        kernels[name] = {"bits_equal": same, "launches_a_replay": built.graph.stats["launches"],
+                         "capture_s": built.graph.stats["capture_s"], "replay_wall_s": t}
+    out["kernels"] = kernels
+    log(f"the six kernels captured on {card}: {kernels}")
     return out
 
 
@@ -3403,9 +3672,19 @@ def main():
     utils = utils_phase(dev, card)
     utils["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"utils": utils}))
+
+    # ---------------------------------------------------- 11. compiled
+    t0 = time.perf_counter()
+    compiled = compiled_phase(dev, card)
+    compiled["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"compiled": compiled}))
     for k in kernels:
         if k["name"] in utils["exported"]:
             k["loaded_launches"] = utils["exported"][k["name"]]["launches"]
+        if k["name"] in ("ew_flat", "ew_strided"):
+            # The sm pendulum's graphs (initial rollout and one iteration):
+            # launches recorded at capture, which each replay repeats.
+            k["graph_launches"] = compiled["sm_pendulum"]["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Model / solver layer: the benchmark dynamical systems and the batched
 iLQR/DDP, RTI and AL-SQP MPC trajectory optimizers (BASELINE.json configs
-3-5), as plain torch.
+3-5), as plain torch; the JAX package's compiled programs
+(``solve_batched_jit``, ``MPCController.replan``, ``closed_loop``,
+``rti_closed_loop``) run as CUDA graphs on the card (utils/graphs.py).
 
 Counterpart of ``simplemath_tpu/models/``; the scenario-consensus MPC
 runs over the parallel layer (``simplemath_tpu_torch.parallel``).
@@ -22,6 +24,7 @@ from .ilqr import (  # noqa: F401
     rollout,
     solve,
     solve_batched,
+    solve_batched_jit,
     trajectory_cost,
 )
 from .rti import (  # noqa: F401

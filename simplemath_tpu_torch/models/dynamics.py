@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import config
+from ..utils import graphs
 
 
 def as_tensor(x, dtype=None, device=None):
@@ -67,12 +68,28 @@ class System:
     batch_polymorphic: bool = False
 
 
-@functools.lru_cache(maxsize=64)
 def _constant(values: tuple, dtype, device) -> torch.Tensor:
+    """``values`` on ``device``, from a cache; a CUDA graph being built
+    holds the tensor, so that the cache's eviction frees no memory the
+    graph reads."""
+    t = _cached_constant(values, dtype, device)
+    graphs.hold(t)
+    return t
+
+
+@functools.lru_cache(maxsize=1024)
+def _cached_constant(values: tuple, dtype, device) -> torch.Tensor:
     # Copied to the card once per (values, dtype, device) and without a
     # stream sync, so that a solve pays no host round trip for constants.
     # Made outside any torch.func transform: a tensor made inside one is
-    # that transform's, and must not outlive it in the cache.
+    # that transform's, and must not outlive it in the cache.  A CUDA graph
+    # cannot hold the copy: the warm-up call before a capture makes every
+    # constant the program needs, and a program that needs more than the
+    # cache holds fails its capture here.
+    if graphs.capturing():
+        raise graphs.CaptureError(
+            f"the constant {values} ({dtype}, {device}) was first asked for while a "
+            "CUDA graph was captured; the warm-up call should have made it")
     with torch._C._DisableFuncTorch():
         return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
 

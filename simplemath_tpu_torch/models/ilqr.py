@@ -13,7 +13,8 @@ Counterpart of ``simplemath_tpu/models/ilqr.py``, as plain torch:
 * the forward line search evaluates ALL step sizes at once and picks the
   best improvement;
 * ``solve_batched`` runs thousands of scenarios in batch-minor layout
-  (ops/soa.py).
+  (ops/soa.py); ``solve_batched_jit`` runs it as a compiled program, one
+  iteration a CUDA graph replayed (utils/graphs.py).
 
 Nothing in ``solve``/``solve_batched`` reads a value back to the host:
 accepts, regularization and the line search's choice are tensor selects,
@@ -30,6 +31,7 @@ from torch.func import grad, jacrev, jvp, vmap
 
 from ..ops import soa
 from ..ops.linalg_small import inv_unrolled
+from ..utils import graphs
 from ..utils.precision import f32_matmuls
 from .dynamics import System, _constant
 from .scan import associative_scan
@@ -209,6 +211,12 @@ def _gershgorin_shift(H, eps):
 
 def _eigh_project(H, eps):
     """Exact projection onto the PSD cone (eigenvalue clamping)."""
+    if graphs.capturing():
+        # torch.linalg.eigh checks its info on the host.
+        raise graphs.CaptureError(
+            'psd="eigh" cannot run inside a CUDA graph (torch.linalg.eigh reads '
+            'its result on the host); use psd="clamp_diag" or "gershgorin", or '
+            "the eager solve")
     w, V = torch.linalg.eigh(H)
     w = torch.clamp_min(w, eps)
     return (V * w[..., None, :]) @ V.mT
@@ -701,20 +709,9 @@ def solve(
     )
 
 
-@f32_matmuls
-def solve_batched(
-    system: System, x0_batch, us_init_batch, config: ILQRConfig = ILQRConfig()
-) -> ILQRResult:
-    """Batched solve over the scenario axis (BASELINE.json configs 3-4).
-
-    Rollout and cost map over scenarios.  For batch-polymorphic systems the
-    linearization and the line search run batch-minor
-    (:func:`linearize_soa`, :func:`forward_linesearch_soa`), else mapped
-    over scenarios.  The Riccati backward pass runs in batch-minor layout
-    (:func:`backward_sequential_soa`, or :func:`backward_associative_soa`
-    for ``backward="associative"``).  Semantics match ``vmap(solve)`` up to
-    float32 summation order.
-    """
+def _batched_stages(system: System, config: ILQRConfig):
+    """solve_batched's stages for ``system``: (rollout, cost, linearize,
+    backward, line search), each over the scenario batch."""
     backward_b = (
         backward_associative_soa
         if config.backward == "associative"
@@ -735,33 +732,90 @@ def solve_batched(
                 system, xs, us, ks, Ks, config.alphas
             )
         )
-    psd_mode = _psd_mode(config, system)
+    return rollout_b, cost_b, lin_b, backward_b, fwd_b
 
+
+def _batched_init(static, x0_batch, us_init_batch):
+    """solve_batched's carry before the first iteration: (xs, us, cost, reg)."""
+    system, config = static
+    rollout_b, cost_b, _, _, _ = _batched_stages(system, config)
     xs = rollout_b(x0_batch, us_init_batch)
-    us = us_init_batch
-    cost = cost_b(xs, us)  # (Bb,)
+    cost = cost_b(xs, us_init_batch)  # (Bb,)
     reg = torch.full(cost.shape, config.reg_init, dtype=xs.dtype, device=xs.device)
-    cost_trace, grad_norm = [], None
-    for _ in range(config.iterations):
-        A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T = lin_b(xs, us)
-        lxx, luu, lux, Vxx_T = psd_cost_hessians(
-            lxx, luu, lux, Vxx_T, psd_mode, config.psd_eps
-        )
-        ks, Ks = backward_b(A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg)
-        xs_new, us_new, cost_new = fwd_b(xs, us, ks, Ks)
-        improved = torch.isfinite(cost_new) & (cost_new < cost)
-        xs = torch.where(improved[:, None, None], xs_new, xs)
-        us = torch.where(improved[:, None, None], us_new, us)
-        reg = _next_reg(improved, reg, config)
-        cost = torch.where(improved, cost_new, cost)
-        grad_norm = _finite_norm(torch.amax(torch.abs(ks), dim=(1, 2)))
-        cost_trace.append(cost)
-    # Batch-leading result fields; cost_trace comes out (Bb, iters).
-    return ILQRResult(
-        xs=xs, us=us, cost=cost, cost_trace=torch.stack(cost_trace, dim=1),
-        grad_norm=grad_norm,
+    return xs, us_init_batch, cost, reg
+
+
+def _batched_iteration(static, carry, x_t=(), consts=()):
+    """One iteration of solve_batched: the body of the JAX package's
+    ``lax.scan``.  ``carry`` is (xs, us, cost, reg); returns the next carry
+    and the iteration's (cost, grad_norm)."""
+    system, config = static
+    _, _, lin_b, backward_b, fwd_b = _batched_stages(system, config)
+    xs, us, cost, reg = carry
+    A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T = lin_b(xs, us)
+    lxx, luu, lux, Vxx_T = psd_cost_hessians(
+        lxx, luu, lux, Vxx_T, _psd_mode(config, system), config.psd_eps
     )
+    ks, Ks = backward_b(A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg)
+    xs_new, us_new, cost_new = fwd_b(xs, us, ks, Ks)
+    improved = torch.isfinite(cost_new) & (cost_new < cost)
+    xs = torch.where(improved[:, None, None], xs_new, xs)
+    us = torch.where(improved[:, None, None], us_new, us)
+    reg = _next_reg(improved, reg, config)
+    cost = torch.where(improved, cost_new, cost)
+    grad_norm = _finite_norm(torch.amax(torch.abs(ks), dim=(1, 2)))
+    return (xs, us, cost, reg), (cost, grad_norm)
 
 
-# The JAX package's jitted alias; the port has no compiled variant.
-solve_batched_jit = solve_batched
+def _batched_result(carry, cost_trace, grad_norms):
+    """Batch-leading result fields; ``cost_trace`` comes in (iters, Bb) and
+    goes out (Bb, iters)."""
+    xs, us, cost, _ = carry
+    return ILQRResult(xs=xs, us=us, cost=cost,
+                      cost_trace=cost_trace.movedim(0, 1).contiguous(),
+                      grad_norm=grad_norms[-1])
+
+
+@f32_matmuls
+def solve_batched(
+    system: System, x0_batch, us_init_batch, config: ILQRConfig = ILQRConfig()
+) -> ILQRResult:
+    """Batched solve over the scenario axis (BASELINE.json configs 3-4),
+    eagerly: one iteration's ops dispatched at a time.
+
+    Rollout and cost map over scenarios.  For batch-polymorphic systems the
+    linearization and the line search run batch-minor
+    (:func:`linearize_soa`, :func:`forward_linesearch_soa`), else mapped
+    over scenarios.  The Riccati backward pass runs in batch-minor layout
+    (:func:`backward_sequential_soa`, or :func:`backward_associative_soa`
+    for ``backward="associative"``).  Semantics match ``vmap(solve)`` up to
+    float32 summation order.
+    """
+    static = (system, config)
+    carry = _batched_init(static, x0_batch, us_init_batch)
+    costs, norms = [], []
+    for _ in range(config.iterations):
+        carry, (cost, grad_norm) = _batched_iteration(static, carry)
+        costs.append(cost)
+        norms.append(grad_norm)
+    return _batched_result(carry, torch.stack(costs), torch.stack(norms))
+
+
+_BATCHED_INIT = graphs.Jit(_batched_init)
+_BATCHED_ITERATIONS = graphs.Scan(_batched_iteration)
+
+
+@f32_matmuls
+def solve_batched_jit(
+    system: System, x0_batch, us_init_batch, config: ILQRConfig = ILQRConfig()
+) -> ILQRResult:
+    """:func:`solve_batched` as a compiled program, the JAX package's
+    ``jax.jit(solve_batched, static_argnums=(0, 3))``: on the card the
+    initial rollout is one CUDA graph and one iteration another, captured
+    once per (system, config, shapes) and replayed ``config.iterations``
+    times (utils/graphs.py); on the CPU the same body loop runs eagerly,
+    with :func:`solve_batched`'s bits."""
+    static = (system, config)
+    carry = _BATCHED_INIT(static, x0_batch, us_init_batch)
+    carry, (costs, norms) = _BATCHED_ITERATIONS(static, carry, config.iterations)
+    return _batched_result(carry, costs, norms)

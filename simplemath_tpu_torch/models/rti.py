@@ -27,6 +27,7 @@ import torch
 from torch.func import vmap
 
 from ..ops.linalg_small import solve_unrolled
+from ..utils import graphs
 from ..utils.precision import f32_matmuls
 from . import ilqr as _ilqr
 from .dynamics import System, as_tensor
@@ -191,6 +192,19 @@ def rti_init(system: System, x0, horizon: int) -> RTIState:
     return RTIState(xs=xs, us=us)
 
 
+def _closed_loop_tick(static, carry, x_t=(), consts=()):
+    """One RTI tick and one step of the true dynamics: the body of the JAX
+    package's ``lax.scan``.  ``carry`` is (x, nominal xs, nominal us)."""
+    system, config = static
+    x, xs, us = carry
+    out = rti_tick(system, RTIState(xs=xs, us=us), x, config)
+    x_next = system.step(x, out.u0)
+    return (x_next, out.state.xs, out.state.us), (x_next, out.u0, out.cost, out.defect_norm)
+
+
+_TICKS = graphs.Scan(_closed_loop_tick)
+
+
 @f32_matmuls
 def rti_closed_loop(
     system: System,
@@ -200,17 +214,11 @@ def rti_closed_loop(
     config: RTIConfig = RTIConfig(),
 ):
     """Closed-loop RTI MPC: ``ticks`` RTI ticks, each followed by one step
-    of the true dynamics; returns stacked (xs, us, costs, defects)."""
+    of the true dynamics; returns stacked (xs, us, costs, defects).  One
+    compiled program: :func:`rti_init` runs eagerly (startup is not on the
+    latency path), then on the card the tick is a CUDA graph replayed
+    ``ticks`` times (utils/graphs.py)."""
     state = rti_init(system, x0, horizon)
     x = as_tensor(x0, torch.float32)
-    out_xs, out_us, costs, defects = [], [], [], []
-    for _ in range(ticks):
-        out = rti_tick(system, state, x, config)
-        x = system.step(x, out.u0)
-        state = out.state
-        out_xs.append(x)
-        out_us.append(out.u0)
-        costs.append(out.cost)
-        defects.append(out.defect_norm)
-    return (torch.stack(out_xs), torch.stack(out_us), torch.stack(costs),
-            torch.stack(defects))
+    _, ys = _TICKS((system, config), (x, state.xs, state.us), ticks)
+    return ys

@@ -10,7 +10,7 @@ Counterpart of ``simplemath_tpu/models/sqp_mpc.py``:
   Riccati), and multiplier/penalty updates enforce control box
   constraints.  Static iteration counts, no host round trip.
 * ``MPCController``: warm-started receding-horizon wrapper, one
-  ``replan(x)`` per tick.
+  ``replan(x)`` per tick, a CUDA graph on the card.
 * ``scenario_mpc_step``: robust scenario MPC with a SHARED first control.
   Per-scenario backward passes run sharded over the mesh's scenario axis
   and the first-step KKT block (Quu_0, Qu_0) is summed across the ranks
@@ -27,6 +27,7 @@ import torch
 from torch.func import vmap
 
 from ..config import config
+from ..utils import graphs
 from ..utils.precision import f32_matmuls
 from . import ilqr as _ilqr
 from .dynamics import System, _constant, as_tensor
@@ -189,13 +190,33 @@ def solve_constrained(
     )
 
 
+def _replan(static, x, us_warm, *bounds):
+    """One replan (the JAX package's ``MPCController._replan``): iLQR
+    iterations from the warm start, the controls clamped to ``bounds``
+    (lo, hi) where given; returns the first control, the warm start
+    shifted one step (the last control repeated) and the cost."""
+    system, cfg = static
+    res = _ilqr.solve(system, x, us_warm, cfg)
+    us = res.us
+    if bounds:
+        us = torch.clamp(us, *bounds)
+    return us[0], torch.cat([us[1:], us[-1:]]), res.cost
+
+
+_REPLAN = graphs.Jit(_replan)
+
+
 class MPCController:
     """Receding-horizon controller with warm starts.
 
-    ``replan(x)`` shifts the previous control sequence one step, runs
+    ``replan(x)`` is one compiled program (the JAX package's
+    ``jax.jit(_replan)``): shift the previous control sequence one step, run
     ``replan_iters`` iLQR iterations (optionally with box clamping), and
-    returns the first control and the new warm start.  Call it in the
-    physical control loop at the replan rate.
+    return the first control and the cost.  On the card it is one CUDA
+    graph, captured at the first call for each system, config and shape
+    and dtype of ``x`` (utils/graphs.py); the warm start goes in as an
+    input and the next one is copied back into ``us_warm``.  Call it in
+    the physical control loop at the replan rate.
     """
 
     def __init__(
@@ -217,25 +238,19 @@ class MPCController:
         )
         self.us_warm = torch.zeros((horizon, system.nu), dtype=torch.float32,
                                    device=config.device)
+        self._bounds = ()
         if u_min is not None:
-            self._lo, self._hi = (as_tensor(b, torch.float32, self.us_warm.device)
-                                  for b in (u_min, u_max))
-
-    def _replan(self, x, us_warm):
-        res = _ilqr.solve(self.system, x, us_warm, self._config)
-        us = res.us
-        if self.u_min is not None:
-            us = torch.clamp(us, self._lo, self._hi)
-        # Shift for the next warm start (repeat last control).
-        us_next = torch.cat([us[1:], us[-1:]])
-        return us[0], us_next, res.cost
+            self._bounds = tuple(as_tensor(b, torch.float32, self.us_warm.device)
+                                 for b in (u_min, u_max))
 
     def replan(self, x):
-        u0, self.us_warm, cost = self._replan(as_tensor(x), self.us_warm)
+        u0, us_next, cost = _REPLAN((self.system, self._config), as_tensor(x), self.us_warm,
+                                    *self._bounds)
+        self.us_warm.copy_(us_next)
         return u0, cost
 
     def reset(self):
-        self.us_warm = torch.zeros_like(self.us_warm)
+        self.us_warm.zero_()
 
 
 @f32_matmuls

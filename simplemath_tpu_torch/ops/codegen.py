@@ -33,7 +33,8 @@ NVRTC compiles the source (csrc/nvrtc.cu, in the kernel library that
 the values (``--fmad=false``, no fast math) for ``sm_90a``, and the
 runtime loads the CUBIN.  Kernels are cached in the process by signature
 (at most ``CAP``; when full, all are unloaded and the cache starts again,
-as the reference clears its cache) and on disk under
+as the reference clears its cache, except the kernels that a live CUDA
+graph launches: utils/graphs.py holds a pin of each) and on disk under
 ``build/kernels/generated/``, named by a hash of the source (which follows
 from the signature), the headers it includes and the options.  A compile
 or a load that fails raises with NVRTC's log or the runtime's error: the
@@ -48,6 +49,7 @@ import hashlib
 import os
 import tempfile
 import time
+import weakref
 from typing import Tuple
 
 from . import program
@@ -69,6 +71,16 @@ STATS = {"compiled": 0, "disk": 0, "memory": 0}
 COMPILE_MS: list = []
 
 _LOADED: dict = {}  # Signature -> (library handle, kernel handle)
+
+
+class _Pin:
+    """Held by each CUDA graph that launches a signature's kernel (see
+    ``kernel``): while one lives, ``_evict`` leaves the module loaded."""
+
+    __slots__ = ("__weakref__",)
+
+
+_PINS: "weakref.WeakValueDictionary[Signature, _Pin]" = weakref.WeakValueDictionary()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,17 +237,27 @@ def _evict(lib) -> None:
     import torch
 
     torch.cuda.synchronize()  # no launch of a kernel about to go is pending
-    for library, _ in _LOADED.values():
-        lib.sm_rtc_unload(library)
-    _LOADED.clear()
+    for sig in [s for s in _LOADED if s not in _PINS]:
+        lib.sm_rtc_unload(_LOADED.pop(sig)[0])
 
 
 def kernel(lib, sig: Signature) -> int:
-    """The handle of the loaded kernel for ``sig`` (``cudaKernel_t``)."""
+    """The handle of the loaded kernel for ``sig`` (``cudaKernel_t``); a
+    CUDA graph being built holds the signature's pin."""
+    from ..utils import graphs
+
+    if graphs.building():
+        graphs.hold(_PINS.setdefault(sig, _Pin()))
     hit = _LOADED.get(sig)
     if hit is not None:
         STATS["memory"] += 1
         return hit[1]
+    if graphs.capturing():
+        # A compile, a disk read and a module load cannot go into a CUDA
+        # graph; the warm-up call before a capture loads every signature.
+        raise graphs.CaptureError(
+            f"the generated kernel for {sig} was first asked for while a CUDA "
+            "graph was captured; the warm-up call should have compiled it")
     if len(_LOADED) >= CAP:
         _evict(lib)
     image = _cubin(lib, source(sig))

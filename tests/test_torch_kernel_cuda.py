@@ -2206,3 +2206,195 @@ def test_interpret_kernels_on_the_card(cuda):
             assert torch.equal(k, p)
         else:
             assert torch.allclose(k.double(), p.double(), rtol=1e-4, atol=1e-4), name
+
+
+# --------------------------------------------- the compiled entry points
+# utils/graphs.py: each compiled entry point captured as CUDA graphs at a
+# small size, held to its eager body loop (graphs.eager()) bit for bit, its
+# replays under sync debug mode "error".
+def _same_leaves(a, b):
+    from torch.utils import _pytree
+
+    la = [t for t in _pytree.tree_leaves(a) if isinstance(t, torch.Tensor)]
+    lb = [t for t in _pytree.tree_leaves(b) if isinstance(t, torch.Tensor)]
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _replay_without_sync(fn):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _compiled_case(name, dev):
+    from simplemath_tpu_torch import entry
+    from simplemath_tpu_torch.models import (
+        MPCController, closed_loop, ilqr, make_cartpole, make_pendulum, make_quadrotor,
+        make_sm_pendulum, rti,
+    )
+
+    rng = np.random.default_rng(72)
+    xq = torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
+    if name in ("cartpole", "sm_pendulum"):
+        system = make_cartpole() if name == "cartpole" else make_sm_pendulum()
+        x0 = torch.from_numpy((0.2 * rng.standard_normal((32, system.nx))).astype(np.float32)).to(dev)
+        us = torch.zeros((32, 12, 1), device=dev)
+        cfg = ilqr.ILQRConfig(iterations=3)
+        return (lambda: ilqr.solve_batched_jit(system, x0, us, cfg),
+                lambda: ilqr.solve_batched(system, x0, us, cfg))
+    if name == "replan":
+        quad = make_quadrotor()
+
+        def replans(ctrl):
+            ctrl.reset()
+            out = [ctrl.replan(xq * s) for s in (1.0, 0.5, -0.5)]
+            return out, ctrl.us_warm.clone()
+        ctrls = [MPCController(quad, horizon=10, u_min=-2.0, u_max=2.0) for _ in range(2)]
+        return lambda: replans(ctrls[0]), lambda: replans(ctrls[1])
+    if name == "closed_loop":
+        pend = make_pendulum()
+        x0 = torch.tensor([3.0, 0.0], device=dev)
+        run = lambda: closed_loop(pend, x0, 12, 6, noise_std=0.01, u_min=-4.0, u_max=4.0,
+                                  generator=torch.Generator(dev).manual_seed(1))
+        return run, run
+    if name == "rti_closed_loop":
+        quad = make_quadrotor()
+        run = lambda: rti.rti_closed_loop(quad, xq, 10, 5)
+        return run, run
+    step, args = entry.entry()
+    return lambda: step(*args), lambda: step(*args)
+
+
+@pytest.mark.parametrize("name", ["cartpole", "sm_pendulum", "replan", "closed_loop",
+                                  "rti_closed_loop", "entry"])
+def test_compiled_entry_point_gives_eager_bits_on_the_card(cuda, name):
+    """The first call captures, the second is replays alone; both give the
+    eager loop's bits (the same kernels on the same inputs)."""
+    from simplemath_tpu_torch.utils import graphs
+
+    compiled, eager = _compiled_case(name, cuda)
+    with graphs.eager():
+        want = eager()
+    first = compiled()
+    again = _replay_without_sync(compiled)
+    torch.cuda.synchronize()
+    assert _same_leaves(first, want) and _same_leaves(again, want)
+
+
+def test_captured_solve_keeps_exact_float32_matmuls(cuda):
+    """The products recorded at capture are exact float32; replaying them
+    with TF32 turned on globally reads no flag."""
+    from simplemath_tpu_torch.models import ilqr, make_quadrotor
+
+    system = make_quadrotor()
+    x0 = 0.1 * torch.randn((8, 12), generator=torch.Generator().manual_seed(3)).to(cuda)
+    us = torch.zeros((8, 10, 4), device=cuda)
+    cfg = ilqr.ILQRConfig(iterations=2, backward="associative")
+    want = ilqr.solve_batched(system, x0, us, cfg)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        first = ilqr.solve_batched_jit(system, x0, us, cfg)
+        again = ilqr.solve_batched_jit(system, x0, us, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert _same_leaves(first, want) and _same_leaves(again, want)
+
+
+def test_eigh_under_capture_raises_on_the_card(cuda):
+    from simplemath_tpu_torch.models import ilqr, make_cartpole
+    from simplemath_tpu_torch.utils import graphs
+
+    x0, us = torch.zeros((4, 4), device=cuda), torch.zeros((4, 8, 1), device=cuda)
+    with pytest.raises(graphs.CaptureError, match='psd="eigh"'):
+        ilqr.solve_batched_jit(make_cartpole(), x0, us, ilqr.ILQRConfig(iterations=1, psd="eigh"))
+    assert not torch.cuda.is_current_stream_capturing()
+    r = ilqr.solve_batched(make_cartpole(), x0, us, ilqr.ILQRConfig(iterations=1, psd="eigh"))
+    assert bool(torch.isfinite(r.cost).all())
+
+
+def test_sm_pendulum_graph_holds_the_elementwise_kernels(cuda):
+    """The sm-written pendulum's iteration graph launches ew_flat and
+    ew_strided's generated kernels; a replay runs them without Python, so
+    the wrappers' counts do not move."""
+    from simplemath_tpu_torch.models import ilqr, make_sm_pendulum
+
+    system = make_sm_pendulum()
+    x0 = 0.2 * torch.randn((64, 2), generator=torch.Generator().manual_seed(4)).to(cuda)
+    us = torch.zeros((64, 10, 1), device=cuda)
+    cfg = ilqr.ILQRConfig(iterations=2)
+    ilqr.solve_batched_jit(system, x0, us, cfg)
+    (entry,) = ilqr._BATCHED_ITERATIONS.entries[system].values()
+    launches = entry.graph.stats["launches"]
+    assert launches.get("ew_flat", 0) > 0 and launches.get("ew_strided", 0) > 0
+    elementwise.reset_launches()
+    _replay_without_sync(lambda: ilqr.solve_batched_jit(system, x0, us, cfg))
+    assert not any(elementwise.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", _SM_OPS)
+def test_sm_kernel_captured_replays_with_eager_bits(cuda, name):
+    """Each of the six kernels' wrappers captured once (graphs.Jit) and
+    replayed: its eager bits, one launch recorded at capture."""
+    from simplemath_tpu_torch.utils import graphs
+
+    _, fn, args, counts, entry = next(c for c in _op_cases(cuda) if c[0] == name)
+    want = fn(*args)
+    program = graphs.Jit(lambda static, *a: fn(*a))
+    program((), *args)
+    (built,) = program.cached()
+    assert built.graph.stats["launches"] == {entry: 1}
+    got = _replay_without_sync(lambda: program((), *args))
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got.reshape(-1).view(torch.uint8),
+                                                   want.reshape(-1).view(torch.uint8))
+
+
+def test_a_dropped_graph_does_not_break_the_next_capture(cuda):
+    """A system left unreachable in a reference cycle takes its graphs with
+    it when the cycle collector frees it: before the next capture, not
+    inside it, where destroying a graph invalidates a global-mode capture."""
+    from simplemath_tpu_torch.models import MPCController, make_quadrotor, rti
+    from simplemath_tpu_torch.utils import graphs
+
+    x = torch.full((12,), 0.05, device=cuda)
+    ctrl = MPCController(make_quadrotor(), horizon=8)
+    ctrl.cycle = ctrl
+    ctrl.replan(x)
+    del ctrl
+    quad = make_quadrotor()
+    got = rti.rti_closed_loop(quad, x, 8, 4)
+    with graphs.eager():
+        want = rti.rti_closed_loop(quad, x, 8, 4)
+    assert _same_leaves(got, want)
+
+
+def test_replay_after_the_caches_evict_gives_the_eager_bits(cuda):
+    """Between capture and replay the constant cache is cleared, every
+    generated kernel that no graph pins is unloaded, and the memory freed
+    is handed out again and overwritten: the graph holds its constants and
+    its modules, so its replay gives the eager bits."""
+    from simplemath_tpu_torch.models import dynamics, ilqr, make_sm_pendulum
+    from simplemath_tpu_torch.ops import codegen
+
+    system = make_sm_pendulum()
+    x0 = 0.2 * torch.randn((64, 2), generator=torch.Generator().manual_seed(5)).to(cuda)
+    us = torch.zeros((64, 10, 1), device=cuda)
+    cfg = ilqr.ILQRConfig(iterations=2)
+    want = ilqr.solve_batched(system, x0, us, cfg)
+    first = ilqr.solve_batched_jit(system, x0, us, cfg)
+    held = [h for e in ilqr._BATCHED_ITERATIONS.entries[system].values() for h in e.graph.held]
+    pinned = {s for s in codegen._PINS}
+    assert pinned and any(isinstance(h, torch.Tensor) for h in held)
+    dynamics._cached_constant.cache_clear()
+    codegen._evict(elementwise._library())
+    assert pinned <= set(codegen._LOADED)
+    junk = [torch.full((n,), float("nan"), device=cuda) for n in (4, 64, 1 << 20) for _ in range(256)]
+    again = _replay_without_sync(lambda: ilqr.solve_batched_jit(system, x0, us, cfg))
+    torch.cuda.synchronize()
+    del junk
+    assert _same_leaves(first, want) and _same_leaves(again, want)

@@ -461,11 +461,22 @@ def test_stack_and_concatenate_match_jnp():
 
 
 def test_solve_batched_jit_is_solve_batched():
-    """The JAX package's jitted alias; the port has no compiled variant."""
-    assert tilqr.solve_batched_jit is tilqr.solve_batched
-    r = tilqr.solve(tm.make_pendulum(), torch.tensor([0.1, 0.0]), torch.zeros(10, 1),
-                    tilqr.ILQRConfig(iterations=2))
-    assert np.isfinite(float(r.cost))
+    """The compiled solve (a CUDA graph an iteration on the card,
+    utils/graphs.py) runs solve_batched's body loop on the CPU: its bits,
+    and the JAX package's solve_batched_jit within this file's tolerance."""
+    rng = np.random.default_rng(11)
+    x0s = (0.3 * rng.standard_normal((3, 2))).astype(np.float32)
+    us0 = np.zeros((3, 10, 1), np.float32)
+    jx, tx = _both(x0s)
+    ju, tu = _both(us0)
+    cfg = tilqr.ILQRConfig(iterations=2)
+    got = tilqr.solve_batched_jit(tm.make_pendulum(), tx, tu, cfg)
+    eager = tilqr.solve_batched(tm.make_pendulum(), tx, tu, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, eager))
+    want = jilqr.solve_batched_jit(jm.make_pendulum(), jx, ju, jilqr.ILQRConfig(iterations=2))
+    _hold(got, want)
+    _close(got.cost_trace, want.cost_trace, 1e-4)
+    assert tilqr.solve_batched_jit is not tilqr.solve_batched
 
 
 class TestBicycle:

@@ -166,15 +166,28 @@ device:
    inputs unsharded here (which also caches the generated kernels that the
    ranks load), then starts this script's own ranks (``--rank``, one
    process a rank on the card): an NCCL world of one rank, which runs the
-   cartpole ``solve_batched_sharded`` (8192 x H=100, 10 iterations), and a
+   cartpole ``solve_batched_sharded`` (8192 x H=100, 10 iterations) and
+   the compiled programs of the parallel layer, captured as CUDA graphs
+   that hold their NCCL collectives (``make_sharded_train_step`` of the
+   cartpole and of the ``sm``-written pendulum, 4096 x H=50, its graphs
+   holding ``ew_flat`` and ``ew_strided``; ``scenario_mpc_solve`` of the
+   quadrotor, 1024 x H=50, 3 iterations), each against its eager loop
+   (``graphs.eager()``) in rounds of eager, compiled, compiled, eager as
+   phase 11 runs its workloads (the eager bits; every compiled call after
+   the first, or for the scenario solve its step's replays, under sync
+   debug mode ``"error"``; build seconds, pool MB, kernel launches and
+   collectives recorded a replay, the card's busy share in one replay),
+   the sharded solves held to the unsharded ones; and a
    gloo world of two ranks on the one card (NCCL takes one rank a device),
    which runs the same solve (4096 a rank), the horizon-sharded Riccati
    backward at H=100 (101 elements over 2 ranks: the padding path) against
    ``backward_associative`` (rtol 1e-5, atol 1e-6), the scenario-consensus
-   MPC on the quadrotor (1024 scenarios, H=50, 3 iterations: the consensus
-   ``u0`` equal on every scenario, the cost never rising; ms a consensus
-   step), the ``sm``-written pendulum sharded (4096 x H=50: ``ew_flat`` and
-   ``ew_strided`` launched in each rank, no plain-torch route) and the nine
+   MPC on the quadrotor (1024 scenarios, H=50, 3 iterations, eagerly:
+   ``graphs.eager()``; the consensus ``u0`` equal on every scenario, the
+   cost never rising; ms a consensus step; the compiled solve must refuse
+   the gloo mesh with ``graphs.CaptureError``), the ``sm``-written
+   pendulum sharded (4096 x H=50: ``ew_flat`` and ``ew_strided``
+   launched in each rank, no plain-torch route) and the nine
    workloads of tests/test_kernels_sharded.py inside each rank, each on its
    kernel, against its plain version and followed by a collective; every
    sharded solve's costs and controls are held to the unsharded solve's
@@ -1746,6 +1759,135 @@ def _rank_kernels(dev, mesh, rng):
     return out
 
 
+def _consensus_checks(system, x0, us, us_new, history, what):
+    """The scenario MPC's own checks: the consensus first control the same
+    on every scenario, the consensus cost never rising, the first cost not
+    above the initial controls' cost."""
+    import torch
+    from simplemath_tpu_torch.models import ilqr
+
+    u0 = us_new[:, 0, :]
+    spread = float((u0 - u0[:1]).abs().max())
+    check(spread <= 1e-6 * max(1.0, float(u0.abs().max())),
+          f"{what}: the consensus u0 differs across scenarios by {spread}")
+    check(all(b <= a + 1e-5 * abs(a) for a, b in zip(history, history[1:])),
+          f"{what}: the consensus cost rose: {history}")
+    init = float(torch.func.vmap(lambda x, u: ilqr.trajectory_cost(
+        system, ilqr.rollout(system.step, x, u), u))(x0, us).sum())
+    check(history[0] <= init + 1e-5 * abs(init), f"{what}: {history[0]} above {init}")
+    return {"initial_cost": init, "u0_spread": spread}
+
+
+SHARDED_ROUNDS = 1  # rounds of eager, compiled, compiled, eager of each phase-9 compiled workload
+
+
+def _rank_compiled(dev, mesh, on, saved):
+    """Phase 9's compiled part, in an NCCL world: the sharded train step of
+    the cartpole (8192 x H=100) and of the sm pendulum (4096 x H=50), 10
+    iterations, and scenario_mpc_solve of the quadrotor (1024 x H=50, 3
+    iterations), each compiled against its eager loop (graphs.eager()) in
+    rounds of eager, compiled, compiled, eager, as phase 11 runs its
+    workloads (compiled_workload): the compiled results the eager bits,
+    every compiled call after the first under sync debug mode "error" (for
+    the scenario solve its step's replays, since it reads each total on
+    the host), the collectives recorded a replay; the sharded solves'
+    results go to the parent, which holds them to the unsharded ones."""
+    import contextlib
+
+    import torch
+    from simplemath_tpu_torch import parallel
+    from simplemath_tpu_torch.models import (
+        ILQRConfig, ilqr, make_cartpole, make_quadrotor, make_sm_pendulum, sqp_mpc,
+    )
+    from simplemath_tpu_torch.parallel import collectives, sharded
+    from simplemath_tpu_torch.parallel.mesh import PartitionSpec as P
+    from simplemath_tpu_torch.utils import graphs
+
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    cfg = ILQRConfig(iterations=SOLVE_ITERS)
+    out = {}
+    solves = (ilqr._BATCHED_INIT, ilqr._BATCHED_ITERATIONS, sharded._STATS_AND_GATHERS)
+    for key, system, prefix in (("cartpole", make_cartpole(), "cartpole"),
+                                ("sm_pendulum", make_sm_pendulum(), "sm")):
+        x0, us = on(f"{prefix}_x0"), on(f"{prefix}_us")
+        step = parallel.make_sharded_train_step(system, mesh, cfg, "scenario")
+
+        def eager(step=step, x0=x0, us=us):
+            with graphs.eager():
+                return step(x0, us)
+
+        row, (r, stats) = compiled_workload(
+            f"sharded {key}", card, solves, eager, lambda step=step, x0=x0, us=us: step(x0, us),
+            lambda t, n=x0.shape[0]: n / t, SHARDED_ROUNDS, profiled=ilqr._BATCHED_ITERATIONS)
+        check(row["collectives"].get("psum", 0) > 0 and row["collectives"].get("all_gather", 0) > 0,
+              f"sharded {key}: its graphs hold no collective: {row['collectives']}")
+        if key == "sm_pendulum" and dev.type == "cuda":
+            for name in ("ew_flat", "ew_strided"):
+                check(row["launches"].get(name, 0) > 0,
+                      f"the sharded sm pendulum's graphs hold no {name} launch: {row['launches']}")
+        # Where a compiled call's time goes: the rank's block solved alone
+        # (the step's own graphs) and the statistics-and-gathers program
+        # alone, each the median of 3 calls after one untimed.
+        xb, ub = collectives.local_blocks(mesh, (P("scenario"), P("scenario")), (x0, us))
+        block = ilqr.solve_batched_jit(system, xb, ub, cfg)
+        static = (system, mesh, ("scenario",), cfg, x0.shape[0])
+        for name, fn in (("block_solve_s", lambda: ilqr.solve_batched_jit(system, xb, ub, cfg)),
+                         ("stats_and_gathers_s",
+                          lambda: sharded._STATS_AND_GATHERS(static, *block))):
+            fn()
+            row[name] = statistics.median(wall_s(fn, sync_debug="error")[0] for _ in range(3))
+        saved.update({f"compiled_{prefix}_cost": r.cost, f"compiled_{prefix}_us": r.us,
+                      f"compiled_{prefix}_total": stats["total_cost"]})
+        row.update({"batch": x0.shape[0], "horizon": us.shape[1], "iterations": SOLVE_ITERS,
+                    "rate": "solves/s"})
+        out[key] = row
+
+    quad = make_quadrotor()
+    x0, us = on("mpc_x0"), on("mpc_us")
+    iters = SCENARIO_MPC[2]
+
+    def solve():
+        return sqp_mpc.scenario_mpc_solve(quad, x0, us, mesh, iterations=iters)
+
+    def solve_eager():
+        with graphs.eager():
+            return solve()
+
+    @contextlib.contextmanager
+    def replays_checked():
+        # The step's calls (copies in, the replay, clones out) under sync
+        # debug mode "error"; the solve reads each total between them.
+        program = sqp_mpc._SCENARIO_STEP
+
+        def step(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return program(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        sqp_mpc._SCENARIO_STEP = step
+        try:
+            yield
+        finally:
+            sqp_mpc._SCENARIO_STEP = program
+
+    def checked():
+        with replays_checked():
+            return wall_s(solve)
+
+    row, (us_new, du0, history) = compiled_workload(
+        "scenario MPC", card, (sqp_mpc._SCENARIO_STEP,), solve_eager, solve,
+        lambda t: 1e3 * t / iters, SHARDED_ROUNDS, checked=checked)
+    check(row["collectives"].get("psum", 0) == 3,
+          f"the consensus step's graph holds {row['collectives']}, not its three psums")
+    row.update(_consensus_checks(quad, x0, us, us_new, history, "compiled scenario MPC"))
+    row.update({"scenarios": x0.shape[0], "horizon": us.shape[1], "iterations": iters,
+                "history": history, "du0": du0.cpu().tolist(), "rate": "ms a consensus step"})
+    out["scenario_mpc"] = row
+    return out
+
+
 def rank_main(argv):
     """One rank of a phase-9 world: joins it, runs its parts and prints one
     JSON line of results; rank 0 writes the sharded solves' results to
@@ -1764,9 +1906,11 @@ def rank_main(argv):
     from simplemath_tpu_torch.models import (
         ILQRConfig, ilqr, make_cartpole, make_quadrotor, make_sm_pendulum,
     )
+    from simplemath_tpu_torch.models import sqp_mpc
     from simplemath_tpu_torch.models.sqp_mpc import make_scenario_mpc_step, scenario_mpc_solve
     from simplemath_tpu_torch.ops import codegen, dispatch, elementwise
     from simplemath_tpu_torch.parallel import collectives
+    from simplemath_tpu_torch.utils import graphs
 
     check("jax" not in sys.modules, "a rank imported jax")
     sm.configure(device=device)
@@ -1821,23 +1965,27 @@ def rank_main(argv):
         x0, us = on("mpc_x0"), on("mpc_us")
         step = make_scenario_mpc_step(quad, mesh)
         warm_s, _ = _timed(dev, lambda: step(x0, us))
-        wall, (us_new, du0, history) = _timed(dev, lambda: scenario_mpc_solve(
-            quad, x0, us, mesh, iterations=SCENARIO_MPC[2]))
-        u0 = us_new[:, 0, :]
-        spread = float((u0 - u0[:1]).abs().max())
-        check(spread <= 1e-6 * max(1.0, float(u0.abs().max())),
-              f"scenario MPC: the consensus u0 differs across scenarios by {spread}")
-        check(all(b <= a + 1e-5 * abs(a) for a, b in zip(history, history[1:])),
-              f"scenario MPC: the consensus cost rose: {history}")
-        init = float(torch.func.vmap(lambda x, u: ilqr.trajectory_cost(
-            quad, ilqr.rollout(quad.step, x, u), u))(x0, us).sum())
-        check(history[0] <= init + 1e-5 * abs(init), f"scenario MPC: {history[0]} above {init}")
+        # scenario_mpc_solve is compiled; gloo cannot be captured, so this
+        # world runs it eagerly (graphs.eager()), and the compiled call
+        # must refuse it before building anything.
+        with graphs.eager():
+            wall, (us_new, du0, history) = _timed(dev, lambda: scenario_mpc_solve(
+                quad, x0, us, mesh, iterations=SCENARIO_MPC[2]))
+        row = _consensus_checks(quad, x0, us, us_new, history, "scenario MPC")
+        refused = ""
+        if dev.type == "cuda":
+            try:
+                scenario_mpc_solve(quad, x0, us, mesh, iterations=1)
+            except graphs.CaptureError as e:
+                refused = str(e)
+            check("gloo" in refused and not sqp_mpc._SCENARIO_STEP.cached(),
+                  f"the compiled scenario solve did not refuse a gloo mesh on the card: {refused!r}")
         res["scenario_mpc"] = {"scenarios": x0.shape[0], "per_rank": x0.shape[0] // world,
                                "horizon": us.shape[1], "iterations": SCENARIO_MPC[2],
-                               "initial_cost": init, "history": history,
+                               **row, "history": history,
                                "ms_per_consensus_step": 1e3 * wall / SCENARIO_MPC[2],
-                               "first_step_ms": 1e3 * warm_s, "u0_spread": spread,
-                               "du0": du0.cpu().tolist()}
+                               "first_step_ms": 1e3 * warm_s, "du0": du0.cpu().tolist(),
+                               "compiled_on_gloo_refused": refused}
     if "sm_pendulum" in parts:
         sm_pend = make_sm_pendulum()
         x0, us = on("sm_x0"), on("sm_us")
@@ -1859,6 +2007,8 @@ def rank_main(argv):
                               "nvrtc": {k: codegen.STATS[k] - stats0[k] for k in stats0}}
     if "kernels" in parts:
         res["kernels"] = _rank_kernels(dev, mesh, np.random.default_rng(SEED + 90))
+    if "compiled" in parts:
+        res["compiled"] = _rank_compiled(dev, mesh, on, saved)
     res["nvrtc_since_start"] = dict(codegen.STATS)
     if rank == 0 and saved:
         np.savez(os.path.join(out_dir, f"world{world}_{backend}.npz"),
@@ -1966,7 +2116,7 @@ def parallel_phase(dev, card):
         _sync(dev)
         worlds = {}
         t0 = time.perf_counter()
-        worlds["nccl_1"] = _world(1, "nccl", dev.type, out_dir, ["cartpole"])
+        worlds["nccl_1"] = _world(1, "nccl", dev.type, out_dir, ["cartpole", "compiled"])
         worlds["gloo_2"] = _world(RANKS, "gloo", dev.type, out_dir,
                                   ["cartpole", "horizon", "mpc", "sm_pendulum", "kernels"])
         out["worlds_s"] = time.perf_counter() - t0
@@ -1994,6 +2144,20 @@ def parallel_phase(dev, card):
             for part in ("horizon", "scenario_mpc", "kernels"):
                 if part in ranks[0]:
                     w[part] = [r[part] for r in ranks]
+            if "compiled" in ranks[0]:
+                # The compiled sharded solves, held to the unsharded ones
+                # as the eager sharded solve is.
+                c = w["compiled"] = ranks[0]["compiled"]
+                for prefix, name, want in (("cartpole", "cartpole", ref),
+                                           ("sm", "sm_pendulum", sm_ref)):
+                    c[name]["cost_err"] = _close(saved[f"compiled_{prefix}_cost"],
+                                                 want.cost.cpu().numpy(), f"{key} compiled {name} costs")
+                    c[name]["us_err"] = _close(saved[f"compiled_{prefix}_us"],
+                                               want.us.cpu().numpy(), f"{key} compiled {name} controls")
+                    total = float(saved[f"compiled_{prefix}_total"])
+                    whole = float(want.cost.cpu().double().sum())
+                    check(abs(total - whole) <= 1e-5 * abs(whole),
+                          f"{key}: the compiled {name}'s psum total {total} against {whole}")
             if dev.type == "cuda":
                 check(not any(w["kernel_library_rebuilt"]), f"{key}: a rank rebuilt the kernels")
             out[key] = w
@@ -2329,16 +2493,17 @@ def _new_entries(programs, before):
 
 def _graph_stats(entries):
     """The stats of the graphs of ``entries``, summed: seconds, pool MB,
-    launches a replay."""
+    kernel launches and collectives a replay."""
     out = {"graphs": 0, "warmup_s": 0.0, "capture_s": 0.0, "instantiate_s": 0.0,
-           "pool_mb": 0.0, "launches": {}}
+           "pool_mb": 0.0, "launches": {}, "collectives": {}}
     for entry in entries:
         st = entry.graph.stats
         out["graphs"] += 1
         for k in ("warmup_s", "capture_s", "instantiate_s", "pool_mb"):
             out[k] += st[k]
-        for k, v in st["launches"].items():
-            out["launches"][k] = out["launches"].get(k, 0) + v
+        for field in ("launches", "collectives"):
+            for k, v in st[field].items():
+                out[field][k] = out[field].get(k, 0) + v
     return out
 
 
@@ -2365,6 +2530,69 @@ def _profiled_replay(graph, reset=None):
     return len(kernels), busy, statistics.median(walls)
 
 
+def compiled_workload(key, card, programs, eager, compiled, per, rounds, checked=None,
+                      profiled=None):
+    """A compiled entry point against its eager loop on the same inputs:
+    ``compiled()`` builds its graphs at the first call, then ``rounds`` of
+    eager, compiled, compiled, eager; every compiled result must have the
+    first one's bits, which must be the eager ones.  ``per(seconds)`` is
+    the workload's rate from one call's seconds.  ``checked()`` makes a
+    compiled call after the first and returns (seconds, result) with its
+    replays under sync debug mode "error" (default: the whole call).  The
+    card's busy share is taken over one replay of the last graph built for
+    ``profiled`` (default: the last of ``programs``).  Returns (the row,
+    the first result)."""
+    import torch
+    from simplemath_tpu_torch.ops import elementwise, matmul, reduction
+
+    checked = checked or (lambda: wall_s(compiled, sync_debug="error"))
+    before = {id(e): e for p in programs for e in p.cached()}
+    reserved = torch.cuda.memory_reserved()
+    for w in (elementwise, reduction, matmul):
+        w.reset_launches()
+    build_s, first = wall_s(compiled)
+    launches = {k: v for w in (elementwise, reduction, matmul)
+                for k, v in w.LAUNCHES.items() if v}
+    built = _new_entries(programs, before)
+    stats = _graph_stats(built)
+    stats["per_graph"] = [e.graph.stats for e in built]
+    row = {"build_s": build_s, **stats,
+           "reserved_mb_added": (torch.cuda.memory_reserved() - reserved) / 2**20,
+           "launches_at_build": launches}
+    eager_s, compiled_s, same = [], [], True
+    for _ in range(rounds):
+        for mode in ("eager", "compiled", "compiled", "eager"):
+            if mode == "eager":
+                t, res = wall_s(eager)
+                eager_s.append(t)
+            else:
+                t, res = checked()
+                compiled_s.append(t)
+            same = same and _same_bits(res, first)
+    check(same, f"{key}: a compiled call differs from the eager loop's bits")
+    # One replay of each graph built: its kernels, the card's busy ms and
+    # its wall ms; a call's wall time less its replays' is what runs
+    # between them.  The row's busy share is that of the last graph of
+    # ``profiled`` (the scan body, or the replan).
+    replays = {}
+    for entry in built:
+        counter = getattr(entry, "counter", None)
+        replays[id(entry)] = _profiled_replay(entry.graph,
+                                              counter.zero_ if counter is not None else None)
+    row["replays"] = [{"kernels": k, "busy_ms": b, "wall_ms": w} for k, b, w in replays.values()]
+    kernels, busy, wall = replays[id(_new_entries([profiled or programs[-1]], before)[-1])]
+    row.update({
+        "bits_equal": same, "eager_s": eager_s, "compiled_s": compiled_s,
+        "eager_median_s": statistics.median(eager_s),
+        "compiled_median_s": statistics.median(compiled_s),
+        "eager_rate": per(statistics.median(eager_s)),
+        "compiled_rate": per(statistics.median(compiled_s)),
+        "replay_kernels": kernels, "replay_busy_ms": busy, "replay_wall_ms": wall,
+        "busy_share": busy / wall})
+    log(f"compiled {key} on {card}: {row}")
+    return row, first
+
+
 def compiled_phase(dev, card):
     """Phase 11: the compiled entry points on the card at full width, each
     captured once and replayed, against its eager body loop on the same
@@ -2389,48 +2617,6 @@ def compiled_phase(dev, card):
     out = {"card": card}
     quad = make_quadrotor()
 
-    def workload(key, programs, eager, compiled, per, rounds):
-        """``per(seconds)``: the workload's rate from one call's seconds."""
-        before = {id(e): e for p in programs for e in p.cached()}
-        reserved = torch.cuda.memory_reserved()
-        for w in (elementwise, reduction, matmul):
-            w.reset_launches()
-        build_s, first = wall_s(compiled)
-        launches = {k: v for w in (elementwise, reduction, matmul)
-                    for k, v in w.LAUNCHES.items() if v}
-        built = _new_entries(programs, before)
-        stats = _graph_stats(built)
-        stats["per_graph"] = [e.graph.stats for e in built]
-        row = {"build_s": build_s, **stats,
-               "reserved_mb_added": (torch.cuda.memory_reserved() - reserved) / 2**20,
-               "launches_at_build": launches}
-        eager_s, compiled_s, same = [], [], True
-        for _ in range(rounds):
-            for mode in ("eager", "compiled", "compiled", "eager"):
-                if mode == "eager":
-                    t, res = wall_s(eager)
-                    eager_s.append(t)
-                else:
-                    t, res = wall_s(compiled, sync_debug="error")
-                    compiled_s.append(t)
-                same = same and _same_bits(res, first)
-        check(same, f"{key}: a compiled call differs from the eager loop's bits")
-        # The card's busy share in one replay of the program's last graph
-        # (the scan body, or the replan), its kernels, and its wall time.
-        entry = _new_entries(programs[-1:], before)[-1]
-        counter = getattr(entry, "counter", None)
-        kernels, busy, wall = _profiled_replay(entry.graph, counter.zero_ if counter is not None else None)
-        row.update({
-            "bits_equal": same, "eager_s": eager_s, "compiled_s": compiled_s,
-            "eager_median_s": statistics.median(eager_s),
-            "compiled_median_s": statistics.median(compiled_s),
-            "eager_rate": per(statistics.median(eager_s)),
-            "compiled_rate": per(statistics.median(compiled_s)),
-            "replay_kernels": kernels, "replay_busy_ms": busy, "replay_wall_ms": wall,
-            "busy_share": busy / wall})
-        log(f"compiled {key} on {card}: {row}")
-        return row, first
-
     # Batched solves: solve_batched_jit against solve_batched.
     solves = ilqr._BATCHED_INIT, ilqr._BATCHED_ITERATIONS
     for key, system, (batch, horizon) in (("cartpole", make_cartpole(), CARTPOLE),
@@ -2439,10 +2625,10 @@ def compiled_phase(dev, card):
         x0 = torch.from_numpy((0.2 * rng.standard_normal((batch, system.nx))).astype(np.float32)).to(dev)
         us = torch.zeros((batch, horizon, system.nu), device=dev)
         cfg = ILQRConfig(iterations=SOLVE_ITERS)
-        row, res = workload(key, solves,
-                            lambda: ilqr.solve_batched(system, x0, us, cfg),
-                            lambda: ilqr.solve_batched_jit(system, x0, us, cfg),
-                            lambda t: batch / t, COMPILED_ROUNDS[key])
+        row, res = compiled_workload(key, card, solves,
+                                     lambda: ilqr.solve_batched(system, x0, us, cfg),
+                                     lambda: ilqr.solve_batched_jit(system, x0, us, cfg),
+                                     lambda t: batch / t, COMPILED_ROUNDS[key])
         check(bool(torch.isfinite(res.cost).all()), f"compiled {key}: non-finite costs")
         row.update({"batch": batch, "horizon": horizon, "iterations": SOLVE_ITERS,
                     "rate": "solves/s"})
@@ -2482,8 +2668,9 @@ def compiled_phase(dev, card):
         with graphs.eager():
             return replan(ctrl_e)
 
-    row, _ = workload("replan", (sqp_mpc._REPLAN,), replan_eager, lambda: replan(ctrl_c),
-                      lambda t: 1e3 * t / len(xq), COMPILED_ROUNDS["replan"])
+    row, _ = compiled_workload("replan", card, (sqp_mpc._REPLAN,), replan_eager,
+                               lambda: replan(ctrl_c), lambda t: 1e3 * t / len(xq),
+                               COMPILED_ROUNDS["replan"])
     row.update({"horizon": QUAD_H, "iterations": 2, "replans_a_call": len(xq),
                 "rate": "ms a replan", "budget_ms": 1.0})
     out["replan"] = row
@@ -2500,8 +2687,8 @@ def compiled_phase(dev, card):
             with graphs.eager():
                 return loop()
 
-        loops[ticks], res = workload(f"rti_{ticks}", (rti._TICKS,), loop_eager, loop,
-                                     lambda t: 1e3 * t, COMPILED_ROUNDS["rti"])
+        loops[ticks], res = compiled_workload(f"rti_{ticks}", card, (rti._TICKS,), loop_eager,
+                                              loop, lambda t: 1e3 * t, COMPILED_ROUNDS["rti"])
         check(bool(torch.isfinite(res[2]).all()), f"compiled RTI {ticks} ticks: non-finite costs")
     short, long_ = RTI_TICKS
     out["rti"] = {"horizon": QUAD_H, "ticks": list(RTI_TICKS), "loops": loops, "budget_ms": 1.0,
@@ -2517,8 +2704,8 @@ def compiled_phase(dev, card):
         with graphs.eager():
             return step(*args)
 
-    row, cost = workload("entry", solves, step_eager, lambda: step(*args), lambda t: 1e3 * t,
-                         COMPILED_ROUNDS["entry"])
+    row, cost = compiled_workload("entry", card, solves, step_eager, lambda: step(*args),
+                                  lambda t: 1e3 * t, COMPILED_ROUNDS["entry"])
     check(tuple(cost.shape) == (32,) and bool(torch.isfinite(cost).all()), "compiled entry(): bad cost")
     row.update({"batch": 32, "horizon": 20, "iterations": 3, "rate": "ms a call"})
     out["entry"] = row
@@ -3685,6 +3872,9 @@ def main():
             # The sm pendulum's graphs (initial rollout and one iteration):
             # launches recorded at capture, which each replay repeats.
             k["graph_launches"] = compiled["sm_pendulum"]["launches"][k["name"]]
+            # The same in phase 9's compiled sharded sm pendulum, whose
+            # graphs also hold its collectives over NCCL.
+            k["sharded_graph_launches"] = par["nccl_1"]["compiled"]["sm_pendulum"]["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ Counterpart of ``simplemath_tpu/models/sqp_mpc.py``:
   Per-scenario backward passes run sharded over the mesh's scenario axis
   and the first-step KKT block (Quu_0, Qu_0) is summed across the ranks
   with ``psum`` (parallel/collectives.py): the distributed QP/KKT block
-  reduction of BASELINE.json configs 4-5.
+  reduction of BASELINE.json configs 4-5.  ``scenario_mpc_solve`` iterates
+  it compiled, one CUDA graph on the card that holds its collectives.
 """
 
 from __future__ import annotations
@@ -294,7 +295,10 @@ def make_scenario_mpc_step(
         # Distributed KKT block reduction across the scenario axis.
         Quu_sum = collectives.psum(torch.sum(Quu0, dim=0), axis_name)
         Qu_sum = collectives.psum(torch.sum(Qu0, dim=0), axis_name)
-        du0 = -torch.linalg.solve(Quu_sum, Qu_sum)
+        # solve_ex without its check: torch.linalg.solve reads its info on
+        # the host, which a CUDA graph cannot hold, and jnp.linalg.solve
+        # never raises either.
+        du0 = -torch.linalg.solve_ex(Quu_sum, Qu_sum, check_errors=False)[0]
 
         # Line search on the CONSENSUS objective (sum of scenario costs
         # across the whole mesh): one shared step length scales both the
@@ -352,6 +356,17 @@ def scenario_mpc_step(
     return fn(x0_batch, us_batch)
 
 
+def _scenario_step(static, x0_batch, us_batch):
+    # The step make_scenario_mpc_step returns carries its own f32_matmuls
+    # pin, and this function is the one the Jit warms up and captures, so
+    # the pin holds over the warm-up, the capture and the eager calls.
+    system, mesh, axis_name, ilqr_config = static
+    return make_scenario_mpc_step(system, mesh, axis_name, ilqr_config)(x0_batch, us_batch)
+
+
+_SCENARIO_STEP = graphs.Jit(_scenario_step)
+
+
 def scenario_mpc_solve(
     system: System,
     x0_batch,
@@ -365,11 +380,23 @@ def scenario_mpc_solve(
     where ``history`` is the per-iteration total cost (non-increasing by
     construction of the line search).  Every iteration re-linearizes,
     re-reduces the first-step KKT block across the mesh, and line-searches
-    the consensus step; each reads its total back to the host."""
-    step = make_scenario_mpc_step(system, mesh, axis_name, ilqr_config)
+    the consensus step; each reads its total back to the host.
+
+    The step is compiled once, as the JAX package jits it: on the card one
+    CUDA graph per (system; mesh, axis name, config) and tensor shapes holds
+    the whole step, its per-scenario ``vmap``, its three ``psum``s over
+    NCCL, the solve, the line search and the gathers; an iteration copies
+    ``us_batch`` into the graph's input, replays it and reads the total.  A
+    gloo mesh on the card raises ``graphs.CaptureError`` before anything is
+    built; on the CPU, or inside ``graphs.eager()``, the step runs eagerly,
+    with the same bits."""
+    from ..parallel import collectives
+
+    collectives.check_capturable(mesh, axis_name, us_batch.device)
+    static = (system, mesh, axis_name, ilqr_config)
     history = []
     du0 = None
     for _ in range(iterations):
-        us_batch, du0, stats = step(x0_batch, us_batch)
+        us_batch, du0, stats = _SCENARIO_STEP(static, x0_batch, us_batch)
         history.append(float(stats["total_cost"]))
     return us_batch, du0, history

@@ -11,23 +11,34 @@ JAX caller's value is immutable.  A gloo group is handed a card tensor on
 the host: gloo copies card tensors through the host in its all-reduce,
 gather and scatter, and fails on them in its point-to-point
 (tools/probe_torch_collectives.py).  An NCCL group takes one where it lies.
+
+Inside a CUDA graph (``utils/graphs.py``) the NCCL collectives are captured
+as they run eagerly, and a replay runs them again; a copy to the host is not
+something a graph can hold, so a compiled program refuses a gloo group on
+the card before it builds anything (:func:`check_capturable`).  ``COUNTS``
+counts in Python, so it counts a collective when it is captured, not when a
+replay runs it again; ``Graph.stats["collectives"]`` keeps what a capture
+recorded.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 from typing import Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
+from ..utils import graphs
 from .mesh import Mesh, PartitionSpec
 
 AxisNames = Union[str, Tuple[str, ...]]
 
 # Collectives run, by name (a collective over several axes counts once
-# an axis); phase 9 of chip_smoke.py and the tests read it.
+# an axis), at capture and never at a replay; phase 9 of chip_smoke.py and
+# the tests read it.
 COUNTS: collections.Counter = collections.Counter()
 
 _ACTIVE: list = []  # meshes of the enclosing shard_map calls
@@ -43,12 +54,35 @@ def current_mesh() -> Mesh:
     return _ACTIVE[-1]
 
 
+def _through_host(group, device: torch.device) -> bool:
+    """Whether the group takes a tensor on ``device`` through the host:
+    gloo with a card tensor."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
 def _staged(group, x: torch.Tensor) -> torch.Tensor:
     """The tensor the group's backend takes: a contiguous copy of ``x``,
     on the host for gloo."""
-    if x.is_cuda and dist.get_backend(group) == "gloo":
+    if _through_host(group, x.device):
         return x.detach().to("cpu", copy=True).contiguous()
     return x.detach().clone(memory_format=torch.contiguous_format)
+
+
+def check_capturable(mesh: Mesh, axis_name: AxisNames, device: torch.device) -> None:
+    """Raise :class:`graphs.CaptureError` if a compiled program on
+    ``device`` would capture a collective over ``axis_name`` that a CUDA
+    graph cannot hold (a copy through the host).  The compiled entry points
+    call it before their warm-up, so nothing is built or run first."""
+    if not graphs.captures(device):
+        return
+    staged = sorted({dist.get_backend(mesh.group(ax)) for ax in _as_tuple(axis_name)
+                     if _through_host(mesh.group(ax), device)})
+    if staged:
+        raise graphs.CaptureError(
+            f"a compiled program on {device} cannot capture the collectives of a "
+            f"{'/'.join(staged)} group: it copies card tensors through the host, which a "
+            "CUDA graph cannot hold; run the world over NCCL, or call the program inside "
+            "graphs.eager() (jax.disable_jit's counterpart)")
 
 
 def _all_reduce(mesh: Mesh, x, axis_name: AxisNames, op, name: str) -> torch.Tensor:
@@ -208,6 +242,29 @@ def _map_specs(fn, specs, tree):
     return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
 
 
+def local_blocks(mesh: Mesh, in_specs, args: tuple) -> tuple:
+    """This rank's block of each of the global arrays ``args``."""
+    specs = in_specs if isinstance(in_specs, PartitionSpec) else tuple(in_specs)
+    return _map_specs(lambda s, x: _local(mesh, s, x), specs, tuple(args))
+
+
+def global_arrays(mesh: Mesh, out_specs, out):
+    """The global arrays of this rank's results ``out`` (sharded ones
+    gathered, replicated ones as this rank computed them)."""
+    return _map_specs(lambda s, y: _global(mesh, s, y), out_specs, out)
+
+
+@contextlib.contextmanager
+def in_mesh(mesh: Mesh):
+    """Put ``mesh``'s axis names in scope for the collectives, as inside a
+    ``shard_map``'d function."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
 def shard_map(f, mesh: Mesh, in_specs, out_specs, check_vma: bool = True):
     """``f`` over each rank's block: every rank is handed the global
     arguments, takes its block of each by its coordinate on the axes the
@@ -218,13 +275,9 @@ def shard_map(f, mesh: Mesh, in_specs, out_specs, check_vma: bool = True):
     del check_vma
 
     def wrapped(*args):
-        specs = in_specs if isinstance(in_specs, PartitionSpec) else tuple(in_specs)
-        local = _map_specs(lambda s, x: _local(mesh, s, x), specs, tuple(args))
-        _ACTIVE.append(mesh)
-        try:
+        local = local_blocks(mesh, in_specs, args)
+        with in_mesh(mesh):
             out = f(*local)
-        finally:
-            _ACTIVE.pop()
-        return _map_specs(lambda s, y: _global(mesh, s, y), out_specs, out)
+        return global_arrays(mesh, out_specs, out)
 
     return wrapped

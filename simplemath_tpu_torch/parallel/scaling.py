@@ -6,7 +6,10 @@ sharding machinery's overhead at constant total work, on whatever world is
 running.  Every rank of the world calls these functions; the ranks outside
 a sub-mesh wait, and the report (each time the slowest rank's) is the same
 on every rank.  Times are wall times ended by ``torch.cuda.synchronize()``
-on the card.
+on the card, of the compiled programs (the sharded train step, and
+``solve_batched_jit`` for the unsharded side), as the JAX package times its
+jitted ones; inside ``utils.graphs.eager()`` the same reports time the
+eager loops.
 
 Where ranks share a device (the CPU, or several ranks on one card) the
 n-rank time carries n times the work on the same silicon, so the
@@ -136,7 +139,7 @@ def sharding_overhead_report(
     x0s, us = _problem(system, total_batch, horizon, 0)
 
     def plain(x, u):
-        return _ilqr.solve_batched(system, x, u, cfg).cost
+        return _ilqr.solve_batched_jit(system, x, u, cfg).cost
 
     t_plain = _slowest(_time_step(plain, x0s, us))
     mesh = make_mesh((n,), ("scenario",), devices=list(range(n)))

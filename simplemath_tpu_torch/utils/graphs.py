@@ -43,6 +43,14 @@ generated kernels; each cache reports them (:func:`hold`) and the graph
 keeps them, so that a constant evicted from its cache stays allocated and
 a module stays loaded while a graph that reads it lives.
 
+A graph may hold NCCL collectives (``parallel/collectives.py``): the
+sharded train step and the scenario-consensus step capture their ``psum``s,
+``pmax``es and gathers with their kernels.  The first collective on a group
+creates its communicator, so the warm-up call does that too, and the card
+is synchronized before the capture so that no eager collective is still in
+flight.  A gloo group copies card tensors through the host, which a graph
+cannot hold: the compiled entry points refuse one before their warm-up.
+
 On the CPU, or inside :func:`eager` (``jax.disable_jit``'s counterpart),
 the same functions run the body loop eagerly: the same ops in the same
 order, so the results have the captured program's bits.
@@ -136,6 +144,16 @@ def _kernel_launches() -> Dict[str, int]:
     return {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES}
 
 
+def _collectives() -> Dict[str, int]:
+    from ..parallel import collectives
+
+    return dict(collectives.COUNTS)
+
+
+def _recorded(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+
+
 def _device(tensors) -> torch.device:
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -154,9 +172,10 @@ class Graph:
     caches handed out during the build as ``held`` (:func:`hold`).
 
     ``stats``: warm-up, capture and instantiation seconds, the memory the
-    graph's pool reserved (MB), and the port's kernel launches that the
-    capture recorded, which each replay repeats (the wrappers count in
-    Python, at capture, never at replay)."""
+    graph's pool reserved (MB), and the port's kernel launches and the
+    collectives (``parallel.collectives.COUNTS``) that the capture
+    recorded, which each replay repeats (both count in Python, at capture,
+    never at replay)."""
 
     def __init__(self, fn: Callable, device: torch.device):
         global _held
@@ -172,8 +191,12 @@ class Graph:
         with _side_stream(device):
             fn()
         t1 = time.perf_counter()
-        reserved, launches = _reserved(device), _kernel_launches()
+        reserved, launches, collectives = _reserved(device), _kernel_launches(), _collectives()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        if device.type == "cuda":
+            # No eager work, collectives above all, still in flight when
+            # the capture begins.
+            torch.cuda.synchronize(device)
         # An unreachable graph that the cycle collector frees during the
         # capture destroys its executable there, which global capture mode
         # refuses (it invalidates the capture): collect first, as
@@ -201,12 +224,11 @@ class Graph:
         t2 = time.perf_counter()
         self.graph.instantiate()
         t3 = time.perf_counter()
-        after = _kernel_launches()
         self.stats = {
             "warmup_s": t1 - t0, "capture_s": t2 - t1, "instantiate_s": t3 - t2,
             "pool_mb": (_reserved(device) - reserved) / 2**20,
-            "launches": {k: after[k] - launches.get(k, 0) for k in after
-                         if after[k] != launches.get(k, 0)},
+            "launches": _recorded(launches, _kernel_launches()),
+            "collectives": _recorded(collectives, _collectives()),
         }
 
     def replay(self) -> None:

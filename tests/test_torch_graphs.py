@@ -12,17 +12,10 @@ controller's warm start within ``rtol=1e-3, atol=1e-3``
 (test_torch_sqp_mpc.py); ``entry()``'s costs within ``rtol=1e-4``
 (test_torch_numerical_parity.py).
 
-The stand-in records the ATen ops that run between ``capture_begin`` and
-``capture_end`` (a ``TorchDispatchMode``) and re-runs them at ``replay``
-on the tensors they were recorded with, writing each result into the
-tensor recorded as that op's output: what a CUDA graph does with its
-kernels and their addresses.  Python is not re-run, so a call that works
-under it keeps its state in the static tensors as a graph needs; a read
-of a value on the host during capture raises, as global capture mode
-refuses it.
+The stand-in (tests/torch_standin.py) records the ATen ops that run
+between ``capture_begin`` and ``capture_end`` and re-runs them at
+``replay``: what a CUDA graph does with its kernels and their addresses.
 """
-
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -30,9 +23,10 @@ import numpy as np
 import pytest
 import torch
 from torch.utils import _pytree
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import __graft_entry__ as graft
+import torch_standin
+from torch_standin import StandInGraph, eager_reference
 import simplemath_tpu_torch as sm
 from simplemath_tpu import models as jm
 from simplemath_tpu.models import ilqr as jilqr
@@ -147,62 +141,6 @@ def test_entry_step_matches_jax_jit():
 
 
 # --------------------------------------------------- the capture stand-in
-class _Recorder(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is torch.ops.aten._local_scalar_dense.default:
-            raise RuntimeError("a value was read on the host during capture")
-        out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, out))
-        return out
-
-
-class StandInGraph:
-    """``torch.cuda.CUDAGraph`` on the CPU: records the ops of the capture
-    and re-runs them on the same tensors at replay."""
-
-    captures = 0
-    fail_at_capture_end = False
-
-    def __init__(self, keep_graph=False):
-        self.ops = None
-        self.instantiated = False
-        self.replays = 0
-
-    def capture_begin(self, pool=None, capture_error_mode="global"):
-        assert capture_error_mode == "global"
-        self._mode = _Recorder()
-        self._mode.__enter__()
-
-    def capture_end(self):
-        self._mode.__exit__(None, None, None)
-        self.ops = self._mode.ops
-        if StandInGraph.fail_at_capture_end:
-            raise RuntimeError("stand-in capture failed")
-        StandInGraph.captures += 1
-
-    def instantiate(self):
-        self.instantiated = True
-
-    def replay(self):
-        assert self.instantiated
-        self.replays += 1
-        with torch.no_grad():
-            for func, args, kwargs, out in self.ops:
-                new = func(*args, **kwargs)
-                for o, n in zip(_pytree.tree_leaves(out), _pytree.tree_leaves(new)):
-                    # In place (the op's own output) and views of recorded
-                    # tensors hold their values already; zero tensors have
-                    # no storage.
-                    if (isinstance(o, torch.Tensor) and o is not n and not o._is_zerotensor()
-                            and o.untyped_storage().data_ptr() != n.untyped_storage().data_ptr()):
-                        o.copy_(n)
-
-
 _PROGRAMS = (ilqr._BATCHED_INIT, ilqr._BATCHED_ITERATIONS, simulate._TICKS, rti._TICKS,
              sqp_mpc._REPLAN)
 
@@ -210,9 +148,8 @@ _PROGRAMS = (ilqr._BATCHED_INIT, ilqr._BATCHED_ITERATIONS, simulate._TICKS, rti.
 @pytest.fixture
 def standin(monkeypatch):
     """Entry points on CPU tensors captured into the stand-in."""
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", StandInGraph)
-    monkeypatch.setattr(graphs, "captures", lambda device: not graphs._EAGER.get())
-    monkeypatch.setattr(graphs, "_side_stream", lambda device: contextlib.nullcontext())
+    for obj, name, value in torch_standin.patches():
+        monkeypatch.setattr(obj, name, value)
     monkeypatch.setattr(StandInGraph, "captures", 0)
     for p in _PROGRAMS:
         p.entries.clear()
@@ -258,26 +195,10 @@ _WORKLOADS = {
 }
 
 
-class _Passthrough(TorchDispatchMode):
-    """Runs every op as it is.  Under a dispatch mode torch takes other
-    paths for a few composite ops (the batched products of the RTI tick
-    among them), which round differently; the stand-in records under one,
-    so the eager reference runs under one too."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        return func(*args, **(kwargs or {}))
-
-
-@contextlib.contextmanager
-def _eager_reference():
-    with graphs.eager(), _Passthrough():
-        yield
-
-
 @pytest.mark.parametrize("name", list(_WORKLOADS))
 def test_captured_body_loop_gives_eager_bits(standin, name):
     run = _WORKLOADS[name]()
-    with _eager_reference():
+    with eager_reference():
         want = run()
     got = run()
     assert standin.captures > 0
@@ -336,7 +257,7 @@ def test_cache_key_separates_systems_configs_shapes_dtypes(standin):
         ilqr.solve_batched_jit(system, *inputs, config)
         counts.append(len(iterations.cached()))
     assert counts == [1, 1, 2, 3, 4, 5, 6]
-    with _eager_reference():
+    with eager_reference():
         want = ilqr.solve_batched(a, *_cartpole_inputs(dtype=torch.float64), cfg)
     got = ilqr.solve_batched_jit(a, *_cartpole_inputs(dtype=torch.float64), cfg)
     assert got.xs.dtype == torch.float64 and _bits_equal(got, want)
@@ -350,7 +271,7 @@ def test_capture_error_raises_and_is_not_cached(standin, monkeypatch):
         run()
     assert not ilqr._BATCHED_INIT.cached() and not graphs._capturing and not graphs.building()
     monkeypatch.setattr(StandInGraph, "fail_at_capture_end", False)
-    with _eager_reference():
+    with eager_reference():
         want = run()
     assert _bits_equal(run(), want)
 
@@ -393,6 +314,21 @@ def test_host_read_during_capture_raises(standin):
         scan((), (torch.ones(2),), 2)
 
 
+def test_linalg_solve_check_during_capture_raises(standin):
+    """``torch.linalg.solve`` reads its info on the host, which a capture
+    refuses; ``solve_ex(check_errors=False)``, the consensus step's solve,
+    is the same kernel without the read and replays with its bits."""
+    A = torch.tensor([[4.0, 1.0], [1.0, 3.0]])
+    b = torch.tensor([1.0, 2.0])
+    with pytest.raises(RuntimeError, match="read on the host during capture"):
+        graphs.Jit(lambda s, a, v: torch.linalg.solve(a, v))((), A, b)
+    program = graphs.Jit(lambda s, a, v: torch.linalg.solve_ex(a, v, check_errors=False)[0])
+    program((), A, b)
+    got = program((), 2.0 * A, b)
+    (entry,) = program.cached()
+    assert entry.graph.graph.replays == 2 and torch.equal(got, torch.linalg.solve(2.0 * A, b))
+
+
 def test_scan_steps_read_xs_rows_and_consts(standin):
     def body(static, carry, x_t, consts):
         (acc,), (x,), (w,) = carry, x_t, consts
@@ -402,7 +338,7 @@ def test_scan_steps_read_xs_rows_and_consts(standin):
     xs = torch.arange(12, dtype=torch.float32).reshape(4, 3)
     w = torch.tensor([1.0, -1.0, 0.5])
     scan = graphs.Scan(body)
-    with _eager_reference():
+    with eager_reference():
         want = scan(2.0, (torch.ones(3),), 4, xs=(xs,), consts=(w,))
     got = scan(2.0, (torch.ones(3),), 4, xs=(xs,), consts=(w,))
     assert len(scan.cached()) == 1 and _bits_equal(got, want)
@@ -417,7 +353,7 @@ def test_replan_build_keeps_the_warm_start(standin):
     controller's is as it was before them, so the first replay is the first
     replan.  Controllers of one system and config share the graph."""
     run = _replans(tm.make_quadrotor)
-    with _eager_reference():
+    with eager_reference():
         want = run()
     assert _bits_equal(run(), want)
     quad = tm.make_quadrotor()
@@ -430,7 +366,7 @@ def test_replan_build_keeps_the_warm_start(standin):
     assert bool(warm.abs().sum() > 0)
     ctrl.reset()
     assert ctrl.us_warm is warm and not bool(warm.abs().sum() > 0)
-    with _eager_reference():
+    with eager_reference():
         fresh = MPCController(tm.make_quadrotor(), horizon=8)
         want = fresh.replan(_quad_x())
     assert _bits_equal(ctrl.replan(_quad_x()), want)
@@ -520,7 +456,7 @@ def test_graph_holds_what_the_caches_evict(standin, monkeypatch):
         return (carry[0] * 0.5 + c,), (carry[0],)
 
     scan = graphs.Scan(body)
-    with _eager_reference():
+    with eager_reference():
         want = scan((), (torch.ones(2),), 3)
     got = scan((), (torch.ones(2),), 3)
     (entry,) = scan.cached()
@@ -562,7 +498,7 @@ def test_a_dropped_system_frees_its_graphs(standin):
     gc.collect()
     assert [len(p.entries) for p in programs] == [1, 1] and graph() is None
     assert [list(p.entries) for p in programs] == [[kept], [kept]]
-    with _eager_reference():
+    with eager_reference():
         want = ilqr.solve_batched(kept, *_cartpole_inputs(), cfg)
     assert _bits_equal(ilqr.solve_batched_jit(kept, *_cartpole_inputs(), cfg), want)
     assert standin.captures == 4

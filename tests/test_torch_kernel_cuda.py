@@ -2398,3 +2398,133 @@ def test_replay_after_the_caches_evict_gives_the_eager_bits(cuda):
     torch.cuda.synchronize()
     del junk
     assert _same_leaves(first, want) and _same_leaves(again, want)
+
+
+# ------------------------------------- collectives inside CUDA graphs
+# parallel/collectives.py under utils/graphs.py in an in-process NCCL world
+# of one rank (a HashStore: parallel.mesh.ensure_world).  Its collectives
+# are NCCL launches all the same: captured with the kernels around them,
+# replayed with the eager bits, counted in Graph.stats and not again from
+# Python at a replay.
+def test_nccl_collectives_captured_replay_eager_bits(cuda):
+    from simplemath_tpu_torch import parallel
+    from simplemath_tpu_torch.parallel import collectives
+    from simplemath_tpu_torch.parallel.mesh import PartitionSpec as P
+    from simplemath_tpu_torch.utils import graphs
+
+    mesh = parallel.make_mesh()
+
+    def body(x):
+        s = parallel.psum(torch.sum(x * x), "scenario")
+        m = parallel.pmax(torch.amax(x), "scenario")
+        g = parallel.all_gather(x[:2] + 1.0, "scenario")
+        rs = parallel.reduce_scatter(x, "scenario")
+        return s, m, g, rs, x - s
+
+    fn = parallel.shard_map(body, mesh, P("scenario"),
+                            (P(), P(), P(), P("scenario"), P("scenario")))
+    program = graphs.Jit(lambda static, x: fn(x))
+    x = torch.randn((64, 32), generator=torch.Generator().manual_seed(6)).to(cuda)
+    with graphs.eager():
+        want = program((), x)
+    first = program((), x)
+    (entry,) = program.cached()
+    # The explicit all_gather and shard_map's gathers of the two sharded results.
+    assert entry.graph.stats["collectives"] == {"psum": 1, "pmax": 1, "all_gather": 3,
+                                               "reduce_scatter": 1}
+    before = dict(collectives.COUNTS)
+    y = x.flip(0) * 0.5
+    again = _replay_without_sync(lambda: program((), y))
+    torch.cuda.synchronize()
+    assert dict(collectives.COUNTS) == before
+    with graphs.eager():
+        want_y = program((), y)
+    assert _same_leaves(first, want) and _same_leaves(again, want_y)
+
+
+@pytest.mark.parametrize("name", ["cartpole", "sm_pendulum", "scenario"])
+def test_parallel_compiled_programs_give_eager_bits_on_the_card(cuda, name):
+    """make_sharded_train_step and scenario_mpc_solve over NCCL: captured
+    at the first call (the scenario step with TF32 on around it: the exact
+    float32 pin holds through its warm-up and capture), replayed under sync
+    debug mode "error" (the scenario solve reads each total on the host,
+    so its step's replays alone), the eager loop's bits; a world of one
+    rank gives the unsharded solve's bits."""
+    from simplemath_tpu_torch import parallel
+    from simplemath_tpu_torch.models import ilqr, make_cartpole, make_quadrotor, make_sm_pendulum
+    from simplemath_tpu_torch.models import sqp_mpc
+    from simplemath_tpu_torch.parallel import sharded
+    from simplemath_tpu_torch.utils import graphs
+
+    mesh = parallel.make_mesh()
+    rng = np.random.default_rng(73)
+    if name == "scenario":
+        quad = make_quadrotor()
+        x0 = torch.from_numpy((0.1 * rng.standard_normal((16, 12))).astype(np.float32)).to(cuda)
+        us = torch.zeros((16, 10, 4), device=cuda)
+        run = lambda: sqp_mpc.scenario_mpc_solve(quad, x0, us, mesh, iterations=2)
+        static = (quad, mesh, "scenario", None)
+        old = torch.backends.cuda.matmul.allow_tf32
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            with graphs.eager():
+                want, want_step = run(), sqp_mpc._SCENARIO_STEP(static, x0, us)
+            first = run()
+            again = _replay_without_sync(lambda: sqp_mpc._SCENARIO_STEP(static, x0, us))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = old
+        torch.cuda.synchronize()
+        (entry,) = sqp_mpc._SCENARIO_STEP.entries[quad].values()
+        assert entry.graph.stats["collectives"] == {"psum": 3, "all_gather": 1}
+        assert _same_leaves(first[:2], want[:2]) and first[2] == want[2]
+        assert _same_leaves(again, want_step)
+        return
+    system = make_cartpole() if name == "cartpole" else make_sm_pendulum()
+    x0 = torch.from_numpy((0.2 * rng.standard_normal((32, system.nx))).astype(np.float32)).to(cuda)
+    us = torch.zeros((32, 12, 1), device=cuda)
+    cfg = ilqr.ILQRConfig(iterations=3)
+    step = parallel.make_sharded_train_step(system, mesh, cfg, "scenario")
+    with graphs.eager():
+        want = step(x0, us)
+    first = step(x0, us)
+    again = _replay_without_sync(lambda: step(x0, us))
+    torch.cuda.synchronize()
+    (entry,) = sharded._STATS_AND_GATHERS.entries[system].values()
+    assert entry.graph.stats["collectives"] == {"psum": 1, "pmax": 1, "all_gather": 5}
+    assert _same_leaves(first, want) and _same_leaves(again, want)
+    alone = ilqr.solve_batched(system, x0, us, cfg)
+    assert torch.equal(first[0].cost, alone.cost) and torch.equal(first[0].us, alone.us)
+    if name == "sm_pendulum":
+        (iteration,) = ilqr._BATCHED_ITERATIONS.entries[system].values()
+        launches = iteration.graph.stats["launches"]
+        assert launches.get("ew_flat", 0) > 0 and launches.get("ew_strided", 0) > 0
+
+
+def test_a_gloo_group_on_the_card_refuses_capture(cuda):
+    """gloo copies card tensors through the host, which a graph cannot
+    hold: the compiled programs raise CaptureError before building
+    anything; inside graphs.eager() nothing is refused."""
+    import torch.distributed as dist
+    from simplemath_tpu_torch import parallel
+    from simplemath_tpu_torch.models import make_quadrotor, sqp_mpc
+    from simplemath_tpu_torch.parallel import collectives
+    from simplemath_tpu_torch.utils import graphs
+
+    mesh = parallel.make_mesh()
+    gloo = dist.new_group([0], backend="gloo")
+
+    class GlooMesh:
+        shape, axis_names = mesh.shape, mesh.axis_names
+
+        def group(self, name):
+            return gloo
+
+    collectives.check_capturable(mesh, "scenario", cuda)
+    with graphs.eager():
+        collectives.check_capturable(GlooMesh(), "scenario", cuda)
+    quad = make_quadrotor()
+    x0, us = torch.zeros((4, 12), device=cuda), torch.zeros((4, 6, 4), device=cuda)
+    with pytest.raises(graphs.CaptureError, match=r"gloo.*NCCL.*graphs\.eager\(\)"):
+        sqp_mpc.scenario_mpc_solve(quad, x0, us, GlooMesh(), iterations=1)
+    assert quad not in sqp_mpc._SCENARIO_STEP.entries
+    assert not torch.cuda.is_current_stream_capturing()

@@ -3,19 +3,29 @@
 cartpole solve and the scaling reports, one process a card.
 
     python3 tools/time_torch_parallel.py [--ranks N] [--backend nccl|gloo] [--device cuda|cpu]
+                                         [--timeout SECONDS]
 
 Starts N ranks (default: one a visible card, NCCL), each on its own card.
 They check every collective of ``simplemath_tpu_torch.parallel`` over NCCL
 against the values it must give, solve the cartpole (8192 x H=100, 10
 iterations) sharded over all ranks and hold it, on rank 0, against the
 unsharded solve of the same inputs on one card (bit for bit, and the psum
-total against their sum), then run ``weak_scaling_report`` (2048 scenarios
-a rank, H=100, 3 iterations, over 1, 2, 4, ... ranks) and
-``sharding_overhead_report`` (8192 scenarios).  Prints one JSON object
-with the card's name and power limit; exits non-zero if a check fails.
-``--device cpu --backend gloo`` runs the same on the CPU.
+total against their sum), run the same solve through the compiled train step
+(``make_sharded_train_step``: CUDA graphs that hold the NCCL collectives;
+the eager sharded solve's bits, its first call and later ones timed beside
+the compiled solve of the rank's block alone), then
+run ``weak_scaling_report`` (2048 scenarios a rank, H=100, 3 iterations,
+over 1, 2, 4, ... ranks) and ``sharding_overhead_report`` (8192
+scenarios), each twice: first inside ``graphs.eager()`` (the eager loops),
+then compiled (the train step and ``solve_batched_jit`` as CUDA graphs).
+Prints one JSON object with the card's name and power limit; exits non-zero
+if a check fails or the ranks outlast ``--timeout`` (default 1200 s), and
+then prints what rank 0 had finished, marked ``"partial": true``, and the end
+of every rank's log, where each rank notes the stages it has passed.  ``--device cpu --backend gloo`` runs the same on the CPU
+(where the compiled programs run eagerly).
 """
 
+import gc
 import json
 import os
 import socket
@@ -39,14 +49,22 @@ def rank_main(rank, world, port, backend, device, out):
     sys.path.insert(0, ROOT)
     import simplemath_tpu_torch as sm
     from simplemath_tpu_torch import parallel
-    from simplemath_tpu_torch.models import ILQRConfig, make_cartpole, solve_batched
+    from simplemath_tpu_torch.models import ILQRConfig, make_cartpole, solve_batched, solve_batched_jit
     from simplemath_tpu_torch.parallel.mesh import PartitionSpec as P
     from simplemath_tpu_torch.parallel.scaling import sharding_overhead_report, weak_scaling_report
+    from simplemath_tpu_torch.utils import graphs
 
     assert "jax" not in sys.modules
     sm.configure(device=device)
     dev = torch.device(device, torch.cuda.current_device()) if device == "cuda" else torch.device("cpu")
     res = {"rank": rank, "world": world, "backend": backend}
+    t_start = time.perf_counter()
+
+    def progress(what):
+        # One line a stage in the rank's log: where a hung or slow run was.
+        print(f"rank {rank} {time.perf_counter() - t_start:.1f} s: {what}", flush=True)
+
+    progress("joined the world")
     mesh = parallel.make_mesh()
 
     # Collectives over the scenario axis, each against the values it must give.
@@ -71,6 +89,7 @@ def rank_main(rank, world, port, backend, device, out):
         "axis_index": idx.cpu().tolist() == list(range(world)),
     }
     res["collectives"] = checks
+    progress("collectives checked")
 
     # The sharded cartpole against the unsharded solve (rank 0).
     g_ = torch.Generator().manual_seed(0)
@@ -87,6 +106,7 @@ def rank_main(rank, world, port, backend, device, out):
         torch.cuda.synchronize()
     res["sharded_s"] = time.perf_counter() - t0
     res["sharded_solves_per_s"] = BATCH / res["sharded_s"]
+    progress("eager sharded solve")
     if rank == 0:
         t0 = time.perf_counter()
         ref = solve_batched(cartpole, x0, us, cfg)
@@ -99,18 +119,68 @@ def rank_main(rank, world, port, backend, device, out):
         total, want = float(stats["total_cost"]), float(ref.cost.double().sum())
         res["psum_total"], res["unsharded_sum"] = total, want
         res["psum_ok"] = abs(total - want) <= 1e-5 * abs(want)
-    dist.barrier()
     counts = tuple(n for n in (1, 2, 4, 8) if n <= world)
-    res["weak_scaling"] = weak_scaling_report(per_device_batch=2048, horizon=HORIZON,
-                                              iterations=3, device_counts=counts)
-    res["overhead"] = sharding_overhead_report(total_batch=BATCH, horizon=HORIZON, iterations=3)
-    if rank == 0:
-        with open(out, "w") as f:
-            json.dump(res, f)
+
+    def reports(suffix):
+        # Rank 0 writes what it has after each pass, so a fault in a later
+        # (compiled) pass leaves the earlier figures readable.
+        res["weak_scaling" + suffix] = weak_scaling_report(
+            per_device_batch=2048, horizon=HORIZON, iterations=3, device_counts=counts)
+        progress("weak_scaling" + suffix)
+        res["overhead" + suffix] = sharding_overhead_report(total_batch=BATCH, horizon=HORIZON,
+                                                            iterations=3)
+        progress("overhead" + suffix)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+
+    # The eager reports first: they are what earlier measurements are held
+    # against, and they must not depend on the compiled programs working.
+    with graphs.eager():
+        reports("_eager")
     dist.barrier()
+    # The compiled train step (the first call builds its graphs), and the
+    # compiled solve of this rank's block alone (the step's own graphs):
+    # the difference is the step's statistics, gathers and the copies
+    # between its graphs.  Medians of 3 calls.
+    step = parallel.make_sharded_train_step(cartpole, mesh, cfg, "scenario")
+    per = BATCH // world
+    xb, ub = x0[rank * per:(rank + 1) * per], us[rank * per:(rank + 1) * per]
+
+    def timed(fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    progress("compiled train step: building")
+    res["compiled_first_s"], (rc, stats_c) = timed(lambda: step(x0, us))
+    progress("compiled train step: built and run")
+    runs = sorted(timed(lambda: step(x0, us))[0] for _ in range(3))
+    blocks = sorted(timed(lambda: solve_batched_jit(cartpole, xb, ub, cfg))[0] for _ in range(3))
+    res["compiled_s"], res["compiled_block_s"] = runs[1], blocks[1]
+    res["compiled_solves_per_s"] = BATCH / res["compiled_s"]
+    res["compiled_equal"] = (torch.equal(rc.cost, r.cost) and torch.equal(rc.us, r.us)
+                             and torch.equal(stats_c["total_cost"], stats["total_cost"]))
+    reports("")
+    # Free the compiled programs before the process group: their graphs are
+    # keyed weakly on the system and hold the NCCL resources of the
+    # collectives they captured.  Four ranks over NCCL that destroyed the
+    # group with the train step's graphs alive hung there.
+    del step, cartpole
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+    progress("compiled programs freed")
     dist.destroy_process_group()
-    ok = all(checks.values()) and (rank != 0 or (res["equal_costs"] and res["equal_controls"]
-                                                 and res["psum_ok"]))
+    progress("process group destroyed")
+    ok = all(checks.values()) and res["compiled_equal"] and (
+        rank != 0 or (res["equal_costs"] and res["equal_controls"] and res["psum_ok"]))
     return 0 if ok else 1
 
 
@@ -138,23 +208,31 @@ def main(argv):
                                    "--world", str(ranks), "--port", str(port), "--backend", backend,
                                    "--device", device, "--out", out],
                                   stdout=log, stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
-        rcs = []
+        rcs, deadline = [], time.monotonic() + float(opts.get("--timeout", 1200))
         try:
             for p in procs:
-                rcs.append(p.wait(timeout=1200))
+                try:
+                    rcs.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+                except subprocess.TimeoutExpired:
+                    rcs.append(124)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        if any(rcs) or not os.path.exists(out):
+        res = None
+        if os.path.exists(out):
+            with open(out) as f:
+                res = json.load(f)
+        if any(rcs) or res is None:
             for r, log in enumerate(logs):
                 log.seek(0)
-                print(f"rank {r} exited {rcs[r] if r < len(rcs) else None}:\n{log.read()[-3000:]}",
-                      file=sys.stderr)
+                print(f"rank {r} exited {rcs[r]}:\n{log.read()[-2000:]}", file=sys.stderr)
+            if res is not None:
+                # What rank 0 finished before the fault (the eager reports
+                # come first), marked as partial.
+                print(json.dumps({**res, "card": card, "partial": True}))
             return 1
-        with open(out) as f:
-            res = json.load(f)
     res["card"] = card
     print(json.dumps(res))
     return 0

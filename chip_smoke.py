@@ -202,9 +202,16 @@ device:
    computes besides, and the artifact, loaded in a process that imports
    torch and the port alone, launches that kernel once a call and gives
    the live call's bits; ``export_solver_step`` of the cartpole at 8192 x
-   H=50 (``EXPORT_HORIZON``, ``EXPORT_ITERS`` iterations: its graph is
-   unrolled over the horizon and the iterations) served within ``rtol=1e-6, atol=1e-7`` of
-   the live solve, export seconds, nodes, MB and both wall times printed;
+   H=100 (BASELINE config 3) and of the ``sm``-written pendulum at 4096 x
+   H=50 (config 2), ``ILQRConfig()``'s 10 iterations each: two programs
+   (the initial rollout, one iteration) whose horizon loops are ``scan``
+   nodes, loaded and served as CUDA graphs (the iteration's replayed once
+   an iteration), with ``solve_batched_jit``'s bits, in rounds of served,
+   compiled, compiled, served (every served call after the first under sync
+   debug mode ``"error"``); export s, nodes of each program, MB, load s,
+   the first call's s (warm-up, capture, instantiate), the launches its
+   graphs recorded (the ``sm`` pendulum's ``ew_flat`` and ``ew_strided``),
+   one profiled replay of each graph, served and compiled solves/s;
    ``run_elastic`` over a receding-horizon cartpole loop at 8192 x H=100
    (one iteration and a shift a step, a checkpoint every 2 steps) with an
    injected preemption and a transient corruption, bitwise the plain
@@ -2013,6 +2020,7 @@ def rank_main(argv):
     if rank == 0 and saved:
         np.savez(os.path.join(out_dir, f"world{world}_{backend}.npz"),
                  **{k: v.detach().cpu().numpy() for k, v in saved.items()})
+    res["graphs_released"] = graphs.release()  # before the group: its graphs hold NCCL work
     dist.barrier()
     dist.destroy_process_group()
     print(json.dumps({"rank_result": res}), flush=True)
@@ -2166,11 +2174,7 @@ def parallel_phase(dev, card):
 
 
 # ------------------------------------------------------------ phase 10
-EXPORT_ITERS = 1           # the served cartpole's iterations (the export time allows 1)
-# The served cartpole's horizon.  Its graph is unrolled over the horizon, and
-# tracing, exporting, saving and loading it took 448-491 s at H=100 (56.5
-# thousand nodes) of the script's 1200; at 50 it leaves phase 11 its room.
-EXPORT_HORIZON = 50
+SERVED_ROUNDS = 3          # rounds of served, compiled, compiled, served of each served solve
 ELASTIC_STEPS = 6          # receding-horizon steps of the elastic run, 2 a checkpoint
 VIEW_OPS = ("view", "alias", "slice", "expand", "reshape", "unsqueeze", "select", "permute",
             "t", "transpose")   # ops that move no data: what else a kernel's graph may hold
@@ -2258,8 +2262,8 @@ def _export_cases(dev, rng, sm):
 
 def utils_phase(dev, card):
     """Phase 10: the utils on the card.  The six kernel wrappers through
-    torch.export and a loaded artifact; the cartpole solve served from an
-    artifact; elastic checkpoint/resume of a receding-horizon cartpole run;
+    torch.export and a loaded artifact; the cartpole and the sm pendulum
+    solves served from artifacts; elastic checkpoint/resume of a receding-horizon cartpole run;
     profiling, metrics and debug; the examples' twins."""
     import io
     import runpy
@@ -2267,7 +2271,7 @@ def utils_phase(dev, card):
 
     import torch
     import simplemath_tpu_torch as sm
-    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole
+    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole, make_sm_pendulum
     from simplemath_tpu_torch.ops import dispatch, elementwise, library, matmul, reduction
     from simplemath_tpu_torch.utils import (
         ElasticConfig, MetricsLogger, benchmark, checkpoint, debug, export, run_elastic, trace,
@@ -2316,33 +2320,66 @@ def utils_phase(dev, card):
         log(f"export {name} on {card}: {json.dumps(exported[name])}")
     out["exported"] = exported
 
-    # ------------------- 10b. the cartpole solve served from an artifact
+    # ------------------------- 10b. the solves served from artifacts
+    # BASELINE config 3 whole and config 2 as the north star writes it, at
+    # ILQRConfig()'s 10 iterations: each exported as two programs whose
+    # horizon loops are scan nodes, loaded, its first call capturing them,
+    # then in rounds of served, compiled, compiled, served beside
+    # solve_batched_jit on the same inputs, with its bits.
     batch, horizon = CARTPOLE
-    system, served_cfg = make_cartpole(), ILQRConfig(iterations=EXPORT_ITERS)
+    system = make_cartpole()
     x0s = torch.from_numpy(
         (0.2 * rng.standard_normal((batch, 4))).astype(np.float32)).to(dev)
     us0 = torch.zeros((batch, horizon, 1), device=dev)
-    served_us0 = torch.zeros((batch, EXPORT_HORIZON, 1), device=dev)
-    t0 = time.perf_counter()
-    blob = export.export_solver_step(system, served_cfg, batch, EXPORT_HORIZON)
-    export_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    step = export.load_step(blob)
-    load_s = time.perf_counter() - t0
-    step(x0s, served_us0)
-    served_s, (us, cost) = wall_s(lambda: step(x0s, served_us0))
-    ilqr.solve_batched(system, x0s, served_us0, served_cfg)
-    live_s, ref = wall_s(lambda: ilqr.solve_batched(system, x0s, served_us0, served_cfg))
-    np.testing.assert_allclose(cost.cpu().numpy(), ref.cost.cpu().numpy(), rtol=1e-6,
-                               err_msg="served cartpole costs")
-    np.testing.assert_allclose(us.cpu().numpy(), ref.us.cpu().numpy(), rtol=1e-6, atol=1e-7,
-                               err_msg="served cartpole controls")
-    out["solver"] = {"batch": batch, "horizon": EXPORT_HORIZON, "iterations": EXPORT_ITERS,
-                     "export_s": export_s, "load_s": load_s, "MB": len(blob) / 1e6,
-                     "nodes": len(step.graph.nodes), "served_s": served_s, "live_s": live_s,
-                     "bits_equal": bool(torch.equal(us, ref.us) and torch.equal(cost, ref.cost))}
-    del blob, step
-    log(f"served cartpole on {card}: {json.dumps(out['solver'])}")
+    programs = (export._SERVED_INIT, export._SERVED_ITERATIONS)
+    out["served"] = {}
+    for key, sys_, (b, h) in (("cartpole", system, CARTPOLE),
+                              ("sm_pendulum", make_sm_pendulum(), PENDULUM)):
+        cfg = ILQRConfig()
+        x0 = torch.from_numpy((0.2 * rng.standard_normal((b, sys_.nx))).astype(np.float32)).to(dev)
+        us = torch.zeros((b, h, sys_.nu), device=dev)
+        t0 = time.perf_counter()
+        blob = export.export_solver_step(sys_, cfg, b, h)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step = export.load_step(blob)
+        load_s = time.perf_counter() - t0
+        before = {id(e): e for p in programs for e in p.cached()}
+        first_s, first = wall_s(lambda: step(x0, us))
+        built = _new_entries(programs, before)
+        stats = _graph_stats(built)
+        _, ref = wall_s(lambda: ilqr.solve_batched_jit(sys_, x0, us, cfg))  # its own first call
+        served_s, jit_s, same = [], [], _same_bits(first, (ref.us, ref.cost))
+        for _ in range(SERVED_ROUNDS):
+            for mode in ("served", "compiled", "compiled", "served"):
+                if mode == "served":
+                    t, res = wall_s(lambda: step(x0, us), sync_debug="error")
+                    served_s.append(t)
+                    same = same and _same_bits(res, first)
+                else:
+                    jit_s.append(wall_s(lambda: ilqr.solve_batched_jit(sys_, x0, us, cfg))[0])
+        check(same, f"served {key}: not solve_batched_jit's bits")
+        check(bool(torch.isfinite(first[1]).all()), f"served {key}: non-finite costs")
+        row = {"batch": b, "horizon": h, "iterations": cfg.iterations, "export_s": export_s,
+               "nodes": step.nodes, "MB": len(blob) / 1e6, "load_s": load_s,
+               "first_call_s": first_s, **{k: stats[k] for k in (
+                   "warmup_s", "capture_s", "instantiate_s", "pool_mb", "launches")},
+               "launches_per_graph": [e.graph.stats["launches"] for e in built],
+               "served_s": served_s, "compiled_s": jit_s,
+               "served_solves_per_s": b / statistics.median(served_s),
+               "compiled_solves_per_s": b / statistics.median(jit_s), "bits_equal": same,
+               "card": card}
+        if key == "sm_pendulum":
+            for name in ("ew_flat", "ew_strided"):
+                check(stats["launches"].get(name, 0) > 0,
+                      f"the served sm pendulum's graphs hold no {name} launch: {stats['launches']}")
+        # One replay of each graph (rollout, iteration): kernels, busy and
+        # wall ms, beside phase 11's replays of solve_batched_jit's graphs.
+        row["replays"] = [dict(zip(("kernels", "busy_ms", "wall_ms"), _profiled_replay(
+            e.graph, e.counter.zero_ if hasattr(e, "counter") else None))) for e in built]
+        out["served"][key] = row
+        del step, blob, built
+        log(f"served {key} on {card}: {json.dumps(row)}")
 
     # ----------------------------------------- 10c. elastic at full width
     one = ILQRConfig(iterations=1)
@@ -3875,6 +3912,8 @@ def main():
             # The same in phase 9's compiled sharded sm pendulum, whose
             # graphs also hold its collectives over NCCL.
             k["sharded_graph_launches"] = par["nccl_1"]["compiled"]["sm_pendulum"]["launches"][k["name"]]
+            # The same in phase 10's served sm pendulum: its loaded programs' graphs.
+            k["served_graph_launches"] = utils["served"]["sm_pendulum"]["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

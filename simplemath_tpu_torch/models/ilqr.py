@@ -2,8 +2,10 @@
 
 Counterpart of ``simplemath_tpu/models/ilqr.py``, as plain torch:
 
-* rollouts and line searches are Python loops over the horizon (the JAX
-  package's ``lax.scan``), their outputs stacked;
+* rollouts, the sequential backward passes and the line searches run over
+  the horizon through ``models.scan.scan`` where the JAX package has its
+  ``lax.scan``: eagerly a Python loop, in an exported program one ``scan``
+  node;
 * derivatives come from ``torch.func`` (``grad``, ``jacrev``, ``jvp``),
   mapped over the horizon with ``torch.func.vmap``;
 * the Riccati backward pass comes in two interchangeable forms:
@@ -34,7 +36,7 @@ from ..ops.linalg_small import inv_unrolled
 from ..utils import graphs
 from ..utils.precision import f32_matmuls
 from .dynamics import System, _constant
-from .scan import associative_scan
+from .scan import associative_scan, scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +85,12 @@ def _finite_norm(x):
 
 def rollout(step: Callable, x0, us):
     """Open-loop rollout: xs[0]=x0, xs[t+1]=step(xs[t], us[t])."""
-    xs = [x0]
-    for t in range(us.shape[0]):
-        xs.append(step(xs[-1], us[t]))
-    return torch.stack(xs)
+    def body(x, u):
+        x = step(x, u)
+        return x, x
+
+    _, xs = scan(body, x0, us)
+    return torch.cat([x0[None], xs])
 
 
 def trajectory_cost(system: System, xs, us):
@@ -280,13 +284,10 @@ def _solve_psd(M, rhs):
 def backward_sequential(A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg):
     """Classic Riccati/DDP backward pass as a reverse loop."""
     nu = B.shape[-1]
-    I_u = _eye(nu, B)
-    H = A.shape[0]
-    Vx, Vxx = Vx_T, Vxx_T
-    ks, Ks = [None] * H, [None] * H
-    for t in reversed(range(H)):
-        A_t, B_t, lx_t, lu_t = A[t], B[t], lx[t], lu[t]
-        lxx_t, luu_t, lux_t = lxx[t], luu[t], lux[t]
+
+    def body(V, inp, reg, I_u):
+        Vx, Vxx = V
+        A_t, B_t, lx_t, lu_t, lxx_t, luu_t, lux_t = inp
         Qx = lx_t + A_t.mT @ Vx
         Qu = lu_t + B_t.mT @ Vx
         Qxx = lxx_t + A_t.mT @ Vxx @ A_t
@@ -297,8 +298,11 @@ def backward_sequential(A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg):
         Vx = Qx + K_t.mT @ Quu @ k_t + K_t.mT @ Qu + Qux.mT @ k_t
         Vxx = Qxx + K_t.mT @ Quu @ K_t + K_t.mT @ Qux + Qux.mT @ K_t
         Vxx = 0.5 * (Vxx + Vxx.mT)
-        ks[t], Ks[t] = k_t, K_t
-    return torch.stack(ks), torch.stack(Ks)
+        return (Vx, Vxx), (k_t, K_t)
+
+    _, (ks, Ks) = scan(body, (Vx_T, Vxx_T), (A, B, lx, lu, lxx, luu, lux),
+                       consts=(reg, _eye(nu, B)), reverse=True)
+    return ks, Ks
 
 
 @f32_matmuls
@@ -322,13 +326,10 @@ def backward_sequential_soa(A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg):
         return torch.movedim(x, 0, -1)
 
     A_, B_, lxx_, luu_, lux_, lx_, lu_ = map(tr, (A, B, lxx, luu, lux, lx, lu))
-    eye_u = soa.eye_like(nu, B_)
-    H = A_.shape[0]
-    Vx, Vxx = tr(Vx_T), tr(Vxx_T)
-    ks, Ks = [None] * H, [None] * H
-    for t in reversed(range(H)):
-        A_t, B_t, lx_t, lu_t = A_[t], B_[t], lx_[t], lu_[t]
-        lxx_t, luu_t, lux_t = lxx_[t], luu_[t], lux_[t]
+
+    def body(V, inp, reg, eye_u):
+        Vx, Vxx = V
+        A_t, B_t, lx_t, lu_t, lxx_t, luu_t, lux_t = inp
         At, Bt = soa.transpose(A_t), soa.transpose(B_t)
         VxxA = soa.matmul(Vxx, A_t)
         VxxB = soa.matmul(Vxx, B_t)
@@ -355,12 +356,15 @@ def backward_sequential_soa(A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg):
             + soa.matmul(Quxt, K_t)
         )
         Vxx = 0.5 * (Vxx + soa.transpose(Vxx))
-        ks[t], Ks[t] = k_t, K_t
+        return (Vx, Vxx), (k_t, K_t)
+
+    _, (ks, Ks) = scan(body, (tr(Vx_T), tr(Vxx_T)), (A_, B_, lx_, lu_, lxx_, luu_, lux_),
+                       consts=(reg, soa.eye_like(nu, B_)), reverse=True)
 
     def back(x):  # (H, n[, m], Bb) -> (Bb, H, n[, m])
         return torch.movedim(x, -1, 0)
 
-    return back(torch.stack(ks)), back(torch.stack(Ks))
+    return back(ks), back(Ks)
 
 
 def riccati_make_elem(inp, reg, I_u):
@@ -577,14 +581,14 @@ def backward_associative_soa(
 def feedback_rollout(system: System, xs, us, ks, Ks, alpha):
     """Closed-loop rollout around the nominal (xs, us) with step ``alpha``:
     u_t = us_t + alpha k_t + K_t (x_t - xs_t).  Returns (xs_new, us_new)."""
-    x = xs[0]
-    xs_new, us_new = [x], []
-    for t in range(us.shape[0]):
-        u = us[t] + alpha * ks[t] + Ks[t] @ (x - xs[t])
+    def body(x, inp, alpha):
+        x_ref, u_ref, k_t, K_t = inp
+        u = u_ref + alpha * k_t + K_t @ (x - x_ref)
         x = system.step(x, u)
-        xs_new.append(x)
-        us_new.append(u)
-    return torch.stack(xs_new), torch.stack(us_new)
+        return x, (x, u)
+
+    _, (xs_new, us_new) = scan(body, xs[0], (xs[:-1], us, ks, Ks), consts=(alpha,))
+    return torch.cat([xs[:1], xs_new]), us_new
 
 
 @f32_matmuls
@@ -619,9 +623,10 @@ def forward_linesearch_soa(system: System, xs, us, ks, Ks, alphas):
 
     x = xs_[0][:, None, :].expand(nx, nA, xs_.shape[2])  # (nx, nA, Bb)
     cost = torch.zeros((nA, xs.shape[0]), dtype=xs.dtype, device=xs.device)
-    xs_tail, us_new = [], []
-    for t in range(us_.shape[0]):
-        x_ref, u_ref, k_t, K_t = xs_[t], us_[t], ks_[t], Ks_[t]
+
+    def body(carry, inp, al):
+        x, cost = carry
+        x_ref, u_ref, k_t, K_t = inp
         dx = x - x_ref[:, None, :]  # (nx, nA, Bb)
         # u = u_ref + alpha*k + K @ dx, all (nu, nA, Bb)
         u = torch.stack(
@@ -634,8 +639,9 @@ def forward_linesearch_soa(system: System, xs, us, ks, Ks, alphas):
         )
         cost = cost + system.stage_cost(x, u)  # (nA, Bb)
         x = system.step(x, u)
-        xs_tail.append(x)
-        us_new.append(u)
+        return (x, cost), (x, u)
+
+    (x, cost), (xs_tail, us_new) = scan(body, (x, cost), (xs_[:-1], us_, ks_, Ks_), consts=(al,))
     costs = cost + system.final_cost(x)  # (nA, Bb)
     best = torch.argmin(costs, dim=0)  # (Bb,)
 
@@ -643,8 +649,8 @@ def forward_linesearch_soa(system: System, xs, us, ks, Ks, alphas):
         g = torch.take_along_dim(stacked, best[None, None, None, :], dim=2)
         return torch.movedim(g[:, :, 0, :], -1, 0)
 
-    xs_best = pick(torch.stack(xs_tail))
-    us_best = pick(torch.stack(us_new))
+    xs_best = pick(xs_tail)
+    us_best = pick(us_new)
     xs_new = torch.cat([xs[:, :1], xs_best], dim=1)
     cost_best = torch.take_along_dim(costs, best[None, :], dim=0)[0]
     return xs_new, us_best, cost_best

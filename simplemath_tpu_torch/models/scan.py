@@ -1,7 +1,14 @@
-"""Associative (parallel-prefix) scan over a tuple of tensors.
+"""Scans for the solvers: ``scan``, the counterpart of ``jax.lax.scan``,
+and ``associative_scan``, that of ``jax.lax.associative_scan``.
 
-Stands in for ``jax.lax.associative_scan`` in the solvers (models/ilqr.py,
-models/rti.py) with the same pairing as JAX's implementation: combine
+``scan(body, carry, xs)`` runs ``body`` once a step, carrying ``carry``
+and stacking what each step returns.  Eagerly it is a Python loop.  While
+``utils.export`` traces (:func:`tracing`), it is one node of torch's
+``scan`` operator over ``body`` traced once, so an exported program's size
+does not grow with the number of steps, as a ``lax.scan`` in a JAX export
+does not.
+
+``associative_scan`` pairs elements as JAX's implementation does: combine
 adjacent pairs, scan the half-size sequence recursively (the odd
 positions), then fill the even positions from it.  With the same tree,
 float32 results agree with the JAX package's up to rounding inside the
@@ -10,9 +17,194 @@ combine, not up to a different order of composition.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree
+
+_TRACING: contextvars.ContextVar = contextvars.ContextVar("scan_tracing", default=False)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Inside: :func:`scan` under a ``make_fx`` trace records torch's
+    ``scan`` operator over its body instead of unrolling its loop.
+    ``utils.export`` enters it while it traces."""
+    token = _TRACING.set(True)
+    try:
+        yield
+    finally:
+        _TRACING.reset(token)
+
+
+def scan(body: Callable, carry, xs=None, length=None, *, consts=(), reverse=False):
+    """``jax.lax.scan``: ``body(carry, x_t, *consts) -> (carry, y_t)`` for
+    each row ``x_t`` of ``xs`` (a tensor or a pytree of tensors with the
+    same leading length; None with ``length`` steps), last row first if
+    ``reverse``.  Returns the final carry and the ``y_t`` stacked along a
+    new dim 0 in the rows' order.
+
+    ``body`` takes every tensor it reads that depends on the function's
+    inputs as an argument (``carry``, ``xs`` or ``consts``), as
+    ``graphs.Scan`` requires; constants of the model (``_constant``) may be
+    closed over.  Traced, the body's tensors that are not arguments become
+    inputs of the ``scan`` node."""
+    xs_leaves, xs_spec = _pytree.tree_flatten(xs)
+    n = length if length is not None else xs_leaves[0].shape[0]
+    if any(x.shape[0] != n for x in xs_leaves):
+        raise ValueError(f"scan: every xs needs {n} rows, got {[tuple(x.shape) for x in xs_leaves]}")
+    if n < 1:
+        raise ValueError(f"scan: a scan runs at least one step, not {n}")
+    if _TRACING.get():
+        from torch.fx.experimental.proxy_tensor import get_proxy_mode
+
+        if get_proxy_mode() is not None:
+            return _traced(body, carry, xs_leaves, xs_spec, n, tuple(consts), reverse)
+    return _loop(body, carry, xs_leaves, xs_spec, n, tuple(consts), reverse)
+
+
+def _loop(body, carry, xs_leaves, xs_spec, n, consts, reverse):
+    """The eager scan: a Python loop, each leaf of ``y`` stacked once."""
+    ys = [None] * n
+    for t in (reversed(range(n)) if reverse else range(n)):
+        x_t = _pytree.tree_unflatten([x[t] for x in xs_leaves], xs_spec)
+        carry, ys[t] = body(carry, x_t, *consts)
+    leaves = [_pytree.tree_flatten(y)[0] for y in ys]
+    spec = _pytree.tree_flatten(ys[0])[1]
+    return carry, _pytree.tree_unflatten([torch.stack(v) for v in zip(*leaves)], spec)
+
+
+def _traced(body, carry, xs_leaves, xs_spec, n, consts, reverse):
+    """The scan under a ``make_fx`` trace, as torch's ``scan`` operator.
+    Under ``vmap`` the batch dims are taken off, one level at a time, and
+    the body is mapped inside the operator's body: the same batched ops a
+    step as the eager loop under ``vmap``."""
+    from torch._C._functorch import (
+        TransformType, _add_batch_dim, _unwrap_batched, peek_interpreter_stack,
+    )
+    from torch._functorch.pyfunctorch import coerce_cinterpreter
+
+    if peek_interpreter_stack() is None:
+        return _emit(body, carry, xs_leaves, xs_spec, n, consts, reverse)
+    interp = coerce_cinterpreter(peek_interpreter_stack())
+    if interp.key() != TransformType.Vmap:
+        raise NotImplementedError(f"scan: a traced scan under {interp.key()} is not supported")
+    level, size = interp.level(), interp.batch_size()
+    carry_leaves, carry_spec = _pytree.tree_flatten(carry)
+    with interp.lower():
+        low_carry = []
+        for c in carry_leaves:
+            v, b = _unwrap_batched(c, level)
+            low_carry.append(v.movedim(b, 0) if b is not None else v.expand((size,) + v.shape))
+        low_xs, x_dims = [], []
+        for x in xs_leaves:
+            v, b = _unwrap_batched(x, level)
+            # A batched row's batch dim leads it: (n, size, ...).
+            low_xs.append(v.movedim(b, 1) if b is not None else v)
+            x_dims.append(0 if b is not None else None)
+        low_consts, c_dims = zip(*(_unwrap_batched(c, level) for c in consts)) if consts else ((), ())
+        mapped = torch.vmap(
+            lambda c, x, *k: body(_pytree.tree_unflatten(c, carry_spec),
+                                  _pytree.tree_unflatten(x, xs_spec), *k),
+            in_dims=(0, x_dims, *c_dims), randomness=interp.randomness())
+
+        def low_body(c, x, *k):
+            new, y = mapped(list(c), list(x or ()), *k)
+            return tuple(_pytree.tree_flatten(new)[0]), y
+
+        new, ys = _traced(low_body, tuple(low_carry), low_xs, _pytree.tree_flatten(low_xs)[1], n,
+                          tuple(low_consts), reverse)
+    # The mapped body's outputs lead with the batch dim; a stacked y has
+    # the steps before it.
+    new = [_add_batch_dim(t, 0, level) for t in new]
+    ys = _pytree.tree_map(lambda t: _add_batch_dim(t, 1, level), ys)
+    return _pytree.tree_unflatten(new, carry_spec), ys
+
+
+def _emit(body, carry, xs_leaves, xs_spec, n, consts, reverse):
+    """Record ``scan_op`` over ``body`` traced once with ``make_fx`` on
+    real tensors.  The values that flow on in the outer trace are the eager
+    loop's: a real-tensor trace goes on with real values."""
+    from torch._higher_order_ops.scan import scan_op
+    from torch._higher_order_ops.utils import unique_graph_id
+    from torch.fx.experimental.proxy_tensor import (
+        disable_proxy_modes_tracing, get_proxy_mode, make_fx, track_tensor_tree,
+    )
+
+    tracer = get_proxy_mode().tracer
+    carry_leaves, carry_spec = _pytree.tree_flatten(carry)
+    with disable_proxy_modes_tracing():
+        real_carry, real_ys = _loop(body, carry, xs_leaves, xs_spec, n, consts, reverse)
+    # torch's scan holds the carry's strides fixed: it enters and leaves
+    # each step contiguous.
+    carry_leaves = [c.contiguous() for c in carry_leaves]
+    has_xs = bool(xs_leaves)
+    if not has_xs:  # torch's operator takes its length from an xs
+        xs_leaves = [torch.zeros((n,), device=carry_leaves[0].device)]
+    if reverse:
+        xs_leaves = [torch.flip(x, [0]) for x in xs_leaves]
+    n_carry, n_xs = len(carry_leaves), len(xs_leaves)
+
+    def flat(*args):
+        c = _pytree.tree_unflatten(list(args[:n_carry]), carry_spec)
+        x = _pytree.tree_unflatten(list(args[n_carry:n_carry + n_xs]), xs_spec) if has_xs else None
+        new, y = body(c, x, *args[n_carry + n_xs:])
+        new_leaves, new_spec = _pytree.tree_flatten(new)
+        if new_spec != carry_spec:
+            raise ValueError(f"scan: the body returns a carry {new_spec}, not {carry_spec}")
+        # torch's scan takes no output that aliases an input or another output.
+        seen = {a.untyped_storage().data_ptr() for a in args}
+        outs = []
+        for o in [c.contiguous() for c in new_leaves] + _pytree.tree_flatten(y)[0]:
+            ptr = o.untyped_storage().data_ptr()
+            outs.append(o.clone() if ptr in seen else o)
+            seen.add(ptr)
+        return outs
+
+    with disable_proxy_modes_tracing():
+        samples = [t.clone() for t in carry_leaves] + [x[0].clone() for x in xs_leaves]
+        graph = make_fx(flat, tracing_mode="real")(*samples, *consts)
+    consts = consts + _lift_constants(graph)
+    _, name = unique_graph_id(get_proxy_mode(), prefix="scan_body")
+    tracer.root.register_module(name, graph)
+    args = (graph, list(carry_leaves), list(xs_leaves), list(consts))
+    proxy = tracer.create_proxy("call_function", scan_op,
+                                _pytree.tree_map(tracer.unwrap_proxy, args), {}, name="scan")
+    real_y_leaves, y_spec = _pytree.tree_flatten(real_ys)
+    if reverse:
+        with disable_proxy_modes_tracing():
+            real_y_leaves = [torch.flip(y, [0]) for y in real_y_leaves]
+    out = track_tensor_tree(_pytree.tree_flatten(real_carry)[0] + real_y_leaves, proxy,
+                            constant=None, tracer=tracer)
+    new, ys = out[:n_carry], out[n_carry:]
+    if reverse:
+        ys = [torch.flip(y, [0]) for y in ys]
+    return _pytree.tree_unflatten(list(new), carry_spec), _pytree.tree_unflatten(list(ys), y_spec)
+
+
+def _lift_constants(graph) -> tuple:
+    """Turn the tensors that ``graph`` holds as attributes into inputs after
+    its own, and return them: an exported program lifts the constants of
+    its top graph, not those of a body of torch's ``scan``.  A tensor of
+    the outer trace that the body closed over then becomes an input of the
+    ``scan`` node, and the traced program keeps its dependence."""
+    last = [n for n in graph.graph.nodes if n.op == "placeholder"][-1]
+    lifted = {}  # attribute -> (its value, its placeholder)
+    for node in list(graph.graph.nodes):
+        if node.op != "get_attr" or not isinstance(getattr(graph, node.target, None), torch.Tensor):
+            continue
+        if node.target not in lifted:
+            with graph.graph.inserting_after(last):
+                last = graph.graph.placeholder(f"const_{len(lifted)}")
+            lifted[node.target] = (getattr(graph, node.target), last)
+        node.replace_all_uses_with(lifted[node.target][1])
+        graph.graph.erase_node(node)
+    for target in lifted:
+        delattr(graph, target)
+    graph.recompile()
+    return tuple(value for value, _ in lifted.values())
 
 
 def _interleave(a, b):

@@ -50,6 +50,9 @@ creates its communicator, so the warm-up call does that too, and the card
 is synchronized before the capture so that no eager collective is still in
 flight.  A gloo group copies card tensors through the host, which a graph
 cannot hold: the compiled entry points refuse one before their warm-up.
+A process that has captured collectives calls :func:`release` before
+``torch.distributed.destroy_process_group()``: live graphs hold the
+resources of the communicators whose kernels they captured.
 
 On the CPU, or inside :func:`eager` (``jax.disable_jit``'s counterpart),
 the same functions run the body loop eagerly: the same ops in the same
@@ -76,6 +79,8 @@ _capturing = False
 # While a graph is built (its warm-up and its capture): what the port's
 # caches handed out to it, by id.  The process's, for the same reason.
 _held: Optional[Dict[int, object]] = None
+# Every Jit and Scan, for release().
+_PROGRAMS: "weakref.WeakSet[_Program]" = weakref.WeakSet()
 
 
 class CaptureError(RuntimeError):
@@ -235,6 +240,35 @@ class Graph:
         self.graph.replay()
 
 
+def release() -> int:
+    """Free the graphs of every compiled program in the process and their
+    memory pools; a later call builds its graph again.  Call it before
+    ``torch.distributed.destroy_process_group()`` where graphs hold NCCL
+    collectives (``parallel.make_sharded_train_step``,
+    ``scenario_mpc_solve``): a graph keeps what its captured collectives
+    use of their communicator, and four ranks over NCCL hung in the
+    teardown while such graphs lived.  Waits for the card's work first.
+    Returns the number of graphs freed."""
+    entries = [e for p in list(_PROGRAMS) for e in p.cached()]
+    for p in list(_PROGRAMS):
+        p.entries.clear()
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if cuda:
+        torch.cuda.synchronize()
+    for entry in entries:
+        # Reset here, not when the last reference goes: a caller may still
+        # hold an entry (an entry's graph is not replayed once released).
+        entry.graph.graph.reset()
+        entry.graph.held.clear()
+    freed = len(entries)
+    del entries
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return freed
+
+
 def _clone(tree):
     return _pytree.tree_map_only(torch.Tensor, torch.clone, tree)
 
@@ -246,6 +280,7 @@ class _Program:
 
     def __init__(self):
         self.entries = weakref.WeakKeyDictionary()
+        _PROGRAMS.add(self)
 
     def cached(self) -> list:
         return [e for per in list(self.entries.values()) for e in per.values()]

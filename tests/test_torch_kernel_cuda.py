@@ -2285,6 +2285,26 @@ def test_compiled_entry_point_gives_eager_bits_on_the_card(cuda, name):
     assert _same_leaves(first, want) and _same_leaves(again, want)
 
 
+def test_served_solve_replays_with_the_compiled_bits(cuda):
+    """``export_solver_step``'s artifact, loaded: its first call captures
+    the rollout and the iteration (its horizon loops ``scan`` nodes), the
+    next replays them with no host sync; both give ``solve_batched_jit``'s
+    bits."""
+    from simplemath_tpu_torch.models import ilqr, make_cartpole
+    from simplemath_tpu_torch.utils import export
+
+    system, cfg = make_cartpole(), ilqr.ILQRConfig(iterations=3)
+    step = export.load_step(export.export_solver_step(system, cfg, 64, 20))
+    x0 = 0.2 * torch.randn((64, 4), generator=torch.Generator().manual_seed(5)).to(cuda)
+    us = torch.zeros((64, 20, 1), device=cuda)
+    want = ilqr.solve_batched_jit(system, x0, us, cfg)
+    first = step(x0, us)
+    again = _replay_without_sync(lambda: step(x0, us))
+    torch.cuda.synchronize()
+    assert [len(p.cached()) for p in (export._SERVED_INIT, export._SERVED_ITERATIONS)] == [1, 1]
+    assert _same_leaves(first, (want.us, want.cost)) and _same_leaves(again, first)
+
+
 def test_captured_solve_keeps_exact_float32_matmuls(cuda):
     """The products recorded at capture are exact float32; replaying them
     with TF32 turned on globally reads no flag."""

@@ -174,6 +174,23 @@ def _():
         collectives._through_host, graphs.Graph = real_through_host, real_graph
     return {"messages": "\\n".join(messages), "graphs_built": len(built), "cached": cached,
             "captures": captures, "counts_unchanged": counts_unchanged, "eager_cost": r.cost}
+
+
+@part("release")
+def _():
+    # The teardown call: every graph freed, the step built again after it.
+    with torch_standin.installed(PROGRAMS):
+        step = parallel.make_sharded_train_step(make_cartpole(), mesh, cfg, "scenario")
+        first, _ = step(T["cartpole_x0"], T["cartpole_us"])
+        built = [e for p in PROGRAMS for e in p.cached()]
+        freed = graphs.release()
+        left = sum(len(p.cached()) for p in graphs._PROGRAMS)
+        reset = all(e.graph.graph.ops is None for e in built)
+        again, _ = step(T["cartpole_x0"], T["cartpole_us"])
+        rebuilt = sum(len(p.cached()) for p in PROGRAMS)
+        graphs.release()
+    return {"built": len(built), "freed": freed, "left": left, "reset": reset,
+            "rebuilt": rebuilt, "same": torch.equal(first.cost, again.cost)}
 """
 
 
@@ -251,6 +268,17 @@ def test_compiled_scenario_mpc_solve_matches_jax(world, jax_mesh, name):
     _scaled(got["du0"], du0, 1e-3, 1e-4)
     for earlier, later in zip(got["history"], got["history"][1:]):
         assert later <= earlier + 1e-5 * abs(earlier)
+
+
+def test_release_frees_every_graph_before_teardown(world):
+    """``graphs.release()`` frees the train step's three graphs (the
+    rollout, the iteration, the statistics and gathers), leaves no entry in
+    any program, and the step builds them again at its next call; the
+    world's ranks then destroy their process group (tests/torch_world.py)."""
+    got = _part(world, "release")
+    assert int(got["built"]) == 3 and int(got["freed"]) == 3
+    assert int(got["left"]) == 0 and bool(got["reset"])
+    assert int(got["rebuilt"]) == 3 and bool(got["same"])
 
 
 def test_sharding_overhead_report_keeps_the_jax_keys(world):

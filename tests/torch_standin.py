@@ -73,6 +73,10 @@ class StandInGraph:
     def instantiate(self):
         self.instantiated = True
 
+    def reset(self):
+        self.ops = None
+        self.instantiated = False
+
     def replay(self):
         assert self.instantiated
         self.replays += 1

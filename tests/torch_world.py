@@ -63,6 +63,9 @@ _EPILOGUE = textwrap.dedent(
     """
     OUT["jax_imported"] = np.asarray("jax" in sys.modules)
     np.savez(os.path.join(os.environ["SM_WORLD_OUT"], f"rank{RANK}.npz"), **OUT)
+    from simplemath_tpu_torch.utils import graphs
+
+    graphs.release()  # before the group, as a user of compiled collectives does
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     """

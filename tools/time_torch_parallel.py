@@ -18,6 +18,8 @@ run ``weak_scaling_report`` (2048 scenarios a rank, H=100, 3 iterations,
 over 1, 2, 4, ... ranks) and ``sharding_overhead_report`` (8192
 scenarios), each twice: first inside ``graphs.eager()`` (the eager loops),
 then compiled (the train step and ``solve_batched_jit`` as CUDA graphs).
+Each rank then frees its graphs (``utils.graphs.release()``) before
+``destroy_process_group``, and rank 0 records how long that took.
 Prints one JSON object with the card's name and power limit; exits non-zero
 if a check fails or the ranks outlast ``--timeout`` (default 1200 s), and
 then prints what rank 0 had finished, marked ``"partial": true``, and the end
@@ -25,7 +27,6 @@ of every rank's log, where each rank notes the stages it has passed.  ``--device
 (where the compiled programs run eagerly).
 """
 
-import gc
 import json
 import os
 import socket
@@ -167,18 +168,19 @@ def rank_main(rank, world, port, backend, device, out):
     res["compiled_equal"] = (torch.equal(rc.cost, r.cost) and torch.equal(rc.us, r.us)
                              and torch.equal(stats_c["total_cost"], stats["total_cost"]))
     reports("")
-    # Free the compiled programs before the process group: their graphs are
-    # keyed weakly on the system and hold the NCCL resources of the
-    # collectives they captured.  Four ranks over NCCL that destroyed the
-    # group with the train step's graphs alive hung there.
-    del step, cartpole
-    gc.collect()
-    if device == "cuda":
-        torch.cuda.synchronize()
+    # Free the compiled programs before the process group: their graphs
+    # hold the NCCL resources of the collectives they captured.
+    res["graphs_released"] = graphs.release()
+    progress(f"compiled programs freed: {res['graphs_released']} graphs")
     dist.barrier()
-    progress("compiled programs freed")
+    progress("barrier passed")
+    t0 = time.perf_counter()
     dist.destroy_process_group()
+    res["destroy_process_group_s"] = time.perf_counter() - t0
     progress("process group destroyed")
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
     ok = all(checks.values()) and res["compiled_equal"] and (
         rank != 0 or (res["equal_costs"] and res["equal_controls"] and res["psum_ok"]))
     return 0 if ok else 1

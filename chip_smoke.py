@@ -240,7 +240,27 @@ device:
    the body's graph; then the six kernel wrappers, each captured once at its
    main-path shape, their replays the eager bits; prints the ``compiled``
    JSON line;
-12. prints the kernels' JSON line (each kernel's launches on the main path,
+12. ``psd="eigh"`` inside the compiled programs (``psd_phase``): the Jacobi
+   PSD projection's kernel (csrc/psd_project.cu) against its plain version
+   at the solvers' shapes (819,200 matrices of 5 x 5 and 8,192 of 4 x 4,
+   the cartpole at 8192 x H=100; 50 of 16 x 16 and one of 12 x 12, the
+   quadrotor at H=50; random symmetric indefinite matrices from the seed,
+   then asymmetric, degenerate, NaN and inf ones): the plain version's bits
+   and within 8 n eps ||S||_F of float64 ``torch.linalg.eigh``'s
+   projection, timed beside the plain version and the library's route
+   (eager ``torch.linalg.eigh`` and the reconstruction), with the bound of
+   the function (``psd_ops``) and the sweeps this data took; the coupled cartpole (``CROSS`` and ``CONCAVE``: an x-u
+   cross term and a concave term, ``separable_cost=False``) through
+   ``solve_batched_jit`` at 8192 x H=100, 10 iterations, against its eager
+   loop (bits) and phase 11's clamp-diag cartpole, its costs never rising,
+   the share of its joint blocks the projection moved, 64 of its scenarios
+   solved again on the CPU (costs within rtol 1e-4, controls within rtol
+   1e-3 and 1e-4 x the largest); the coupled quadrotor's ``replan`` (H=50,
+   2 iterations) and RTI tick (H=50, 20 and 60 ticks) against their eager
+   loops; every graph holding the projection's launches; prints the
+   ``psd`` JSON line (the served solve, the sharded train step and the
+   scenario step of the coupled systems run in tools/time_torch_psd.py);
+13. prints the kernels' JSON line (each kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
    read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
@@ -2580,16 +2600,16 @@ def compiled_workload(key, card, programs, eager, compiled, per, rounds, checked
     ``profiled`` (default: the last of ``programs``).  Returns (the row,
     the first result)."""
     import torch
-    from simplemath_tpu_torch.ops import elementwise, matmul, reduction
+    from simplemath_tpu_torch.ops import elementwise, linalg_small, matmul, reduction
 
+    wrappers = (elementwise, reduction, matmul, linalg_small)
     checked = checked or (lambda: wall_s(compiled, sync_debug="error"))
     before = {id(e): e for p in programs for e in p.cached()}
     reserved = torch.cuda.memory_reserved()
-    for w in (elementwise, reduction, matmul):
+    for w in wrappers:
         w.reset_launches()
     build_s, first = wall_s(compiled)
-    launches = {k: v for w in (elementwise, reduction, matmul)
-                for k, v in w.LAUNCHES.items() if v}
+    launches = {k: v for w in wrappers for k, v in w.LAUNCHES.items() if v}
     built = _new_entries(programs, before)
     stats = _graph_stats(built)
     stats["per_graph"] = [e.graph.stats for e in built]
@@ -2630,6 +2650,57 @@ def compiled_workload(key, card, programs, eager, compiled, per, rounds, checked
     return row, first
 
 
+def compiled_replan_and_rti(dev, card, rng, quad, tag, replan_rounds, rti_rounds):
+    """``MPCController.replan`` (H=50, 2 iterations, two replans a call)
+    and the RTI tick (the difference of a 20- and a 60-tick closed loop,
+    each a graph of its own: the tick count is a static argument) of
+    ``quad``, compiled against their eager loops (``compiled_workload``).
+    Returns (the replan's row, the RTI's figures)."""
+    import torch
+    from simplemath_tpu_torch.models import MPCController, rti, sqp_mpc
+    from simplemath_tpu_torch.utils import graphs
+
+    # A controller each, the same states in turn.
+    xq = [torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
+          for _ in range(2)]
+    ctrl_c = MPCController(quad, horizon=QUAD_H, replan_iters=2)
+    ctrl_e = MPCController(quad, horizon=QUAD_H, replan_iters=2)
+
+    def replan(ctrl):
+        ctrl.reset()
+        return [ctrl.replan(x) for x in xq], ctrl.us_warm.clone()
+
+    def replan_eager():
+        with graphs.eager():
+            return replan(ctrl_e)
+
+    row, _ = compiled_workload(f"replan{tag}", card, (sqp_mpc._REPLAN,), replan_eager,
+                               lambda: replan(ctrl_c), lambda t: 1e3 * t / len(xq),
+                               replan_rounds)
+    row.update({"horizon": QUAD_H, "iterations": 2, "replans_a_call": len(xq),
+                "rate": "ms a replan", "budget_ms": 1.0})
+    x0q = torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
+    loops = {}
+    for ticks in RTI_TICKS:
+        def loop(ticks=ticks):
+            return rti.rti_closed_loop(quad, x0q, QUAD_H, ticks)
+
+        def loop_eager(loop=loop):
+            with graphs.eager():
+                return loop()
+
+        loops[ticks], res = compiled_workload(f"rti{tag}_{ticks}", card, (rti._TICKS,), loop_eager,
+                                              loop, lambda t: 1e3 * t, rti_rounds)
+        check(bool(torch.isfinite(res[2]).all()), f"compiled RTI{tag} {ticks} ticks: non-finite costs")
+    short, long_ = RTI_TICKS
+    ticks_out = {"horizon": QUAD_H, "ticks": list(RTI_TICKS), "loops": loops, "budget_ms": 1.0,
+                 **{f"{m}_tick_ms": (loops[long_][f"{m}_median_s"] - loops[short][f"{m}_median_s"])
+                    * 1e3 / (long_ - short) for m in ("eager", "compiled")}}
+    log(f"compiled replan{tag} on {card}: {row['compiled_rate']} ms; RTI tick "
+        f"eager {ticks_out['eager_tick_ms']} ms, compiled {ticks_out['compiled_tick_ms']} ms")
+    return row, ticks_out
+
+
 def compiled_phase(dev, card):
     """Phase 11: the compiled entry points on the card at full width, each
     captured once and replayed, against its eager body loop on the same
@@ -2643,8 +2714,7 @@ def compiled_phase(dev, card):
     import simplemath_tpu_torch as sm
     from simplemath_tpu_torch import entry as port_entry
     from simplemath_tpu_torch.models import (
-        ILQRConfig, MPCController, ilqr, make_cartpole, make_pendulum, make_quadrotor,
-        make_sm_pendulum, rti, sqp_mpc,
+        ILQRConfig, ilqr, make_cartpole, make_pendulum, make_quadrotor, make_sm_pendulum,
     )
     from simplemath_tpu_torch.models import dynamics
     from simplemath_tpu_torch.ops import codegen, elementwise, matmul, reduction
@@ -2691,48 +2761,8 @@ def compiled_phase(dev, card):
             row["pinned_kernels"] = len(pinned)
         out[key] = row
 
-    # MPCController.replan: a controller each, the same states in turn.
-    xq = [torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
-          for _ in range(2)]
-    ctrl_c = MPCController(quad, horizon=QUAD_H, replan_iters=2)
-    ctrl_e = MPCController(quad, horizon=QUAD_H, replan_iters=2)
-
-    def replan(ctrl):
-        ctrl.reset()
-        return [ctrl.replan(x) for x in xq], ctrl.us_warm.clone()
-
-    def replan_eager():
-        with graphs.eager():
-            return replan(ctrl_e)
-
-    row, _ = compiled_workload("replan", card, (sqp_mpc._REPLAN,), replan_eager,
-                               lambda: replan(ctrl_c), lambda t: 1e3 * t / len(xq),
-                               COMPILED_ROUNDS["replan"])
-    row.update({"horizon": QUAD_H, "iterations": 2, "replans_a_call": len(xq),
-                "rate": "ms a replan", "budget_ms": 1.0})
-    out["replan"] = row
-
-    # The RTI tick: the difference of a 20- and a 60-tick closed loop, each
-    # a graph of its own (the tick count is a static argument).
-    x0q = torch.from_numpy((0.1 * rng.standard_normal(12)).astype(np.float32)).to(dev)
-    loops = {}
-    for ticks in RTI_TICKS:
-        def loop(ticks=ticks):
-            return rti.rti_closed_loop(quad, x0q, QUAD_H, ticks)
-
-        def loop_eager(loop=loop):
-            with graphs.eager():
-                return loop()
-
-        loops[ticks], res = compiled_workload(f"rti_{ticks}", card, (rti._TICKS,), loop_eager,
-                                              loop, lambda t: 1e3 * t, COMPILED_ROUNDS["rti"])
-        check(bool(torch.isfinite(res[2]).all()), f"compiled RTI {ticks} ticks: non-finite costs")
-    short, long_ = RTI_TICKS
-    out["rti"] = {"horizon": QUAD_H, "ticks": list(RTI_TICKS), "loops": loops, "budget_ms": 1.0,
-                  **{f"{m}_tick_ms": (loops[long_][f"{m}_median_s"] - loops[short][f"{m}_median_s"])
-                     * 1e3 / (long_ - short) for m in ("eager", "compiled")}}
-    log(f"compiled RTI tick on {card}: eager {out['rti']['eager_tick_ms']} ms, "
-        f"compiled {out['rti']['compiled_tick_ms']} ms")
+    out["replan"], out["rti"] = compiled_replan_and_rti(
+        dev, card, rng, quad, "", COMPILED_ROUNDS["replan"], COMPILED_ROUNDS["rti"])
 
     # entry(): __graft_entry__.entry()'s twin step, compiled, against it eager.
     step, args = port_entry.entry()
@@ -2766,6 +2796,235 @@ def compiled_phase(dev, card):
                          "capture_s": built.graph.stats["capture_s"], "replay_wall_s": t}
     out["kernels"] = kernels
     log(f"the six kernels captured on {card}: {kernels}")
+    return out
+
+
+# ----------------------------------------------------------------- 12. psd
+PSD_SOURCE = "simplemath_tpu_torch/csrc/psd_project.cu"
+PSD_EPS = 1e-6             # ILQRConfig.psd_eps
+# The projection's shapes on the solvers' path: the coupled cartpole's
+# joint blocks (8192 x H=100 of 5 x 5) and terminal Hessians (8192 of 4 x
+# 4); the coupled quadrotor's at H=50 (50 of 16 x 16, one of 12 x 12).
+PSD_SHAPES = ((CARTPOLE[0] * CARTPOLE[1], 5), (CARTPOLE[0], 4), (QUAD_H, 16), (1, 12))
+PSD_CPU_SLICE = 64         # scenarios of the coupled cartpole solved again on the CPU
+PSD_ROUNDS = 1             # rounds of eager, compiled, compiled, eager of each workload
+# The coupled systems' x-u cross term and concave term
+# (tests/test_torch_psd.py::CROSS, CONCAVE): the cartpole's on the cart's
+# velocity and the force, the quadrotor's on the roll rate and the roll
+# torque.
+CROSS = {"cartpole": lambda x, u: 0.1 * x[1] * u[0],
+         "quadrotor": lambda x, u: 0.05 * x[9] * u[1]}
+CONCAVE = {"cartpole": lambda x: -0.01 * x[1] ** 2, "quadrotor": lambda x: -0.049 * x[9] ** 2}
+
+
+def coupled(base):
+    """``base`` with its ``CROSS`` and ``CONCAVE`` terms in the stage cost
+    and ``separable_cost=False``: ``psd="auto"`` takes ``"eigh"``."""
+    import dataclasses
+
+    def stage_cost(x, u):
+        return base.stage_cost(x, u) + CROSS[base.name](x, u) + CONCAVE[base.name](x)
+
+    return dataclasses.replace(base, name=f"{base.name}_coupled", stage_cost=stage_cost,
+                               separable_cost=False)
+
+
+def psd_ops(n):
+    """Float operations of the projection of one n x n matrix, whatever
+    algorithm computes it: n (n + 1) for the symmetrization, 9 n^3 for a
+    symmetric eigendecomposition with its eigenvectors (Golub & Van Loan's
+    count for the symmetric QR algorithm) and 2 n^3 + n^2 for V diag(w)
+    V^T."""
+    return n * (n + 1) + 9 * n ** 3 + 2 * n ** 3 + n * n
+
+
+# The largest batch of n x n matrices of a type that cuSOLVER's batched
+# eigh took in this run: it refuses 819,200 of 5 x 5 in float64, and 65,536
+# too (CUSOLVER_STATUS_INVALID_VALUE).
+EIGH_BATCH = {}
+
+
+def _psd_library(H):
+    """The library's route to the same function: eager torch.linalg.eigh
+    (it checks its info on the host) and the reconstruction, in as few
+    calls as cuSOLVER takes (``EIGH_BATCH``)."""
+    import torch
+
+    def one(h):
+        w, V = torch.linalg.eigh((h + h.mT) * 0.5)
+        return (V * torch.clamp_min(w, PSD_EPS)[..., None, :]) @ V.mT
+
+    key = (H.shape[-1], H.dtype, H.device.type)
+    chunk = EIGH_BATCH.get(key, H.shape[0])
+    while True:
+        try:
+            out = torch.cat([one(h) for h in H.split(chunk)])
+        except RuntimeError:  # torch.linalg.LinAlgError
+            if chunk == 1:
+                raise
+            chunk = max(1, chunk // 4)
+            continue
+        EIGH_BATCH[key] = chunk
+        return out
+
+
+def _psd_within(got, H, what):
+    """The stated tolerance against float64 torch.linalg.eigh on the CPU: 8
+    n eps_f32 (||S||_F + sqrt(n) eps) for each matrix
+    (tests/test_torch_psd.py's bound).  Returns the largest error in units
+    of it."""
+    import torch
+
+    S = ((H + H.mT) * 0.5).double().cpu()
+    want = _psd_library(S)
+    n = H.shape[-1]
+    bound = 8 * n * torch.finfo(H.dtype).eps * (torch.linalg.matrix_norm(S) + n ** 0.5 * PSD_EPS)
+    ratio = float(((got.double().cpu() - want).abs().amax((-2, -1)) / bound).max())
+    check(ratio <= 1.0, f"{what}: {ratio} x the tolerance from float64 eigh")
+    return ratio
+
+
+def psd_kernel_checks(dev, card, rng):
+    """The projection's kernel against its plain version at the solvers'
+    shapes (random symmetric indefinite matrices from the seed) and on
+    asymmetric, degenerate and non-finite inputs: the plain version's bits,
+    within the stated tolerance of float64 eigh; timed beside the plain
+    version and the library's route, with the function's bound (``psd_ops``)
+    and the Jacobi sweeps this data took."""
+    import torch
+    from simplemath_tpu_torch.ops import linalg_small
+
+    rows = {}
+    for batch, n in PSD_SHAPES:
+        A = torch.from_numpy(rng.standard_normal((batch, n, n)).astype(np.float32)).to(dev)
+        H = (A + A.mT) * 0.5
+        k = linalg_small.psd_project(H, PSD_EPS)
+        p = linalg_small.psd_project_plain(H, PSD_EPS)
+        _, _, sweeps = linalg_small.jacobi_plain(H)
+        torch.cuda.synchronize()
+        err = float((k - p).abs().max())
+        check(bool(torch.isfinite(k).all()) and k.shape == H.shape, f"psd {batch}x{n}: bad result")
+        ratio = _psd_within(k, H, f"psd {batch}x{n}")
+        check(torch.equal(linalg_small.psd_project(H, PSD_EPS), k),
+              f"psd {batch}x{n}: two launches differ")
+        ops = psd_ops(n) * batch
+        b = bound(2 * n * n * 4 * batch, ops)
+        row = {"batch": batch, "n": n, "bits_equal": torch.equal(k, p), "max_abs_err": err,
+               "eigh64_err_over_tol": ratio,
+               "sweeps_mean": float(sweeps.double().mean()), "sweeps_max": int(sweeps.max()),
+               "ms": time_ms(lambda: linalg_small.psd_project(H, PSD_EPS), n=10),
+               "plain_ms": time_ms(lambda: linalg_small.psd_project_plain(H, PSD_EPS), reps=3),
+               "library_ms": time_ms(lambda: _psd_library(H), reps=3),
+               "library_calls": -(-batch // EIGH_BATCH[(n, H.dtype, H.device.type)]),
+               "bound_ms": b[0], "bound_by": b[1], "gflop": ops / 1e9}
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        check(err <= 8 * n * torch.finfo(torch.float32).eps * float(torch.linalg.matrix_norm(
+            H).max()), f"psd {batch}x{n}: kernel {err} from its plain version")
+        rows[f"{batch}x{n}"] = row
+        log(f"psd kernel {batch} x {n}x{n} on {card}: {row}")
+    # Asymmetric, degenerate and non-finite matrices in one batch of 5 x 5.
+    eye = torch.eye(5, device=dev)
+    Q, _ = torch.linalg.qr(torch.from_numpy(rng.standard_normal((5, 5))).float().to(dev))
+    cases = torch.stack([
+        torch.from_numpy(rng.standard_normal((5, 5)).astype(np.float32)).to(dev),  # asymmetric
+        torch.zeros((5, 5), device=dev), eye,
+        (Q * torch.tensor([2.0, 2.0, 2.0, -1.0, 0.5], device=dev)) @ Q.T,  # repeated eigenvalue
+        (Q * (PSD_EPS * torch.tensor([0.5, 1.0, 2.0, 0.0, -1.0], device=dev))) @ Q.T,
+        eye.masked_fill(eye == 0, float("nan")), eye * float("inf"), -eye])
+    k = linalg_small.psd_project(cases, PSD_EPS)
+    p = linalg_small.psd_project_plain(cases, PSD_EPS)
+    torch.cuda.synchronize()
+    bad = torch.tensor([False] * 5 + [True, True, False], device=dev)
+    check(bool(k[bad].isnan().all()) and bool(k[~bad].isfinite().all()),
+          "psd special cases: a non-finite matrix is not all NaN, or NaN leaked")
+    check(torch.equal(k[~bad], p[~bad]), "psd special cases: the kernel differs from its plain version")
+    check(torch.equal(k[1], PSD_EPS * eye) and torch.equal(k[7], PSD_EPS * eye),
+          "psd special cases: zero or -I does not project to eps I")
+    rows["special"] = {"cases": ["asymmetric", "zero", "identity", "repeated", "straddling_eps",
+                                 "nan", "inf", "minus_identity"],
+                       "bits_equal": True,
+                       "eigh64_err_over_tol": _psd_within(k[~bad], cases[~bad], "psd special cases")}
+    log(f"psd special cases on {card}: kernel = plain bit for bit; NaN and inf matrices "
+        f"all NaN alone; {rows['special']}")
+    return rows
+
+
+def psd_phase(dev, card, compiled):
+    """Phase 12: ``psd="eigh"`` through the compiled programs on the card.
+    The projection's kernel at the solvers' shapes (``psd_kernel_checks``);
+    the coupled cartpole (``CROSS``, ``CONCAVE``) through ``solve_batched_jit`` at
+    8192 x H=100, 10 iterations, against its eager loop (bits), beside
+    phase 11's clamp-diag cartpole, its costs never rising, the share of
+    joint blocks the projection moved, and 64 of its scenarios solved again
+    on the CPU with the plain projection (costs within rtol 1e-4, controls
+    within rtol 1e-3 and 1e-4 x the largest); the coupled quadrotor's
+    ``MPCController.replan`` (H=50, 2 iterations) and RTI tick (H=50, 20
+    and 60 ticks) against their eager loops, beside phase 11's; every graph
+    must hold the projection's kernel."""
+    import torch
+    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole, make_quadrotor
+    from simplemath_tpu_torch.ops import linalg_small
+
+    rng = np.random.default_rng(SEED + 12)
+    out = {"card": card, "kernel": psd_kernel_checks(dev, card, rng)}
+
+    # The coupled cartpole, compiled against eager.
+    system = coupled(make_cartpole())
+    batch, horizon = CARTPOLE
+    x0 = torch.from_numpy((0.2 * rng.standard_normal((batch, 4))).astype(np.float32)).to(dev)
+    us = torch.zeros((batch, horizon, 1), device=dev)
+    cfg = ILQRConfig(iterations=SOLVE_ITERS)
+    check(ilqr._psd_mode(cfg, system) == "eigh", "the coupled cartpole does not take eigh")
+    solves = ilqr._BATCHED_INIT, ilqr._BATCHED_ITERATIONS
+    row, res = compiled_workload("cartpole_eigh", card, solves,
+                                 lambda: ilqr.solve_batched(system, x0, us, cfg),
+                                 lambda: ilqr.solve_batched_jit(system, x0, us, cfg),
+                                 lambda t: batch / t, PSD_ROUNDS)
+    check(row["launches"].get("psd_project") == 2,
+          f"the coupled cartpole's graphs hold {row['launches']}, not 2 psd_project launches")
+    trace = res.cost_trace
+    check(bool(torch.isfinite(trace).all()), "coupled cartpole: non-finite costs")
+    check(bool((trace[:, 1:] <= trace[:, :-1]).all()), "coupled cartpole: a cost rose")
+    # The joint blocks at the initial trajectory that the projection moves
+    # by more than the stated tolerance.
+    xs = torch.func.vmap(lambda x, u: ilqr.rollout(system.step, x, u))(x0, us)
+    lxx, luu, lux = ilqr.linearize_soa(system, xs, us)[4:7]
+    blk = torch.cat([torch.cat([lxx, lux.mT], -1), torch.cat([lux, luu], -1)], -2)
+    n = blk.shape[-1]
+    tol = 8 * n * torch.finfo(blk.dtype).eps * (torch.linalg.matrix_norm(blk) + n ** 0.5 * PSD_EPS)
+    moved = (linalg_small.psd_project(blk, PSD_EPS) - blk).abs().amax((-2, -1)) > tol
+    share = float(moved.double().mean())
+    check(share > 0, "the projection moved no joint block of the coupled cartpole")
+    # 64 scenarios again on the CPU, the plain projection.
+    sl = slice(0, PSD_CPU_SLICE)
+    t0 = time.perf_counter()
+    cpu = ilqr.solve_batched(system, x0[sl].cpu(), us[sl].cpu(), cfg)
+    cpu_s = time.perf_counter() - t0
+    sliced = ilqr.ILQRResult(xs=res.xs[sl], us=res.us[sl], cost=res.cost[sl],
+                             cost_trace=res.cost_trace[sl], grad_norm=res.grad_norm)
+    cost_err, u_err = solver_close(sliced, cpu, "coupled cartpole against the CPU")
+    row.update({"batch": batch, "horizon": horizon, "iterations": SOLVE_ITERS, "rate": "solves/s",
+                "blocks_moved_share": share, "cpu_slice": PSD_CPU_SLICE, "cpu_s": cpu_s,
+                "cpu_cost_rel_err": cost_err, "cpu_us_abs_err": u_err,
+                "clamp_diag_compiled_rate": compiled["cartpole"]["compiled_rate"]})
+    out["cartpole"] = row
+    log(f"coupled cartpole on {card}: {row['compiled_rate']} solves/s compiled "
+        f"(clamp-diag, phase 11: {row['clamp_diag_compiled_rate']}), {share} of the joint "
+        f"blocks moved, the CPU slice within {cost_err} / {u_err}")
+
+    # The coupled quadrotor's replan and RTI tick.
+    out["replan"], out["rti"] = compiled_replan_and_rti(
+        dev, card, rng, coupled(make_quadrotor()), "_eigh", PSD_ROUNDS, PSD_ROUNDS)
+    check(out["replan"]["launches"].get("psd_project") == 2 * 2,
+          f"the coupled replan's graph holds {out['replan']['launches']}, not 4 psd_project launches")
+    for ticks, row in out["rti"]["loops"].items():
+        check(row["launches"].get("psd_project") == 2,
+              f"the coupled RTI tick's graph ({ticks} ticks) holds {row['launches']}")
+    out["replan"]["clamp_diag_compiled_rate"] = compiled["replan"]["compiled_rate"]
+    out["rti"]["clamp_diag_compiled_tick_ms"] = compiled["rti"]["compiled_tick_ms"]
+    out["graph_launches"] = {k: (v["launches"] if k != "rti" else
+                                 {t: r["launches"] for t, r in v["loops"].items()})
+                             for k, v in out.items() if k in ("cartpole", "replan", "rti")}
     return out
 
 
@@ -3914,6 +4173,26 @@ def main():
             k["sharded_graph_launches"] = par["nccl_1"]["compiled"]["sm_pendulum"]["launches"][k["name"]]
             # The same in phase 10's served sm pendulum: its loaded programs' graphs.
             k["served_graph_launches"] = utils["served"]["sm_pendulum"]["launches"][k["name"]]
+
+    # -------------------------------------------------------- 12. psd
+    t0 = time.perf_counter()
+    psd = psd_phase(dev, card, compiled)
+    psd["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"psd": psd}))
+    # The Jacobi PSD projection: the JAX package computes it with
+    # jnp.linalg.eigh (no Pallas kernel).  Its times at the coupled
+    # cartpole's joint blocks; its launches those of the coupled cartpole's
+    # compiled solve (warm-up and capture), and a replay's in each graph.
+    big = psd["kernel"][f"{PSD_SHAPES[0][0]}x{PSD_SHAPES[0][1]}"]
+    kernels.append(dict(
+        entry("psd_project", PSD_SOURCE, "simplemath_tpu/models/ilqr.py:203",
+              psd["cartpole"]["launches_at_build"].get("psd_project", 0),
+              max(r["max_abs_err"] for k, r in psd["kernel"].items() if k != "special"),
+              big["ms"], big["plain_ms"], (big["bound_ms"], big["bound_by"]), big["library_ms"]),
+        graph_launches=psd["graph_launches"],
+        other_shapes={k: {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                      for k, r in psd["kernel"].items() if k != "special"}))
+    check(kernels[-1]["launches"] > 0, "psd_project was not launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

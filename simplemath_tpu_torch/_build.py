@@ -27,7 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("elementwise.cu", "reduction.cu", "reduction_full.cu", "reduction_cols.cu",
            "reduction_rows.cu", "matmul.cu", "matmul_elem.cu", "matmul_wgmma.cu",
-           "matmul_wgmma_s8.cu", "nvrtc.cu")
+           "matmul_wgmma_s8.cu", "nvrtc.cu", "psd_project.cu")
 HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh", "matmul.cuh", "matmul_fma.cuh",
            "wgmma.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
@@ -115,6 +115,8 @@ def library() -> ctypes.CDLL:
         ("sm_rtc_load", [void_p, ctypes.c_char_p, ctypes.POINTER(void_p),
                          ctypes.POINTER(void_p)]),
         ("sm_rtc_unload", [void_p]),
+        ("sm_psd_project_launch", [void_p, void_p, ctypes.c_longlong, c_int, c_int,
+                                   ctypes.c_double, void_p]),
         ("sm_ew_params_size", []),
         ("sm_rd_params_size", []),
         ("sm_mm_params_size", []),

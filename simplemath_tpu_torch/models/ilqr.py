@@ -32,7 +32,7 @@ import torch
 from torch.func import grad, jacrev, jvp, vmap
 
 from ..ops import soa
-from ..ops.linalg_small import inv_unrolled
+from ..ops.linalg_small import inv_unrolled, psd_project
 from ..utils import graphs
 from ..utils.precision import f32_matmuls
 from .dynamics import System, _constant
@@ -214,16 +214,12 @@ def _gershgorin_shift(H, eps):
 
 
 def _eigh_project(H, eps):
-    """Exact projection onto the PSD cone (eigenvalue clamping)."""
-    if graphs.capturing():
-        # torch.linalg.eigh checks its info on the host.
-        raise graphs.CaptureError(
-            'psd="eigh" cannot run inside a CUDA graph (torch.linalg.eigh reads '
-            'its result on the host); use psd="clamp_diag" or "gershgorin", or '
-            "the eager solve")
-    w, V = torch.linalg.eigh(H)
-    w = torch.clamp_min(w, eps)
-    return (V * w[..., None, :]) @ V.mT
+    """Exact projection onto the PSD cone (eigenvalue clamping) of the
+    symmetric part ``(H + Hᵀ)/2``, as ``jnp.linalg.eigh`` symmetrizes its
+    input: the Jacobi kernel on the card, its plain version on the CPU
+    (ops/linalg_small.py::psd_project); no host read, so a CUDA graph holds
+    it."""
+    return psd_project(H, eps)
 
 
 def _clamp_diag(H, eps):

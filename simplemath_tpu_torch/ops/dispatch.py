@@ -19,8 +19,8 @@ fused root the kernel does not take, ...), so no such call is silent.
 
 Counting happens per call: one increment per eager op, per flushed lazy
 chain and per fused call.  The wrappers' launch counts (kernel launches on
-the card only) are ``LAUNCHES`` in ``ops.elementwise``, ``ops.reduction``
-and ``ops.matmul``.
+the card only) are ``LAUNCHES`` in ``ops.elementwise``, ``ops.reduction``,
+``ops.matmul`` and ``ops.linalg_small``.
 
 ``INTERPRET`` is true only inside ``utils.debug.interpret_kernels()``:
 every kernel wrapper then runs its plain version on CUDA tensors too,

@@ -1,7 +1,7 @@
 """The hand-written kernels as ``torch.library`` custom ops.
 
 The kernels are reached through ``ctypes`` with raw pointers, which
-``torch.export`` cannot trace.  Each of the six entry points is therefore
+``torch.export`` cannot trace.  Each of the seven entry points is therefore
 also an op of the ``sm`` namespace, with a CUDA implementation that is its
 wrapper's ``_launch`` (the hand kernel, counted in its ``LAUNCHES``), a CPU
 implementation that is its plain version, and a fake implementation that
@@ -12,6 +12,8 @@ gives the result's shape and dtype:
   decides it);
 * ``sm::rd_full``, ``sm::rd_axis`` (ops/reduction.py);
 * ``sm::mm``, ``sm::bmm`` (ops/matmul.py; a rank-2 or rank-3 product).
+* ``sm::psd_project`` (ops/linalg_small.py; the solvers' PSD projection of
+  matrices with any leading dims).
 
 The program and the launch parameters are op arguments, as lists of ints
 (``encode_program``, ``encode_views``), so an exported graph names the
@@ -316,3 +318,32 @@ def sm_nodes(graph) -> List[str]:
             names.append(str(node.target))
     return names
 
+
+
+# ------------------------------------------------------ the PSD projection
+@torch.library.custom_op("sm::psd_project", mutates_args=(), device_types="cpu")
+def psd_project(H: torch.Tensor, eps: float) -> torch.Tensor:
+    from .linalg_small import psd_project_plain
+
+    return psd_project_plain(H, eps)
+
+
+@psd_project.register_kernel("cuda")
+def _(H, eps):
+    from .linalg_small import _launch
+
+    return _launch(H, eps)
+
+
+@psd_project.register_fake
+def _(H, eps):
+    return torch.empty_like(H, memory_format=torch.contiguous_format)
+
+
+@psd_project.register_vmap
+def _(info, in_dims, H, eps):
+    # The op takes any leading dims: the batch dim goes to the front.
+    dim = in_dims[0]
+    if dim is None:
+        return psd_project(H, eps), None
+    return psd_project(H.movedim(dim, 0), eps), 0

@@ -144,9 +144,10 @@ def _reserved(device) -> int:
 
 
 def _kernel_launches() -> Dict[str, int]:
-    from ..ops import elementwise, matmul, reduction
+    from ..ops import elementwise, linalg_small, matmul, reduction
 
-    return {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES}
+    return {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES,
+            **linalg_small.LAUNCHES}
 
 
 def _collectives() -> Dict[str, int]:

@@ -17,6 +17,8 @@ between ``capture_begin`` and ``capture_end`` and re-runs them at
 ``replay``: what a CUDA graph does with its kernels and their addresses.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -414,13 +416,37 @@ def test_nvrtc_compile_during_capture_raises(monkeypatch):
     assert codegen.kernel(None, sig) == 2
 
 
-def test_eigh_under_capture_raises(standin):
-    run = lambda: ilqr.solve_batched_jit(tm.make_cartpole(), *_cartpole_inputs(),
-                                         ilqr.ILQRConfig(iterations=1, psd="eigh"))
-    with graphs.eager():
-        run()  # the eager solve takes eigh
-    with pytest.raises(graphs.CaptureError, match='psd="eigh"'):
-        run()
+def _coupled_quadrotor():
+    """The quadrotor with a cost that couples its roll rate and roll torque
+    (``separable_cost=False``, tests/test_torch_psd.py): ``psd="auto"``
+    takes ``"eigh"``."""
+    base = tm.make_quadrotor()
+
+    def stage_cost(x, u):
+        return base.stage_cost(x, u) + 0.05 * x[9] * u[1] - 0.049 * x[9] ** 2
+
+    return dataclasses.replace(base, stage_cost=stage_cost, separable_cost=False)
+
+
+def _solve_eigh():
+    x0, us = _cartpole_inputs()
+    return lambda: ilqr.solve_batched_jit(tm.make_cartpole(), x0, us,
+                                          ilqr.ILQRConfig(iterations=2, psd="eigh"))
+
+
+_EIGH = {"solve_batched_jit": _solve_eigh, "replan": lambda: _replans(_coupled_quadrotor)}
+
+
+@pytest.mark.parametrize("name", list(_EIGH))
+def test_eigh_captured_gives_eager_bits(standin, name):
+    """``psd="eigh"`` captures (its Jacobi projection reads nothing on the
+    host) and the replays give the eager loop's bits."""
+    run = _EIGH[name]()
+    with eager_reference():
+        want = run()
+    got = run()
+    assert standin.captures > 0
+    assert _bits_equal(got, want) and _bits_equal(run(), want)
 
 
 def _signature(result=1):

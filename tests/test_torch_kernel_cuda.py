@@ -2325,16 +2325,127 @@ def test_captured_solve_keeps_exact_float32_matmuls(cuda):
     assert _same_leaves(first, want) and _same_leaves(again, want)
 
 
-def test_eigh_under_capture_raises_on_the_card(cuda):
+# The PSD projection (csrc/psd_project.cu) against its plain version on the
+# card: the same Jacobi algorithm operation for operation, so the same bits
+# (the kernel is built with --fmad=false); and within 8 n eps ||H||_F of
+# torch.linalg.eigh's projection in float64 (tests/test_torch_psd.py's bound).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 12, 16, 17, 32, 33, 64, "max"])
+def test_psd_project_kernel_matches_plain(cuda, n, dtype):
+    from simplemath_tpu_torch.ops import linalg_small
+
+    n = linalg_small.MAX_N[dtype] if n == "max" else n
+    H = torch.randn((37, n, n), generator=torch.Generator().manual_seed(n), dtype=dtype).to(cuda)
+    linalg_small.reset_launches()
+    k = linalg_small.psd_project(H, 1e-6)
+    p = linalg_small.psd_project_plain(H, 1e-6)
+    torch.cuda.synchronize()
+    assert linalg_small.LAUNCHES["psd_project"] == 1
+    assert k.dtype == dtype and k.shape == H.shape and torch.equal(k, p)
+    S = ((H + H.mT) * 0.5).double()
+    w, V = torch.linalg.eigh(S)
+    ref = (V * w.clamp_min(1e-6)[..., None, :]) @ V.mT
+    bound = 8 * n * torch.finfo(dtype).eps * torch.linalg.matrix_norm(S)[:, None, None]
+    assert bool(((k.double() - ref).abs() <= bound + 1e-12).all())
+    assert torch.equal(linalg_small.psd_project(H, 1e-6), k)  # the same bits again
+
+
+def test_psd_project_non_finite_matrix_is_nan_alone(cuda):
+    from simplemath_tpu_torch.ops import linalg_small
+
+    H = torch.randn((5, 6, 6), generator=torch.Generator().manual_seed(1)).to(cuda)
+    H[1, 2, 4], H[3, 0, 0] = float("nan"), float("inf")
+    out = linalg_small.psd_project(H, 1e-6)
+    torch.cuda.synchronize()
+    assert bool(out[1].isnan().all()) and bool(out[3].isnan().all())
+    keep = [0, 2, 4]
+    assert torch.equal(out[keep], linalg_small.psd_project(H[keep], 1e-6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_psd_project_above_its_limit_raises(cuda, dtype):
+    from simplemath_tpu_torch.ops import linalg_small
+
+    n = linalg_small.MAX_N[dtype] + 1
+    with pytest.raises(ValueError, match="gershgorin"):
+        linalg_small.psd_project(torch.zeros((1, n, n), dtype=dtype, device=cuda), 1e-6)
+
+
+@pytest.mark.parametrize("in_dim", [0, 1])
+def test_psd_project_under_vmap_launches_once(cuda, in_dim):
+    """Under ``torch.func.vmap`` the projection goes through the op's
+    batching rule: one launch on the whole batch, the batched call's bits."""
+    from simplemath_tpu_torch.ops import linalg_small
+
+    H = torch.randn((6, 3, 5, 5), generator=torch.Generator().manual_seed(3)).to(cuda)
+    want = linalg_small.psd_project(H, 1e-6)
+    linalg_small.reset_launches()
+    got = torch.func.vmap(lambda h: linalg_small.psd_project(h, 1e-6), in_dims=in_dim)(
+        H.movedim(0, in_dim))
+    torch.cuda.synchronize()
+    assert linalg_small.LAUNCHES["psd_project"] == 1
+    assert torch.equal(got, want)
+
+
+def test_psd_project_empty_batch_launches_nothing(cuda):
+    from simplemath_tpu_torch.ops import linalg_small
+
+    linalg_small.reset_launches()
+    out = linalg_small.psd_project(torch.zeros((0, 5, 5), device=cuda), 1e-6)
+    assert out.shape == (0, 5, 5) and linalg_small.LAUNCHES["psd_project"] == 0
+
+
+def test_vmapped_coupled_solve_takes_psd_project(cuda):
+    """``vmap(ilqr.solve)`` of a coupled-cost system on the card: two
+    projections an iteration, each one launch on the whole batch; the
+    costs those of the solves one scenario at a time (rtol 1e-4)."""
+    import dataclasses
+
     from simplemath_tpu_torch.models import ilqr, make_cartpole
+    from simplemath_tpu_torch.ops import linalg_small
+
+    base = make_cartpole()
+
+    def stage_cost(x, u):
+        return base.stage_cost(x, u) + 0.1 * x[1] * u[0] - 0.01 * x[1] ** 2
+
+    system = dataclasses.replace(base, name="cartpole_coupled", stage_cost=stage_cost,
+                                 separable_cost=False)
+    cfg = ilqr.ILQRConfig(iterations=2)
+    assert ilqr._psd_mode(cfg, system) == "eigh"
+    x0 = 0.2 * torch.randn((3, 4), generator=torch.Generator().manual_seed(4)).to(cuda)
+    us = torch.zeros((3, 8, 1), device=cuda)
+    linalg_small.reset_launches()
+    got = torch.func.vmap(lambda x, u: ilqr.solve(system, x, u, cfg))(x0, us)
+    torch.cuda.synchronize()
+    assert linalg_small.LAUNCHES["psd_project"] == 2 * cfg.iterations
+    want = torch.stack([ilqr.solve(system, x0[i], us[i], cfg).cost for i in range(3)])
+    assert bool(torch.isfinite(got.cost).all())
+    torch.testing.assert_close(got.cost, want, rtol=1e-4, atol=0.0)
+
+
+def test_eigh_solve_captured_gives_eager_bits(cuda):
+    """``psd="eigh"`` inside ``solve_batched_jit``: the iteration's graph
+    holds the projection's kernel twice (the joint blocks, the terminal
+    Hessian); replays give the eager loop's bits without a host sync."""
+    from simplemath_tpu_torch.models import ilqr, make_cartpole
+    from simplemath_tpu_torch.ops import linalg_small
     from simplemath_tpu_torch.utils import graphs
 
-    x0, us = torch.zeros((4, 4), device=cuda), torch.zeros((4, 8, 1), device=cuda)
-    with pytest.raises(graphs.CaptureError, match='psd="eigh"'):
-        ilqr.solve_batched_jit(make_cartpole(), x0, us, ilqr.ILQRConfig(iterations=1, psd="eigh"))
-    assert not torch.cuda.is_current_stream_capturing()
-    r = ilqr.solve_batched(make_cartpole(), x0, us, ilqr.ILQRConfig(iterations=1, psd="eigh"))
-    assert bool(torch.isfinite(r.cost).all())
+    system = make_cartpole()
+    x0 = 0.2 * torch.randn((64, 4), generator=torch.Generator().manual_seed(2)).to(cuda)
+    us = torch.zeros((64, 20, 1), device=cuda)
+    cfg = ilqr.ILQRConfig(iterations=3, psd="eigh")
+    with graphs.eager():
+        want = ilqr.solve_batched(system, x0, us, cfg)
+    ilqr.solve_batched_jit(system, x0, us, cfg)
+    (entry,) = ilqr._BATCHED_ITERATIONS.entries[system].values()
+    assert entry.graph.stats["launches"].get("psd_project") == 2
+    linalg_small.reset_launches()
+    got = _replay_without_sync(lambda: ilqr.solve_batched_jit(system, x0, us, cfg))
+    torch.cuda.synchronize()
+    assert linalg_small.LAUNCHES["psd_project"] == 0  # a replay runs no Python
+    assert _same_leaves(got, want)
 
 
 def test_sm_pendulum_graph_holds_the_elementwise_kernels(cuda):

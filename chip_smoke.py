@@ -2395,7 +2395,7 @@ def utils_phase(dev, card):
                       f"the served sm pendulum's graphs hold no {name} launch: {stats['launches']}")
         # One replay of each graph (rollout, iteration): kernels, busy and
         # wall ms, beside phase 11's replays of solve_batched_jit's graphs.
-        row["replays"] = [dict(zip(("kernels", "busy_ms", "wall_ms"), _profiled_replay(
+        row["replays"] = [dict(zip(("kernels", "busy_ms", "wall_ms", "psd_ms"), _profiled_replay(
             e.graph, e.counter.zero_ if hasattr(e, "counter") else None))) for e in built]
         out["served"][key] = row
         del step, blob, built
@@ -2565,8 +2565,9 @@ def _graph_stats(entries):
 
 
 def _profiled_replay(graph, reset=None):
-    """(kernels, busy ms, wall ms) of one replay of ``graph``: the CUDA
-    kernel events of torch.profiler over one replay, and the median
+    """(kernels, busy ms, wall ms, psd ms) of one replay of ``graph``: the
+    CUDA kernel events of torch.profiler over one replay (psd ms: those of
+    the PSD projection's kernels, csrc/psd_project.cu), and the median
     synchronized wall time of three replays without the profiler (it slows
     the host's side of a replay of many kernels).  ``reset`` runs before
     each replay (a scan's step counter back to its first row)."""
@@ -2584,7 +2585,8 @@ def _profiled_replay(graph, reset=None):
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return len(kernels), busy, statistics.median(walls)
+    psd = sum(e.time_range.elapsed_us() for e in kernels if "psd_" in e.name) / 1e3
+    return len(kernels), busy, statistics.median(walls), psd
 
 
 def compiled_workload(key, card, programs, eager, compiled, per, rounds, checked=None,
@@ -2636,8 +2638,9 @@ def compiled_workload(key, card, programs, eager, compiled, per, rounds, checked
         counter = getattr(entry, "counter", None)
         replays[id(entry)] = _profiled_replay(entry.graph,
                                               counter.zero_ if counter is not None else None)
-    row["replays"] = [{"kernels": k, "busy_ms": b, "wall_ms": w} for k, b, w in replays.values()]
-    kernels, busy, wall = replays[id(_new_entries([profiled or programs[-1]], before)[-1])]
+    row["replays"] = [{"kernels": k, "busy_ms": b, "wall_ms": w, "psd_ms": p}
+                      for k, b, w, p in replays.values()]
+    kernels, busy, wall, psd = replays[id(_new_entries([profiled or programs[-1]], before)[-1])]
     row.update({
         "bits_equal": same, "eager_s": eager_s, "compiled_s": compiled_s,
         "eager_median_s": statistics.median(eager_s),
@@ -2645,6 +2648,7 @@ def compiled_workload(key, card, programs, eager, compiled, per, rounds, checked
         "eager_rate": per(statistics.median(eager_s)),
         "compiled_rate": per(statistics.median(compiled_s)),
         "replay_kernels": kernels, "replay_busy_ms": busy, "replay_wall_ms": wall,
+        "replay_psd_ms": psd,
         "busy_share": busy / wall})
     log(f"compiled {key} on {card}: {row}")
     return row, first
@@ -2909,7 +2913,8 @@ def psd_kernel_checks(dev, card, rng):
               f"psd {batch}x{n}: two launches differ")
         ops = psd_ops(n) * batch
         b = bound(2 * n * n * 4 * batch, ops)
-        row = {"batch": batch, "n": n, "bits_equal": torch.equal(k, p), "max_abs_err": err,
+        row = {"batch": batch, "n": n, "path": linalg_small.path(n, H.dtype),
+               "bits_equal": torch.equal(k, p), "max_abs_err": err,
                "eigh64_err_over_tol": ratio,
                "sweeps_mean": float(sweeps.double().mean()), "sweeps_max": int(sweeps.max()),
                "ms": time_ms(lambda: linalg_small.psd_project(H, PSD_EPS), n=10),
@@ -2949,6 +2954,27 @@ def psd_kernel_checks(dev, card, rng):
     return rows
 
 
+def _joint_blocks(system, x0, us):
+    """The solver's joint (x, u) Hessian blocks at the trajectory that
+    ``us`` rolls out from ``x0``: (batch, H, nx + nu, nx + nu)."""
+    import torch
+    from simplemath_tpu_torch.models import ilqr
+
+    xs = torch.func.vmap(lambda x, u: ilqr.rollout(system.step, x, u))(x0, us)
+    lxx, luu, lux = ilqr.linearize_soa(system, xs, us)[4:7]
+    return torch.cat([torch.cat([lxx, lux.mT], -1), torch.cat([lux, luu], -1)], -2)
+
+
+def _block_sweeps(blk):
+    """The Jacobi sweeps (``jacobi_plain``, on the blocks' device) that the
+    projection of each of ``blk``'s matrices takes: mean and max."""
+    from simplemath_tpu_torch.ops import linalg_small
+
+    _, _, sweeps = linalg_small.jacobi_plain((blk + blk.mT) * 0.5)
+    return {"blocks": sweeps.numel(), "n": blk.shape[-1],
+            "sweeps_mean": float(sweeps.double().mean()), "sweeps_max": int(sweeps.max())}
+
+
 def psd_phase(dev, card, compiled):
     """Phase 12: ``psd="eigh"`` through the compiled programs on the card.
     The projection's kernel at the solvers' shapes (``psd_kernel_checks``);
@@ -2960,7 +2986,8 @@ def psd_phase(dev, card, compiled):
     within rtol 1e-3 and 1e-4 x the largest); the coupled quadrotor's
     ``MPCController.replan`` (H=50, 2 iterations) and RTI tick (H=50, 20
     and 60 ticks) against their eager loops, beside phase 11's; every graph
-    must hold the projection's kernel."""
+    must hold the projection's kernel.  The Jacobi sweeps of the solvers'
+    own joint blocks at their initial trajectories (``_block_sweeps``)."""
     import torch
     from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_cartpole, make_quadrotor
     from simplemath_tpu_torch.ops import linalg_small
@@ -2987,9 +3014,8 @@ def psd_phase(dev, card, compiled):
     check(bool((trace[:, 1:] <= trace[:, :-1]).all()), "coupled cartpole: a cost rose")
     # The joint blocks at the initial trajectory that the projection moves
     # by more than the stated tolerance.
-    xs = torch.func.vmap(lambda x, u: ilqr.rollout(system.step, x, u))(x0, us)
-    lxx, luu, lux = ilqr.linearize_soa(system, xs, us)[4:7]
-    blk = torch.cat([torch.cat([lxx, lux.mT], -1), torch.cat([lux, luu], -1)], -2)
+    blk = _joint_blocks(system, x0, us)
+    out["solver_sweeps"] = {"cartpole": _block_sweeps(blk)}
     n = blk.shape[-1]
     tol = 8 * n * torch.finfo(blk.dtype).eps * (torch.linalg.matrix_norm(blk) + n ** 0.5 * PSD_EPS)
     moved = (linalg_small.psd_project(blk, PSD_EPS) - blk).abs().amax((-2, -1)) > tol
@@ -3012,9 +3038,16 @@ def psd_phase(dev, card, compiled):
         f"(clamp-diag, phase 11: {row['clamp_diag_compiled_rate']}), {share} of the joint "
         f"blocks moved, the CPU slice within {cost_err} / {u_err}")
 
-    # The coupled quadrotor's replan and RTI tick.
+    # The coupled quadrotor's replan and RTI tick; the sweeps of its joint
+    # blocks at the replan's first trajectory (two states like the
+    # replan's, zero controls).
+    quad = coupled(make_quadrotor())
     out["replan"], out["rti"] = compiled_replan_and_rti(
-        dev, card, rng, coupled(make_quadrotor()), "_eigh", PSD_ROUNDS, PSD_ROUNDS)
+        dev, card, rng, quad, "_eigh", PSD_ROUNDS, PSD_ROUNDS)
+    xq = torch.from_numpy((0.1 * rng.standard_normal((2, 12))).astype(np.float32)).to(dev)
+    out["solver_sweeps"]["quadrotor"] = _block_sweeps(
+        _joint_blocks(quad, xq, torch.zeros((2, QUAD_H, 4), device=dev)))
+    log(f"Jacobi sweeps of the solvers' joint blocks on {card}: {out['solver_sweeps']}")
     check(out["replan"]["launches"].get("psd_project") == 2 * 2,
           f"the coupled replan's graph holds {out['replan']['launches']}, not 4 psd_project launches")
     for ticks, row in out["rti"]["loops"].items():
@@ -4190,7 +4223,7 @@ def main():
               max(r["max_abs_err"] for k, r in psd["kernel"].items() if k != "special"),
               big["ms"], big["plain_ms"], (big["bound_ms"], big["bound_by"]), big["library_ms"]),
         graph_launches=psd["graph_launches"],
-        other_shapes={k: {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        other_shapes={k: {f: r[f] for f in ("path", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for k, r in psd["kernel"].items() if k != "special"}))
     check(kernels[-1]["launches"] > 0, "psd_project was not launched on the main path")
     print(json.dumps({"kernels": kernels}))

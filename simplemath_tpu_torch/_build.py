@@ -18,6 +18,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,9 +28,9 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("elementwise.cu", "reduction.cu", "reduction_full.cu", "reduction_cols.cu",
            "reduction_rows.cu", "matmul.cu", "matmul_elem.cu", "matmul_wgmma.cu",
-           "matmul_wgmma_s8.cu", "nvrtc.cu", "psd_project.cu")
+           "matmul_wgmma_s8.cu", "nvrtc.cu", "psd_project.cu", "psd_project_f64.cu")
 HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh", "matmul.cuh", "matmul_fma.cuh",
-           "wgmma.cuh")
+           "wgmma.cuh", "psd_project.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
 # the crafted exp/log handle them); --fmad=false so each float operation
 # rounds once, as the plain torch version does (the matmul kernel's inner
@@ -40,7 +41,8 @@ NVCC_FLAGS = (
 )
 
 # What the last build printed (register and spill counts from -Xptxas -v)
-# and how long it took; empty/None when the library was already built.
+# and how long it took; empty/None when the library was already built.  The
+# log is also kept beside the library (``log()``).
 BUILD_LOG = ""
 BUILD_SECONDS = None
 
@@ -66,11 +68,47 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _path() -> pathlib.Path:
+    return BUILD_DIR / f"libsm_kernels_{_digest()}.so"
+
+
+def log() -> str:
+    """What nvcc and ptxas printed when the library of these sources was
+    built, whether by this process or an earlier one."""
+    library()
+    return _path().with_suffix(".log").read_text()
+
+
+def ptxas(text: str) -> dict:
+    """ptxas' ``-v`` report per kernel: {mangled name: {"registers",
+    "stack", "spill_stores", "spill_loads"}}."""
+    out, name, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props in out:  # an entry's, not a called function's
+            out[props].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The kernel library, built if needed."""
     global BUILD_LOG, BUILD_SECONDS
-    path = BUILD_DIR / f"libsm_kernels_{_digest()}.so"
+    path = _path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -98,6 +136,7 @@ def library() -> ctypes.CDLL:
                     raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
             BUILD_SECONDS = time.perf_counter() - t0
             BUILD_LOG = "".join(out for _, out, _ in logs)
+            path.with_suffix(".log").write_text(BUILD_LOG)
             os.replace(so, path)  # atomic: a concurrent build never sees half a file
     lib = ctypes.CDLL(str(path))
     void_p, c_int = ctypes.c_void_p, ctypes.c_int

@@ -39,6 +39,10 @@ MAX_SWEEPS = 12
 # The largest n the kernel takes: S and V of one matrix in one block's
 # shared memory (227 KB on Hopper; PSD_MAX_N in csrc/psd_project.cu).
 MAX_N = {torch.float32: 160, torch.float64: 112}
+# The largest n of the kernel's thread path (one thread a matrix, S and V in
+# registers; PSD_NREG_* in csrc/psd_project.cu): the largest n whose
+# instantiation ptxas builds without spilling.  Above it, one block a matrix.
+N_REG = {torch.float32: 10, torch.float64: 7}
 
 
 def _debug_check_finite(out, where: str):
@@ -208,6 +212,12 @@ def _library():
     from .. import _build
 
     return _build.library()
+
+
+def path(n: int, dtype) -> str:
+    """The kernel's path for n x n matrices of ``dtype``: ``"thread"`` (one
+    thread a matrix, in registers) or ``"block"`` (one block a matrix)."""
+    return "thread" if n <= N_REG[dtype] else "block"
 
 
 def _launch(H, eps):

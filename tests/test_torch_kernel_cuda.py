@@ -2329,12 +2329,16 @@ def test_captured_solve_keeps_exact_float32_matmuls(cuda):
 # card: the same Jacobi algorithm operation for operation, so the same bits
 # (the kernel is built with --fmad=false); and within 8 n eps ||H||_F of
 # torch.linalg.eigh's projection in float64 (tests/test_torch_psd.py's bound).
+# "n_reg" is the thread path's largest n (linalg_small.N_REG), "n_reg+1" the
+# block path's smallest.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 12, 16, 17, 32, 33, 64, "max"])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 12, 16, 17, 32, 33, 64, "max", "n_reg",
+                               "n_reg+1"])
 def test_psd_project_kernel_matches_plain(cuda, n, dtype):
     from simplemath_tpu_torch.ops import linalg_small
 
-    n = linalg_small.MAX_N[dtype] if n == "max" else n
+    n = {"max": linalg_small.MAX_N[dtype], "n_reg": linalg_small.N_REG[dtype],
+         "n_reg+1": linalg_small.N_REG[dtype] + 1}.get(n, n)
     H = torch.randn((37, n, n), generator=torch.Generator().manual_seed(n), dtype=dtype).to(cuda)
     linalg_small.reset_launches()
     k = linalg_small.psd_project(H, 1e-6)
@@ -2348,6 +2352,76 @@ def test_psd_project_kernel_matches_plain(cuda, n, dtype):
     bound = 8 * n * torch.finfo(dtype).eps * torch.linalg.matrix_norm(S)[:, None, None]
     assert bool(((k.double() - ref).abs() <= bound + 1e-12).all())
     assert torch.equal(linalg_small.psd_project(H, 1e-6), k)  # the same bits again
+
+
+def _mixed_batch(dtype):
+    """389 matrices of 5 x 5 (three full 128-matrix blocks of the thread path
+    and a tail of 5): random ones, diagonal ones (0 sweeps), zero and -I
+    matrices, and one with a NaN, so that one warp holds very different
+    sweep counts."""
+    g = torch.Generator().manual_seed(17)
+    H = torch.randn((389, 5, 5), generator=g, dtype=dtype)
+    H[40:80] = torch.diag_embed(torch.randn((40, 5), generator=g, dtype=dtype))
+    H[130:140] = 0
+    H[200:210] = -torch.eye(5, dtype=dtype)
+    H[300, 1, 3] = float("nan")
+    return H
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_psd_project_mixed_batch_with_a_tail(cuda, dtype):
+    from simplemath_tpu_torch.ops import linalg_small
+
+    H = _mixed_batch(dtype).to(cuda)
+    k = linalg_small.psd_project(H, 1e-6)
+    p = linalg_small.psd_project_plain(H, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(k.isnan(), p.isnan()) and torch.equal(k.nan_to_num(0.0), p.nan_to_num(0.0))
+    keep = torch.arange(389, device=cuda) != 300
+    assert bool(k[300].isnan().all()) and bool(k[keep].isfinite().all())
+    _, _, sweeps = linalg_small.jacobi_plain((H + H.mT) * 0.5)
+    assert int(sweeps[40:80].max()) == 0 and int(sweeps[:40].min()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, "n_reg"])
+def test_psd_project_misaligned_input_gives_the_aligned_bits(cuda, n, dtype):
+    """A contiguous input one element past a 16-byte boundary takes element
+    accesses in the thread path's staging, with the aligned copy's bits."""
+    from simplemath_tpu_torch.ops import linalg_small
+
+    n = linalg_small.N_REG[dtype] if n == "n_reg" else n
+    b = 389
+    H = torch.randn((b, n, n), generator=torch.Generator().manual_seed(n), dtype=dtype).to(cuda)
+    buf = torch.empty(b * n * n + 1, dtype=dtype, device=cuda)
+    off = buf[1:].view(b, n, n)
+    off.copy_(H)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    want = linalg_small.psd_project(H, 1e-6)
+    got = linalg_small.psd_project(off, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(want, linalg_small.psd_project_plain(H, 1e-6))
+
+
+def test_psd_project_kernels_do_not_spill(cuda):
+    """ptxas' report of the build: no psd_project kernel spills or keeps a
+    stack frame, and the thread path is instantiated for n = 1 to
+    ``linalg_small.N_REG`` of each type."""
+    import re
+
+    from simplemath_tpu_torch import _build
+    from simplemath_tpu_torch.ops import linalg_small
+
+    report = {k: v for k, v in _build.ptxas(_build.log()).items() if "psd_" in k}
+    assert report
+    for name, r in report.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0 and r["stack"] == 0, (name, r)
+    for code, dtype in (("f", torch.float32), ("d", torch.float64)):
+        ns = sorted(int(m.group(1)) for k in report
+                    for m in [re.search(rf"psd_thread_kernelI{code}Li(\d+)E", k)] if m)
+        assert ns == list(range(1, linalg_small.N_REG[dtype] + 1)), (dtype, ns)
+        assert any(re.search(rf"psd_block_kernelI{code}E", k) for k in report)
 
 
 def test_psd_project_non_finite_matrix_is_nan_alone(cuda):

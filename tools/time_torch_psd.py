@@ -30,10 +30,33 @@ the CPU, install tests/torch_standin.py's ``patches()`` and no-ops for
 ``torch.cuda.synchronize``, ``set_sync_debug_mode`` and
 ``memory_reserved``, set ``sm.configure(device="cpu")`` and call
 ``run(torch.device("cpu"), "cpu", small=True)``.
+
+    python3 tools/time_torch_psd.py --kernel [--root DIR] [-D... nvcc flags]
+
+times the projection's kernel alone at ``chip_smoke.PSD_SHAPES`` (random
+symmetric float32 matrices from the seed): this tree's
+``csrc/psd_project*.cu`` and, with ``--root``, DIR's (another checkout, for
+example the parent commit unpacked by ``git archive`` into a directory that
+``.gitignore`` lists), each compiled alone with the package's nvcc flags
+into its own library under ``build/psd_kernel/``, all started together,
+with any extra nvcc flags given (``-DPSD_NREG_F32=11`` builds the thread path
+up to n = 11: ptxas' report of it is how ``N_REG`` was chosen).
+Both are held to ``psd_project_plain``'s bits on the same inputs, then
+timed by CUDA events (``chip_smoke.time_ms``) in turns, this, DIR, DIR,
+this, three rounds, each launch through the library's
+``sm_psd_project_launch`` on the same tensors.  Prints one JSON line: the
+card's name and power limit, ptxas' registers, stack and spill bytes of
+every kernel of each library, and for each shape the path this tree takes
+(``linalg_small.path``), the median ms of each, DIR's over this tree's, the
+bound (``chip_smoke.psd_ops``) and each share of it, and the Jacobi sweeps
+that the data took; then the same for the coupled cartpole's and
+quadrotor's own joint blocks (``solver_blocks``).
 """
 
 import json
 import os
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -47,7 +70,7 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def main():
+def main(args):
     import torch
 
     if not torch.cuda.is_available():
@@ -56,8 +79,145 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
-    print(json.dumps(run(torch.device("cuda"), card)))
+    if "--kernel" in args:
+        root = args[args.index("--root") + 1] if "--root" in args else None
+        flags = [a for a in args if a.startswith("-D")]
+        print(json.dumps(kernel(torch.device("cuda"), card, root, flags)))
+    else:
+        print(json.dumps(run(torch.device("cuda"), card)))
     return 0
+
+
+def _kernel_name(mangled):
+    """A psd kernel's mangled name, readable: its path, type and n."""
+    m = re.search(r"psd_(thread|block|project)_kernelI([fd])(?:Li(\d+)E)?", mangled)
+    if not m:
+        return None
+    path = {"project": "team"}.get(m.group(1), m.group(1))
+    return f"{path} {'f32' if m.group(2) == 'f' else 'f64'}" + (f" n={m.group(3)}" if m.group(3) else "")
+
+
+def build_alone(trees, flags=()):
+    """Each tree's ``csrc/psd_project*.cu`` compiled alone (one ``nvcc -c``
+    a source, all started together) and linked into a shared library, with
+    the package's nvcc flags and ``flags``: {tag: (ctypes library, ptxas
+    report)}."""
+    import ctypes
+
+    from simplemath_tpu_torch import _build
+
+    out_dir = pathlib.Path(ROOT) / "build" / "psd_kernel"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for tag, tree in trees.items():
+        csrc = pathlib.Path(tree) / "simplemath_tpu_torch" / "csrc"
+        for src in sorted(csrc.glob("psd_project*.cu")):
+            obj = out_dir / f"{tag}_{src.stem}.o"
+            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(csrc), "-c", "-o",
+                   str(obj), str(src)]
+            procs.setdefault(tag, []).append(
+                (obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)))
+    built = {}
+    for tag, compiles in procs.items():
+        text = ""
+        for _, proc in compiles:
+            text += proc.communicate()[0]
+            cs.check(proc.returncode == 0, f"nvcc failed on {trees[tag]}:\n{text[-4000:]}")
+        so = out_dir / f"{tag}.so"
+        link = subprocess.run([_build.nvcc(), "-shared", *_build.NVCC_FLAGS[:2], "-o", str(so),
+                               *(str(obj) for obj, _ in compiles)], capture_output=True, text=True)
+        cs.check(link.returncode == 0, f"nvcc failed to link {trees[tag]}:\n{link.stderr[-4000:]}")
+        lib = ctypes.CDLL(str(so))
+        lib.sm_psd_project_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                              ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                              ctypes.c_void_p]
+        lib.sm_psd_project_launch.restype = ctypes.c_int
+        report = {_kernel_name(k): v for k, v in _build.ptxas(text).items() if _kernel_name(k)}
+        built[tag] = lib, report
+    return built
+
+
+def solver_blocks(dev, rng):
+    """The coupled systems' own joint Hessian blocks at their initial
+    trajectories (``chip_smoke._joint_blocks``): the cartpole's at
+    ``chip_smoke.CARTPOLE`` and the quadrotor's at two states of H =
+    ``chip_smoke.QUAD_H``, zero controls."""
+    import torch
+
+    from simplemath_tpu_torch.models import make_cartpole, make_quadrotor
+
+    batch, horizon = cs.CARTPOLE
+    x0 = torch.from_numpy((0.2 * rng.standard_normal((batch, 4))).astype(np.float32)).to(dev)
+    xq = torch.from_numpy((0.1 * rng.standard_normal((2, 12))).astype(np.float32)).to(dev)
+    return {
+        "cartpole_joint_blocks": cs._joint_blocks(cs.coupled(make_cartpole()), x0,
+                                                  torch.zeros((batch, horizon, 1), device=dev)),
+        "quadrotor_joint_blocks": cs._joint_blocks(cs.coupled(make_quadrotor()), xq,
+                                                   torch.zeros((2, cs.QUAD_H, 4), device=dev)),
+    }
+
+
+def kernel(dev, card, root=None, flags=()):
+    """``--kernel``: the projection's kernel alone, this tree's against
+    ``root``'s, in turns on the same inputs: random symmetric matrices at
+    ``chip_smoke.PSD_SHAPES``, then the solvers' own joint blocks
+    (``solver_blocks``)."""
+    import ctypes
+
+    import torch
+
+    from simplemath_tpu_torch.ops import linalg_small
+
+    trees = {"this": ROOT, **({"root": os.path.abspath(root)} if root else {})}
+    t0 = time.perf_counter()
+    built = build_alone(trees, flags)
+    rng = np.random.default_rng(cs.SEED + 17)
+    out = {"card": card, "torch": torch.__version__, "trees": trees, "flags": list(flags),
+           "build_s": time.perf_counter() - t0,
+           "ptxas": {tag: report for tag, (_, report) in built.items()}, "shapes": {}}
+    # The thread path's largest float32 n in this tree's build.
+    n_reg = next((int(f.split("=")[1]) for f in flags if f.startswith("-DPSD_NREG_F32=")),
+                 linalg_small.N_REG[torch.float32])
+    cases = {}
+    for batch, n in cs.PSD_SHAPES:
+        A = torch.from_numpy(rng.standard_normal((batch, n, n)).astype(np.float32)).to(dev)
+        cases[f"{batch}x{n}"] = (A + A.mT) * 0.5
+    for name, blk in solver_blocks(dev, rng).items():
+        cases[name] = blk.reshape(-1, *blk.shape[-2:]).contiguous()
+    for name, H in cases.items():
+        batch, n = H.shape[0], H.shape[-1]
+        want = linalg_small.psd_project_plain(H, cs.PSD_EPS)
+        _, _, sweeps = linalg_small.jacobi_plain((H + H.mT) * 0.5)
+        results = {tag: torch.empty_like(H) for tag in built}
+
+        def launch(tag):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = built[tag][0].sm_psd_project_launch(H.data_ptr(), results[tag].data_ptr(), batch,
+                                                     n, 0, ctypes.c_double(cs.PSD_EPS), stream)
+            cs.check(rc == 0, f"{tag}'s psd kernel launch failed: cudaError {rc}")
+
+        for tag in built:
+            launch(tag)
+        torch.cuda.synchronize()
+        bits = {tag: torch.equal(r, want) for tag, r in results.items()}
+        cs.check(all(bits.values()), f"psd {name}: not the plain version's bits: {bits}")
+        times = {tag: [] for tag in built}
+        order = ("this", "root", "root", "this") if root else ("this",)
+        for _ in range(3):
+            for tag in order:
+                times[tag].append(cs.time_ms(lambda: launch(tag), n=10))
+        b = cs.bound(2 * n * n * 4 * batch, cs.psd_ops(n) * batch)
+        ms = {tag: statistics.median(t) for tag, t in times.items()}
+        row = {"batch": batch, "n": n, "path": "thread" if n <= n_reg else "block",
+               "sweeps_mean": float(sweeps.double().mean()), "sweeps_max": int(sweeps.max()),
+               "bits_equal": bits, "ms": ms, "all_ms": times, "bound_ms": b[0], "bound_by": b[1],
+               "share_of_bound": {tag: b[0] / t for tag, t in ms.items()}}
+        if root:
+            row["root_over_this"] = ms["root"] / ms["this"]
+        out["shapes"][name] = row
+        cs.log(f"psd kernel {name} on {card}: {json.dumps(row)}")
+    return out
 
 
 def run(dev, card, small=False):
@@ -175,4 +335,4 @@ def run(dev, card, small=False):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

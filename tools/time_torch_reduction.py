@@ -105,20 +105,8 @@ def compile_alone(tag):
                     raise SystemExit(f"nvcc failed on {name} ({p.returncode})")
         time.sleep(0.05)
     (out_dir / f"reduction_{tag}_nvcc.log").write_text(log)
-    kernels, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name, kernels[m.group(1)] = m.group(1), ""
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
-        if m and name and not kernels[name]:
-            kernels[name] = f"stack {m.group(1)} spill {m.group(2)}"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            kernels[name] = f"regs {m.group(1)} " + kernels[name]
-            name = None
-    return seconds, {k: v for k, v in kernels.items() if "rd_" in k}
+    return seconds, {k: f"regs {r.get('registers')} stack {r.get('stack')} spill {r.get('spill_stores')}"
+                     for k, r in _build.ptxas(log).items() if "rd_" in k}
 
 
 def main():

@@ -122,8 +122,10 @@ device:
    each the bits of its contiguous clone and, for f32, of the parent
    kernel's order (one chain of fused multiply-adds in ascending k),
    epilogues with every extra shape giving ``ew_strided``'s bits on the
-   stored product, and int64/uint64 products exact against the CPU's int64
-   product, wrapping,
+   stored product; for the 64-bit kernel on the int8 tensor cores, int64/
+   uint64 products exact against the CPU's int64 product, wrapping
+   (all-ones at K = 40,000, ragged M and N, K = 1, rank 3, views, each
+   mixed pair),
    then drives bench.py's matmul workloads through the public API at full
    width (the fused ``relu(x @ W + bias) * s - c`` at 2048^3 in f32 and
    bf16, ``sm.int8_matmul`` at 2048^3 with and without ``scale=``, the
@@ -304,6 +306,7 @@ MM_OTHER_SOURCES = ["simplemath_tpu_torch/csrc/matmul_fma.cuh",
                     "simplemath_tpu_torch/csrc/matmul_elem.cu"]
 WGMMA_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma.cu"
 WGMMA_S8_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_s8.cu"
+WGMMA_I64_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_i64.cu"
 N_CHAIN = 16 * 1024 * 1024  # the flat chain a * b + c - a: 256 MB moved
 ADD_RING = 16               # sets of (a, b, result) of the 1M add: 192 MB
 N_MM = 2048                # bench.py::bench_matmul, _epilogue, bench_int8_matmul
@@ -327,13 +330,10 @@ PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 # list: the arithmetic throughput table of NVIDIA's CUDA C++ documentation
 # gives compute capability 9.0 64 results of a 32-bit integer multiply-add
 # (and of a 32-bit add) a clock an SM, half its 128 float32 ones, so at the
-# clock of the f32 peak above int32 multiply-adds run at half of it.  A 64-bit
-# multiply-add has no instruction; the fewest 32-bit ones that make it are
-# three (IMAD.WIDE.U32 with the 64-bit addend, for the low words' product
-# and the sum; two IMAD adding the cross products into the high word), so
-# its peak is a third of the int32 rate, IMAD.WIDE counted as one issue.
+# clock of the f32 peak above int32 multiply-adds run at half of it.  (A
+# 64-bit product is counted as its 36 byte-limb products on the int8 tensor
+# cores: csrc/matmul_wgmma_i64.cu.)
 PEAK_OPS["int32"] = PEAK_OPS["f32"] / 2
-PEAK_OPS["int64"] = PEAK_OPS["int32"] / 3
 # Float operations of one crafted transcendental (counted in
 # csrc/tiles.cuh); every other opcode counts as one.
 CRAFTED_OPS = {"exp": 24, "pow": 55}
@@ -956,7 +956,7 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
         matmul.reset_launches()
         k32, p32 = both(a, b, torch.float32)
         kb, _ = both(a, b, torch.bfloat16)
-        check(matmul.VARIANTS == {"wgmma_bf16": 4, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0},
+        check(matmul.VARIANTS == {"wgmma_bf16": 4, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0},
               f"{label}: launched {matmul.VARIANTS}, not the tensor-core kernel")
         at, bt = elementwise.read(a).double(), elementwise.read(b).double()
         ref, scale = at @ bt, at.abs() @ bt.abs()
@@ -1033,7 +1033,7 @@ def matmul_checks(dev, rng, sm, program, matmul, elementwise):
           "f32 @ bf16 is not the f32 product of the widened operand")
     k, p = both(x32.to(torch.int32), y32.to(torch.int8))
     check(torch.equal(k, p), "int32 @ int8 is not exact")
-    check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 2, "imad_i32": 2, "imad_i64": 0},
+    check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 2, "imad_i32": 2, "wgmma_i64": 0},
           f"mixed and int32 products launched {matmul.VARIANTS}")
     log(f"check mm bf16: largest error {worst[0]:.4f} of the tolerance 2e-5*(|A|@|B|) "
         "against float64; f32 @ bf16 and int32 @ int8 keep the CUDA-core kernels")
@@ -1081,8 +1081,9 @@ def cuda_core_checks(dev, rng, sm, program, matmul, elementwise, both):
     negative-step, 4 bytes off) give the bits of their contiguous clones
     and f32 products the parent kernel's order; K = 1 and K = 2048 + 5;
     rank 3; epilogues with (1, N), (M, 1), full and 0-d extras give
-    ew_strided's bits on the stored product; int64 and uint64 products exact
-    against the CPU's int64 product, wrapping.  ``both`` is matmul_checks'."""
+    ew_strided's bits on the stored product.  Then the 64-bit kernel
+    (csrc/matmul_wgmma_i64.cu): int64 and uint64 products exact against the
+    CPU's int64 product, wrapping.  ``both`` is matmul_checks'."""
     import torch
 
     def f32(*shape):
@@ -1189,29 +1190,54 @@ def cuda_core_checks(dev, rng, sm, program, matmul, elementwise, both):
     def wide(dtype, *shape):
         if dtype == "uint64":
             x = rng.integers(0, 2**63, shape, dtype=np.uint64) * np.uint64(2) + np.uint64(1)
-        else:
+        elif dtype == "int64":
             x = rng.integers(-2**63, 2**63 - 1, shape, dtype=np.int64)
+        else:
+            info = np.iinfo(dtype)
+            x = rng.integers(info.min, info.max, shape, dtype=np.int64, endpoint=True).astype(dtype)
         return torch.from_numpy(x).to(dev)
+
+    def exact(label, a, b):
+        k = matmul.matmul(a, b, torch.int64)
+        want = torch.matmul(matmul._int64(a).cpu(), matmul._int64(b).cpu())
+        check(k.dtype == torch.int64 and torch.equal(k.cpu(), want),
+              f"{label}: not the CPU's int64 product")
+        return k
 
     matmul.reset_launches()
     for da, db in (("int64", "int64"), ("uint64", "uint64"), ("int64", "uint64")):
-        a, b = wide(da, 130, 200), wide(db, 200, 129)
-        k = matmul.matmul(a, b, torch.int64)
-        want = torch.matmul(matmul._int64(a.cpu()), matmul._int64(b.cpu()))
-        check(k.dtype == torch.int64 and torch.equal(k.cpu(), want), f"{da} @ {db} is not exact")
+        exact(f"{da} @ {db}", wide(da, 130, 200), wide(db, 200, 129))
     a, i8 = wide("int64", 3, 70, 33), torch.from_numpy(
         rng.integers(-128, 128, (3, 33, 136)).astype(np.int8)).to(dev)
-    k = matmul.matmul(a, i8, torch.int64)
-    check(torch.equal(k.cpu(), torch.matmul(a.cpu(), i8.cpu().long())), "int64 @ int8 rank 3 is not exact")
+    exact("int64 @ int8 rank 3", a, i8)
     ua = sm.Array(wide("uint64", 96, 64))
     got = sm.matmul(ua.T, ua[::-1])
     want = (ua.torch().cpu().view(torch.int64).T @ ua.torch().cpu().view(torch.int64).flip(0))
     check(got.dtype == torch.uint64 and torch.equal(got.torch().cpu().view(torch.int64), want),
           "sm.matmul of uint64 views is not exact")
-    check(matmul.VARIANTS["imad_i64"] == 5 and sum(matmul.VARIANTS.values()) == 5,
+    # The tensor-core kernel's edges: every limb 0xFF at K = 40,000 (each
+    # diagonal passes 2**32 unless folded every 16,384 of K), M and N off
+    # 64, 128 and 256, K = 1, rank 3, and each narrow operand beside a
+    # 64-bit one (sign- or zero-extended), at full range.
+    ones = exact("all-ones (5,40000)@(40000,7)",
+                 torch.full((5, 40000), -1, dtype=torch.int64, device=dev),
+                 torch.full((40000, 7), -1, dtype=torch.int64, device=dev).view(torch.uint64))
+    check(int(ones[0, 0]) == 40000, "all-ones at K = 40,000 lost its folds")
+    exact("ragged (65,100)@(100,127)", wide("int64", 65, 100), wide("uint64", 100, 127))
+    exact("ragged (129,7)@(7,191)", wide("uint64", 129, 7), wide("int64", 7, 191))
+    exact("K = 1 (200,1)@(1,130)", wide("int64", 200, 1), wide("int64", 1, 130))
+    exact("rank 3 (3,70,33)@(3,33,136)", wide("uint64", 3, 70, 33), wide("int64", 3, 33, 136))
+    mixed = (("int8", "int64"), ("int64", "int8"), ("uint8", "uint64"), ("uint64", "uint8"),
+             ("int32", "int64"), ("int64", "int32"), ("int32", "uint64"), ("uint8", "int64"))
+    for da, db in mixed:
+        exact(f"{da} @ {db}", wide(da, 100, 150), wide(db, 150, 90))
+    launched = 10 + len(mixed)
+    check(matmul.VARIANTS["wgmma_i64"] == launched and sum(matmul.VARIANTS.values()) == launched,
           f"the 64-bit products launched {matmul.VARIANTS}")
     log("check mm int64 @ int64, uint64 @ uint64, int64 @ uint64 (130,200)@(200,129), "
-        "int64 @ int8 rank 3, sm.matmul of uint64 views: the CPU's int64 product, wrapping")
+        "int64 @ int8 rank 3, sm.matmul of uint64 views, all-ones at K = 40,000, ragged M and N, "
+        "K = 1, rank 3, the mixed pairs " + ", ".join(f"{a} @ {b}" for a, b in mixed) +
+        ": the CPU's int64 product, wrapping")
 
 
 def int8_checks(dev, rng, sm, matmul, elementwise, both):
@@ -1229,7 +1255,7 @@ def int8_checks(dev, rng, sm, matmul, elementwise, both):
     def tensor_core(label, a, b):
         matmul.reset_launches()
         k, p = both(a, b)
-        check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0},
+        check(matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0},
               f"{label}: launched {matmul.VARIANTS}, not the int8 tensor-core kernel")
         want = matmul.int_product(elementwise.read(a), elementwise.read(b))
         check(k.dtype == torch.int32 and torch.equal(k, want) and torch.equal(k, p),
@@ -3844,7 +3870,7 @@ def main():
         check(got == want, f"{label}: launched {got}, expected {want}")
         took = {k: v - before_v[k] for k, v in matmul.VARIANTS.items() if v != before_v[k]}
         kernel = ("wgmma_bf16" if "bf16" in label else "fma_f32" if "f32" in label else
-                  "wgmma_s8" if "int8" in label else "imad_i64" if "int64" in label else "imad_i32")
+                  "wgmma_s8" if "int8" in label else "wgmma_i64" if "int64" in label else "imad_i32")
         check(took == {kernel: 1}, f"{label}: ran {took}")
         entry_point = "bmm" if got["bmm"] else "mm"
         by_kernel[entry_point, kernel] = by_kernel.get((entry_point, kernel), 0) + 1
@@ -3855,7 +3881,7 @@ def main():
     check(mm_launches == {"mm": 6, "bmm": 2}, f"the matmul path launched {mm_launches}")
     # The two bf16 workloads took the bf16 tensor-core kernel, the two
     # int8_matmul calls the int8 one, and only they.
-    check(mm_variants == {"wgmma_bf16": 2, "wgmma_s8": 2, "fma_f32": 2, "imad_i32": 1, "imad_i64": 1},
+    check(mm_variants == {"wgmma_bf16": 2, "wgmma_s8": 2, "fma_f32": 2, "imad_i32": 1, "wgmma_i64": 1},
           f"the matmul path's kernels were {mm_variants}")
     check(counts.get("matmul:wgmma_bf16") == 2 and counts.get("matmul:wgmma_s8") == 2,
           f"matmul dispatch {counts}")
@@ -3928,7 +3954,7 @@ def main():
     check(out_i64.dtype == torch.int64 and torch.equal(out_i64.cpu(), want_l),
           "sm.dot of int64 is not the CPU's int64 product")
     for key, out, want in ((("mm", "wgmma_s8"), out_q, acc_q), (("mm", "imad_i32"), out_i, want_i),
-                           (("mm", "imad_i64"), out_i64, want_l)):
+                           (("mm", "wgmma_i64"), out_i64, want_l)):
         diff = (out.cpu().long() - want.cpu().long()).abs().max()  # 0 when equal, as checked
         err_mm[key] = max(err_mm[key], float(diff))
     log("check sm.int8_matmul 2048^3 (exact int32; scaled: exact), sm.dot int32 (512,512) and "
@@ -3957,7 +3983,13 @@ def main():
     xt_, wt_, xbt, wbt = xf.torch(), wf.torch(), xb.torch(), wb.torch()
     qat, qbt = qa.torch(), qb.torch()
     qa32, qb32 = qat.int(), qbt.int()
-    qa64, qb64 = qat.long(), qbt.long()
+    # The 64-bit product at full range (every limb of every operand varies).
+    wa64, wb64 = (on(rng.integers(-2**63, 2**63 - 1, (n, n), dtype=np.int64)) for _ in range(2))
+    out64 = matmul.matmul(wa64, wb64, torch.int64)
+    plain64 = matmul.matmul_plain(wa64, wb64, torch.int64)
+    check(torch.equal(out64, plain64), "the timed 64-bit product is not matmul_plain's")
+    err_mm["mm", "wgmma_i64"] = max(err_mm["mm", "wgmma_i64"],
+                                    float((out64 != plain64).sum()))  # 0 when equal, as checked
     x3ft, w3ft = x3f.torch(), w3f.torch()
     x3t, w3t = x3.torch(), w3.torch()
     q3a, q3b = (on(rng.integers(-127, 128, BMM[:1] + (BMM[1], BMM[2])).astype(np.int8))
@@ -4001,9 +4033,12 @@ def main():
         # transposed view: what the narrow loads and the strides cost.
         "mm_int32_ms": time_ms(lambda: matmul.matmul(qa32, qb32, torch.int32), n=3),
         "mm_int32_plain_ms": time_ms(lambda: matmul.matmul_plain(qa32, qb32, torch.int32), n=3),
-        # 64-bit multiply-adds; the plain version is the CPU's int64 product.
-        "mm_int64_ms": time_ms(lambda: matmul.matmul(qa64, qb64, torch.int64), n=1, reps=3),
-        "mm_int64_plain_ms": host_ms(lambda: matmul.matmul_plain(qa64, qb64, torch.int64), reps=1),
+        # The 64-bit product on the int8 tensor cores (its split passes
+        # included), at 2048^3 and at the main path's 512^3; the plain
+        # version is the CPU's int64 product.
+        "mm_int64_ms": time_ms(lambda: matmul.matmul(wa64, wb64, torch.int64), n=5),
+        "mm_int64_512_ms": time_ms(lambda: sm.dot(la, lb), n=20),
+        "mm_int64_plain_ms": host_ms(lambda: matmul.matmul_plain(wa64, wb64, torch.int64), reps=1),
         "mm_f32_transposed_a_ms": time_ms(
             lambda: matmul.matmul(xf.T._operand(), wt_, torch.float32), n=5),
         # The tensor-core kernel's other routes: f32 stored, both operands
@@ -4021,6 +4056,14 @@ def main():
     # card; a yardstick only, so a build of torch without it leaves null.
     int_mm = getattr(torch, "_int_mm", None)
     mmt["int8_library_ms"] = time_ms(lambda: int_mm(qat, qbt), n=20) if int_mm else None
+    # torch.matmul of two int64 CUDA tensors, where this build of torch has
+    # one: the 64-bit product's yardstick (null, with the error kept, where
+    # it raises).
+    try:
+        check(torch.equal(torch.matmul(wa64, wb64), plain64), "torch.matmul int64 is not exact")
+        mmt["int64_library_ms"] = time_ms(lambda: torch.matmul(wa64, wb64), n=1, reps=3)
+    except RuntimeError as e:
+        mmt["int64_library_ms"], mmt["int64_library_error"] = None, str(e).splitlines()[0][:200]
     flop = 2.0 * n ** 3
     for key in ("mm_f32", "mm_bf16", "fused_f32", "fused_bf16", "mm_int8", "int8", "int8_scaled",
                 "bmm_int8", "bmm_bf16", "bmm_fused_bf16", "mm_int32", "mm_f32_transposed_a",
@@ -4032,7 +4075,10 @@ def main():
     b_bmm = bound(3 * 2 * BMM[0] * BMM[1] * BMM[2], flop, "bf16")
     b_bmm_f32 = bound(3 * 4 * BMM[0] * BMM[1] * BMM[2], flop, "f32")
     b_int32 = bound(3 * 4 * n * n, flop, "int32")
-    b_int64 = bound(3 * 8 * n * n, flop, "int64")
+    # The 64-bit product: 36 u8 x u8 limb products a multiply-add (8 byte
+    # limbs of each operand; those whose limbs add up to at most 7 reach the
+    # result mod 2**64) on the int8 tensor cores.
+    b_int64 = bound(3 * 8 * n * n, 36 * flop, "int8")
     for key, b in (("mm_f32", b_f32), ("fused_f32", b_f32), ("mm_bf16", b_bf16),
                    ("fused_bf16", b_bf16), ("mm_int8", b_int8), ("int8", b_int8),
                    ("int8_scaled", b_int8), ("bmm_bf16", b_bmm), ("bmm_fused_bf16", b_bmm),
@@ -4132,9 +4178,9 @@ def main():
               mmt["mm_int32_plain_ms"], b_int32, None),
         # The JAX package has no Pallas kernel for 64-bit products: jnp.dot
         # and jnp.matmul in int64.
-        entry("mm_int64", MM_SOURCE, "simplemath_tpu/ops/engine.py:495 :557",
-              by_kernel.get(("mm", "imad_i64"), 0), err_mm["mm", "imad_i64"], mmt["mm_int64_ms"],
-              mmt["mm_int64_plain_ms"], b_int64, None),
+        entry("mm_int64", WGMMA_I64_SOURCE, "simplemath_tpu/ops/engine.py:495 :557",
+              by_kernel.get(("mm", "wgmma_i64"), 0), err_mm["mm", "wgmma_i64"], mmt["mm_int64_ms"],
+              mmt["mm_int64_plain_ms"], b_int64, mmt["int64_library_ms"]),
         # bfloat16, uint32 and int32 // on the elementwise and map-reduce
         # kernels (phase 5b's launches).
         entry("ew_flat_bf16", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
@@ -4163,7 +4209,7 @@ def main():
     ]
     for k in kernels:
         if k["name"] in ("mm", "bmm"):
-            k["other_sources"] = [WGMMA_S8_SOURCE, MM_SOURCE] + MM_OTHER_SOURCES
+            k["other_sources"] = [WGMMA_S8_SOURCE, WGMMA_I64_SOURCE, MM_SOURCE] + MM_OTHER_SOURCES
         if k["source"] == MM_SOURCE:
             k["other_sources"] = MM_OTHER_SOURCES
         if k["source"] == RD_SOURCE:

@@ -28,7 +28,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("elementwise.cu", "reduction.cu", "reduction_full.cu", "reduction_cols.cu",
            "reduction_rows.cu", "matmul.cu", "matmul_elem.cu", "matmul_wgmma.cu",
-           "matmul_wgmma_s8.cu", "nvrtc.cu", "psd_project.cu", "psd_project_f64.cu")
+           "matmul_wgmma_s8.cu", "matmul_wgmma_i64.cu", "nvrtc.cu", "psd_project.cu",
+           "psd_project_f64.cu")
 HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh", "matmul.cuh", "matmul_fma.cuh",
            "wgmma.cuh", "psd_project.cuh")
 # sm_90a: Hopper.  No --use_fast_math (it flushes subnormals to zero, and
@@ -147,6 +148,7 @@ def library() -> ctypes.CDLL:
         ("sm_mm_launch", [void_p, void_p, void_p]),
         ("sm_mm_wgmma_launch", [void_p, void_p, void_p]),
         ("sm_mm_wgmma_s8_launch", [void_p, void_p, void_p]),
+        ("sm_mm_wgmma_i64_launch", [void_p, void_p, void_p, void_p]),
         ("sm_ew_launch_kernel", [void_p, void_p, void_p, void_p]),
         ("sm_rtc_compile", [ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p), c_int,
                             ctypes.c_char_p, c_int, ctypes.POINTER(void_p),
@@ -165,4 +167,7 @@ def library() -> ctypes.CDLL:
         fn.restype = c_int
     lib.sm_rtc_free.argtypes = [void_p]
     lib.sm_rtc_free.restype = None
+    c_ll = ctypes.c_longlong
+    lib.sm_mm_wgmma_i64_scratch.argtypes = [c_ll, c_ll, c_ll, c_ll]
+    lib.sm_mm_wgmma_i64_scratch.restype = c_ll
     return lib

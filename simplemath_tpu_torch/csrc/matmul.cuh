@@ -1,8 +1,9 @@
 // What the matmul sources (matmul.cu: the CUDA-core kernel for f32, mixed
 // and int32 operands; matmul_wgmma.cu and matmul_wgmma_s8.cu: the
-// tensor-core kernels for bf16 @ bf16 and for int8/uint8 pairs) share: the
-// parameter block of one product and the epilogue of one output element, or
-// of four.  One copy, so all give an epilogue's values bit for bit alike
+// tensor-core kernels for bf16 @ bf16 and for int8/uint8 pairs;
+// matmul_wgmma_i64.cu, which reads the parameter block alone: the 64-bit
+// product on the int8 tensor cores) share: the parameter block of one
+// product and the epilogue of one output element, or of four.  One copy, so all give an epilogue's values bit for bit alike
 // from the same accumulator.
 #pragma once
 

@@ -1,29 +1,24 @@
 // The CUDA-core matmul kernel for Hopper (sm_90a): float32, mixed
-// float32/bfloat16 and integer operands of which one is int32, and every
-// integer product whose result is int64 or uint64.  bfloat16 @ bfloat16
-// takes the tensor-core kernel of matmul_wgmma.cu and int8/uint8 pairs that
-// of matmul_wgmma_s8.cu instead; the wrapper routes by the operands' types
-// alone, never by shape, stride or size.
+// float32/bfloat16 and integer operands of which one is int32.  bfloat16 @
+// bfloat16 takes the tensor-core kernel of matmul_wgmma.cu, int8/uint8 pairs
+// that of matmul_wgmma_s8.cu and every integer product whose result is int64
+// or uint64 that of matmul_wgmma_i64.cu instead; the wrapper routes by the
+// operands' types alone, never by shape, stride or size.
 //
 // Replaces the JAX package's two Pallas matmul kernels, both in
 // simplemath_tpu/ops/matmul.py:
 //   mm_kernel, one batch  <- _build_matmul (:134, body _matmul_kernel :49)
 //   mm_kernel, batch grid <- _build_bmm    (:209, body _bmm_kernel :85)
-// with the fused epilogue of ops/fusion.py::materialize_matmul on top, and
-// the 64-bit integer products the JAX package leaves to jnp.dot /
-// jnp.matmul (simplemath_tpu/ops/engine.py).
+// with the fused epilogue of ops/fusion.py::materialize_matmul on top.
 //
 // What it computes: out[b] = epilogue(A[b] @ B[b], extras...) for
-// (B, M, K) @ (B, K, N); rank 2 is B = 1.  Three accumulators:
+// (B, M, K) @ (B, K, N); rank 2 is B = 1.  Two accumulators:
 //   f32 (float32 and bfloat16 operands, each read by its own type and
 //       widened at the load, so a bf16 factor enters exactly and only the
 //       sum rounds): every output element is one thread's chain of
 //       __fmaf_rn from 0 in ascending k, the k padded to a multiple of 16
 //       with zeros;
-//   i32 (int8, uint8, int32 operands): uint32_t, wrapping mod 2^32;
-//   i64 (any of those and int64/uint64, sign- or zero-extended at the
-//       load): uint64_t, wrapping mod 2^64 as XLA's int64 dot does.  It
-//       takes no epilogue (the wrapper refuses one).
+//   i32 (int8, uint8, int32 operands): uint32_t, wrapping mod 2^32.
 // Integer sums are exact in any order.  The epilogue is the elementwise
 // kernel's opcode program (program.cuh) with register 0 holding the
 // accumulator and the other operand registers the extras, run on four
@@ -37,8 +32,7 @@
 // accumulator in registers: a block of 256 threads owns a 128 x 128 output
 // tile, each thread an 8 x 8 register tile (rows 4t..4t+3 and 64+4t..,
 // columns likewise), and walks K through a ring of kStages shared-memory
-// stages of 128 bytes of k for A and for B (32 k of 4-byte values, 16 of
-// 8-byte ones).  The TPU wrapper's zero padding is gone: A, B and every
+// stages of 128 bytes of k for A and for B (32 k of 4-byte values).  The TPU wrapper's zero padding is gone: A, B and every
 // extra are read in place through signed element strides (a transposed or
 // negative-step view costs no copy), and the ragged edge is zero-filled at
 // the load and masked at the store.  No split-K and no atomics: two
@@ -46,8 +40,8 @@
 //
 // What bounds it on an H100: operations.  2048^3 is 17.2 GFLOP over 48 MB,
 // so at the f32 rate of the CUDA cores (67 TFLOP/s: 0.256 ms) the bytes
-// (14 us at 3.35 TB/s) are far from the limit; a product with an int32 or
-// a 64-bit operand has no tensor-core instruction, and f32 operands on the
+// (14 us at 3.35 TB/s) are far from the limit; a product with an int32
+// operand has no tensor-core instruction, and f32 operands on the
 // tensor cores would be truncated, which "default" precision does not
 // allow.  So the design keeps the multiply-adds fed:
 //   - tiles reach shared memory by 16-byte cp.async copies, kStages - 1
@@ -55,7 +49,7 @@
 //     whose fast dimension has stride 1, other strides multiples of 4
 //     elements and a 16-byte-aligned base, ops/matmul.py::staging); any
 //     other operand (a view, a bf16 operand of a mixed pair, an int8 one
-//     beside an int32 one, every operand of the 64-bit product) is read
+//     beside an int32 one) is read
 //     element by element through its strides into the same layout, so a
 //     view and its contiguous clone give the same bits.  Those loads are
 //     kStages - 1 steps ahead too: issued into registers before a step's
@@ -108,7 +102,7 @@ using sm_wgmma::cp_async_commit;
 using sm_wgmma::cp_async_wait;
 using sm_wgmma::smem_u32;
 
-enum MmKind { kF32 = 0, kI32 = 1, kI64 = 2 };  // MmParams::int_acc
+enum MmKind { kF32 = 0, kI32 = 1 };  // MmParams::int_acc (2: the 64-bit product, matmul_wgmma_i64.cu)
 
 constexpr int kBM = 128, kBN = 128;
 constexpr int kThreads = 256;
@@ -118,19 +112,9 @@ constexpr int kSmemBytes = kStages * 2 * kTileBytes;
 static_assert(kStages >= 3, "copies run two steps ahead");
 static_assert(kSmemBytes + 1024 <= 233472, "the ring fits an SM's shared memory");
 
+// An element in shared memory and an accumulator: f32 bits or int32.
 template <int KIND>
-struct Kind {
-  using T = uint32_t;  // an element in shared memory and an accumulator: f32 bits or int32
-};
-template <>
-struct Kind<kI64> {
-  using T = uint64_t;
-};
-
-template <int KIND>
-__device__ __forceinline__ typename Kind<KIND>::T mm_madd(typename Kind<KIND>::T a,
-                                                          typename Kind<KIND>::T b,
-                                                          typename Kind<KIND>::T c) {
+__device__ __forceinline__ uint32_t mm_madd(uint32_t a, uint32_t b, uint32_t c) {
   if constexpr (KIND == kF32)
     return sm_u(__fmaf_rn(sm_f(a), sm_f(b), sm_f(c)));
   else
@@ -157,11 +141,6 @@ __device__ __forceinline__ void lds(const uint32_t* p, uint32_t (&v)[4]) {
 __device__ __forceinline__ void lds(const uint32_t* p, uint32_t (&v)[2]) {
   const uint2 x = *reinterpret_cast<const uint2*>(p);
   v[0] = x.x, v[1] = x.y;
-}
-__device__ __forceinline__ void lds(const uint64_t* p, uint64_t (&v)[4]) {
-  const ulonglong2 x = *reinterpret_cast<const ulonglong2*>(p);
-  const ulonglong2 y = *reinterpret_cast<const ulonglong2*>(p + 2);
-  v[0] = x.x, v[1] = x.y, v[2] = y.x, v[3] = y.y;
 }
 
 // The thread's fragment of one tile: f[i][kk] is element (mm_row(t, i),
@@ -267,23 +246,14 @@ __device__ __forceinline__ void gather(const Walk& w, const void* ptr, F widen, 
     v[i] = w.ok && i < w.room ? widen(p[w.off + i * w.step]) : T(0);
 }
 
-// An int32 value as T: itself, or sign-extended to 64 bits.
-template <typename T>
-__device__ __forceinline__ T from_i32(uint32_t u) {
-  if constexpr (sizeof(T) == 8)
-    return (T)(int64_t)(int32_t)u;
-  else
-    return (T)u;
-}
-
 // The loads, with the operand type's dispatch out of the loop, over the
 // types that reach each accumulator (ops/matmul.py::accumulator): float32
-// and bfloat16; int32, int8 and uint8; those and int64/uint64.
+// and bfloat16; int32, int8 and uint8.
 template <bool IS_A, int KIND, typename T>
 __device__ __forceinline__ void fetch(const MmParams& q, const Walk& w, T (&v)[kEach<T>]) {
   const MmOperand& x = IS_A ? q.a : q.b;
   const auto as_is = [](auto e) { return (T)e; };
-  const auto as_i32 = [](auto e) { return from_i32<T>((uint32_t)(int32_t)e); };
+  const auto as_i32 = [](auto e) { return (T)(uint32_t)(int32_t)e; };
   if (KIND == kF32 && x.dtype == SM_F32) {
     gather<T, uint32_t>(w, x.ptr, as_is, v);
   } else if (KIND == kF32) {  // SM_BF16
@@ -292,10 +262,8 @@ __device__ __forceinline__ void fetch(const MmParams& q, const Walk& w, T (&v)[k
     gather<T, uint32_t>(w, x.ptr, as_i32, v);
   } else if (x.dtype == SM_I8) {
     gather<T, int8_t>(w, x.ptr, as_i32, v);
-  } else if (KIND == kI32 || x.dtype == SM_U8) {
+  } else {  // SM_U8
     gather<T, uint8_t>(w, x.ptr, as_is, v);
-  } else {  // SM_I64 (int64 and uint64), into the 64-bit accumulator's tiles alone
-    gather<T, uint64_t>(w, x.ptr, as_is, v);
   }
 }
 
@@ -327,7 +295,7 @@ template <int KIND, bool AK, bool BK, typename T>
 __device__ __forceinline__ void multiply(const T* At, const T* Bt, int tx, int ty, int64_t k_left,
                                          T (&acc)[8][8]) {
   constexpr int kBK = 128 / sizeof(T);
-  constexpr int KG = (AK && BK) || sizeof(T) == 8 ? 2 : 4;
+  constexpr int KG = AK && BK ? 2 : 4;
 #pragma unroll
   for (int k = 0; k < kBK; k += KG) {
     if (k == 16 && k_left <= 16) break;
@@ -403,7 +371,7 @@ __device__ __forceinline__ void store_tile(const MmParams& q, void* out, const u
 template <int KIND, bool AK, bool BK, bool ELEM>
 __global__ void __launch_bounds__(kThreads, 1)
     mm_kernel(const __grid_constant__ MmParams q, void* __restrict__ out) {
-  using T = typename Kind<KIND>::T;
+  using T = uint32_t;
   constexpr int kBK = 128 / sizeof(T);
   constexpr int kTileElems = kTileBytes / sizeof(T);
   extern __shared__ __align__(128) uint8_t mm_smem[];
@@ -468,20 +436,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  const int64_t out_base = bz * q.M * q.N;
-  if constexpr (KIND == kI64) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int64_t m = m0 + mm_row(ty, i);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int64_t n = n0 + mm_row(tx, j);
-        if (m < q.M && n < q.N) static_cast<uint64_t*>(out)[out_base + m * q.N + n] = acc[i][j];
-      }
-    }
-  } else {
-    store_tile(q, out, acc, out_base, m0 + 4 * ty, n0 + 4 * tx, bz);
-  }
+  store_tile(q, out, acc, bz * q.M * q.N, m0 + 4 * ty, n0 + 4 * tx, bz);
 }
 
 namespace {

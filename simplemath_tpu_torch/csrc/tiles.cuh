@@ -51,7 +51,7 @@ typedef unsigned long long uint64_t;
 // is bf16 rounds it to bf16 in the register too (SmInst::rnd), so a fused
 // bf16 chain rounds where torch's and jnp's ops round, op by op.  SM_I64
 // (int64 or uint64: the same bits mod 2^64) is an operand and result type
-// of the CUDA-core matmul kernel's 64-bit accumulator alone; no register
+// of the 64-bit matmul kernel (matmul_wgmma_i64.cu) alone; no register
 // holds it.  SM_U32 differs from SM_I32 only where a value is converted (to
 // f32 by the reductions); SM_F16 is read by the reductions alone.
 enum SmDtype : int32_t {

@@ -1,5 +1,7 @@
-// What the two tensor-core matmul sources (matmul_wgmma.cu: bf16 @ bf16;
-// matmul_wgmma_s8.cu: int8/uint8 @ int8/uint8) share: the block tile and
+// What the tensor-core matmul sources (matmul_wgmma.cu: bf16 @ bf16;
+// matmul_wgmma_s8.cu: int8/uint8 @ int8/uint8; matmul_wgmma_i64.cu takes
+// the swizzled layout, the descriptors and the asynchronous copies and
+// fences alone) share: the block tile and
 // the ring of shared-memory stages, the 128-byte-swizzled tile layouts and
 // their descriptors, the two ways a tile is filled (16-byte cp.async copies
 // and element by element through the strides), and the store of a tile's

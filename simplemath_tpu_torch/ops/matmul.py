@@ -31,11 +31,15 @@ from a shape, a stride or a size, and ``VARIANTS`` counts launches by it:
   element by element through its strides (``staging``), into one layout.
 - ``imad_i32``: integer pairs with an int32 operand, 32-bit integer
   multiply-adds on the CUDA cores (csrc/matmul.cu), wrapping mod 2**32.
-- ``imad_i64``: integer pairs with an int64 operand (``dot``/``matmul`` of
-  int64 and uint64 results), 64-bit integer multiply-adds on the CUDA cores
-  (csrc/matmul.cu), wrapping mod 2**64 as the JAX package's int64
-  ``jnp.dot`` does; every operand read element by element and widened, no
-  epilogue.
+- ``wgmma_i64``: integer pairs with an int64 or uint64 operand (``dot``/
+  ``matmul`` of int64 and uint64 results), wrapping mod 2**64 as the JAX
+  package's int64 ``jnp.dot`` does, on the int8 tensor cores
+  (csrc/matmul_wgmma_i64.cu): a split pass writes each operand's 8 byte
+  planes (its 64-bit values, the narrow ones sign- or zero-extended, read
+  through the strides) into scratch, and the product kernel takes the 36
+  u8 x u8 plane products whose limbs add up to at most 7, each diagonal of
+  them summed in wrapping int32, then shifted into the 64-bit result
+  (``int64_limbs_plain`` repeats that arithmetic).  No epilogue.
 
 ``matmul(a, b, out_dtype=None, precision="default", epilogue=None,
 extras=())`` multiplies (M, K) @ (K, N) or (B, M, K) @ (B, K, N).  Operands
@@ -99,7 +103,7 @@ from . import dispatch, elementwise, library, program
 # Kernel launches by entry point since the last reset, and the same
 # launches by the kernel they took.
 LAUNCHES = {"mm": 0, "bmm": 0}
-VARIANTS = {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
+VARIANTS = {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0}
 # The kernels that stage tiles for ``wgmma``, and the library function of each.
 _TENSOR_CORE = {"wgmma_bf16": "sm_mm_wgmma_launch", "wgmma_s8": "sm_mm_wgmma_s8_launch"}
 
@@ -150,7 +154,7 @@ def variant(a_dtype, b_dtype):
     acc = accumulator(a_dtype, b_dtype)
     if acc is None:
         return None
-    return {torch.float32: "fma_f32", torch.int32: "imad_i32", torch.int64: "imad_i64"}[acc]
+    return {torch.float32: "fma_f32", torch.int32: "imad_i32", torch.int64: "wgmma_i64"}[acc]
 
 
 def staging(strides, contraction, address, itemsize=2):
@@ -261,7 +265,7 @@ def _set_operand(dst, x, batched, contraction, kernel):
     for d in range(3):
         dst.strides[d] = s[d]
     dst.dtype = _DTYPE_CODE[buf.dtype]
-    if kernel == "imad_i64":  # MN-major tiles, read element by element
+    if kernel == "wgmma_i64":  # the split pass reads it through its strides
         return
     k_major, vec16 = staging(s, contraction, dst.ptr, buf.element_size())
     # The CUDA-core kernel copies 4-byte operands alone; a narrower one of a
@@ -290,8 +294,15 @@ def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
     q.out_dtype = _DTYPE_CODE[out_dtype]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        launch = getattr(lib, _TENSOR_CORE.get(kernel, "sm_mm_launch"))
-        rc = launch(ctypes.byref(q), out.data_ptr(), stream)
+        if kernel == "wgmma_i64":
+            # The operands' byte planes; from the graph's pool under capture.
+            scratch = torch.empty(lib.sm_mm_wgmma_i64_scratch(B, M, N, K), dtype=torch.uint8,
+                                  device=device)
+            rc = lib.sm_mm_wgmma_i64_launch(ctypes.byref(q), out.data_ptr(), scratch.data_ptr(),
+                                            stream)
+        else:
+            launch = getattr(lib, _TENSOR_CORE.get(kernel, "sm_mm_launch"))
+            rc = launch(ctypes.byref(q), out.data_ptr(), stream)
     entry = "bmm" if batched else "mm"
     if rc != 0:
         raise RuntimeError(f"{entry} ({kernel}) launch failed: cudaError {rc}")
@@ -330,6 +341,29 @@ def int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             f"(K * max|a| * max|b| = {bound} >= 2**53)"
         )
     return _wrap_int32(torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int64))
+
+
+def int64_limbs_plain(a, b, fold=16384) -> torch.Tensor:
+    """The 64-bit product as the ``wgmma_i64`` kernel computes it, on the
+    CPU: each operand's 64-bit values (``_int64``) split into 8 unsigned
+    byte planes, the 36 plane products whose limbs ``i + j = s`` add up to at
+    most 7, each diagonal ``s`` summed over ``fold`` of K at a time and
+    reduced mod 2**32 (the kernel's wrapping int32 accumulator, read as
+    unsigned), then shifted by ``8 s`` into the result mod 2**64.  With
+    ``fold=None`` a diagonal sums all of K before it wraps."""
+    at, bt = _int64(a).cpu(), _int64(b).cpu()
+    planes_a = [(at >> (8 * i)) & 0xFF for i in range(8)]
+    planes_b = [(bt >> (8 * j)) & 0xFF for j in range(8)]
+    K = at.shape[-1]
+    step = K if fold is None else fold
+    out = torch.zeros(at.shape[:-1] + bt.shape[-1:], dtype=torch.int64)
+    for k0 in range(0, K, step):
+        ks = slice(k0, k0 + step)
+        for s in range(8):
+            diagonal = sum(torch.matmul(planes_a[i][..., ks], planes_b[s - i][..., ks, :])
+                           for i in range(s + 1))
+            out += (diagonal & 0xFFFFFFFF) * (1 << (8 * s))  # wraps mod 2**64
+    return out
 
 
 def matmul_plain(a, b, out_dtype, epilogue=None, extras=()) -> torch.Tensor:

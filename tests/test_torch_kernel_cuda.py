@@ -752,7 +752,7 @@ def _check_bf16(a, b):
     rounded once, every launch a wgmma launch."""
     matmul.reset_launches()
     k, p = _mm_both(a, b, torch.float32)
-    assert matmul.VARIANTS == {"wgmma_bf16": 2, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 2, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0}
     at, bt = elementwise.read(a).double(), elementwise.read(b).double()
     tol = 2e-5 * (at.abs() @ bt.abs())
     assert bool(((k.double() - p.double()).abs() <= tol).all())
@@ -885,11 +885,11 @@ def test_mm_mixed_and_other_types_keep_their_kernels(cuda):
     both = matmul.matmul(a, b.bfloat16().float())
     assert torch.equal(matmul.matmul(a, b.bfloat16()), both)
     assert torch.equal(matmul.matmul(a.bfloat16(), b), matmul.matmul(a.bfloat16().float(), b))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 0, "imad_i64": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 0, "wgmma_i64": 0}
     matmul.matmul(a.to(torch.int8), b.to(torch.int32))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 1, "imad_i64": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 4, "imad_i32": 1, "wgmma_i64": 0}
     matmul.matmul(a.to(torch.int8), b.to(torch.uint8))
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 1, "fma_f32": 4, "imad_i32": 1, "imad_i64": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 1, "fma_f32": 4, "imad_i32": 1, "wgmma_i64": 0}
 
 
 def test_bf16_root_through_the_api_takes_the_tensor_core_kernel(cuda):
@@ -924,7 +924,7 @@ def _i8(rng, dtype, shape, device):
 def _check_int8(a, b):
     matmul.reset_launches()
     k, p = _mm_both(a, b)
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0}
     assert k.dtype == torch.int32 and torch.equal(k, p)
     assert torch.equal(k, matmul.int_product(elementwise.read(a), elementwise.read(b)))
     return k
@@ -1021,7 +1021,7 @@ def test_mm_int8_dequant_epilogue_runs_in_the_tensor_core_kernel(cuda, n, batche
          else _f32(rng, (1,) * (len(lead) + 1) + (n,), cuda).abs())
     matmul.reset_launches()
     k1, k2 = matmul.int8_matmul(a, b, scale=s), matmul.int8_matmul(a, b, scale=s)
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 2, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0}
     assert k1.dtype == torch.float32 and torch.equal(k1, k2)
     assert torch.equal(k1, matmul.int_product(a, b).float() * s)
 
@@ -1070,7 +1070,7 @@ def test_int8_matmul_through_the_api_takes_the_tensor_core_kernel(cuda):
     d = sm.dot(qa, qb).torch()                          # the engine's integer route
     torch.cuda.synchronize()
     assert matmul.LAUNCHES == {"mm": 4, "bmm": 0}
-    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 4, "fma_f32": 0, "imad_i32": 0, "imad_i64": 0}
+    assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 4, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0}
     assert sum(elementwise.LAUNCHES.values()) == 0
     assert dispatch.count("matmul", "wgmma_s8") == 4 and dispatch.count("matmul", "int8") == 3
     want = matmul.int_product(qa.torch(), qb.torch())
@@ -1419,7 +1419,7 @@ def test_mm_int64_exact_and_wrapping(cuda, pair, batched):
     a, b = _wide(rng, pair[0], lead + (130, 200), cuda), _wide(rng, pair[1], lead + (200, 129), cuda)
     matmul.reset_launches()
     k = matmul.matmul(a, b, torch.int64)
-    assert matmul.VARIANTS["imad_i64"] == 1 and k.dtype == torch.int64
+    assert matmul.VARIANTS["wgmma_i64"] == 1 and k.dtype == torch.int64
     want = torch.matmul(matmul._int64(a.cpu()), matmul._int64(b.cpu()))
     assert torch.equal(k.cpu(), want)
     assert torch.equal(k, matmul.matmul_plain(a, b, torch.int64))
@@ -1441,7 +1441,7 @@ def test_int64_dot_and_matmul_through_the_api(cuda):
     got = sm.matmul(i32, a.T)
     assert got.dtype == torch.int64 and torch.equal(got.torch().cpu(),
                                                      i32.torch().cpu().long() @ a.torch().cpu().T)
-    assert matmul.VARIANTS["imad_i64"] == 4 and sum(matmul.VARIANTS.values()) == 4
+    assert matmul.VARIANTS["wgmma_i64"] == 4 and sum(matmul.VARIANTS.values()) == 4
 
 
 def test_fused_int64_root_takes_the_64_bit_product(cuda):
@@ -1457,8 +1457,101 @@ def test_fused_int64_root_takes_the_64_bit_product(cuda):
     got = sm.fuse(lambda a, b, e: sm.maximum(a @ b + e, 0) * 3)(x, w, c)
     want = torch.clamp(x.torch().cpu() @ w.torch().cpu() + c.torch().cpu(), min=0) * 3
     assert got.dtype == torch.int64 and torch.equal(got.torch().cpu(), want)
-    assert matmul.VARIANTS["imad_i64"] == 1 and sum(matmul.VARIANTS.values()) == 1
+    assert matmul.VARIANTS["wgmma_i64"] == 1 and sum(matmul.VARIANTS.values()) == 1
     assert dispatch.count("torch_path", "matmul_epilogue") == 1
+
+
+def _i64_exact(a, b):
+    """The 64-bit kernel's product of ``a`` and ``b`` (tensors or views),
+    one launch, bit for bit the CPU's int64 product and the limbs' plain
+    arithmetic."""
+    matmul.reset_launches()
+    k = matmul.matmul(a, b, torch.int64)
+    assert matmul.VARIANTS["wgmma_i64"] == 1 and sum(matmul.VARIANTS.values()) == 1
+    at, bt = (matmul._int64(x).cpu() for x in (a, b))
+    assert k.dtype == torch.int64 and torch.equal(k.cpu(), torch.matmul(at, bt))
+    assert torch.equal(k.cpu(), matmul.int64_limbs_plain(at, bt))
+    return k
+
+
+@pytest.mark.parametrize("dtype", ["int64", "uint64"])
+def test_mm_int64_all_ones_at_k_40000(cuda, dtype):
+    """Every limb 0xFF at K = 40,000: each diagonal at its largest sum, which
+    passes 2**32 unless the kernel folds it into the 64-bit result every
+    16,384 of K (three parts of K, added into the output)."""
+    x = torch.full((5, 40000), -1, dtype=torch.int64, device=cuda)
+    y = torch.full((40000, 7), -1, dtype=torch.int64, device=cuda)
+    if dtype == "uint64":
+        x, y = x.view(torch.uint64), y.view(torch.uint64)
+    k = _i64_exact(x, y)
+    assert int(k[0, 0]) == 40000
+
+
+@pytest.mark.parametrize("shape", [(65, 100, 127), (1, 33, 1), (129, 7, 191), (63, 4097, 65),
+                                   (200, 1, 130), (3, 1, 4)], ids=str)
+def test_mm_int64_ragged_and_k_1(cuda, shape):
+    """M and N off the 64-row tile (and off 128 and 256), K = 1 and K off the
+    32-byte step: the edges are zero-filled and masked."""
+    M, K, N = shape
+    rng = np.random.default_rng(63)
+    _i64_exact(_wide(rng, "int64", (M, K), cuda), _wide(rng, "uint64", (K, N), cuda))
+
+
+def test_mm_int64_views_and_rank_3(cuda):
+    """Operands read in place through their strides: transposed, a negative
+    step, a slice 8 bytes off, a batch of views; rank 3 with a broadcast
+    batch dim."""
+    rng = np.random.default_rng(64)
+    a = _wide(rng, "int64", (2, 96, 70), cuda)
+    b = _wide(rng, "uint64", (2, 70, 80), cuda)
+    va, vb = sm.Array(a), sm.Array(b)  # negative steps: views of the port's arrays
+    _i64_exact(a[0], vb[1][::-1, ::2]._operand())
+    _i64_exact(va[0].T._operand(), va[1][:, ::-1]._operand())
+    _i64_exact(a[1, :, 1:], b[0, 1:])
+    _i64_exact(a, b)
+    _i64_exact(a.transpose(1, 2), va[:, ::-1, :]._operand())
+    _i64_exact(a[:1].expand(2, 96, 70), b)
+
+
+@pytest.mark.parametrize("pair", [("int8", "int64"), ("int64", "int8"), ("uint8", "int64"),
+                                  ("uint64", "uint8"), ("int32", "uint64"), ("int64", "int32"),
+                                  ("int64", "uint64"), ("uint64", "int64")], ids=str)
+def test_mm_int64_mixed_pairs(cuda, pair):
+    """A narrow operand beside a 64-bit one is sign- or zero-extended before
+    its limbs are taken, at full range on both sides."""
+    rng = np.random.default_rng(65)
+    _i64_exact(_wide(rng, pair[0], (100, 150), cuda), _wide(rng, pair[1], (150, 90), cuda))
+
+
+def test_mm_int64_launches_repeat_their_bits(cuda):
+    """Two launches of the same product, with and without parts of K added
+    atomically (a small grid splits K): the same bits."""
+    rng = np.random.default_rng(66)
+    for M, K, N in ((512, 512, 512), (300, 20000, 70)):
+        a, b = _wide(rng, "int64", (M, K), cuda), _wide(rng, "int64", (K, N), cuda)
+        k1 = _i64_exact(a, b)
+        k2 = matmul.matmul(a, b, torch.int64)
+        assert torch.equal(k1, k2)
+
+
+def test_mm_int64_captured_gives_eager_bits(cuda):
+    """The 64-bit product captured under graphs.Jit (its byte planes from
+    the graph's pool) and replayed: the eager bits."""
+    from simplemath_tpu_torch.utils import graphs
+
+    rng = np.random.default_rng(67)
+    for M, K, N in ((130, 200, 129), (64, 40000, 64)):
+        a, b = _wide(rng, "int64", (M, K), cuda), _wide(rng, "uint64", (K, N), cuda)
+        want = matmul.matmul(a, b, torch.int64)
+        program = graphs.Jit(lambda static, x, y: matmul.matmul(x, y, torch.int64))
+        program((), a, b)
+        got = _replay_without_sync(lambda: program((), a, b))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        a2, b2 = _wide(rng, "int64", (M, K), cuda), _wide(rng, "uint64", (K, N), cuda)
+        got = _replay_without_sync(lambda: program((), a2, b2))
+        torch.cuda.synchronize()
+        assert torch.equal(got, matmul.matmul(a2, b2, torch.int64))
 
 
 # ------------------------------------------------------------ the solvers

@@ -502,8 +502,8 @@ _WIDE_PAIRS = [("int64", "int64"), ("uint64", "uint64"), ("int64", "int32"), ("i
 def test_64_bit_products_wrap_as_the_jax_package(fn, pair):
     """int64 and uint64 products of full-range values wrap mod 2**64 as the
     JAX package's int64 ``jnp.dot`` does (x64 on), in both result types; on
-    the card they run the 64-bit accumulator of the matmul kernel
-    (``imad_i64``), here its plain version."""
+    the card they run the 64-bit product on the int8 tensor cores
+    (``wgmma_i64``), here its plain version."""
     rng = np.random.default_rng(7)
     if pair[0] == "bool":
         (ja, pa) = _pair(rng.standard_normal((9, 33)) > 0)
@@ -744,8 +744,8 @@ _VARIANT_PAIRS = [
     ("int8", "int8", "wgmma_s8"), ("int8", "uint8", "wgmma_s8"), ("uint8", "uint8", "wgmma_s8"),
     ("uint8", "int8", "wgmma_s8"),
     ("int32", "int32", "imad_i32"), ("int32", "int8", "imad_i32"), ("uint8", "int32", "imad_i32"),
-    ("int64", "int64", "imad_i64"), ("uint64", "uint64", "imad_i64"), ("int64", "int32", "imad_i64"),
-    ("int8", "int64", "imad_i64"), ("uint8", "uint64", "imad_i64"), ("uint64", "int64", "imad_i64"),
+    ("int64", "int64", "wgmma_i64"), ("uint64", "uint64", "wgmma_i64"), ("int64", "int32", "wgmma_i64"),
+    ("int8", "int64", "wgmma_i64"), ("uint8", "uint64", "wgmma_i64"), ("uint64", "int64", "wgmma_i64"),
     ("float64", "float64", None), ("float16", "float16", None), ("bfloat16", "int8", None),
     ("float32", "int32", None), ("int16", "int64", None), ("float32", "int64", None),
 ]
@@ -753,10 +753,11 @@ _VARIANT_PAIRS = [
 
 @pytest.mark.parametrize("a,b,want", _VARIANT_PAIRS, ids=str)
 def test_kernel_variant_follows_the_operand_types_alone(a, b, want):
-    """bf16 @ bf16 takes the bf16 tensor-core kernel and a pair of 1-byte
-    integers the int8 one; every other pair the kernel takes (any with an
-    int32 or a float32 operand) keeps its CUDA-core instantiation; the rest
-    have none."""
+    """bf16 @ bf16 takes the bf16 tensor-core kernel, a pair of 1-byte
+    integers the int8 one and a pair with an int64 or uint64 operand the
+    64-bit one (on the int8 tensor cores); every other pair the kernel takes
+    (any with an int32 or a float32 operand) keeps its CUDA-core
+    instantiation; the rest have none."""
     da, db = getattr(torch, a), getattr(torch, b)
     assert matmul.variant(da, db) == want
     assert (matmul.variant(da, db) is None) == (matmul.accumulator(da, db) is None)
@@ -1003,7 +1004,7 @@ def test_bf16_product_matches_jax_at_the_edges(name):
     assert np.all(np.abs(got.numpy().astype(np.float64) - w) <= 2 * tol)
     assert dispatch.count("matmul", "wgmma_bf16") == 1
     assert matmul.VARIANTS == {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0,
-                               "imad_i32": 0, "imad_i64": 0}  # the CPU launches nothing
+                               "imad_i32": 0, "wgmma_i64": 0}  # the CPU launches nothing
 
 
 @pytest.mark.parametrize("name", ["k1", "k77", "a_transposed", "both_transposed", "batched"])

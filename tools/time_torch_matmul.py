@@ -16,9 +16,12 @@ limit, of:
   bare, through the fused ``relu(x @ W + bias) * s - c`` and with A a
   transposed view or 4 bytes off (read element by element), the batched
   float32 product at (8, 1024, 1024), each beside ``torch.matmul`` (TF32
-  off); the int32 product at 2048^3, and the int64 one where the package
-  has it; the mixed pairs f32 @ bf16 and int32 @ int8 at 2048^3 (the
-  narrow operand read element by element);
+  off); the int32 product at 2048^3; the mixed pairs f32 @ bf16 and int32 @
+  int8 at 2048^3 (the narrow operand read element by element);
+- the 64-bit product (csrc/matmul_wgmma_i64.cu, on the int8 tensor cores;
+  the CUDA cores' ``imad_i64`` in a checkout older than it) at 2048^3 and at
+  512^3 on full-range int64 operands, its split passes included, the 512^3
+  one held to the CPU's int64 product;
 - the tensor-core kernels: the bare and the fused bf16 product at 2048^3,
   (8, 1024, 1024) and 4096^3 beside ``torch.matmul``'s, and the int8
   product (row-major, each operand a transposed view, one byte off, with
@@ -28,7 +31,7 @@ limit, of:
 unpacked beside this one) in one call on one card: each is timed in a
 process of its own, in the order DIR, this, this, DIR, and the float32,
 fused float32, int32 and mixed products of the two on the same inputs must
-be ``torch.equal``.  It is a workbench for trying one change to
+be ``torch.equal``, and so must the 64-bit products.  It is a workbench for trying one change to
 ``csrc/matmul*.cu`` at a time; ``chip_smoke.py`` is the check.  A build that
 compiles a part of a kernel out gives wrong products: pass ``--no-check``
 with it.  Imports no jax.
@@ -79,6 +82,9 @@ def worker(root, save, check, flags):
         info = np.iinfo(dtype)
         return torch.from_numpy(rng.integers(info.min, info.max + 1, shape).astype(dtype)).to(dev)
 
+    def i64(*shape):
+        return torch.from_numpy(rng.integers(-2**63, 2**63 - 1, shape, dtype=np.int64)).to(dev)
+
     def error(a, b):
         """Largest error against float64, in units of 2e-5 * (|A| @ |B|)."""
         k = matmul.matmul(a, b, torch.float32).double()
@@ -95,6 +101,8 @@ def worker(root, save, check, flags):
     ra, rb = f32(300, 270), f32(270, 515)
     x3, w3 = f32(8, 1024, 1024), f32(8, 1024, 1024)
     ia, ib = i8("int8", n, n).int(), i8("int8", n, n).int()
+    la, lb = i64(n, n), i64(n, n)  # full range: every limb varies
+    la5, lb5 = i64(512, 512), i64(512, 512)
     acc, leaf = program.leaf((n, n), torch.float32), program.leaf((1, n), torch.float32)
     epi = program.lower_epilogue(sm.maximum(acc + leaf, 0.0) * (1.0 / n) - 0.5, acc, [leaf])
     w16, ib8 = w.bfloat16(), ib.to(torch.int8)  # the narrow operand of a mixed pair
@@ -108,6 +116,8 @@ def worker(root, save, check, flags):
         "int32": matmul.matmul(ia, ib, torch.int32),
         "f32_bf16": matmul.matmul(x, w16, torch.float32),
         "int32_int8": matmul.matmul(ia, ib8, torch.int32),
+        "int64": matmul.matmul(la, lb, torch.int64),
+        "int64_512": matmul.matmul(la5, lb5, torch.int64),
     }
     torch.save({k: v.cpu() for k, v in products.items()}, save)
 
@@ -123,8 +133,9 @@ def worker(root, save, check, flags):
                                                 i8("int8", 515, 272).T[:270]),
         "int8, byte by byte": wrong(i8("int8", 300, 270), i8("int8", 270, 515)),
         "int8 2048^3": wrong(i8("int8", 2048, 2048), i8("int8", 2048, 2048)),
+        "int64 512^3": int((products["int64_512"].cpu() != la5.cpu() @ lb5.cpu()).sum()),
     }
-    if check and max(errors.values()) > 1.0:
+    if check and (max(errors.values()) > 1.0 or errors["int64 512^3"]):
         print(f"time_torch_matmul: beyond tolerance: {errors}", file=sys.stderr)
         return 1
 
@@ -143,9 +154,9 @@ def worker(root, save, check, flags):
             "mm_f32_bf16_ms": t(lambda: matmul.matmul(x, w16, torch.float32), n=3),
             "mm_int32_int8_ms": t(lambda: matmul.matmul(ia, ib8, torch.int32), n=3),
         })
-    if "imad_i64" in matmul.VARIANTS:
-        la, lb = ia.long(), ib.long()
-        times["mm_int64_ms"] = t(lambda: matmul.matmul(la, lb, torch.int64), n=1, reps=3)
+    times["mm_int64_ms"] = t(lambda: matmul.matmul(la, lb, torch.int64), n=1, reps=5)
+    times["mm_int64_512_ms"] = t(lambda: matmul.matmul(la5, lb5, torch.int64), n=10)
+    times["mm_int64_variant"] = next(k for k in matmul.VARIANTS if k.endswith("i64"))
     times["mm_f32_over_library"] = times["mm_f32_ms"] / times["mm_f32_library_ms"]
     times["bmm_f32_over_library"] = times["bmm_f32_ms"] / times["bmm_f32_library_ms"]
 

@@ -213,7 +213,14 @@ device:
    debug mode ``"error"``); export s, nodes of each program, MB, load s,
    the first call's s (warm-up, capture, instantiate), the launches its
    graphs recorded (the ``sm`` pendulum's ``ew_flat`` and ``ew_strided``),
-   one profiled replay of each graph, served and compiled solves/s;
+   one profiled replay of each graph, served and compiled solves/s; the
+   whole ``solve_batched`` of the ``sm`` pendulum (4096 x H=50, 10
+   iterations; the JAX package's ``export_solver_step`` form) exported as
+   one program, its iteration and horizon loops nested ``scan`` nodes,
+   loaded and called by the same process as the kernels' artifacts (nodes
+   at every level, export s, load s, a call's s, its ``ew_flat`` and
+   ``ew_strided`` launches), with the eager call's bits (config 4's SQP-MPC
+   exported whole is ``tools/probe_torch_export.py``'s ``constrained``);
    ``run_elastic`` over a receding-horizon cartpole loop at 8192 x H=100
    (one iteration and a shift a step, a checkpoint every 2 steps) with an
    injected preemption and a transient corruption, bitwise the plain
@@ -2227,6 +2234,11 @@ VIEW_OPS = ("view", "alias", "slice", "expand", "reshape", "unsqueeze", "select"
 EXAMPLES = ("quickstart", "fused_pipeline", "quantized_views", "batched_cartpole",
             "constrained_pendulum", "mpc_quadrotor", "rti_mpc")
 
+# The whole solve exported as one program, its loops nested scan nodes,
+# and served by the loader below: BASELINE config 2 (the sm pendulum, 4096 x
+# H=50, 10 iterations) as the JAX package's export_solver_step writes it.
+NESTED_SM = (4096, 50, 10)
+
 # Loads each artifact in a process that imports torch and the port alone,
 # runs it on the saved inputs, counts the wrappers' launches around each
 # call and saves the results (argv: the artifacts' directory).
@@ -2234,7 +2246,7 @@ LOADER = r"""
 import json, os, sys, time
 import torch
 import simplemath_tpu_torch
-from simplemath_tpu_torch.ops import elementwise, matmul, reduction
+from simplemath_tpu_torch.ops import elementwise, linalg_small, matmul, reduction
 from simplemath_tpu_torch.utils import export
 d = sys.argv[1]
 sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
@@ -2246,14 +2258,15 @@ for name, args in inputs.items():
     load_s = time.perf_counter() - t0
     run(*args)  # the first call: an ew_strided kernel is read from the CUBIN cache here
     sync()
-    for w in (elementwise, reduction, matmul):
+    for w in (elementwise, reduction, matmul, linalg_small):
         w.reset_launches()
     t0 = time.perf_counter()
     out[name] = run(*args)
     sync()
     info[name] = {"load_s": load_s, "call_s": time.perf_counter() - t0,
-                  "launches": {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES},
-                  "nodes": len(list(run.graph.nodes))}
+                  "launches": {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES,
+                               **linalg_small.LAUNCHES},
+                  "nodes": export.program_nodes(run)}
 torch.save(out, os.path.join(d, "outputs.pt"))
 mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "simplemath_tpu"))
 print(json.dumps({"loaded": info, "foreign_modules": mods}))
@@ -2306,6 +2319,20 @@ def _export_cases(dev, rng, sm):
     ]
 
 
+def _nested_cases(dev, rng):
+    """(artifact name, function of tensors, its arguments): the whole solve
+    of ``NESTED_SM``, one program whose iteration and horizon loops are
+    nested scan nodes."""
+    import torch
+    from simplemath_tpu_torch.models import ILQRConfig, ilqr, make_sm_pendulum
+
+    pendulum, (b, h, iters) = make_sm_pendulum(), NESTED_SM
+    cfg = ILQRConfig(iterations=iters)
+    x0 = torch.from_numpy((0.2 * rng.standard_normal((b, 2))).astype(np.float32)).to(dev)
+    return [("nested_sm_pendulum", lambda x, u: tuple(ilqr.solve_batched(pendulum, x, u, cfg)[:3]),
+             (x0, torch.zeros((b, h, 1), device=dev)))]
+
+
 def utils_phase(dev, card):
     """Phase 10: the utils on the card.  The six kernel wrappers through
     torch.export and a loaded artifact; the cartpole and the sm pendulum
@@ -2347,6 +2374,20 @@ def utils_phase(dev, card):
             inputs[name] = args
             exported[name] = {"export_s": export_s, "nodes": len(ep.graph.nodes),
                               "MB": len(buf.getvalue()) / 1e6, "program": library.sm_nodes(ep.graph)}
+        # The nested solve, exported whole, its eager result kept (inputs
+        # from a generator of their own: the later workloads keep theirs).
+        nested_cases = _nested_cases(dev, np.random.default_rng(SEED + 19))
+        nested = {}
+        for name, fn, args in nested_cases:
+            live[name] = fn(*args)
+            _sync(dev)
+            t0 = time.perf_counter()
+            blob = export.export_step(fn, *args)
+            export_s = time.perf_counter() - t0
+            with open(os.path.join(d, name + ".pt2"), "wb") as f:
+                f.write(blob)
+            inputs[name] = args
+            nested[name] = {"export_s": export_s, "MB": len(blob) / 1e6}
         torch.save(inputs, os.path.join(d, "inputs.pt"))
         _sync(dev)
         env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
@@ -2365,6 +2406,19 @@ def utils_phase(dev, card):
         exported[name].update(info, op=op)
         log(f"export {name} on {card}: {json.dumps(exported[name])}")
     out["exported"] = exported
+    for name, _, _ in nested_cases:
+        row = nested[name]
+        row.update(loaded["loaded"][name], card=card,
+                   bits_equal=_same_bits([t.to(dev) for t in served[name]], live[name]))
+        row["launches"] = {k: v for k, v in row["launches"].items() if v}
+        check(row["bits_equal"], f"{name}: the loaded program's result differs from the eager bits")
+        check(all(bool(torch.isfinite(t).all()) for t in _leaves(live[name])),
+              f"{name}: non-finite results")
+        log(f"nested {name} on {card}: {json.dumps(row)}")
+    for name in ("ew_flat", "ew_strided"):
+        check(nested["nested_sm_pendulum"]["launches"].get(name, 0) > 0,
+              f"the loaded nested sm pendulum launched no {name}")
+    out["nested"] = nested
 
     # ------------------------- 10b. the solves served from artifacts
     # BASELINE config 3 whole and config 2 as the north star writes it, at
@@ -4252,6 +4306,9 @@ def main():
             k["sharded_graph_launches"] = par["nccl_1"]["compiled"]["sm_pendulum"]["launches"][k["name"]]
             # The same in phase 10's served sm pendulum: its loaded programs' graphs.
             k["served_graph_launches"] = utils["served"]["sm_pendulum"]["launches"][k["name"]]
+            # One call of phase 10's nested sm pendulum, loaded: the whole
+            # solve as one program, its loops nested scan nodes.
+            k["nested_loaded_launches"] = utils["nested"]["nested_sm_pendulum"]["launches"][k["name"]]
 
     # -------------------------------------------------------- 12. psd
     t0 = time.perf_counter()

@@ -19,6 +19,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
 
 from ..config import config
 from ..utils import graphs
@@ -82,7 +83,9 @@ def _cached_constant(values: tuple, dtype, device) -> torch.Tensor:
     # Copied to the card once per (values, dtype, device) and without a
     # stream sync, so that a solve pays no host round trip for constants.
     # Made outside any torch.func transform: a tensor made inside one is
-    # that transform's, and must not outlive it in the cache.  A CUDA graph
+    # that transform's, and must not outlive it in the cache.  Made outside
+    # an export's trace too: the program holds it as a constant whether this
+    # call or an earlier one made it.  A CUDA graph
     # cannot hold the copy: the warm-up call before a capture makes every
     # constant the program needs, and a program that needs more than the
     # cache holds fails its capture here.
@@ -90,7 +93,7 @@ def _cached_constant(values: tuple, dtype, device) -> torch.Tensor:
         raise graphs.CaptureError(
             f"the constant {values} ({dtype}, {device}) was first asked for while a "
             "CUDA graph was captured; the warm-up call should have made it")
-    with torch._C._DisableFuncTorch():
+    with torch._C._DisableFuncTorch(), disable_proxy_modes_tracing():
         return torch.tensor(values, dtype=dtype).to(device, non_blocking=True)
 
 

@@ -682,12 +682,11 @@ def solve(
     )
     psd_mode = _psd_mode(config, system)
 
-    xs = rollout(system.step, x0, us_init)
-    us = us_init
-    cost = trajectory_cost(system, xs, us_init)
-    reg = torch.full((), config.reg_init, dtype=xs.dtype, device=xs.device)
-    cost_trace, grad_norm = [], None
-    for _ in range(config.iterations):
+    xs0 = rollout(system.step, x0, us_init)
+    cost0 = trajectory_cost(system, xs0, us_init)
+
+    def iteration(carry, _):
+        xs, us, cost, reg = carry
         A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T = linearize(system, xs, us)
         lxx, luu, lux, Vxx_T = psd_cost_hessians(
             lxx, luu, lux, Vxx_T, psd_mode, config.psd_eps
@@ -705,9 +704,14 @@ def solve(
         reg = _next_reg(improved, reg, config)
         cost = torch.where(improved, cost_new, cost)
         grad_norm = _finite_norm(torch.amax(torch.abs(ks)))
-        cost_trace.append(cost)
+        return (xs, us, cost, reg), (cost, grad_norm)
+
+    init = (xs0, us_init, cost0, torch.full((), config.reg_init, dtype=xs0.dtype, device=xs0.device))
+    (xs, us, cost, _), (cost_trace, grad_norms) = scan(
+        iteration, init, None, length=config.iterations
+    )
     return ILQRResult(
-        xs=xs, us=us, cost=cost, cost_trace=torch.stack(cost_trace), grad_norm=grad_norm
+        xs=xs, us=us, cost=cost, cost_trace=cost_trace, grad_norm=grad_norms[-1]
     )
 
 
@@ -795,12 +799,9 @@ def solve_batched(
     """
     static = (system, config)
     carry = _batched_init(static, x0_batch, us_init_batch)
-    costs, norms = [], []
-    for _ in range(config.iterations):
-        carry, (cost, grad_norm) = _batched_iteration(static, carry)
-        costs.append(cost)
-        norms.append(grad_norm)
-    return _batched_result(carry, torch.stack(costs), torch.stack(norms))
+    carry, (costs, norms) = scan(lambda c, _: _batched_iteration(static, c), carry, None,
+                                 length=config.iterations)
+    return _batched_result(carry, costs, norms)
 
 
 _BATCHED_INIT = graphs.Jit(_batched_init)

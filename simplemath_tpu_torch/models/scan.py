@@ -39,6 +39,12 @@ def tracing():
         _TRACING.reset(token)
 
 
+def in_tracing() -> bool:
+    """Whether the caller runs inside :func:`tracing`, in an export's
+    trace."""
+    return _TRACING.get()
+
+
 def scan(body: Callable, carry, xs=None, length=None, *, consts=(), reverse=False):
     """``jax.lax.scan``: ``body(carry, x_t, *consts) -> (carry, y_t)`` for
     each row ``x_t`` of ``xs`` (a tensor or a pytree of tensors with the
@@ -51,7 +57,9 @@ def scan(body: Callable, carry, xs=None, length=None, *, consts=(), reverse=Fals
     ``graphs.Scan`` requires; constants of the model (``_constant``) may be
     closed over.  Traced, the body's tensors that are not arguments become
     inputs of the ``scan`` node."""
-    xs_leaves, xs_spec = _pytree.tree_flatten(xs)
+    xs_leaves, xs_spec = _flatten(xs)
+    if length is None and not xs_leaves:
+        raise ValueError("scan: without xs, give the number of steps as length")
     n = length if length is not None else xs_leaves[0].shape[0]
     if any(x.shape[0] != n for x in xs_leaves):
         raise ValueError(f"scan: every xs needs {n} rows, got {[tuple(x.shape) for x in xs_leaves]}")
@@ -65,15 +73,25 @@ def scan(body: Callable, carry, xs=None, length=None, *, consts=(), reverse=Fals
     return _loop(body, carry, xs_leaves, xs_spec, n, tuple(consts), reverse)
 
 
+def _flatten(tree):
+    """``tree``'s leaves and spec, where None has no leaf, as in
+    ``lax.scan`` (torch's pytree counts None a leaf in some versions)."""
+    return ([], None) if tree is None else _pytree.tree_flatten(tree)
+
+
+def _unflatten(leaves, spec):
+    return None if spec is None else _pytree.tree_unflatten(leaves, spec)
+
+
 def _loop(body, carry, xs_leaves, xs_spec, n, consts, reverse):
     """The eager scan: a Python loop, each leaf of ``y`` stacked once."""
     ys = [None] * n
     for t in (reversed(range(n)) if reverse else range(n)):
-        x_t = _pytree.tree_unflatten([x[t] for x in xs_leaves], xs_spec)
+        x_t = _unflatten([x[t] for x in xs_leaves], xs_spec)
         carry, ys[t] = body(carry, x_t, *consts)
-    leaves = [_pytree.tree_flatten(y)[0] for y in ys]
-    spec = _pytree.tree_flatten(ys[0])[1]
-    return carry, _pytree.tree_unflatten([torch.stack(v) for v in zip(*leaves)], spec)
+    leaves = [_flatten(y)[0] for y in ys]
+    spec = _flatten(ys[0])[1]
+    return carry, _unflatten([torch.stack(v) for v in zip(*leaves)], spec)
 
 
 def _traced(body, carry, xs_leaves, xs_spec, n, consts, reverse):
@@ -106,8 +124,7 @@ def _traced(body, carry, xs_leaves, xs_spec, n, consts, reverse):
             x_dims.append(0 if b is not None else None)
         low_consts, c_dims = zip(*(_unwrap_batched(c, level) for c in consts)) if consts else ((), ())
         mapped = torch.vmap(
-            lambda c, x, *k: body(_pytree.tree_unflatten(c, carry_spec),
-                                  _pytree.tree_unflatten(x, xs_spec), *k),
+            lambda c, x, *k: body(_pytree.tree_unflatten(c, carry_spec), _unflatten(x, xs_spec), *k),
             in_dims=(0, x_dims, *c_dims), randomness=interp.randomness())
 
         def low_body(c, x, *k):
@@ -116,17 +133,25 @@ def _traced(body, carry, xs_leaves, xs_spec, n, consts, reverse):
 
         new, ys = _traced(low_body, tuple(low_carry), low_xs, _pytree.tree_flatten(low_xs)[1], n,
                           tuple(low_consts), reverse)
-    # The mapped body's outputs lead with the batch dim; a stacked y has
-    # the steps before it.
+        # A stacked y has the steps before the batch dim.  The eager loop
+        # stacks batched rows batch dim first, so it is laid out so here
+        # too: a reduction over the steps then sums in the same order.
+        y_leaves, y_spec = _flatten(ys)
+        y_leaves = [y.movedim(1, 0).contiguous() for y in y_leaves]
+    # The mapped body's outputs lead with the batch dim.
     new = [_add_batch_dim(t, 0, level) for t in new]
-    ys = _pytree.tree_map(lambda t: _add_batch_dim(t, 1, level), ys)
+    ys = _unflatten([_add_batch_dim(t, 0, level) for t in y_leaves], y_spec)
     return _pytree.tree_unflatten(new, carry_spec), ys
 
 
 def _emit(body, carry, xs_leaves, xs_spec, n, consts, reverse):
     """Record ``scan_op`` over ``body`` traced once with ``make_fx`` on
-    real tensors.  The values that flow on in the outer trace are the eager
-    loop's: a real-tensor trace goes on with real values."""
+    real tensors.  The loop does not run: the values that flow on in the
+    outer trace are the traced step's, its carry and each of its outputs
+    repeated ``n`` times.  They have the loop's shapes, dtypes and strides,
+    and nothing in an export's trace depends on a value (a host read raises,
+    ``utils.export``), so the recorded program is the same; a nested scan
+    runs one step a level, not the loops inside loops."""
     from torch._higher_order_ops.scan import scan_op
     from torch._higher_order_ops.utils import unique_graph_id
     from torch.fx.experimental.proxy_tensor import (
@@ -135,8 +160,6 @@ def _emit(body, carry, xs_leaves, xs_spec, n, consts, reverse):
 
     tracer = get_proxy_mode().tracer
     carry_leaves, carry_spec = _pytree.tree_flatten(carry)
-    with disable_proxy_modes_tracing():
-        real_carry, real_ys = _loop(body, carry, xs_leaves, xs_spec, n, consts, reverse)
     # torch's scan holds the carry's strides fixed: it enters and leaves
     # each step contiguous.
     carry_leaves = [c.contiguous() for c in carry_leaves]
@@ -146,10 +169,11 @@ def _emit(body, carry, xs_leaves, xs_spec, n, consts, reverse):
     if reverse:
         xs_leaves = [torch.flip(x, [0]) for x in xs_leaves]
     n_carry, n_xs = len(carry_leaves), len(xs_leaves)
+    step = []  # the traced step's outputs and the spec of its y
 
     def flat(*args):
         c = _pytree.tree_unflatten(list(args[:n_carry]), carry_spec)
-        x = _pytree.tree_unflatten(list(args[n_carry:n_carry + n_xs]), xs_spec) if has_xs else None
+        x = _unflatten(list(args[n_carry:n_carry + n_xs]) if has_xs else [], xs_spec)
         new, y = body(c, x, *args[n_carry + n_xs:])
         new_leaves, new_spec = _pytree.tree_flatten(new)
         if new_spec != carry_spec:
@@ -157,10 +181,11 @@ def _emit(body, carry, xs_leaves, xs_spec, n, consts, reverse):
         # torch's scan takes no output that aliases an input or another output.
         seen = {a.untyped_storage().data_ptr() for a in args}
         outs = []
-        for o in [c.contiguous() for c in new_leaves] + _pytree.tree_flatten(y)[0]:
+        for o in [c.contiguous() for c in new_leaves] + _flatten(y)[0]:
             ptr = o.untyped_storage().data_ptr()
             outs.append(o.clone() if ptr in seen else o)
             seen.add(ptr)
+        step[:] = [outs, _flatten(y)[1]]
         return outs
 
     with disable_proxy_modes_tracing():
@@ -172,16 +197,16 @@ def _emit(body, carry, xs_leaves, xs_spec, n, consts, reverse):
     args = (graph, list(carry_leaves), list(xs_leaves), list(consts))
     proxy = tracer.create_proxy("call_function", scan_op,
                                 _pytree.tree_map(tracer.unwrap_proxy, args), {}, name="scan")
-    real_y_leaves, y_spec = _pytree.tree_flatten(real_ys)
-    if reverse:
-        with disable_proxy_modes_tracing():
-            real_y_leaves = [torch.flip(y, [0]) for y in real_y_leaves]
-    out = track_tensor_tree(_pytree.tree_flatten(real_carry)[0] + real_y_leaves, proxy,
-                            constant=None, tracer=tracer)
+    outs, y_spec = step
+    with disable_proxy_modes_tracing():
+        # Stacked as the loop stacks them: contiguous, whatever n (an
+        # expanded clone keeps a stride of 0 where n is 1).
+        values = outs[:n_carry] + [y.repeat((n,) + (1,) * y.dim()) for y in outs[n_carry:]]
+    out = track_tensor_tree(values, proxy, constant=None, tracer=tracer)
     new, ys = out[:n_carry], out[n_carry:]
     if reverse:
         ys = [torch.flip(y, [0]) for y in ys]
-    return _pytree.tree_unflatten(list(new), carry_spec), _pytree.tree_unflatten(list(ys), y_spec)
+    return _pytree.tree_unflatten(list(new), carry_spec), _unflatten(list(ys), y_spec)
 
 
 def _lift_constants(graph) -> tuple:

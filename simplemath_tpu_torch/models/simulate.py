@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
 
 from ..utils import graphs
 from . import ilqr as _ilqr
@@ -66,9 +67,13 @@ def closed_loop(
     x = as_tensor(x0, torch.float32)
     if generator is None:
         generator = torch.Generator(x.device).manual_seed(0)
-    noises = noise_std * torch.randn(
-        (ticks, system.nx), generator=generator, dtype=torch.float32, device=x.device
-    )
+    # A generator cannot be an input of an exported program: in an export's
+    # trace the noise is drawn outside it and the program holds it as a
+    # constant, as a JAX export holds the noise of its constant key.
+    with disable_proxy_modes_tracing():
+        noises = noise_std * torch.randn(
+            (ticks, system.nx), generator=generator, dtype=torch.float32, device=x.device
+        )
     bounds = ()
     if u_min is not None:
         bounds = tuple(as_tensor(b, torch.float32, x.device) for b in (u_min, u_max))

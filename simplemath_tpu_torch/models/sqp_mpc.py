@@ -32,6 +32,7 @@ from ..utils import graphs
 from ..utils.precision import f32_matmuls
 from . import ilqr as _ilqr
 from .dynamics import System, _constant, as_tensor
+from .scan import scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,11 +148,12 @@ def solve_constrained(
 
     def inner_ilqr(xs, us, lam_lo, lam_hi, mu):
         """iLQR iterations on the augmented objective L_A."""
-        obj = _ilqr.trajectory_cost(system, xs, us) + al_penalty(
+        obj0 = _ilqr.trajectory_cost(system, xs, us) + al_penalty(
             us, lam_lo, lam_hi, mu
         )
-        reg = torch.full((), config.reg_init, dtype=us.dtype, device=us.device)
-        for _ in range(config.ilqr_iterations):
+
+        def iteration(carry, _, lam_lo, lam_hi, mu):
+            xs, us, obj, reg = carry
             A, B, lx, lu, lxx, luu, lux, Vx_T, Vxx_T = _ilqr.linearize(
                 system, xs, us
             )
@@ -170,12 +172,15 @@ def solve_constrained(
             us = torch.where(improved, us_new, us)
             obj = torch.where(improved, obj_new, obj)
             reg = _ilqr._next_reg(improved, reg, config)
+            return (xs, us, obj, reg), None
+
+        init = (xs, us, obj0, torch.full((), config.reg_init, dtype=us.dtype, device=us.device))
+        (xs, us, _, _), _ = scan(iteration, init, None, length=config.ilqr_iterations,
+                                 consts=(lam_lo, lam_hi, mu))
         return xs, us
 
-    us = us_init
-    lam_lo = lam_hi = torch.zeros_like(us_init)
-    mu = torch.full((), config.penalty_init, dtype=us_init.dtype, device=us_init.device)
-    for _ in range(config.sqp_iterations):
+    def outer(carry, _, x0):
+        us, lam_lo, lam_hi, mu = carry
         xs = _ilqr.rollout(system.step, x0, us)
         xs, us = inner_ilqr(xs, us, lam_lo, lam_hi, mu)
         # First-order multiplier update at the new iterate.
@@ -183,6 +188,12 @@ def solve_constrained(
             lam_hi = torch.clamp_min(lam_hi + mu * (us - u_max), 0.0)
             lam_lo = torch.clamp_min(lam_lo + mu * (u_min - us), 0.0)
         mu = torch.clamp_max(mu * config.penalty_scale, config.penalty_max)
+        return (us, lam_lo, lam_hi, mu), None
+
+    lam0 = torch.zeros_like(us_init)
+    mu0 = torch.full((), config.penalty_init, dtype=us_init.dtype, device=us_init.device)
+    (us, lam_lo, lam_hi, _), _ = scan(outer, (us_init, lam0, lam0, mu0), None,
+                                      length=config.sqp_iterations, consts=(x0,))
     xs = _ilqr.rollout(system.step, x0, us)
     cost = _ilqr.trajectory_cost(system, xs, us)
     viol = torch.amax(_violation(us, u_min, u_max))
@@ -244,9 +255,14 @@ class MPCController:
             self._bounds = tuple(as_tensor(b, torch.float32, self.us_warm.device)
                                  for b in (u_min, u_max))
 
+    def plan(self, x, us_warm):
+        """The compiled replan as a function of the state and a warm start,
+        the JAX package's ``_replan``: returns ``(u0, us_next, cost)`` and
+        keeps no state, so ``utils.export.export_step`` takes it."""
+        return _REPLAN((self.system, self._config), as_tensor(x), us_warm, *self._bounds)
+
     def replan(self, x):
-        u0, us_next, cost = _REPLAN((self.system, self._config), as_tensor(x), self.us_warm,
-                                    *self._bounds)
+        u0, us_next, cost = self.plan(x, self.us_warm)
         self.us_warm.copy_(us_next)
         return u0, cost
 

@@ -35,7 +35,17 @@ the scalar's storage, which a fake tensor has not ("Cannot access data
 pointer of Tensor that doesn't have storage").  A ``models.scan.scan``
 inside ``fn`` becomes one node of torch's ``scan`` operator over its body,
 traced once (models/scan.py), as a ``lax.scan`` stays a loop in a JAX
-export; other Python loops are unrolled.
+export; a ``scan`` inside a traced body is a node of that body, so nested
+loops stay nested.  Every loop that the JAX package writes as a
+``lax.scan`` is one in the port: the solvers' horizon loops, the iLQR and
+SQP iterations, the closed loops' ticks (``utils.graphs.Scan`` is a
+``scan`` inside a trace, and a ``graphs.Jit`` its function, traced; no
+CUDA graph is captured during an export).  Python loops over a static
+count that the JAX package unrolls too are unrolled here: the loops over
+the state and control dims of ``linearize_soa`` (a Jacobian's columns) and
+``forward_linesearch_soa``, the levels of ``associative_scan``.
+``sqp_mpc.scenario_mpc_solve`` reads each iteration's cost on the host and
+does not export, in either package.
 
 A real-tensor trace would fix a branch on a tensor's value (``.item()``,
 ``bool(x)``, ``if x.sum() > 0``) at the example's value, and the artifact
@@ -47,6 +57,7 @@ Python value.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import zipfile
@@ -102,6 +113,22 @@ def _device(platforms, example_args):
     return want
 
 
+@contextlib.contextmanager
+def _no_stack_traces():
+    """No Python stack trace recorded on each node of the program: a third
+    of ``torch.export``'s time on a solver's program on the CPU with torch
+    2.13.  Torch 2.11 has no such switch, and records them."""
+    cfg = getattr(torch.fx, "config", None)
+    if not hasattr(cfg, "do_not_emit_stack_traces"):
+        yield
+        return
+    old, cfg.do_not_emit_stack_traces = cfg.do_not_emit_stack_traces, True
+    try:
+        yield
+    finally:
+        cfg.do_not_emit_stack_traces = old
+
+
 def export_program(fn, *example_args, platforms=None) -> torch.export.ExportedProgram:
     """``fn`` traced at the example arguments (tensors, or pytrees of
     them) as a ``torch.export.ExportedProgram``.  ``platforms`` (None,
@@ -117,11 +144,12 @@ def export_program(fn, *example_args, platforms=None) -> torch.export.ExportedPr
         with _NoHostReads():
             return fn(*args)
 
-    with tracing():
-        graph_module = make_fx(guarded, tracing_mode="real")(*example_args)
-    graph_module.graph.eliminate_dead_code()
-    graph_module.recompile()
-    program = torch.export.export(_Traced(graph_module), tuple(example_args), strict=False)
+    with _no_stack_traces():
+        with tracing():
+            graph_module = make_fx(guarded, tracing_mode="real")(*example_args)
+        graph_module.graph.eliminate_dead_code()
+        graph_module.recompile()
+        program = torch.export.export(_Traced(graph_module), tuple(example_args), strict=False)
     # The artifact carries no example inputs (the 64M sum's would be 256 MB).
     program.example_inputs = None
     return program
@@ -189,7 +217,8 @@ def _scans_as_loops(module):
 
 
 def program_nodes(module) -> int:
-    """Nodes of a loaded program's graph and of its ``scan`` bodies."""
+    """Nodes of a loaded program's graph and of its ``scan`` bodies, at
+    every level of nesting."""
     return sum(len(m.graph.nodes) for m in module.modules()
                if isinstance(m, torch.fx.GraphModule))
 
@@ -241,11 +270,7 @@ def export_solver_step(system, ilqr_config, batch: int, horizon: int,
     x0s = torch.zeros((batch, system.nx), dtype=torch.float32, device=device)
     us = torch.zeros((batch, horizon, system.nu), dtype=torch.float32, device=device)
     with exact_float32():
-        # One eager call of each first: a model constant made during a
-        # trace would add a node that a later export of the same model
-        # does not have.
-        carry = _batched_init(static, x0s, us)
-        _batched_iteration(static, carry)
+        carry = _batched_init(static, x0s, us)  # the iteration's example carry
         init = export_program(lambda x, u: _batched_init(static, x, u), x0s, us,
                               platforms=platforms)
         iteration = export_program(lambda *c: _batched_iteration(static, c), *carry,

@@ -57,6 +57,12 @@ resources of the communicators whose kernels they captured.
 On the CPU, or inside :func:`eager` (``jax.disable_jit``'s counterpart),
 the same functions run the body loop eagerly: the same ops in the same
 order, so the results have the captured program's bits.
+
+Inside an export's trace (``models.scan.tracing()``, which
+``utils.export`` enters) nothing is captured: a :class:`Jit` is its
+function, traced, and a :class:`Scan` is one ``models.scan.scan`` over its
+body, which the trace records as one ``scan`` node, as ``jax.export`` of a
+``jax.jit`` that holds a ``lax.scan`` keeps the loop.
 """
 
 from __future__ import annotations
@@ -125,6 +131,13 @@ def captures(device: torch.device) -> bool:
     """Whether a compiled entry point on ``device`` runs as a graph: on the
     card, unless inside :func:`eager`."""
     return device.type == "cuda" and not _EAGER.get()
+
+
+def _exporting() -> bool:
+    """Inside an export's trace (``models.scan.tracing()``): no capture."""
+    from ..models.scan import in_tracing
+
+    return in_tracing()
 
 
 @contextlib.contextmanager
@@ -316,7 +329,7 @@ class Jit(_Program):
 
     def __call__(self, static, *tensors):
         device = _device(tensors)
-        if not captures(device):
+        if _exporting() or not captures(device):
             return self.fn(static, *tensors)
 
         def build():
@@ -352,16 +365,16 @@ class Scan(_Program):
         self.body = body
 
     def __call__(self, static, carry, length: int, xs=(), consts=()):
+        from ..models.scan import scan
+
         carry, xs, consts = tuple(carry), tuple(xs), tuple(consts)
         if length < 1:
             raise ValueError(f"a scan runs at least one step, not {length}")
         device = _device(carry + xs + consts)
-        if not captures(device):
-            ys = []
-            for t in range(length):
-                carry, y = self.body(static, carry, tuple(x[t] for x in xs), consts)
-                ys.append(y)
-            return carry, tuple(torch.stack(v) for v in zip(*ys))
+        if _exporting() or not captures(device):
+            # Eagerly the body loop; in an export's trace one scan node.
+            return scan(lambda c, x, *k: self.body(static, c, x, k), carry, xs, length,
+                        consts=consts)
         key = (length, len(carry), len(xs), _meta(carry + xs + consts))
         entry = self._entry(static, key,
                             lambda: self._build(static, carry, length, xs, consts, device))

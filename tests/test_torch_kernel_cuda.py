@@ -2398,6 +2398,69 @@ def test_served_solve_replays_with_the_compiled_bits(cuda):
     assert _same_leaves(first, (want.us, want.cost)) and _same_leaves(again, first)
 
 
+def _loaded_call_without_sync(fn, args, counters):
+    """The artifact of ``fn`` at ``args`` loaded back and called twice, the
+    second time under sync debug mode "error" with ``counters`` reset
+    first: (the second call's result, the launches it counted)."""
+    from simplemath_tpu_torch.utils import export
+
+    run = export.load_step(export.export_step(fn, *args))
+    run(*args)
+    for c in counters:
+        c.reset_launches()
+    got = _replay_without_sync(lambda: run(*args))
+    torch.cuda.synchronize()
+    return got, {k: v for c in counters for k, v in c.LAUNCHES.items() if v}
+
+
+def test_nested_sm_pendulum_solve_loaded_on_its_kernels(cuda):
+    """The ``sm`` pendulum's whole ``solve_batched`` (64 x H=20, 3
+    iterations) exported as one program, its iteration loop a ``scan``
+    node around the horizon loops': loaded and called with no host sync,
+    it launches ``ew_flat`` and ``ew_strided`` and gives the eager bits."""
+    from simplemath_tpu_torch.models import ilqr, make_sm_pendulum
+    from simplemath_tpu_torch.ops import elementwise
+
+    system, cfg = make_sm_pendulum(), ilqr.ILQRConfig(iterations=3)
+
+    def fn(x, u):
+        return tuple(ilqr.solve_batched(system, x, u, cfg)[:3])
+
+    x0 = (0.2 * torch.randn((64, 2), generator=torch.Generator().manual_seed(7))).to(cuda)
+    us = torch.zeros((64, 20, 1), device=cuda)
+    want = fn(x0, us)
+    got, launches = _loaded_call_without_sync(fn, (x0, us), (elementwise,))
+    assert launches.get("ew_flat", 0) > 0 and launches.get("ew_strided", 0) > 0, launches
+    assert _same_leaves(got, want)
+
+
+def test_nested_coupled_replan_loaded_on_psd_project(cuda):
+    """``MPCController.plan`` of the coupled quadrotor (``psd="eigh"``,
+    H=20, 2 iterations, the box clamped) exported with its iteration loop
+    kept: loaded and called with no host sync, it launches
+    ``psd_project`` twice an iteration and gives the eager bits."""
+    import dataclasses
+
+    from simplemath_tpu_torch.models import MPCController, make_quadrotor
+    from simplemath_tpu_torch.ops import linalg_small
+
+    base = make_quadrotor()
+
+    def stage_cost(x, u):  # tests/test_torch_psd.py::coupled
+        return base.stage_cost(x, u) + 0.05 * x[9] * u[1] - 0.049 * x[9] ** 2
+
+    system = dataclasses.replace(base, name="quadrotor_coupled", stage_cost=stage_cost,
+                                 separable_cost=False)
+    ctrl = MPCController(system, 20, u_min=[-5.0, -1.0, -1.0, -1.0], u_max=[5.0, 1.0, 1.0, 1.0],
+                         replan_iters=2)
+    x0 = (0.1 * torch.randn((12,), generator=torch.Generator().manual_seed(8))).to(cuda)
+    us = torch.zeros((20, 4), device=cuda)
+    want = ctrl.plan(x0, us)
+    got, launches = _loaded_call_without_sync(ctrl.plan, (x0, us), (linalg_small,))
+    assert launches == {"psd_project": 4}, launches
+    assert _same_leaves(got, want)
+
+
 def test_captured_solve_keeps_exact_float32_matmuls(cuda):
     """The products recorded at capture are exact float32; replaying them
     with TF32 turned on globally reads no flag."""

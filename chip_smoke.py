@@ -7,7 +7,8 @@ Runs ``simplemath_tpu_torch`` (never JAX) on ``cuda:0``, the port's default
 device:
 
 1. the card (``nvidia-smi``), torch and CUDA versions;
-2. builds the kernels from ``simplemath_tpu_torch/csrc``, timed;
+2. builds the kernels from ``simplemath_tpu_torch/csrc``, timed, and starts
+   compiling the generated kernels of phases 3d and 5d on other threads;
 3. holds the kernel against its plain PyTorch version on the card, same
    inputs: flat and broadcast adds, transposed and negative-step view
    operands, every opcode on float32, int32, uint32 and bfloat16 (integer
@@ -31,13 +32,21 @@ device:
    backwards), ranks 1 to 8 with a broadcast row and a negative-step
    operand, a carry over 1 and 16 iterations and a program of
    ``MAX_INSTS`` instructions, each launch on the kernel
-   ``elementwise.PATHS`` names;
+   ``elementwise.PATHS`` names; ``ew_flat``'s kernels generated per program
+   (every program of more than one instruction) give the interpreter's bits
+   (``flat_generated_checks``: every opcode and cast on float32, int32,
+   uint32, bool and bfloat16 after a select, scalar operands, a ragged
+   tail, bfloat16 operands 2 bytes off, programs of ``MAX_INSTS``
+   instructions), each launch counted ``generated`` in
+   ``elementwise.FLAT_PATHS``;
 4. drives the two workloads of BASELINE.json through the public ``sm`` API
    at full size (the 1M-float ``sm.add``; ``sm.fuse(chain, donate=0,
    iterations=L)`` on 2048x2048 with L = 16 and 400), counts the kernel's
    launches (one per call; both recurrences on ``ew_strided``'s generated
    kernels), prints NVRTC's milliseconds per new signature and the cache's
-   counts, and checks the results;
+   counts, and checks the results; then the flat chain ``a * b + c - a`` on
+   16M floats through ``sm.fuse``: one launch of ``ew_flat``'s kernel
+   generated for it, exact;
 5. the reductions: holds the map-reduce kernel (``rd_full``, ``rd_axis``)
    against its plain version on the card (ragged 1-D, (8192, 8192), a
    transposed and a negative-step view, NaN, the f32, int32 (exact, with
@@ -45,20 +54,26 @@ device:
    an (R, 1) column operand, axis 0 and 1, bfloat16 and float16 inputs
    full and along both axes (8-byte quads on the ``direct`` loop where the
    operand and its rows allow them, each the bits of the same values 2
-   bytes off, on the ``element`` path) and bfloat16 map-reduces on
-   ``lanes4`` and on ``single`` (rounded on each lane); sums and dots within
+   bytes off, gathered by a generated evaluator) and bfloat16 map-reduces on
+   a generated evaluator and on ``single`` (rounded on each lane); sums and
+   dots within
    2e-5 * sum|x| of the plain version and of float64 numpy, max/min and
    the int32 dot exact, every result bit-identical across two launches),
    each on the path ``reduction.PATHS`` must name: ``direct`` (identity),
-   ``single`` (the f32 and int32 dots, ``x * 1.0``), ``lanes4`` (the
-   f32.int32 dot, ``x * 1.0 + 0.0``, the map-reduce), ``element`` (a view
-   one element off, a transposed view, ragged rows), for ``rd_full`` and
-   for ``rd_axis`` along both axes of a ragged (517, 1030) matrix, all
-   paths giving the bits of the direct one,
+   ``single`` (the f32 and int32 dots, ``x * 1.0``), ``generated`` (the
+   f32.int32 dot, ``x * 1.0 + 0.0``, the map-reduce, and every launch whose
+   operands are gathered: a view one element off, a transposed view, ragged
+   rows), for ``rd_full`` and for ``rd_axis`` along both axes of a ragged
+   (517, 1030) matrix, all paths giving the bits of the direct one; the
+   generated evaluators give ``reduction.interpret``'s bits on every walk
+   (``reduction_generated_checks``: flat, rows, strided, flat gathered, axis
+   0 and 1 on quads and gathered; sum, max and min; float32, bfloat16 and
+   float16),
    then drives bench.py's reduction workloads through the public API at
    full size (``Array.sum()`` of 64M f32, ``sm.dot`` of two 32M vectors,
    the fused squared distance with a 0-d operand, the fused thresholded
-   axis sums of (8192, 8192), a lazy ``sm.sum`` of a pending chain) and
+   axis sums of (8192, 8192), a lazy ``sm.sum`` of a pending chain, the
+   fused ``sum(a * row - col)`` of (8192, 8192)) and
    counts each call's launches by entry point; then, through the public
    API too, the 1M add in bfloat16 and in uint32, int32 ``//`` of 1M, the
    L = 400 recurrence on bfloat16 arrays, ``Array.sum()`` of the 64M
@@ -81,7 +96,11 @@ device:
    as a yardstick the port never calls, the one PyTorch call that computes
    the same function where there is one (``torch.add``, ``torch.sum``,
    ``torch.dot``, ``torch.sum(dim)``, ``torch.matmul``, ``torch._int_mm``),
-   and the recurrences once more on ``ew_strided``'s interpreter.
+   and the recurrences once more on ``ew_strided``'s interpreter; the
+   programs on generated kernels (the 16M chain, the distance, ``a * row -
+   col``, the thresholded axis sums) beside their interpreters'
+   (``elementwise.interpret``, ``reduction.interpret``) on the same inputs,
+   with ptxas' registers and spills of each generated kernel.
    The 1M add is timed twice, kernel and ``torch.add`` alike: on the same
    three arrays again and again (12 MB: hot in the 50 MB L2, what a caller
    who adds the same arrays sees), and over a ring of operands and results
@@ -214,7 +233,7 @@ device:
    the first call's s (warm-up, capture, instantiate), the launches its
    graphs recorded (the ``sm`` pendulum's ``ew_flat`` and ``ew_strided``),
    one profiled replay of each graph, served and compiled solves/s; the
-   whole ``solve_batched`` of the ``sm`` pendulum (4096 x H=50, 10
+   whole ``solve_batched`` of the ``sm`` pendulum (4096 x H=50, 3
    iterations; the JAX package's ``export_solver_step`` form) exported as
    one program, its iteration and horizon loops nested ``scan`` nodes,
    loaded and called by the same process as the kernels' artifacts (nodes
@@ -269,7 +288,10 @@ device:
    loops; every graph holding the projection's launches; prints the
    ``psd`` JSON line (the served solve, the sharded train step and the
    scenario step of the coupled systems run in tools/time_torch_psd.py);
-13. prints the kernels' JSON line (each kernel's launches on the main path,
+13. prints the ``generated`` JSON line (``codegen.STATS``, NVRTC's
+   milliseconds and the new signatures by kind, a phase at a time, and the
+   signatures phases 8-11 generate) and the kernels' JSON line (each
+   kernel's launches on the main path,
    its error, its time beside the plain version's, the library call's and
    its bound on this card, and the bound's share of the time, which cannot
    read above 1; ``rd_full`` as the 64M sum and ``rd_full_dot`` as the dot
@@ -278,7 +300,10 @@ device:
    bf16 times, ``mm_int8``, ``mm_f32``, ``bmm_f32``, ``mm_int32`` and
    ``mm_int64`` beside them; ``ew_flat_bf16``, ``ew_flat_uint32``,
    ``ew_flat_idiv``, ``ew_strided_bf16``, ``rd_full_bf16``, ``rd_axis_bf16``
-   and ``rd_full_f16`` as phase 5b's workloads), then
+   and ``rd_full_f16`` as phase 5b's workloads; ``ew_flat_generated``,
+   ``rd_full_generated``, ``rd_full_rows_generated`` and
+   ``rd_axis_generated``, the generated routes, as phase 6's programs on
+   them, their interpreters' times beside), then
    ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result line, when any phase fails or no CUDA device
@@ -290,6 +315,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -312,6 +338,10 @@ MM_SOURCE = "simplemath_tpu_torch/csrc/matmul.cu"
 MM_OTHER_SOURCES = ["simplemath_tpu_torch/csrc/matmul_fma.cuh",
                     "simplemath_tpu_torch/csrc/matmul_elem.cu"]
 WGMMA_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma.cu"
+CODEGEN_SOURCE = "simplemath_tpu_torch/ops/codegen.py"
+NVRTC_SOURCE = "simplemath_tpu_torch/csrc/nvrtc.cu"
+RD_GENERATED_SOURCES = ["simplemath_tpu_torch/csrc/reduction.cuh",
+                        "simplemath_tpu_torch/csrc/reduction.cu", NVRTC_SOURCE]
 WGMMA_S8_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_s8.cu"
 WGMMA_I64_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_i64.cu"
 N_CHAIN = 16 * 1024 * 1024  # the flat chain a * b + c - a: 256 MB moved
@@ -617,6 +647,262 @@ def generated_checks(dev, rng, sm, elementwise, program):
     log(f"check ew_strided generated = interpreter, a program of {len(prog.insts)} instructions")
 
 
+def generated_phase(state, phase):
+    """The generated kernels of the phase that ends now (``state``: what
+    the last call saw, filled by the first): codegen.STATS' counts, the
+    milliseconds NVRTC took, and the new signatures by kind."""
+    from simplemath_tpu_torch.ops import codegen
+
+    now = (dict(codegen.STATS), len(codegen.COMPILE_MS), set(codegen.SEEN))
+    if "last" in state:
+        stats, n_ms, seen = state["last"]
+        new = now[2] - seen
+        state.setdefault("phases", {})[phase] = {
+            **{k: codegen.STATS[k] - stats[k] for k in stats},
+            "compile_ms": sum(codegen.COMPILE_MS[n_ms:]),
+            "signatures": {kind: sum(1 for sig in new if sig.kind == kind)
+                           for kind in ("strided", "flat", "reduce")}}
+    state["last"] = now
+
+
+N_FLAT_GEN = 4096 * 3 + 5  # ew_flat's generated kernel checks: quads and a tail of 1
+
+
+def flat_generated_cases(dev, seed=0):
+    """(label, program, shape, operands) of the checks of ew_flat's generated
+    kernel: every opcode of the registry (and every cast) on float32, int32,
+    uint32, bool and bfloat16 operands, each after a select (so that it is
+    no one-instruction program: those run the compiled kernel; a cast of
+    bools before it, since no opcode selects between bools), its second operand full-size
+    and a scalar, every operand at a 16-byte boundary; the bfloat16 ones
+    also 2 bytes off (no quads); and programs of MAX_INSTS instructions
+    over a full-size and a scalar operand.  ``N_FLAT_GEN`` elements: a
+    ragged tail."""
+    import torch
+    from simplemath_tpu_torch.ops import program, registry
+
+    n = N_FLAT_GEN
+    rng = np.random.default_rng(seed)
+
+    def aligned(values, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(values)).to(dev).to(dtype)
+        buf = torch.empty(n + 8, dtype=dtype, device=dev)
+        at = (-buf.data_ptr() // buf.element_size()) % (16 // buf.element_size())
+        return buf[at:at + n].copy_(t)
+
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, 1.0, -1.0, 88.7, -103.9],
+                       np.float32)
+    f = np.concatenate([rng.uniform(-5, 5, n - special.size), special]).astype(np.float32)
+    g = rng.uniform(-4, 4, n).astype(np.float32)
+    ints = np.array([0, 1, -1, 2**31 - 1, -2**31, 7, -7, 46341, 65536], np.int64)
+    i = np.concatenate([rng.integers(-100, 100, n - ints.size), ints])
+    j = np.concatenate([rng.integers(-5, 31, n - ints.size), [0, 5, -3, 2, -1, 0, 31, 2, -5]])
+    values = {
+        torch.float32: (aligned(f, torch.float32), aligned(g, torch.float32)),
+        torch.bfloat16: (aligned(f, torch.bfloat16), aligned(g, torch.bfloat16)),
+        torch.int32: (aligned(i.astype(np.int32), torch.int32), aligned(j.astype(np.int32), torch.int32)),
+        torch.uint32: (aligned(np.abs(i).astype(np.int32), torch.int32).view(torch.uint32),
+                       aligned(np.abs(j).astype(np.int32), torch.int32).view(torch.uint32)),
+        torch.bool: (aligned(f > 0, torch.bool), aligned(g > 0, torch.bool)),
+    }
+    mask = aligned(rng.standard_normal(n) > 0, torch.bool)
+    cases = []
+
+    def add(label, build, operands):
+        leaves = [program.leaf(tuple(o.shape), o.dtype) for o in operands]
+        cases.append((label, program.lower(build(*leaves), leaves), (n,), operands))
+
+    ops = list(registry.registered_ops().items()) + list(registry.INTERNAL.items())
+    for name, op in ops:
+        for dt, (x, y) in values.items():
+            if program.register_type(dt) not in op.opcodes:
+                continue
+            if dt == torch.bfloat16 and name in ("pow", "ipow"):
+                continue  # the engine computes pow in float32 (pow_expr)
+
+            def build(m, x, y, name=name, arity=op.arity, dt=dt):
+                first = program.apply("where", m, x, y)
+                args = [m, first, y] if name == "where" else [first, y, y][:arity]
+                if name in ("pow", "ipow"):
+                    return program.Node(name, args, dt, (n,))
+                return program.apply(name, *args)
+
+            add(f"{name} {dt}", build, [mask, x, y])
+            if op.arity >= 2:
+                add(f"{name} {dt}, scalar", build, [mask, x, y[:1].reshape(()).clone()])
+            if dt == torch.bfloat16:
+                add(f"{name} {dt}, 2 bytes off", build, [mask, two_bytes_off(x), y])
+    casts = [(src, dst) for src, dst in program._CASTS if src != dst] + [
+        (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+        (torch.int32, torch.bfloat16), (torch.bool, torch.bfloat16), (torch.bfloat16, torch.int32)]
+    for src, dst in casts:
+        x, y = values[src]
+        if src.is_floating_point and dst not in (torch.float32, torch.bfloat16, torch.bool):
+            x = torch.nan_to_num(x.float().clamp(0.0 if dst == torch.uint32 else -1e6, 1e6),
+                                 nan=0.5).to(src)
+            y = torch.nan_to_num(y.float().clamp(0.0, 1e6), nan=0.5).to(src)
+        if src == torch.bool:  # no select of bools: the casts first
+            def build(m, x, y, dst=dst):
+                return program.apply("where", m, program.cast(x, dst), program.cast(y, dst))
+        else:
+            def build(m, x, y, dst=dst):
+                return program.cast(program.apply("where", m, x, y), dst)
+        add(f"cast {src}->{dst}", build, [mask, x, y])
+    x, y = values[torch.float32]
+    for label, second in (("full", y), ("scalar", y[:1].reshape(()).clone())):
+        lx, ly = program.leaf((n,), torch.float32), program.leaf(tuple(second.shape), torch.float32)
+        root = lx
+        while len(program.lower(root * ly + 0.5, [lx, ly]).insts) <= program.MAX_INSTS:
+            root = root * ly + 0.5
+        cases.append((f"MAX_INSTS program, {label} operand", program.lower(root, [lx, ly]), (n,),
+                      [torch.nan_to_num(x.clamp(-1, 1), nan=0.5), second]))
+    return cases
+
+
+def compile_ahead(sigs):
+    """The kernels of ``sigs`` compiled into the disk cache, a thread a core
+    (NVRTC runs without the GIL): the checks that launch them next load
+    them from there."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from simplemath_tpu_torch.ops import codegen, elementwise
+
+    lib = elementwise._library()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(lambda src: codegen._cubin(lib, src), {codegen.source(s) for s in sigs}))
+
+
+def generated_signatures(dev):
+    """The signatures of ``flat_generated_cases`` and
+    ``reduction_generated_cases``: what ``compile_ahead`` compiles while the
+    phases before their checks run."""
+    from simplemath_tpu_torch.ops import elementwise, reduction
+
+    flat = [elementwise.signature(prog, prog.kernel_codes, shape, operands, flat=True)
+            for _, prog, shape, operands in flat_generated_cases(dev, SEED)]
+    return flat + [reduction.signature(prog, prog.kernel_codes, reduction._OP[kind], shape,
+                                       operands, axis)
+                   for _, prog, kind, axis, shape, operands in reduction_generated_cases(dev, SEED)]
+
+
+def flat_generated_checks(sm, elementwise, program, cases):
+    """Phase 3d: ew_flat's generated kernel against the interpreter
+    (``elementwise.interpret``), bit for bit, on ``flat_generated_cases``,
+    each launch on the generated kernel.  Returns the number of cases."""
+    import torch
+
+    compile_ahead(elementwise.signature(prog, prog.kernel_codes, shape, operands, flat=True)
+                  for _, prog, shape, operands in cases)
+    for label, prog, shape, operands in cases:
+        check(not elementwise.single(prog), f"{label}: a one-instruction program")
+        before = dict(elementwise.FLAT_PATHS)
+        g = elementwise.elementwise(prog, shape, prog.dtype, *operands, name="check")
+        took = {k: v - before[k] for k, v in elementwise.FLAT_PATHS.items() if v != before[k]}
+        check(took == {"generated": 1}, f"{label}: ew_flat took {took}")
+        i = elementwise.interpret(prog, shape, *operands)
+        torch.cuda.synchronize()
+        check(g.dtype == i.dtype and torch.equal(bits(g), bits(i)),
+              f"{label}: ew_flat's generated kernel differs from the interpreter")
+    return len(cases)
+
+
+def reduction_generated_cases(dev, seed=0):
+    """(label, program, kind, axis, shape, operands) of the checks of the
+    generated evaluators, every walk (``flat``, ``rows``, ``strided``, the
+    gathered flat walk, axis 0 and axis 1, quads and gathered), sum, max and
+    min, in float32, bfloat16 and float16 (its programs are the identity,
+    which runs a generated evaluator where its elements are gathered), at
+    ragged sizes."""
+    import torch
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch.ops import elementwise, program
+
+    rng = np.random.default_rng(seed)
+    n, (R, C) = 4096 * 3 + 777, (RAGGED_AXIS[0], 1032)
+
+    def aligned(*shape, dtype=torch.float32):
+        vals = rng.standard_normal(shape).astype(np.float32)
+        vals.flat[::97] = rng.uniform(-1e-3, 1e-3, vals.flat[::97].size)
+        t = torch.from_numpy(vals).to(dev).to(dtype)
+        buf = torch.empty(t.numel() + 8, dtype=dtype, device=dev)
+        at = (-buf.data_ptr() // buf.element_size()) % (16 // buf.element_size())
+        return buf[at:at + t.numel()].view(shape).copy_(t)
+
+    def lowered(fn, *operands):
+        leaves = [program.leaf(tuple(o.shape), o.dtype) for o in operands]
+        return program.lower(fn(*leaves), leaves)
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        a, b = aligned(n, dtype=dt), aligned(n, dtype=dt)
+        m = aligned(R, C, dtype=dt)
+        row, col, one = aligned(1, C, dtype=dt), aligned(R, 1, dtype=dt), aligned(1, 1, dtype=dt)
+        mt = elementwise.View(m, 0, (C, R), (1, C))  # transposed: gathered through its strides
+        a_off = two_bytes_off(a) if dt != torch.float32 else elementwise.View(
+            aligned(n + 1, dtype=dt), 1, (n,), (1,))
+        m_off = two_bytes_off(m) if dt != torch.float32 else elementwise.View(
+            aligned(R * C + 1, dtype=dt), 1, (R, C), (C, 1))
+        if dt == torch.float16:
+            ident = lambda x: x  # noqa: E731
+            progs = [("identity", ident, [a_off], None, (n,)),
+                     ("identity transposed", ident, [mt], None, (C, R))]
+            progs += [(f"identity axis {ax} 2 bytes off", ident, [m_off], ax, (R, C)) for ax in (0, 1)]
+            progs += [(f"identity transposed axis {ax}", ident, [mt], ax, (C, R)) for ax in (0, 1)]
+        else:
+            dist = lambda x, y, e: sm.square(x + e - y)  # noqa: E731
+            fused = lambda x, r, c: x * r - c  # noqa: E731
+            thr = lambda x, s: sm.where(x > s, x, 0.0)  # noqa: E731
+            chain = lambda x: x * x + x  # noqa: E731
+            progs = [("distance", dist, [a, b, one.reshape(())], None, (n,)),
+                     ("x*x+x", chain, [a], None, (n,)),
+                     ("distance, gathered", dist, [a_off, b, one.reshape(())], None, (n,)),
+                     ("m*row-col rows", fused, [m, row, col], None, (R, C)),
+                     ("m*row-col strided", fused, [mt, aligned(1, R, dtype=dt),
+                                                   aligned(C, 1, dtype=dt)], None, (C, R)),
+                     ("identity gathered", lambda x: x, [a_off], None, (n,))]
+            for ax in (0, 1):
+                progs += [(f"thresholded axis {ax}", thr, [m, one], ax, (R, C)),
+                          (f"m*row-col axis {ax}", fused, [m, row, col], ax, (R, C)),
+                          (f"thresholded axis {ax}, gathered", thr, [m_off, one], ax, (R, C)),
+                          (f"m*row-col transposed axis {ax}", fused,
+                           [mt, aligned(1, R, dtype=dt), aligned(C, 1, dtype=dt)], ax, (C, R))]
+        for label, fn, operands, axis, shape in progs:
+            prog = lowered(fn, *operands)
+            for kind in ("sum", "max", "min"):
+                cases.append((f"{dt} {label} {kind}", prog, kind, axis, shape, operands))
+    return cases
+
+
+def reduction_generated_checks(reduction, cases):
+    """Phase 5d: the generated evaluators against ``reduction.interpret``,
+    bit for bit, on ``reduction_generated_cases``, every launch on the
+    route ``generated``, every walk and gathered walk among them.  Returns
+    the walks seen."""
+    import torch
+
+    compile_ahead(reduction.signature(prog, prog.kernel_codes, reduction._OP[kind], shape,
+                                      operands, axis)
+                  for _, prog, kind, axis, shape, operands in cases)
+    walks = set()
+    for label, prog, kind, axis, shape, operands in cases:
+        before = dict(reduction.PATHS)
+        if axis is None:
+            g = reduction.map_reduce(prog, kind, shape, *operands)
+        else:
+            g = reduction.map_reduce_axis(prog, kind, axis, shape, *operands)
+        took = {k: v - before[k] for k, v in reduction.PATHS.items() if v != before[k]}
+        check(took == {"generated": 1}, f"{label}: took {took}")
+        i = reduction.interpret(prog, kind, axis, shape, operands)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(g), bits(i)), f"{label}: the generated evaluator differs from the "
+              "interpreter")
+        walks.add(reduction.walk(shape, reduction.layout(operands), axis))
+    want = {("flat", False), ("rows", False), ("flat", True), ("strided", True), ("axis0", False),
+            ("axis0", True), ("axis1", False), ("axis1", True)}
+    check(walks == want, f"the generated evaluator checks ran the walks {sorted(walks)}")
+    return walks
+
+
 def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     """Phase 5a: the map-reduce kernel against its plain version on the card.
     Returns the largest |kernel - plain| of each entry point."""
@@ -656,7 +942,7 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
         x64 = x_np.astype(np.float64)
         whole = isinstance(x, torch.Tensor)  # contiguous, at a 16-byte boundary
         for kind in kinds:
-            k = on_path("direct" if whole else "element", lambda: reduction.reduce(x, kind))
+            k = on_path("direct" if whole else "generated", lambda: reduction.reduce(x, kind))
             p = reduction._plain(t, kind)
             ref = {"sum": x64.sum, "max": x64.max, "min": x64.min}[kind]()
             agree("rd_full", f"{label} {kind}", k, p, ref, float(np.abs(x64).sum()), kind != "sum")
@@ -664,13 +950,13 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
                 # The identity's direct path, the hoisted loop (x * 1.0 as a
                 # sum) and the interpreter combine in one order: the same bits.
                 shape = tuple(x.shape)
-                k1 = on_path("single" if kind == "sum" else "lanes4",
+                k1 = on_path("single" if kind == "sum" else "generated",
                              lambda: reduction.map_reduce(times_one(shape), kind, shape, x))
                 check(same_bits(k, k1), f"{label} {kind}: direct path != one instruction")
-                k2 = on_path("lanes4", lambda: reduction.map_reduce(times_one_plus_zero(shape), kind, shape, x))
+                k2 = on_path("generated", lambda: reduction.map_reduce(times_one_plus_zero(shape), kind, shape, x))
                 check(same_bits(k, k2), f"{label} {kind}: direct path != interpreter path")
         log(f"check rd_full {label}: sum within 2e-5*sum|x|, max/min exact, bits repeat, "
-            + ("direct = single = lanes4" if whole else "element path"))
+            + ("direct = single = generated" if whole else "generated, gathered"))
 
     def on(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -688,9 +974,9 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     longer = on(np.concatenate([np.zeros(1, np.float32), v]))
     shifted = elementwise.View(longer, 1, (N_RAGGED,), (1,))
     for kind in ("sum", "max", "min"):
-        k = on_path("element", lambda: reduction.reduce(shifted, kind))
+        k = on_path("generated", lambda: reduction.reduce(shifted, kind))
         check(same_bits(k, reduction.reduce(on(v), kind)), f"{kind}: a view one element off != its clone")
-    log(f"check rd_full view one element off, n={N_RAGGED}: element path, the clone's bits")
+    log(f"check rd_full view one element off, n={N_RAGGED}: gathered, the clone's bits")
     vn = v.copy()
     vn[N_RAGGED - 1] = np.nan
     for kind in ("max", "min", "sum"):
@@ -723,7 +1009,7 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     dot("int32", i_np, j_np, True, "single")
     dot("int32 wraparound", np.full(70_000, 40_000, np.int32), np.full(70_000, 40_000, np.int32),
         True, "single")
-    dot("f32.int32", a_np, i_np, False, "lanes4")
+    dot("f32.int32", a_np, i_np, False, "generated")
 
     row_np = rng.standard_normal((1, N_AXIS)).astype(np.float32)
     col_np = rng.standard_normal((N_AXIS, 1)).astype(np.float32)
@@ -735,23 +1021,23 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
     vals = program.run_plain(prog, [m, row, col], shape)
     w64 = (m_np * row_np - col_np).astype(np.float64)  # f32 ops, each rounded, as the kernel's
     for kind in ("sum", "max", "min"):
-        k = on_path("lanes4", lambda: reduction.map_reduce(prog, kind, shape, m, row, col))
+        k = on_path("generated", lambda: reduction.map_reduce(prog, kind, shape, m, row, col))
         ref = {"sum": w64.sum, "max": w64.max, "min": w64.min}[kind]()
         agree("rd_full", f"map-reduce {kind}", k, reduction._plain(vals, kind), ref,
               float(np.abs(w64).sum()), kind != "sum")
         for ax in (0, 1):
-            k = on_path("lanes4", lambda: reduction.map_reduce_axis(prog, kind, ax, shape, m, row, col))
+            k = on_path("generated", lambda: reduction.map_reduce_axis(prog, kind, ax, shape, m, row, col))
             ref = {"sum": w64.sum, "max": w64.max, "min": w64.min}[kind](axis=ax)
             agree("rd_axis", f"map-reduce axis {ax} {kind}", k, reduction._plain(vals, kind, ax),
                   ref, np.abs(w64).sum(axis=ax), kind != "sum")
-            k = on_path("element", lambda: reduction.reduce_axis(arr.T._operand(), kind, ax))
+            k = on_path("generated", lambda: reduction.reduce_axis(arr.T._operand(), kind, ax))
             ref = {"sum": m_np.T.astype(np.float64).sum, "max": m_np.T.max,
                    "min": m_np.T.min}[kind](axis=ax)
             agree("rd_axis", f"transposed axis {ax} {kind}", k,
                   reduction._plain(m.T, kind, ax), ref, np.abs(m_np.T.astype(np.float64)).sum(axis=ax),
                   kind != "sum")
-    log(f"check map-reduce m*row-col ({N_AXIS},{N_AXIS}) full, axis 0 and 1 (lanes4), and axis "
-        "reductions of a transposed view (element): sums within 2e-5*sum|x|, max/min exact, "
+    log(f"check map-reduce m*row-col ({N_AXIS},{N_AXIS}) full, axis 0 and 1 (generated), and axis "
+        "reductions of a transposed view (generated, gathered): sums within 2e-5*sum|x|, max/min exact, "
         "bits repeat")
 
     # rd_axis on a ragged matrix (columns no multiple of 4, rows no multiple
@@ -772,28 +1058,28 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
             agree("rd_axis", f"ragged axis {ax} {kind}", k, reduction._plain(rag, kind, ax), ref,
                   np.abs(rag64).sum(axis=ax), kind != "sum")
             others = [
-                ("element", lambda: reduction.reduce_axis(clone, kind, ax)),
-                ("single" if kind == "sum" else "lanes4",
+                ("generated", lambda: reduction.reduce_axis(clone, kind, ax)),
+                ("single" if kind == "sum" else "generated",
                  lambda: reduction.map_reduce_axis(times_one((R, C)), kind, ax, (R, C), rag)),
-                ("lanes4", lambda: reduction.map_reduce_axis(times_one_plus_zero((R, C)), kind, ax,
+                ("generated", lambda: reduction.map_reduce_axis(times_one_plus_zero((R, C)), kind, ax,
                                                              (R, C), rag)),
-                ("element", lambda: reduction.map_reduce_axis(times_one_plus_zero((R, C)), kind, ax,
+                ("generated", lambda: reduction.map_reduce_axis(times_one_plus_zero((R, C)), kind, ax,
                                                               (R, C), clone)),
             ]
             for path, fn in others:
                 check(same_bits(k, on_path(path, fn)),
                       f"ragged axis {ax} {kind}: path {path} != the direct path")
-    log(f"check rd_axis ragged ({R},{C}) axis 0 and 1: direct = single = lanes4 = element, "
+    log(f"check rd_axis ragged ({R},{C}) axis 0 and 1: direct = single = generated on quads and gathered, "
         "sums within 2e-5*sum|x|, max/min exact, bits repeat")
 
     # bfloat16 and float16 inputs: widened exactly at the load and summed in
     # float32.  ``half`` is contiguous: in full the direct loop's 8-byte
     # quads, and along an axis, its rows of 1030 elements being no whole
-    # quads, the element path; ``rows`` keeps the rows of the wider base
+    # quads, gathered; ``rows`` keeps the rows of the wider base
     # (whole quads): the direct loop along both axes.  Each gives the bits
-    # of the same values 2 bytes off (the element path).  A map-reduce of a
+    # of the same values 2 bytes off (gathered).  A map-reduce of a
     # bfloat16 program rounds each instruction's result in the register
-    # (lanes4), and its sum of one instruction on each lane (single).
+    # (generated), and its sum of one instruction on each lane (single).
     for dtype in (torch.bfloat16, torch.float16):
         half = rag.to(dtype)
         wide_base = base.to(dtype)
@@ -805,10 +1091,10 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
             k = on_path("direct", lambda: reduction.reduce(half, kind))
             agree("rd_full", f"{dtype} ({R},{C}) {kind}", k, reduction._plain(half, kind), ref(),
                   float(np.abs(h64).sum()), kind != "sum")
-            check(same_bits(k, on_path("element", lambda: reduction.reduce(half_off, kind))),
+            check(same_bits(k, on_path("generated", lambda: reduction.reduce(half_off, kind))),
                   f"{dtype} ({R},{C}) {kind}: the direct path != the element path 2 bytes off")
             for ax in (0, 1):
-                k = on_path("element", lambda: reduction.reduce_axis(half, kind, ax))
+                k = on_path("generated", lambda: reduction.reduce_axis(half, kind, ax))
                 agree("rd_axis", f"{dtype} ({R},{C}) axis {ax} {kind}", k,
                       reduction._plain(half, kind, ax), ref(axis=ax), np.abs(h64).sum(axis=ax),
                       kind != "sum")
@@ -816,24 +1102,24 @@ def reduction_checks(dev, rng, sm, elementwise, program, reduction):
                 agree("rd_axis", f"{dtype} rows of a wider base axis {ax} {kind}", k,
                       reduction._plain(rows, kind, ax), ref(axis=ax), np.abs(h64).sum(axis=ax),
                       kind != "sum")
-                check(same_bits(k, on_path("element", lambda: reduction.reduce_axis(rows_off, kind, ax))),
+                check(same_bits(k, on_path("generated", lambda: reduction.reduce_axis(rows_off, kind, ax))),
                       f"{dtype} axis {ax} {kind}: the direct path != the element path 2 bytes off")
     hb = rag.bfloat16()
     hb_off = two_bytes_off(hb)
     lh = program.leaf((R, C), torch.bfloat16)
-    for label, prog, path in (("x*x+x", program.lower(lh * lh + lh, [lh]), "lanes4"),
+    for label, prog, path in (("x*x+x", program.lower(lh * lh + lh, [lh]), "generated"),
                               ("x*2.5", program.lower(lh * 2.5, [lh]), "single")):
         vals = reduction.values(prog, (R, C), [hb], dev)
         v64 = vals.double().cpu().numpy()
         k = on_path(path, lambda: reduction.map_reduce(prog, "sum", (R, C), hb))
         agree("rd_full", f"bfloat16 map-reduce {label}", k, reduction._plain(vals, "sum"), v64.sum(),
               float(np.abs(v64).sum()), False)
-        check(same_bits(k, on_path("element", lambda: reduction.map_reduce(prog, "sum", (R, C), hb_off))),
+        check(same_bits(k, on_path("generated", lambda: reduction.map_reduce(prog, "sum", (R, C), hb_off))),
               f"bfloat16 map-reduce {label}: path {path} != the element path 2 bytes off")
     log(f"check rd_full/rd_axis on bfloat16 and float16 ({R},{C}): full (direct) and along axis 0 "
-        "and 1 (element; rows of whole quads: direct), and the bfloat16 map-reduces x*x+x (lanes4) "
+        "and 1 (gathered; rows of whole quads: direct), and the bfloat16 map-reduces x*x+x (generated) "
         "and x*2.5 (single, rounded on each lane): sums within 2e-5*sum|x| of the plain version and "
-        "of float64, max/min exact, bits repeat, each the bits of the element path 2 bytes off")
+        "of float64, max/min exact, bits repeat, each the bits of the same values 2 bytes off")
     return err
 
 
@@ -2236,8 +2522,10 @@ EXAMPLES = ("quickstart", "fused_pipeline", "quantized_views", "batched_cartpole
 
 # The whole solve exported as one program, its loops nested scan nodes,
 # and served by the loader below: BASELINE config 2 (the sm pendulum, 4096 x
-# H=50, 10 iterations) as the JAX package's export_solver_step writes it.
-NESTED_SM = (4096, 50, 10)
+# H=50) as the JAX package's export_solver_step writes it, its 10 iterations
+# cut to 3 (the program's nodes are the same at any count; the run's time
+# limit): tools/probe_torch_export.py's sm_pendulum_solve takes any depth.
+NESTED_SM = (4096, 50, 3)
 
 # Loads each artifact in a process that imports torch and the port alone,
 # runs it on the saved inputs, counts the wrappers' launches around each
@@ -3175,7 +3463,13 @@ def main():
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry function" in line:
             log(f"ptxas: {line.strip()}")
+    # The kernels of phases 3d and 5d's checks, compiled into the disk cache
+    # on other threads while phases 3-5 run.
+    ahead = threading.Thread(target=compile_ahead, args=(generated_signatures(dev),), daemon=True)
+    ahead.start()
 
+    gen = {}
+    generated_phase(gen, None)
     # ------------------------------------------------ 3. kernel vs plain
     def both(prog, shape, operands, iterations=1, carry=0):
         k = elementwise.elementwise(prog, shape, prog.dtype, *operands,
@@ -3296,6 +3590,12 @@ def main():
         "ulps); ew_flat, ew_strided interpreted and ew_strided generated give the same bits")
     bf16_chain_checks(dev, rng, sm, elementwise)
     generated_checks(dev, rng, sm, elementwise, program)
+    ahead.join()
+    t0 = time.perf_counter()
+    n_gen = flat_generated_checks(sm, elementwise, program, flat_generated_cases(dev, SEED))
+    log(f"check ew_flat's generated kernel = interpreter, bit for bit: {n_gen} programs (every "
+        "opcode and cast on float32, int32, uint32, bool and bfloat16, scalar operands, bfloat16 "
+        f"2 bytes off, MAX_INSTS instructions), n={N_FLAT_GEN}, {time.perf_counter() - t0:.1f} s")
 
     # ew_flat beyond one instruction on two full operands: bit for bit the
     # plain interpreter's values, and ew_strided's on the same program
@@ -3377,6 +3677,7 @@ def main():
         np.testing.assert_allclose(k.cpu().numpy(), ref, rtol=1e-6, err_msg=f"powi {e}")
     log("check static pow e in (-3, 2, 7): exact")
 
+    generated_phase(gen, "3")
     # -------------------------------------------- 4. the two workloads
     def chain(acc, a, e_row):
         return acc * np.float32(1e-3) + sm.exp(sm.pow(a + acc * np.float32(1e-6), e_row))
@@ -3409,6 +3710,26 @@ def main():
         f"signature: median {statistics.median(compile_ms) if compile_ms else None}, "
         f"max {max(compile_ms, default=None)}, count {len(compile_ms)}")
     check(bool((acc0.torch() == 0).all()), "donate=0 wrote into the caller's array")
+    # The flat chain a * b + c - a on 16M floats through sm.fuse: one ew_flat
+    # launch, on the kernel generated for its program.  The data of the
+    # generated routes' checks come from a generator of their own, so that
+    # every other check draws the inputs it always drew.
+    rng_gen = np.random.default_rng(SEED + 20)
+    chain_np = [rng_gen.standard_normal(N_CHAIN).astype(np.float32) for _ in range(3)]
+    chain_arrays = [sm.Array(on(x)) for x in chain_np]
+    flat_chain = sm.fuse(lambda a, b, c: a * b + c - a)
+    torch.cuda.synchronize()
+    elementwise.reset_launches()
+    chain_out = flat_chain(*chain_arrays).torch()
+    torch.cuda.synchronize()
+    flat_launches = dict(elementwise.FLAT_PATHS)
+    check(flat_launches == {"wide": 0, "element": 0, "generated": 1},
+          f"the 16M chain took ew_flat's {flat_launches}")
+    x0, x1, x2 = (torch.from_numpy(x) for x in chain_np)
+    err_chain = float((chain_out.cpu() - (x0 * x1 + x2 - x0)).abs().max())
+    check(err_chain == 0.0, f"the 16M chain is off its plain version by {err_chain}")
+    del chain_np, x0, x1, x2, chain_arrays
+    log("check sm.fuse(a * b + c - a) 16M f32: one launch of ew_flat's generated kernel, exact")
 
     err_add = float((c - (add_a.torch() + add_b.torch())).abs().max())
     check(err_add == 0.0, f"sm.add is off by {err_add}")
@@ -3433,8 +3754,14 @@ def main():
         log(f"check fused recurrence L={L}: {u} ulp from the plain version, "
             "within 2e-5 of float64 on 64 rows")
 
+    generated_phase(gen, "4")
     # ----------------------------------------------------- 5. reductions
     err_rd = reduction_checks(dev, rng, sm, elementwise, program, reduction)
+    t0 = time.perf_counter()
+    walks = reduction_generated_checks(reduction, reduction_generated_cases(dev, SEED))
+    log(f"check the generated evaluators = reduction.interpret, bit for bit: walks "
+        f"{sorted(walks)}, sum/max/min, float32, bfloat16 and float16, "
+        f"{time.perf_counter() - t0:.1f} s")
 
     x_np = rng.standard_normal(N_SUM).astype(np.float32)
     x_big = sm.Array(on(x_np))
@@ -3448,6 +3775,11 @@ def main():
     axis_sum = {ax: sm.fuse(lambda a, s, ax=ax: sm.sum(sm.where(a > s, a, 0.0), axis=ax))
                 for ax in (0, 1)}
     mat_np = x_np.reshape(N_AXIS, N_AXIS)
+    row_np = rng_gen.standard_normal((1, N_AXIS)).astype(np.float32)
+    col_np = rng_gen.standard_normal((N_AXIS, 1)).astype(np.float32)
+    row8, col8 = sm.Array(row_np), sm.Array(col_np)
+    map_rows = sm.fuse(lambda a, r, c: sm.sum(a * r - c))
+    rows64 = (mat_np * row_np - col_np).astype(np.float64)  # f32 ops, each rounded, as the kernel's
     sel64 = np.where(mat_np > np.float32(0.25), mat_np, np.float32(0)).astype(np.float64)
     x64 = x_np.astype(np.float64)
     calls = [
@@ -3465,24 +3797,28 @@ def main():
         ("lazy sm.sum(sm.square(sm.subtract(a,b))) 32M",
          lambda: sm.sum(sm.square(sm.subtract(da, db))),
          ((da_np - db_np) ** 2).sum(), ((da_np - db_np) ** 2).sum(), {"rd_full": 1, "rd_axis": 0}),
+        ("fused sum(a*row-col) 8192^2", lambda: map_rows(mat, row8, col8), rows64.sum(),
+         np.abs(rows64).sum(), {"rd_full": 1, "rd_axis": 0}),
     ]
     torch.cuda.synchronize()
     reduction.reset_launches()
     elementwise.reset_launches()
-    outs = []
+    outs, rd_generated = [], {}
     for label, call, _, _, want in calls:
-        before = dict(reduction.LAUNCHES)
+        before, paths = dict(reduction.LAUNCHES), dict(reduction.PATHS)
         outs.append(call().torch())
         got = {k: reduction.LAUNCHES[k] - before[k] for k in before}
         check(got == want, f"{label}: launched {got}, expected {want}")
+        rd_generated[label] = reduction.PATHS["generated"] - paths["generated"]
     torch.cuda.synchronize()
     rd_launches, rd_paths = dict(reduction.LAUNCHES), dict(reduction.PATHS)
     rd_ew = dict(elementwise.LAUNCHES)
     log(f"reduction path launches {rd_launches} by path {rd_paths} elementwise {rd_ew}")
     check(rd_ew == {"ew_flat": 0, "ew_strided": 0}, f"the reduction path launched {rd_ew}")
     # Array.sum() is the identity, sm.dot one instruction; the fused roots
-    # and the lazy chain are programs of two and three.
-    check(rd_paths == {"direct": 1, "single": 1, "lanes4": 4, "element": 0},
+    # and the lazy chain are programs of two and three, on their generated
+    # evaluators.
+    check(rd_paths == {"direct": 1, "single": 1, "generated": 5, "interp": 0},
           f"the reduction path's launches took {rd_paths}")
     for (label, _, ref, absx, _), out in zip(calls, outs):
         got = out.double().cpu().numpy()
@@ -3491,6 +3827,7 @@ def main():
         check(bool(np.all(np.abs(got - ref) <= 2e-5 * absx)), f"{label}: beyond 2e-5*sum|x| of float64")
         log(f"check {label}: within 2e-5*sum|x| of float64, one launch, no elementwise pass")
 
+    generated_phase(gen, "5")
     # ---------------------- 5b. bfloat16, uint32, integer floor division
     # Through the public API: the 1M add in bfloat16 and in uint32, int32 //
     # of 1M (divisors 0 and -1 among them), the L = 400 recurrence on
@@ -3570,7 +3907,7 @@ def main():
     elementwise.reset_launches()
     add_off = elementwise.elementwise(add16, (N_ADD,), torch.bfloat16, a_off, b_off)
     torch.cuda.synchronize()
-    check(elementwise.FLAT_PATHS == {"wide": 0, "element": 1}, "the add 2 bytes off took "
+    check(elementwise.FLAT_PATHS == {"wide": 0, "element": 1, "generated": 0}, "the add 2 bytes off took "
           f"{elementwise.FLAT_PATHS}, not the element path")
     check(torch.equal(half_out["ew_flat_bf16"].view(torch.int16), add_off.view(torch.int16)),
           "sm.add bfloat16 on the wide path differs from the element path")
@@ -3583,7 +3920,7 @@ def main():
         reduction.reset_launches()
         k32, e32 = fn(), fn_off()
         torch.cuda.synchronize()
-        check(reduction.PATHS == {"direct": 1, "single": 0, "lanes4": 0, "element": 1},
+        check(reduction.PATHS == {"direct": 1, "single": 0, "generated": 1, "interp": 0},
               f"{key}: the quad and element runs took {reduction.PATHS}")
         check(same_bits(k32, e32), f"{key}: the direct path differs from the element path")
         check(torch.equal(bits(k32.bfloat16()), bits(half_out[key])), f"{key}: Array.sum is not "
@@ -3645,9 +3982,11 @@ def main():
         f"{u16} bfloat16 ulp of its plain version, the sum and the fused root's within 2e-5*sum|x| "
         f"of float64; |kernel - plain| {half_err}")
 
+    generated_phase(gen, "5b")
     # ---------------------------------------- 5c. sm ops under torch.func
     transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch)
 
+    generated_phase(gen, "5c")
     # -------------------------------------------------------- 6. timing
     check(not dispatch.INTERPRET.get(), "the wrappers run their plain versions: nothing is timed")
     add_prog = binop("add", (N_ADD,), (N_ADD,))
@@ -3681,17 +4020,22 @@ def main():
     t["add_hot_over_library"] = t["add_hot_ms"] / t["add_hot_library_ms"]
     t["add_over_library"] = t["add_ms"] / t["add_library_ms"]
     del ring, kept
-    # A chain of three instructions on 16M floats (256 MB: device memory):
-    # ew_flat's interpreter on registers of four elements.
+    # Phase 4's chain of three instructions on 16M floats (256 MB: device
+    # memory): ew_flat's kernel generated for its program, beside the
+    # interpreter (elementwise.interpret) on the same arrays.
     chain_in = [on(rng.standard_normal(N_CHAIN).astype(np.float32)) for _ in range(3)]
+    chain_arrays = [sm.Array(x) for x in chain_in]
     lc = [program.leaf((N_CHAIN,), torch.float32) for _ in range(3)]
     chain_prog = program.lower(lc[0] * lc[1] + lc[2] - lc[0], lc)
-    t["chain_16m_ms"] = time_ms(lambda: elementwise.elementwise(
-        chain_prog, (N_CHAIN,), torch.float32, *chain_in), n=10)
+    t["chain_16m_ms"] = time_ms(lambda: flat_chain(*chain_arrays).torch(), n=10)
     t["chain_16m_plain_ms"] = time_ms(
         lambda: program.run_plain(chain_prog, chain_in, (N_CHAIN,)), n=10)
+    t["chain_16m_interp_ms"] = time_ms(
+        lambda: elementwise.interpret(chain_prog, (N_CHAIN,), *chain_in), n=10)
     t["chain_16m_bound_ms"] = bound(16 * N_CHAIN, 3 * N_CHAIN)[0]
-    del chain_in
+    t["chain_16m_ptxas"] = codegen.ptxas(elementwise.signature(
+        chain_prog, chain_prog.kernel_codes, (N_CHAIN,), chain_in, flat=True))
+    del chain_in, chain_arrays
     for L in (16, 400):
         t[f"fused{L}_ms"] = time_ms(lambda: fused[L](acc0, fa, fe).torch(), n=4 if L == 16 else 1)
         t[f"fused{L}_plain_ms"] = time_ms(
@@ -3745,32 +4089,47 @@ def main():
         "sum_ms": timed_on("direct", lambda: reduction.reduce(xt, "sum")),
         "sum_plain_ms": time_ms(lambda: reduction._plain(xt, "sum"), n=20),
         "sum_single_ms": timed_on("single", lambda: reduction.map_reduce(p_one, "sum", (N_SUM,), xt)),
-        "sum_interpreter_ms": timed_on(
-            "lanes4", lambda: reduction.map_reduce(p_two, "sum", (N_SUM,), xt)),
+        "sum_generated_ms": timed_on(
+            "generated", lambda: reduction.map_reduce(p_two, "sum", (N_SUM,), xt)),
+        "sum_interp_ms": timed_on(
+            "interp", lambda: reduction.interpret(p_two, "sum", None, (N_SUM,), [xt])),
         "dot_ms": timed_on("single", lambda: reduction.dot1d(at_, bt_)),
         "dot_plain_ms": time_ms(lambda: plain(p_dot, [at_, bt_], (N_DOT,)), n=20),
         "dist_ms": timed_on(
-            "lanes4", lambda: reduction.map_reduce(p_dist, "sum", (N_DOT,), at_, bt_, et)),
+            "generated", lambda: reduction.map_reduce(p_dist, "sum", (N_DOT,), at_, bt_, et)),
+        "dist_interp_ms": timed_on(
+            "interp", lambda: reduction.interpret(p_dist, "sum", None, (N_DOT,), [at_, bt_, et])),
         "dist_plain_ms": time_ms(lambda: plain(p_dist, [at_, bt_, et], (N_DOT,)), n=20),
     }
     for ax in (0, 1):
         rt[f"axis{ax}_ms"] = timed_on(
-            "lanes4", lambda: reduction.map_reduce_axis(p_thr[ax], "sum", ax, sq, mt, st))
+            "generated", lambda: reduction.map_reduce_axis(p_thr[ax], "sum", ax, sq, mt, st))
+        rt[f"axis{ax}_interp_ms"] = timed_on(
+            "interp", lambda: reduction.interpret(p_thr[ax], "sum", ax, sq, [mt, st]))
         rt[f"axis{ax}_plain_ms"] = time_ms(lambda: plain(p_thr[ax], [mt, st], sq, ax), n=20)
-    # _build_map_reduce_2d's case: a * row - col over (8192, 8192), a (1, C)
-    # row and an (R, 1) column, reduced in full along the rows (lanes4).
+    # _build_map_reduce_2d's case, phase 5's: a * row - col over (8192,
+    # 8192), a (1, C) row and an (R, 1) column, reduced in full along the
+    # rows.
     row8, col8 = on(rng.standard_normal((1, N_AXIS)).astype(np.float32)), \
         on(rng.standard_normal((N_AXIS, 1)).astype(np.float32))
     lm, lr, lc = leaves_of(mt, row8, col8)
     p_rows = program.lower(lm * lr - lc, [lm, lr, lc])
-    rt["rows_ms"] = timed_on("lanes4", lambda: reduction.map_reduce(p_rows, "sum", sq, mt, row8, col8))
+    rt["rows_ms"] = timed_on("generated", lambda: reduction.map_reduce(p_rows, "sum", sq, mt, row8, col8))
+    rt["rows_interp_ms"] = timed_on(
+        "interp", lambda: reduction.interpret(p_rows, "sum", None, sq, [mt, row8, col8]))
     rt["rows_plain_ms"] = time_ms(lambda: plain(p_rows, [mt, row8, col8], sq), n=20)
+    rt["ptxas"] = {key: codegen.ptxas(reduction.signature(prog_, prog_.kernel_codes, 0, shape_,
+                                                          ops_, ax_))
+                   for key, prog_, shape_, ops_, ax_ in (
+                       ("dist", p_dist, (N_DOT,), [at_, bt_, et], None),
+                       ("rows", p_rows, sq, [mt, row8, col8], None),
+                       ("axis0", p_thr[0], sq, [mt, st], 0), ("axis1", p_thr[1], sq, [mt, st], 1))}
     rt["sum_host_ms"] = host_ms(lambda: x_big.sum().torch())
     rt["dist_host_ms"] = host_ms(lambda: dist(da, db, eps).torch())
     for key, nbytes in gb.items():
         rt[f"{key}_GBps"] = nbytes / (rt[f"{key}_ms"] * 1e-3) / 1e9
         rt[f"{key}_plain_GBps"] = nbytes / (rt[f"{key}_plain_ms"] * 1e-3) / 1e9
-    for key in ("sum_single", "sum_interpreter"):
+    for key in ("sum_single", "sum_generated", "sum_interp"):
         rt[f"{key}_GBps"] = gb["sum"] / (rt[f"{key}_ms"] * 1e-3) / 1e9
     log(f"reduction times on {card}: " + json.dumps(rt))
 
@@ -3855,9 +4214,9 @@ def main():
     m16t, xht = m16.torch(), xh.torch()
     x16_off = two_bytes_off(x16.torch())
     ht.update({
-        "sum_bf16_element_ms": timed_on("element", lambda: reduction.reduce(x16_off, "sum")),
+        "sum_bf16_element_ms": timed_on("generated", lambda: reduction.reduce(x16_off, "sum")),
         "axis0_bf16_ms": timed_on("direct", lambda: reduction.reduce_axis(m16t, "sum", 0)),
-        "axis0_bf16_element_ms": timed_on("element", lambda: reduction.reduce_axis(
+        "axis0_bf16_element_ms": timed_on("generated", lambda: reduction.reduce_axis(
             x16_off.view(N_AXIS, N_AXIS), "sum", 0)),
         "axis0_bf16_plain_ms": time_ms(lambda: reduction._plain(m16t, "sum", 0), n=20),
         "axis0_bf16_library_ms": time_ms(lambda: torch.sum(m16t, 0), n=20),
@@ -3874,6 +4233,7 @@ def main():
         + f" axis0 identity kernel/plain {rt['axis0_identity_ms']}/{rt['axis0_identity_plain_ms']}"
         + f" axis1 identity kernel/plain {rt['axis1_identity_ms']}/{rt['axis1_identity_plain_ms']}")
 
+    generated_phase(gen, "6")
     # ------------------------------------------------- 7. the matmul path
     err_mm = matmul_checks(dev, rng, sm, program, matmul, elementwise)
 
@@ -4178,6 +4538,17 @@ def main():
     log(f"2-byte quad paths' bounds on {card}: add 1M {b_add16[0]} ms, add 16M "
         f"{ht['add_bf16_16m_bound_ms']} ms, sums 64M {b_sum16[0]} ms, axis 0 {b_axis16[0]} ms")
 
+    # The programs on the generated kernels: the 16M chain reads three
+    # operands and writes one (3 operations an element); the distance reads
+    # 256 MB and a scalar (add, subtract, square and the sum's add);
+    # a * row - col reads the matrix, its row and its column (multiply,
+    # subtract, add); the thresholded sums read the matrix and the
+    # threshold and write a row of sums (compare, select, add).
+    b_chain16m = bound(16 * N_CHAIN, 3 * N_CHAIN)
+    b_dist = bound(8 * N_DOT + 4, 4 * N_DOT)
+    b_rows = bound(4 * N_SUM + 8 * N_AXIS, 3 * N_SUM)
+    b_thr = bound(4 * N_SUM + 4 + 4 * N_AXIS, 3 * N_SUM)
+
     def entry(name, source, replaces, launched, err, ms, plain_ms, b, library_ms):
         check(b[0] <= ms, f"{name}: {ms} ms is under its bound of {b[0]} ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4196,6 +4567,33 @@ def main():
              paths=strided_paths, interp_ms=t["fused400_interp_ms"],
              other_sources=["simplemath_tpu_torch/ops/codegen.py",
                             "simplemath_tpu_torch/csrc/nvrtc.cu"]),
+        # ew_flat on the kernel generated for its program (ops/codegen.py,
+        # kind "flat"), as phase 4's 16M chain; interp_ms: the interpreter's.
+        dict(entry("ew_flat_generated", CODEGEN_SOURCE, "simplemath_tpu/ops/elementwise.py:161",
+                   flat_launches["generated"], err_chain, t["chain_16m_ms"],
+                   t["chain_16m_plain_ms"], b_chain16m, None),
+             interp_ms=t["chain_16m_interp_ms"], ptxas=t["chain_16m_ptxas"],
+             other_sources=[SOURCE, "simplemath_tpu_torch/csrc/program.cuh", NVRTC_SOURCE]),
+        # rd_full and rd_axis on the evaluators generated for their programs
+        # (kind "reduce"): the distance and the lazy chain, a * row - col
+        # along the rows, the thresholded sums along axis 0 (axis 1 beside).
+        dict(entry("rd_full_generated", CODEGEN_SOURCE, "simplemath_tpu/ops/reduction.py:275",
+                   rd_generated["fused sum(square(a+eps-b)) 32M"]
+                   + rd_generated["lazy sm.sum(sm.square(sm.subtract(a,b))) 32M"],
+                   err_rd["rd_full"], rt["dist_ms"], rt["dist_plain_ms"], b_dist, None),
+             interp_ms=rt["dist_interp_ms"], ptxas=rt["ptxas"]["dist"],
+             other_sources=RD_GENERATED_SOURCES),
+        dict(entry("rd_full_rows_generated", CODEGEN_SOURCE, "simplemath_tpu/ops/reduction.py:333",
+                   rd_generated["fused sum(a*row-col) 8192^2"], err_rd["rd_full"], rt["rows_ms"],
+                   rt["rows_plain_ms"], b_rows, None),
+             interp_ms=rt["rows_interp_ms"], ptxas=rt["ptxas"]["rows"],
+             other_sources=RD_GENERATED_SOURCES),
+        dict(entry("rd_axis_generated", CODEGEN_SOURCE, "simplemath_tpu/ops/reduction.py:482",
+                   sum(rd_generated[f"fused sum(where(a>s,a,0),axis={ax}) 8192^2"] for ax in (0, 1)),
+                   err_rd["rd_axis"], rt["axis0_ms"], rt["axis0_plain_ms"], b_thr, None),
+             interp_ms=rt["axis0_interp_ms"], axis1_ms=rt["axis1_ms"],
+             axis1_interp_ms=rt["axis1_interp_ms"], ptxas=rt["ptxas"]["axis0"],
+             axis1_ptxas=rt["ptxas"]["axis1"], other_sources=RD_GENERATED_SOURCES),
         entry("rd_full", RD_SOURCE, "simplemath_tpu/ops/reduction.py:79 :127 :210 :275 :333",
               rd_launches["rd_full"], err_rd["rd_full"], rt["sum_ms"], rt["sum_plain_ms"],
               b_sum, lib["sum"]),
@@ -4271,24 +4669,28 @@ def main():
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
 
+    generated_phase(gen, "7")
     # ------------------------------------------------------ 8. solvers
     t0 = time.perf_counter()
     solvers = solver_phase(dev, card)
     solvers["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"solvers": solvers}))
 
+    generated_phase(gen, "8")
     # ----------------------------------------------------- 9. parallel
     t0 = time.perf_counter()
     par = parallel_phase(dev, card)
     par["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"parallel": par}))
 
+    generated_phase(gen, "9")
     # ------------------------------------------------------- 10. utils
     t0 = time.perf_counter()
     utils = utils_phase(dev, card)
     utils["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"utils": utils}))
 
+    generated_phase(gen, "10")
     # ---------------------------------------------------- 11. compiled
     t0 = time.perf_counter()
     compiled = compiled_phase(dev, card)
@@ -4310,6 +4712,7 @@ def main():
             # solve as one program, its loops nested scan nodes.
             k["nested_loaded_launches"] = utils["nested"]["nested_sm_pendulum"]["launches"][k["name"]]
 
+    generated_phase(gen, "11")
     # -------------------------------------------------------- 12. psd
     t0 = time.perf_counter()
     psd = psd_phase(dev, card, compiled)
@@ -4329,6 +4732,15 @@ def main():
         other_shapes={k: {f: r[f] for f in ("path", "ms", "plain_ms", "library_ms", "bound_ms")}
                       for k, r in psd["kernel"].items() if k != "special"}))
     check(kernels[-1]["launches"] > 0, "psd_project was not launched on the main path")
+    generated_phase(gen, "12")
+    phases = gen["phases"]
+    # The programs the solver phases (8-11: the sm pendulum's derivative
+    # programs among them) generate kernels for.
+    gen["phases_8_11_signatures"] = {
+        kind: sum(phases[ph]["signatures"][kind] for ph in ("8", "9", "10", "11"))
+        for kind in ("strided", "flat", "reduce")}
+    print(json.dumps({"generated": gen["phases"] | {
+        "phases_8_11_signatures": gen["phases_8_11_signatures"]}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,11 +150,13 @@ def library() -> ctypes.CDLL:
         ("sm_mm_wgmma_s8_launch", [void_p, void_p, void_p]),
         ("sm_mm_wgmma_i64_launch", [void_p, void_p, void_p, void_p]),
         ("sm_ew_launch_kernel", [void_p, void_p, void_p, void_p]),
+        ("sm_ew_launch_flat_kernel", [void_p, void_p, void_p, ctypes.c_longlong, void_p]),
+        ("sm_rd_launch_kernel", [void_p, void_p, c_int, void_p, void_p, void_p]),
         ("sm_rtc_compile", [ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p), c_int,
                             ctypes.c_char_p, c_int, ctypes.POINTER(void_p),
                             ctypes.POINTER(ctypes.c_size_t)]),
-        ("sm_rtc_load", [void_p, ctypes.c_char_p, ctypes.POINTER(void_p),
-                         ctypes.POINTER(void_p)]),
+        ("sm_rtc_load", [void_p, ctypes.c_char_p, c_int, ctypes.POINTER(void_p),
+                         ctypes.POINTER(void_p), ctypes.POINTER(ctypes.c_int64)]),
         ("sm_rtc_unload", [void_p]),
         ("sm_psd_project_launch", [void_p, void_p, ctypes.c_longlong, c_int, c_int,
                                    ctypes.c_double, void_p]),

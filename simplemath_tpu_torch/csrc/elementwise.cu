@@ -18,24 +18,27 @@
 // add per element, so it is bound by bytes (device memory, or the L2 when
 // the same arrays are added again); the iterated pow/exp recurrence does
 // ~L * 100 flops per element on 16 MB, so it is bound by arithmetic.  Either
-// way the interpreter's own work per element is the overhead, and ew_flat
-// is designed to shed it where the data allows whole quads (p.vec: every
-// full-size operand and the output 4 bytes wide at a 16-byte boundary, or
-// 2 bytes wide at an 8-byte one; elementwise.flat_path decides):
-//   - a register holds the four elements of a quad, read with one 16-byte
-//     load of a 4-byte type or one 8-byte load of a bf16 one widened to f32
-//     bits in registers (sm_load_quad2), each operand at its own width, so
-//     an instruction is fetched and dispatched once for four elements
-//     (sm_exec4), and scalars and constants are splatted once, before the
-//     loop; a bf16 result quad is rounded and packed into one 8-byte store
-//     (sm_store_quad); a launch with a 2-byte operand or result runs a
-//     kernel of its own (ew_flat<true>), so that one of 4-byte types alone
-//     runs code with no width to choose, and one whose operands are all
-//     bf16 takes eight elements a thread;
-//   - a program of one instruction (every eager unary and binary op) has
-//     its dispatch hoisted out of the loop altogether: the opcode is chosen
-//     once per thread, and the loop body is that opcode's code on values in
-//     registers, with no register file in local memory (flat_single);
+// way an interpreter's own work per element is the overhead, so no launch
+// of the main path interprets its program:
+//   - a program of one instruction (every eager unary and binary op) runs
+//     ew_flat here: where the data allows whole quads (p.vec: every
+//     full-size operand and the output 4 bytes wide at a 16-byte boundary,
+//     or 2 bytes wide at an 8-byte one; elementwise.flat_path decides) its
+//     opcode is chosen once per thread and the loop body is that opcode's
+//     code on the four lanes of a uint4 (flat_single), each operand read at
+//     its own width (one 16-byte load of a 4-byte type, or one 8-byte load
+//     of a bf16 one widened to f32 bits in registers, sm_load_quad2),
+//     scalars and constants splatted once before the loop, a bf16 result
+//     quad rounded and packed into one 8-byte store (sm_store_quad); a
+//     launch with a 2-byte operand or result runs a kernel of its own
+//     (ew_flat<true>), so that one of 4-byte types alone runs code with no
+//     width to choose, and one whose operands are all bf16 takes eight
+//     elements a thread; the n % 4 tail and unaligned operands go element
+//     by element;
+//   - any other flat program runs a kernel generated for it and compiled at
+//     run time (ops/codegen.py, kind "flat"; sm_ew_launch_flat_kernel): the
+//     same quads, loads and stores, its registers local variables and
+//     every instruction sm_exec with its opcode a literal;
 //   - a thread issues the loads of all its operands before any
 //     arithmetic (operands are read once, so the loads are streaming
 //     ones), and the grid is the blocks the card runs at once, which
@@ -46,16 +49,14 @@
 // Inside a case the opcode is a constant, so sm_exec folds to its body and
 // the bits are the per-element interpreter's.
 //
-// ew_strided interprets per element: it decodes the element's index
-// rank-deep and runs the program over a register file in local memory, an
-// instruction a dispatch.  A program that does much work per element (an
-// iterated recurrence: L times its instructions) takes the other route of
-// ew_strided instead, a kernel generated for that program and compiled at
-// run time with NVRTC (ops/codegen.py, nvrtc.cu): its registers are local
-// variables, every instruction is sm_exec with its opcode a constant, the
-// rank is a constant, and it is launched here with ew_strided's geometry
-// and parameter block (sm_ew_launch_kernel).  Which route a call takes is
-// decided on the host (elementwise.route).
+// ew_strided's compiled kernel interprets per element: it decodes the
+// element's index rank-deep and runs the program over a register file in
+// local memory, an instruction a dispatch.  It is the reference
+// (elementwise.interpret): every launch of the main path runs the kernel
+// generated for its program (ops/codegen.py, kind "strided"), launched here
+// with ew_strided's geometry and parameter block (sm_ew_launch_kernel).
+// Its registers are local variables, every instruction is sm_exec with its
+// opcode a constant, and the rank is a constant.
 //
 // Launch: on the caller's stream; allocates nothing; returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -179,62 +180,31 @@ __device__ __forceinline__ void flat_single8(const SmParams& p, void* __restrict
   }
 }
 
-// The quad path of any other program: the interpreter on registers of
-// four elements.  The full-size operands of a quad are loaded four at a
-// time before they go to the register file (local memory), so that their
-// loads are in flight together.
-template <bool NARROW>
-__device__ __forceinline__ void flat_program(const SmParams& p, void* __restrict__ out,
-                                             int64_t n4) {
-  uint4 r[SM_MAX_REGS];
-  sm_load_consts4(p, r);
-  for (int o = 0; o < p.n_ops; ++o)
-    if (p.ops[o].scalar) r[o] = sm_splat(sm_load(p.ops[o].ptr, 0, p.ops[o].dtype));
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < n4; q += stride) {
-    for (int o0 = 0; o0 < p.n_ops; o0 += 4) {
-      uint4 v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (o0 + j < p.n_ops && !p.ops[o0 + j].scalar)
-          v[j] = flat_load<NARROW>(p.ops[o0 + j].ptr, p.ops[o0 + j].dtype, q);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (o0 + j < p.n_ops && !p.ops[o0 + j].scalar) r[o0 + j] = v[j];
-    }
-    const uint4 v = sm_run4(p, r);
-    if (NARROW)
-      sm_store_quad(out, q, p.out_dtype, v);
-    else
-      static_cast<uint4*>(out)[q] = v;
-  }
-}
-
 }  // namespace
 
-// Counterpart of _build_call_1d: every operand is contiguous and full-size
-// or a single element.  With p.vec (every full operand and the output a
-// 4-byte type at a 16-byte boundary or a 2-byte type at an 8-byte one)
-// whole quads go through flat_single (whole octs first where ``octs``) or
-// flat_program, and the last n % 4 elements through the per-element
-// interpreter; without it every element does.  Two kernels, so that a
-// launch of 4-byte types alone runs code with no width to choose: NARROW
-// where a full operand or the result is 2 bytes wide (the launcher
-// decides, flat_narrow).
+// Counterpart of _build_call_1d for a program of one instruction (every
+// eager unary and binary op): every operand is contiguous and full-size or
+// a single element.  With p.vec (every full operand and the output a 4-byte
+// type at a 16-byte boundary or a 2-byte type at an 8-byte one) whole quads
+// go through flat_single (whole octs first where ``octs``), and the last
+// n % 4 elements through the per-element interpreter; without it every
+// element does.  Any other program runs the kernel generated for it
+// (sm_ew_launch_flat_kernel).  Two kernels, so that a launch of 4-byte
+// types alone runs code with no width to choose: NARROW where a full
+// operand or the result is 2 bytes wide (the launcher decides,
+// flat_narrow).
 template <bool NARROW>
 __global__ void __launch_bounds__(kThreads) ew_flat(const __grid_constant__ SmParams p,
                                                     void* __restrict__ out, int octs) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int64_t done = 0;
   if (p.vec) {
+    // The launcher takes only flat_is_single programs here.  The opcode is
+    // chosen once, and is a constant inside flat_single (and flat_single8,
+    // which takes the whole octs and leaves flat_single the quads after
+    // them).
     const int64_t n4 = p.n / 4;
-    bool taken = false;
-    if (flat_is_single<NARROW>(p)) {
-      // The opcode is chosen here, once, and is a constant inside
-      // flat_single (and flat_single8, which takes the whole octs and
-      // leaves flat_single the quads after them).
-      taken = true;
-      const int64_t q0 = NARROW && octs ? p.n / 8 * 2 : 0;
+    const int64_t q0 = NARROW && octs ? p.n / 8 * 2 : 0;
 #define SM_CASE_FLAT(OP)                                   \
   case OP:                                                 \
     if constexpr (NARROW) {                                \
@@ -242,14 +212,8 @@ __global__ void __launch_bounds__(kThreads) ew_flat(const __grid_constant__ SmPa
     }                                                      \
     flat_single<OP, NARROW>(p, out, q0, n4);               \
     break;
-      switch (p.insts[0].op) {
-        SM_FOR_EACH_OPCODE(SM_CASE_FLAT)
-        default:
-          taken = false;
-      }
+    switch (p.insts[0].op) { SM_FOR_EACH_OPCODE(SM_CASE_FLAT) }
 #undef SM_CASE_FLAT
-    }
-    if (!taken) flat_program<NARROW>(p, out, n4);
     done = n4 * 4;
     if (tid >= p.n - done) return;
   }
@@ -317,6 +281,8 @@ extern "C" int sm_ew_launch(const SmParams* p, void* out, int strided, void* str
   int octs = 0;
   const bool narrow = !strided && p->vec && flat_narrow(*p, out, &octs);
   if (!strided && p->vec) {
+    if (!(narrow ? flat_is_single<true>(*p) : flat_is_single<false>(*p)))
+      return (int)cudaErrorInvalidValue;  // a longer program runs its generated kernel
     // One quad (or oct) a thread a pass; the blocks stride over the rest.
     int64_t resident = 0;
     const cudaError_t rc =
@@ -341,6 +307,25 @@ extern "C" int sm_ew_launch(const SmParams* p, void* out, int strided, void* str
 extern "C" int sm_ew_launch_kernel(const void* kernel, const SmParams* p, void* out, void* stream) {
   int64_t blocks = (p->n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;
+  void* args[] = {const_cast<SmParams*>(p), &out};
+  const cudaError_t rc = cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3(kThreads), args, 0,
+                                          static_cast<cudaStream_t>(stream));
+  return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
+}
+
+// ew_flat's generated kernel for a program of more than one instruction
+// (ops/codegen.py, kind "flat"), with ew_flat's geometry: with p->vec one
+// quad a thread a pass, at most the ``resident`` blocks the card runs at
+// once, which stride over the rest; else an element a thread a pass.
+extern "C" int sm_ew_launch_flat_kernel(const void* kernel, const SmParams* p, void* out,
+                                        long long resident, void* stream) {
+  int64_t blocks = (p->n + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (p->vec) {
+    blocks = (p->n / 4 + kThreads - 1) / kThreads;
+    if (blocks > resident) blocks = resident;
+  }
   if (blocks < 1) blocks = 1;
   void* args[] = {const_cast<SmParams*>(p), &out};
   const cudaError_t rc = cudaLaunchKernel(kernel, dim3((unsigned)blocks), dim3(kThreads), args, 0,

@@ -1,10 +1,12 @@
 // Kernels compiled at run time: NVRTC turns a CUDA source that
 // ops/codegen.py generated into a CUBIN for sm_90a, and the runtime loads
 // it and hands back the kernel.  The source includes this directory's
-// headers (program.cuh, tiles.cuh), so a generated kernel evaluates every
-// opcode with the very code the compiled kernels run.  The launch itself is
-// elementwise.cu's (sm_ew_launch_kernel), beside the geometry of the kernel
-// it stands in for.
+// headers (program.cuh, tiles.cuh, reduction.cuh), so a generated kernel
+// evaluates every opcode with the very code the compiled kernels run, and a
+// generated evaluator runs the compiled walks.  The launches themselves are
+// elementwise.cu's (sm_ew_launch_kernel, sm_ew_launch_flat_kernel) and
+// reduction.cu's (sm_rd_launch_kernel), beside the geometry of the kernels
+// they stand in for.
 //
 // Nothing here falls back: a failed compile returns NVRTC's code and log,
 // a failed load the runtime's error, and the wrapper raises on either.
@@ -12,6 +14,7 @@
 #include <cuda_runtime.h>
 #include <nvrtc.h>
 
+#include <cstdint>
 #include <cstdlib>
 #include <cstring>
 
@@ -55,20 +58,30 @@ extern "C" int sm_rtc_compile(const char* src, const char* const* opts, int n_op
 
 extern "C" void sm_rtc_free(void* image) { free(image); }
 
-// Loads a CUBIN and returns its kernel ``name`` in *kernel and the library
-// that holds it in *library.
-extern "C" int sm_rtc_load(const void* image, const char* name, void** library, void** kernel) {
+// Loads a CUBIN and returns its kernel ``name`` in *kernel, the library
+// that holds it in *library, and in *resident the blocks of ``threads``
+// threads of that kernel the card runs at once.
+extern "C" int sm_rtc_load(const void* image, const char* name, int threads, void** library,
+                           void** kernel, int64_t* resident) {
   cudaLibrary_t lib = nullptr;
   cudaError_t rc = cudaLibraryLoadData(&lib, image, nullptr, nullptr, 0, nullptr, nullptr, 0);
   if (rc != cudaSuccess) return (int)rc;
   cudaKernel_t k = nullptr;
+  int device = 0, sms = 0, per_sm = 0;
   rc = cudaLibraryGetKernel(&k, lib, name);
+  if (rc == cudaSuccess) rc = cudaGetDevice(&device);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reinterpret_cast<const void*>(k),
+                                                       threads, 0);
+  if (rc == cudaSuccess && per_sm < 1) rc = cudaErrorLaunchOutOfResources;
   if (rc != cudaSuccess) {
     cudaLibraryUnload(lib);
     return (int)rc;
   }
   *library = lib;
   *kernel = k;
+  *resident = (int64_t)sms * per_sm;
   return 0;
 }
 

@@ -84,4 +84,32 @@ extern "C" int sm_rd_axis_launch(const RdParams* q, void* partial, void* out, vo
   return (int)cudaErrorInvalidValue;
 }
 
+// The first pass generated for the program (ops/codegen.py, kind "reduce",
+// its kernel taking (q, uint32_t* dst)) with the geometry of the compiled
+// first pass of the same walk, then the same second pass: rd_full
+// (``axis_entry`` 0) and rd_axis along axis 0 write partials, rd_axis along
+// axis 1 ``out``.
+extern "C" int sm_rd_launch_kernel(const void* kernel, const RdParams* q, int axis_entry,
+                                   void* partial, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint32_t* w = static_cast<uint32_t*>(partial);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  const bool rows = axis_entry && q->axis == 1, cols = axis_entry && q->axis == 0;
+  void* dst = rows ? out : partial;
+  dim3 grid((unsigned)q->blocks);
+  if (cols) grid = dim3((unsigned)(((q->p.shape[1] + 3) / 4 + 31) / 32), (unsigned)q->blocks);
+  void* args[] = {const_cast<RdParams*>(q), &dst};
+  const cudaError_t rc = cudaLaunchKernel(kernel, grid, dim3(kThreads), args, 0, s);
+  if (rc != cudaSuccess) return (int)rc;
+  if (rows) return (int)cudaGetLastError();
+  switch (q->op) {
+    case RD_SUM: return cols ? cols_finish<RD_SUM>(*q, w, o, s) : full_finish<RD_SUM>(*q, w, o, s);
+    case RD_MAX: return cols ? cols_finish<RD_MAX>(*q, w, o, s) : full_finish<RD_MAX>(*q, w, o, s);
+    case RD_MIN: return cols ? cols_finish<RD_MIN>(*q, w, o, s) : full_finish<RD_MIN>(*q, w, o, s);
+    case RD_SUM_I32:
+      if (!cols) return full_finish<RD_SUM_I32>(*q, w, o, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" int sm_rd_params_size() { return (int)sizeof(RdParams); }

@@ -47,18 +47,27 @@
 //               constants, and there is no register file; an instruction
 //               whose result is bf16 rounds each lane (sm_bf16r4), as the
 //               interpreter does;
-//       lanes4  any other program: the interpreter on uint4 registers, one
-//               dispatch per instruction for four elements, scalars and
-//               constants splatted once before the loop; rd_full also walks
-//               the rows of a 2-D expression with (1, C), (R, 1) operands
-//               so, a quad at a time;
-//       element operands that do not allow quad loads (strided,
-//               negative-step, unaligned, 1-byte types): the lanes4
-//               evaluation on quads gathered element by element;
-//     each operand is read at the width of its own type (a uniform branch
-//     in the loaders; a 2-byte quad behind a call, but in the direct loop,
-//     whose width is a constant), so programs that mix f32 and bf16 take
-//     the same loops;
+//       generated  any other program, and any program whose operands do
+//               not allow quad loads (strided, negative-step, unaligned,
+//               1-byte types): an evaluator generated for the program, the
+//               reduction and the walk, compiled at run time
+//               (ops/codegen.py, kind "reduce"; sm_rd_launch_kernel), with
+//               the interface of RdLanes4 below and handed to the same
+//               walks: its registers uint4 local variables, every
+//               instruction sm_exec on each lane with its opcode a literal,
+//               each operand read at the constant width of its type,
+//               scalars and constants splatted once; rd_full also walks the
+//               rows of a 2-D expression with (1, C), (R, 1) operands so, a
+//               quad at a time; gathered operands are read element by
+//               element into quads;
+//       lanes4, element  the interpreter on uint4 registers (RdLanes4), one
+//               dispatch per instruction for four elements, on quads loaded
+//               whole or gathered: reduction.interpret alone launches it,
+//               the reference the generated evaluators are held to;
+//     each operand is read at the width of its own type (in the hoisted
+//     loop and the interpreter a uniform branch in the loaders, a 2-byte
+//     quad behind a call), so programs that mix f32 and bf16 take the same
+//     loops;
 //   - the direct loop asks for four quads a thread before it combines
 //     them, the hoisted loop for two (their loads are in flight together);
 //   - rd_axis, axis 0: a block is 32 column quads by 8 row lanes; a warp
@@ -104,7 +113,7 @@ enum RdPath : int32_t {
 // <= 8 (the element path only); or, for a (rows, cols) expression whose
 // operands are full-size, (1, C) rows, (R, 1) columns or single elements
 // with rows aligned to whole quads, a quad at a time along the rows (the
-// lanes4 path only).
+// generated evaluators and the interpreter only).
 enum RdReach : int32_t { RD_FLAT = 0, RD_STRIDED = 1, RD_ROWS = 2 };
 
 // ``p`` is the program over the mapped expression's shape (rank 2 for
@@ -394,19 +403,26 @@ __device__ __noinline__ uint4 rd_run4(const SmParams& p, uint4* r) { return sm_r
 // A quad of operand ``x`` gathered element by element: any of the operand
 // types, any signed strides, through (row stride, column stride), the
 // offset advanced by the column stride.
+// ``dtype`` is the operand's (a constant in a generated evaluator).
 template <bool FLAT>
-__device__ __forceinline__ uint4 rd_gather(const SmOperand& x, int64_t i, int64_t jq,
-                                           int nvalid) {
+__device__ __forceinline__ uint4 rd_gather_as(const SmOperand& x, int32_t dtype, int64_t i,
+                                              int64_t jq, int nvalid) {
   const int64_t rs = FLAT ? 0 : x.strides[0];
   const int64_t cs = FLAT ? 1 : x.strides[1];
   int64_t off = i * rs + jq * 4 * cs;
   uint32_t v[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    if (e < nvalid) v[e] = sm_load(x.ptr, off, x.dtype);
+    if (e < nvalid) v[e] = sm_load(x.ptr, off, dtype);
     off += cs;
   }
   return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+template <bool FLAT>
+__device__ __forceinline__ uint4 rd_gather(const SmOperand& x, int64_t i, int64_t jq,
+                                           int nvalid) {
+  return rd_gather_as<FLAT>(x, x.dtype, i, jq, nvalid);
 }
 
 // The same for rd_full's operands that are read through their strides over
@@ -437,11 +453,13 @@ __device__ __noinline__ uint4 rd_gather_strided(const SmParams& p, const SmOpera
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// Any program, a quad at a time.  Register ``o`` of operand o is set once
-// where it is the same for every quad of the thread (bit o of ``kept``):
-// one-element operands here, (1, C) rows in keep_column.  The others are
-// loaded four at a time before they go to the register file (local
-// memory), so that their loads are in flight together.
+// Any program, a quad at a time: the interpreter, which only
+// reduction.interpret launches (the reference of the generated evaluators,
+// ops/codegen.py, which have its interface).  Register ``o`` of operand o
+// is set once where it is the same for every quad of the thread (bit o of
+// ``kept``): one-element operands here, (1, C) rows in keep_column.  The
+// others are loaded four at a time before they go to the register file
+// (local memory), so that their loads are in flight together.
 template <int OP, bool FLAT>
 struct RdLanes4 {
   static constexpr int kBatch = 1;
@@ -748,7 +766,9 @@ __global__ void __launch_bounds__(kThreads) rd_rows(const __grid_constant__ RdPa
     return (int)cudaGetLastError();                                                     \
   } while (0)
 
+#if !defined(__CUDACC_RTC__)
 // The first passes' launchers, one source file each.
 int rd_full_partial_launch(const RdParams& q, uint32_t* partial, cudaStream_t s);
 int rd_cols_partial_launch(const RdParams& q, uint32_t* partial, cudaStream_t s);
 int rd_rows_launch(const RdParams& q, uint32_t* out, cudaStream_t s);
+#endif

@@ -21,8 +21,13 @@ the generated kernels to, bit for bit; nothing in the package calls it.
 operand and the output allow it: a 4-byte type at a 16-byte boundary (one
 16-byte load), a 2-byte type (bfloat16) at an 8-byte one (one 8-byte load,
 widened in registers, and the result packed into one 8-byte store); else
-every element on its own.  ``flat_path`` decides, on the host, from the
-program, the shape and the operands' layouts.
+every element on its own.  A program of one instruction (every eager op)
+runs the compiled ``ew_flat``, its opcode chosen once per thread; any
+other program a kernel generated for it (ops/codegen.py, kind ``"flat"``),
+which takes the quads, the ``n % 4`` tail and the unaligned operands alike,
+so that no launch interprets a program but ``interpret``'s.  ``flat_path``
+decides, on the host, from the program, the shape and the operands'
+layouts.
 
 ``elementwise`` looks at the operands' device.  CPU tensors take the
 kernel's plain version, ``program.run_plain``.  CUDA tensors launch the
@@ -35,8 +40,8 @@ counted as ``interpret:elementwise``; while a graph is traced
 implementation is ``_launch``.  ``LAUNCHES`` counts kernel
 launches by entry point, ``PATHS`` the launches of ``ew_strided``'s two
 kernels, ``"generated"`` and ``"interp"``, and ``FLAT_PATHS`` those of
-``ew_flat`` by ``flat_path``, ``"wide"`` and ``"element"``; only a launch
-adds to them.
+``ew_flat`` by ``flat_path``: ``"wide"`` and ``"element"`` (the compiled
+kernel, one instruction) and ``"generated"``; only a launch adds to them.
 """
 
 from __future__ import annotations
@@ -58,10 +63,10 @@ from . import codegen, dispatch, library, program
 
 # Kernel launches by entry point since the last reset, the launches of
 # ew_strided's generated kernels and of its interpreter, and ew_flat's by
-# path.
+# path (flat_path).
 LAUNCHES = {"ew_flat": 0, "ew_strided": 0}
 PATHS = {"interp": 0, "generated": 0}
-FLAT_PATHS = {"wide": 0, "element": 0}
+FLAT_PATHS = {"wide": 0, "element": 0, "generated": 0}
 
 _MAX_RANK = 8
 # enum SmDtype (csrc/tiles.cuh).  This kernel's operands are float32,
@@ -206,20 +211,37 @@ def _flat(shape, strides, out_shape) -> bool:
     return math.prod(shape) == 1 or _is_full(shape, strides, out_shape)
 
 
-def flat_path(prog, out_shape, operand_layout):
+def single(prog, iterations=1) -> bool:
+    """Whether ``prog`` is one instruction whose result is the program's,
+    run once: what the compiled ``ew_flat`` takes (csrc/elementwise.cu,
+    ``flat_is_single``)."""
+    return (len(prog.insts) == 1 and iterations == 1
+            and prog.result == len(prog.leaf_dtypes) + len(prog.consts))
+
+
+def quads(prog, operand_layout) -> bool:
+    """Whether a flat call reads whole quads, each operand at its own
+    width: every full-size operand and the result 4 or 2 bytes wide and
+    quad-aligned (``quad_aligned``; the result, new, always is)."""
+    return quad_aligned(prog.dtype, 0) and all(
+        math.prod(s) == 1 or quad_aligned(dt, address) for s, _, dt, address in operand_layout)
+
+
+def flat_path(prog, out_shape, operand_layout, iterations=1):
     """How ``ew_flat`` evaluates a call, a pure function of the program, the
-    shape and ``layout(operands)``: ``"wide"`` (whole quads, each operand
-    read at its own width: every full-size operand and the result 4 or 2
-    bytes wide and quad-aligned, ``quad_aligned``; the result, new, always
-    is), ``"element"`` (every element on its own: an unaligned operand, a
-    bool one or a bool result); None where the call is not flat (an
-    operand neither full-size nor one element: ``ew_strided``)."""
+    shape, ``layout(operands)`` and the iterations: for a program of one
+    instruction (``single``) the compiled kernel, ``"wide"`` (whole quads,
+    ``quads``) or ``"element"`` (every element on its own: an unaligned
+    operand, a bool one or a bool result); for any other program
+    ``"generated"``, the kernel generated for it, on quads where ``quads``
+    allows them; None where the call is not flat (an operand neither
+    full-size nor one element: ``ew_strided``)."""
     out_shape = tuple(out_shape)
     if not all(_flat(s, st, out_shape) for s, st, _, _ in operand_layout):
         return None
-    wide = quad_aligned(prog.dtype, 0) and all(
-        math.prod(s) == 1 or quad_aligned(dt, address) for s, _, dt, address in operand_layout)
-    return "wide" if wide else "element"
+    if not single(prog, iterations):
+        return "generated"
+    return "wide" if quads(prog, operand_layout) else "element"
 
 
 @functools.lru_cache(maxsize=256)
@@ -273,15 +295,15 @@ def _library():
 def params(prog, codes, out_shape, operands, iterations=1, carry=0):
     """The parameter block of one call, operand pointers set, and
     ``flat_path`` of the call (None: not flat).  ``params.vec`` says
-    whether ``ew_flat`` reads whole quads (the path ``"wide"``)."""
+    whether ``ew_flat`` reads whole quads (``quads``)."""
     where = layout(operands)
     raw, _ = _template(prog, codes, out_shape, tuple((s, st, dt) for s, st, dt, _ in where),
                        iterations, carry)
     p = _Params.from_buffer_copy(raw)
     for o, (_, _, _, address) in enumerate(where):
         p.ops[o].ptr = address
-    taken = flat_path(prog, out_shape, where)
-    p.vec = int(taken == "wide")
+    taken = flat_path(prog, out_shape, where, iterations)
+    p.vec = int(taken is not None and quads(prog, where))
     return p, taken
 
 
@@ -314,7 +336,12 @@ def _launch(prog, codes, out_shape, operands, iterations, carry, device, interpr
     taken = None if flat else "interp" if interpreted else "generated"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if taken == "generated":
+        if flat and flat_taken == "generated":
+            sig = signature(prog, codes, out_shape, operands, iterations, carry, flat=True)
+            handle = codegen.kernel(lib, sig)
+            rc = lib.sm_ew_launch_flat_kernel(handle, ctypes.byref(p), out.data_ptr(),
+                                              codegen.resident(sig), stream)
+        elif taken == "generated":
             sig = signature(prog, codes, out_shape, operands, iterations, carry)
             rc = lib.sm_ew_launch_kernel(codegen.kernel(lib, sig), ctypes.byref(p),
                                          out.data_ptr(), stream)
@@ -331,15 +358,28 @@ def _launch(prog, codes, out_shape, operands, iterations, carry, device, interpr
     return out
 
 
-def signature(prog, codes, out_shape, operands, iterations=1, carry=0) -> codegen.Signature:
+def signature(prog, codes, out_shape, operands, iterations=1, carry=0,
+              flat=False) -> codegen.Signature:
     """The signature of the kernel generated for this call (``codes``:
     ``prog.kernel_codes``): the program, the operands' types, the rank, the
-    carry; never the shape, the strides or the constants' values."""
-    descs = [_describe(o) for o in operands]
+    carry; never the shape, the strides or the constants' values.  With
+    ``flat``, ``ew_flat``'s (kind ``"flat"``): no rank, and which operands
+    are one element."""
+    return _signature(prog, codes, tuple(out_shape),
+                      tuple((s, st, dt) for s, st, dt, _ in layout(operands)),
+                      iterations, carry, flat)
+
+
+@functools.lru_cache(maxsize=256)
+def _signature(prog, codes, out_shape, where, iterations, carry, flat):
+    """``signature`` of operands of (shape, strides, dtype) ``where``: a
+    launch's host work, so kept as ``_template`` keeps its block."""
     return codegen.signature(
-        prog, codes, [_DTYPE_CODE[buf.dtype] for buf, _, _, _ in descs], _DTYPE_CODE[prog.dtype],
-        len(out_shape), iterations, carry,
-        codegen.narrow(math.prod(out_shape), [(s, st) for _, _, s, st in descs]))
+        prog, codes, [_DTYPE_CODE[dt] for _, _, dt in where], _DTYPE_CODE[prog.dtype],
+        1 if flat else len(out_shape), iterations, carry,
+        codegen.narrow(math.prod(out_shape), [(s, st) for s, st, _ in where]),
+        kind="flat" if flat else "strided",
+        scalars=[math.prod(s) == 1 for s, _, _ in where] if flat else ())
 
 
 def operand_device(prog, out_shape, operands) -> torch.device:

@@ -26,12 +26,16 @@ counted as ``interpret:reduce``); a traced call goes through
 entry point, and ``PATHS`` the same launches by the way the kernel
 evaluated them, which ``path`` decides from the program, the shape and the
 operands' layouts: ``direct`` (the identity program), ``single`` (a sum of
-one instruction, its opcode hoisted out of the loop), ``lanes4`` (any other
-program, four elements a dispatch) or ``element`` (operands that do not
-allow quad loads).  A quad is four elements read with one load: 16 bytes of
-a 4-byte type, or 8 bytes of a 2-byte type (bfloat16, float16) widened to
-float32 in registers; an operand allows it where it is quad-aligned
-(``elementwise.quad_aligned``) and, along rows, its rows are whole quads.
+one instruction, its opcode hoisted out of the loop) or ``generated`` (any
+other program, and any program whose operands do not allow quad loads: an
+evaluator generated for the program, the reduction and the walk, compiled
+at run time, ops/codegen.py, kind ``"reduce"``); ``interp`` counts the
+launches of the interpreter, which ``interpret`` alone makes: the reference
+the generated evaluators are held to, bit for bit.  A quad is four elements
+read with one load: 16 bytes of a 4-byte type, or 8 bytes of a 2-byte type
+(bfloat16, float16) widened to float32 in registers; an operand allows it
+where it is quad-aligned (``elementwise.quad_aligned``) and, along rows, its
+rows are whole quads (``reach``: otherwise its elements are gathered).
 
 The kernel accumulates in float32 whatever the float input; the int32 dot
 wraps mod 2**32.  Dispatch names are the JAX package's: ``reduce:<kind>``,
@@ -52,13 +56,13 @@ import math
 import torch
 
 from .. import dtypes as _dt
-from . import dispatch, elementwise, library, program
+from . import codegen, dispatch, elementwise, library, program
 
 # Kernel launches by entry point since the last reset, and the same
 # launches by path.
 LAUNCHES = {"rd_full": 0, "rd_axis": 0}
-PATHS = {"direct": 0, "single": 0, "lanes4": 0, "element": 0}
-_PATH_CODE = {"direct": 0, "single": 1, "lanes4": 2, "element": 3}  # enum RdPath
+PATHS = {"direct": 0, "single": 0, "generated": 0, "interp": 0}
+_RD_DIRECT, _RD_SINGLE, _RD_LANES4, _RD_ELEMENT = 0, 1, 2, 3  # enum RdPath
 # The opcodes the kernel's hoisted loop is built for (rd_single_takes in
 # csrc/reduction.cuh): all but the transcendental and trigonometric
 # functions, the integer power, and the unsigned, bit-copy and
@@ -169,18 +173,31 @@ def path(prog, kind: str, shape, operand_layout, axis=None) -> str:
     function of the program, the reduction, the expression's shape and
     ``layout(operands)``.  ``axis`` None is rd_full, 0 or 1 rd_axis."""
     how = reach(shape, operand_layout, axis)
-    if how == "gather":
-        return "element"
-    if axis is None and how == "rows":
-        return "lanes4"  # rd_full has its loops without an interpreter for flat data only
+    if how == "gather" or (axis is None and how == "rows"):
+        return "generated"  # the compiled loops take quads of flat data (rd_full) or rows (rd_axis)
     n_ops = len(operand_layout)
     if not prog.insts:
-        return "direct" if prog.result < n_ops else "lanes4"
+        return "direct" if prog.result < n_ops else "generated"
     codes = prog.kernel_codes
     if (kind == "sum" and len(prog.insts) == 1 and prog.result == n_ops + len(prog.consts)
             and codes is not None and codes[0] in HOISTED):
         return "single"
-    return "lanes4"
+    return "generated"
+
+
+def walk(shape, operand_layout, axis=None) -> tuple:
+    """(walk, gathered) of a generated evaluator's launch: the walk of
+    csrc/reduction.cuh it is handed to (rd_full's ``"flat"``, ``"rows"`` of
+    a 2-D expression or ``"strided"``, gathered only; rd_axis's ``"axis0"``
+    or ``"axis1"``) and whether its operands are gathered element by
+    element."""
+    how = reach(shape, operand_layout, axis)
+    if axis is not None:
+        return f"axis{axis}", how == "gather"
+    if how == "gather":
+        flat = all(elementwise._flat(s, st, tuple(shape)) for s, st, _, _ in operand_layout)
+        return ("flat" if flat else "strided"), True
+    return how, False
 
 
 # ------------------------------------------------------------ C interface
@@ -205,22 +222,22 @@ def _library():
     return lib
 
 
-def _launch(entry, prog, kind, op, shape, operands, device, axis=None):
+def _launch(entry, prog, kind, op, shape, operands, device, axis=None, interpreted=False):
     lib = _library()
     codes = elementwise.check_program(prog, entry, _dt.KERNEL_DTYPES | FLOAT_INPUTS)
     q = _RdParams()
-    q.p, flat_taken = elementwise.params(prog, codes, shape, operands)
-    flat = flat_taken is not None
+    q.p, _ = elementwise.params(prog, codes, shape, operands)
     q.op = op
     where = layout(operands)
-    taken = path(prog, kind, shape, where, axis)
-    q.path = _PATH_CODE[taken]
+    taken = "interp" if interpreted else path(prog, kind, shape, where, axis)
+    how, gathered = walk(shape, where, axis)
+    q.path = {"direct": _RD_DIRECT, "single": _RD_SINGLE}.get(
+        taken, _RD_ELEMENT if gathered else _RD_LANES4)
     if entry == "rd_full":
         # enum RdReach: flat data, strides over the shape (gathered), or
         # the quads of the rows of a 2-D expression.
-        by_rows = taken != "element" and reach(shape, where) == "rows"
-        q.strided = 2 if by_rows else int(not flat)
-        q.blocks = full_blocks(shape[0] * _cdiv(shape[1], 4) * 4 if by_rows
+        q.strided = {"flat": 0, "strided": 1, "rows": 2}[how]
+        q.blocks = full_blocks(shape[0] * _cdiv(shape[1], 4) * 4 if how == "rows"
                                else math.prod(shape))
         out = torch.empty((), dtype=torch.int32 if op == _SUM_I32 else torch.float32,
                           device=device)
@@ -234,15 +251,35 @@ def _launch(entry, prog, kind, op, shape, operands, device, axis=None):
         # Axis 0: a row of partials per segment, padded to whole quads.
         partial = torch.empty(q.blocks * _cdiv(cols, 4) * 4 if axis == 0 else 1,
                               dtype=torch.int32, device=device)
-    launch = lib.sm_rd_full_launch if entry == "rd_full" else lib.sm_rd_axis_launch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = launch(ctypes.byref(q), partial.data_ptr(), out.data_ptr(), stream)
+        if taken == "generated":
+            sig = signature(prog, codes, op, shape, operands, axis)
+            rc = lib.sm_rd_launch_kernel(codegen.kernel(lib, sig), ctypes.byref(q),
+                                         int(entry == "rd_axis"), partial.data_ptr(),
+                                         out.data_ptr(), stream)
+        else:
+            launch = lib.sm_rd_full_launch if entry == "rd_full" else lib.sm_rd_axis_launch
+            rc = launch(ctypes.byref(q), partial.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{entry} ({taken}) launch failed: cudaError {rc}")
     LAUNCHES[entry] += 1
     PATHS[taken] += 1
     return out
+
+
+def signature(prog, codes, op, shape, operands, axis=None) -> codegen.Signature:
+    """The signature of the evaluator generated for this launch (``op``: the
+    reduction's code, ``RdOp``): the program, the operands' types, which
+    are one element, the walk and whether the operands are gathered; never
+    the shape, the strides or the constants' values."""
+    how, gathered = walk(shape, layout(operands), axis)
+    descs = [elementwise._describe(o) for o in operands]
+    return codegen.signature(
+        prog, codes, [elementwise._DTYPE_CODE[buf.dtype] for buf, _, _, _ in descs],
+        elementwise._DTYPE_CODE[prog.dtype], 0, 1, 0, False, kind="reduce",
+        scalars=[math.prod(s) == 1 for _, _, s, _ in descs], reduce=op, walk=how,
+        gathered=gathered)
 
 
 # ------------------------------------------------------- plain versions
@@ -311,6 +348,21 @@ def run(prog, kind, axis, shape, operands, int_acc=False) -> torch.Tensor:
     return _launch("rd_full" if axis is None else "rd_axis", prog, kind, op, shape,
                    operands, device, axis)
 
+
+
+def interpret(prog, kind, axis, shape, operands, int_acc=False) -> torch.Tensor:
+    """The reduction ``run`` computes, but on CUDA tensors through the
+    interpreter (csrc/reduction.cuh, ``RdLanes4``: quads loaded whole, or
+    gathered where ``reach`` says so), whatever the program: the reference
+    of the generated evaluators.  CPU tensors take the plain version."""
+    shape = tuple(int(s) for s in shape)
+    device = elementwise.operand_device(prog, shape, operands)
+    if device.type == "cpu":
+        vals = values(prog, shape, operands, device)
+        return _plain_sum_i32(vals, axis) if int_acc else _plain(vals, kind, axis)
+    return _launch("rd_full" if axis is None else "rd_axis", prog, kind,
+                   _SUM_I32 if int_acc else _OP[kind], shape, operands, device, axis,
+                   interpreted=True)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,5 @@
-"""The generated kernels of the strided elementwise kernel, on the CPU.
+"""The generated kernels of the strided elementwise kernel, and the
+map-reduce kernel's generated evaluators, on the CPU.
 
 ``ew_strided`` launches a kernel written for its program and compiled at
 run time (ops/codegen.py), whatever the program; its per-element
@@ -6,7 +7,10 @@ interpreter stays as ``elementwise.interpret``, the reference.  Held here:
 the source of programs of every size, the signature a generated kernel is
 cached by (what shares a kernel and what does not), the generated source
 for every opcode of ``program.OPCODES``, and the names it uses against the
-kernel sources.  The generated kernels run, against the interpreter bit
+kernel sources; for the evaluators (kind ``"reduce"``), what their
+signatures keep (the walk, the reduction, whether operands are gathered)
+and their source on every walk.  ``ew_flat``'s generated kernels are
+tests/test_torch_codegen_flat.py's.  The generated kernels run, against the interpreter bit
 for bit, on the card (tests/test_torch_kernel_cuda.py).
 """
 
@@ -18,7 +22,7 @@ import pytest
 import torch
 
 import simplemath_tpu_torch as sm
-from simplemath_tpu_torch.ops import codegen, elementwise, program, registry
+from simplemath_tpu_torch.ops import codegen, elementwise, program, reduction, registry
 
 CSRC = pathlib.Path(program.__file__).resolve().parent.parent / "csrc"
 
@@ -291,3 +295,95 @@ def test_interpret_on_the_cpu_is_the_plain_version(iterations):
     assert torch.equal(got, program.run_plain(prog, [acc, row], (4, 8), iterations, 0))
     assert elementwise.LAUNCHES == {"ew_flat": 0, "ew_strided": 0}
     assert elementwise.PATHS == {"interp": 0, "generated": 0}
+
+
+def _lowered(fn, *operands):
+    leaves = [program.leaf(tuple(o.shape), o.dtype) for o in operands]
+    return program.lower(fn(*leaves), leaves)
+
+
+# -------------------------------------------------- the generated evaluators
+def test_reduce_signature_keeps_the_walk_the_reduction_and_the_gather():
+    m, row, col = _t(16, 12), _t(1, 12), _t(16, 1)
+    prog = _lowered(lambda x, r, c: x * r - c, m, row, col)
+    sig = {}
+    for label, op, operands, axis in (
+            ("rows", 0, [m, row, col], None), ("max", 1, [m, row, col], None),
+            ("axis0", 0, [m, row, col], 0), ("axis1", 0, [m, row, col], 1),
+            ("gathered", 0, [elementwise.View(_t(16 * 12 + 1), 1, (16, 12), (12, 1)), m, m], None),
+            ("strided", 0, [elementwise.View(m, 0, (16, 12), (1, 16)), row, col], None)):
+        sig[label] = reduction.signature(prog, prog.kernel_codes, op, (16, 12), operands, axis)
+    assert len(set(sig.values())) == len(sig)
+    assert (sig["rows"].walk, sig["rows"].gathered) == ("rows", False)
+    assert (sig["axis0"].walk, sig["axis1"].walk) == ("axis0", "axis1")
+    assert sig["max"].reduce == 1 and sig["rows"].reduce == 0
+    assert (sig["gathered"].walk, sig["gathered"].gathered) == ("flat", True)
+    assert (sig["strided"].walk, sig["strided"].gathered) == ("strided", True)
+    # Not the shape, nor the constants' values, nor the strides of quads.
+    big = reduction.signature(prog, prog.kernel_codes, 0, (160, 120),
+                              [_t(160, 120), _t(1, 120), _t(160, 1)])
+    assert big == sig["rows"]
+
+
+# --------------------------------------------------------- the reduce source
+_WALK_CALLS = {
+    "flat": "RdFullWalk<RD_SUM>{q, dst}(eval);",
+    "rows": "RdFullWalk<RD_SUM>{q, dst}.rows(eval);",
+    "strided": "RdFullWalk<RD_SUM>{q, dst}(eval);",
+    "axis0": "RdColsWalk<RD_SUM>{q, dst, s}(eval);",
+    "axis1": "RdRowsWalk<RD_SUM>{q, dst}(eval);",
+}
+
+
+@pytest.mark.parametrize("case", ["flat", "rows", "axis0", "axis1", "flat gathered", "strided",
+                                  "axis0 gathered", "bf16 flat", "bf16 axis1", "f16 gathered"])
+def test_reduce_source_per_walk(case):
+    """The evaluator reads each operand at its type's constant width
+    (``rd_load_quad<true>`` for a 2-byte type, no ``rd_read_narrow``),
+    gathers where its walk says so, splats scalars and constants once,
+    keeps (1, C) rows on the axis-0 walk, and hands itself to the walk."""
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16}.get(case.split()[0], torch.float32)
+    R, C = 16, 12
+    m, row, one = _t(R, C, dtype=dt), _t(1, C, dtype=dt), _t(dtype=dt)
+    flat_v = _t(R * C, dtype=dt)
+    fn = (lambda x: x) if dt == torch.float16 else (lambda x, *rest: x * x + x)
+    operands = {
+        "flat": [flat_v], "rows": [m, row], "axis0": [m, row], "axis1": [m, one],
+        "flat gathered": [elementwise.View(_t(R * C + 1), 1, (R * C,), (1,))],
+        "strided": [elementwise.View(m, 0, (C, R), (1, C))],
+        "axis0 gathered": [elementwise.View(m, 0, (C, R), (1, C))],
+        "bf16 flat": [flat_v], "bf16 axis1": [m, one],
+        "f16 gathered": [elementwise.View(_t(R * C + 1, dtype=dt), 1, (R * C,), (1,))],
+    }[case]
+    shape = tuple(operands[0].shape)
+    axis = {"axis0": 0, "axis1": 1, "axis0 gathered": 0, "bf16 axis1": 1}.get(case)
+    prog = _lowered(lambda *ops: fn(*ops) if len(ops) == 1 else ops[0] * ops[1] + ops[0], *operands)
+    where = reduction.layout(operands)
+    assert reduction.path(prog, "sum", shape, where, axis) == "generated"
+    walk, gathered = reduction.walk(shape, where, axis)
+    sig = reduction.signature(prog, prog.kernel_codes, 0, shape, operands, axis)
+    src = codegen.source(sig)
+    assert '#include "reduction.cuh"' in src and _WALK_CALLS[walk] in src
+    assert "SM_MAX_REGS" not in src and "rd_read_narrow" not in src and "rd_run4" not in src
+    name = codegen.DTYPE_NAMES[elementwise._DTYPE_CODE[dt]]
+    if gathered:
+        assert ("rd_gather_strided(" in src) is (walk == "strided")
+        assert ("rd_gather_as<" in src) is (walk != "strided")
+    else:
+        wide = "true" if dt != torch.float32 else "false"
+        assert f"rd_load_quad<{wide}>(q.p.ops[0].ptr, " in src and f", {name});" in src
+    for o, scalar in enumerate(sig.scalars):
+        if scalar:
+            assert f"s{o} = sm_splat(sm_load(q.p.ops[{o}].ptr, 0, {name}));" in src
+    assert ("if (q.p.ops[1].strides[0] == 0) {" in src) is (case == "axis0")
+    assert f"return rd_value4<RD_SUM>({codegen.DTYPE_NAMES[sig.out_dtype]}, v{prog.result});" in src
+    assert src.count("{") == src.count("}") and src.count("(") == src.count(")")
+
+
+def test_reduce_headers_enter_the_disk_cache_name():
+    """A generated evaluator includes reduction.cuh, so the disk cache's
+    digest follows it, and NVRTC compiles it without host headers."""
+    from simplemath_tpu_torch import _build
+
+    assert "reduction.cuh" in codegen.HEADERS
+    assert "#if !defined(__CUDACC_RTC__)" in (_build.CSRC / "reduction.cuh").read_text()

@@ -390,18 +390,18 @@ def test_rd_full_every_path(cuda, kind, n):
     direct, _ = _rd_on("direct", lambda: reduction.reduce(x, kind), p)
     _rd_agree(kind, direct, p, scale)
     one = _lowered(lambda a: a * 1.0, x)
-    k, _ = _rd_on("single" if kind == "sum" else "lanes4",
+    k, _ = _rd_on("single" if kind == "sum" else "generated",
                   lambda: reduction.map_reduce(one, kind, (n,), x), p)
     assert torch.equal(k, direct)
     two = _lowered(lambda a: a * 1.0 + 0.0, x)
-    k, _ = _rd_on("lanes4", lambda: reduction.map_reduce(two, kind, (n,), x), p)
+    k, _ = _rd_on("generated", lambda: reduction.map_reduce(two, kind, (n,), x), p)
     assert torch.equal(k, direct)
     shifted = torch.empty(n + 5, device=cuda)
     off = (1 - shifted.data_ptr() // 4) % 4  # the view starts 4 bytes past a 16-byte boundary
     view = elementwise.View(shifted, off, (n,), (1,))
     elementwise.read(view).copy_(x)
     for prog in (reduction.identity(torch.float32), two):
-        k, _ = _rd_on("element", lambda: reduction.map_reduce(prog, kind, (n,), view), p)
+        k, _ = _rd_on("generated", lambda: reduction.map_reduce(prog, kind, (n,), view), p)
         assert torch.equal(k, direct)
 
 
@@ -411,7 +411,7 @@ def test_rd_nan_in_the_tail_on_every_path(cuda, kind):
     x = _aligned(cuda, n)
     x[n - 1] = float("nan")
     progs = {"direct": reduction.identity(torch.float32), "one": _lowered(lambda a: a * 1.0, x),
-             "lanes4": _lowered(lambda a: a * 1.0 + 0.0, x)}
+             "generated": _lowered(lambda a: a * 1.0 + 0.0, x)}
     for prog in progs.values():
         assert bool(torch.isnan(reduction.map_reduce(prog, kind, (n,), x)))
     assert bool(torch.isnan(reduction.reduce(x.clone()[1:], kind)))  # element path
@@ -471,10 +471,10 @@ def test_rd_int32_dot_paths(cuda):
     assert k.dtype == torch.int32 and int(k) == int(want)
     big = torch.empty(n + 1, dtype=torch.int32, device=cuda)
     big[1:] = b
-    k, _ = _rd_on("element", lambda: reduction.dot1d(a, elementwise.View(big, 1, (n,), (1,))), None)
+    k, _ = _rd_on("generated", lambda: reduction.dot1d(a, elementwise.View(big, 1, (n,), (1,))), None)
     assert int(k) == int(want)
     f = a.float() * 1e-6
-    k, _ = _rd_on("lanes4", lambda: reduction.dot1d(b, f), None)  # a cast and a multiply
+    k, _ = _rd_on("generated", lambda: reduction.dot1d(b, f), None)  # a cast and a multiply
     assert abs(float(k) - float((b.double() * f.double()).sum())) <= 2e-5 * float(
         (b.double() * f.double()).abs().sum())
 
@@ -493,26 +493,26 @@ def test_rd_axis_every_path(cuda, shape, axis, kind):
     p, scale = reduction._plain(m, kind, axis), m.abs().sum(axis)
     direct, _ = _rd_on("direct", lambda: reduction.reduce_axis(m, kind, axis), p)
     _rd_agree(kind, direct, p, scale)
-    k, _ = _rd_on("element", lambda: reduction.reduce_axis(clone, kind, axis), p)
+    k, _ = _rd_on("generated", lambda: reduction.reduce_axis(clone, kind, axis), p)
     assert torch.equal(k, direct)
     one = _lowered(lambda a: a * 1.0, m)
-    k, _ = _rd_on("single" if kind == "sum" else "lanes4",
+    k, _ = _rd_on("single" if kind == "sum" else "generated",
                   lambda: reduction.map_reduce_axis(one, kind, axis, shape, m), p)
     assert torch.equal(k, direct)
     two = _lowered(lambda a: a * 1.0 + 0.0, m)
-    for operand, path in ((m, "lanes4"), (clone, "element")):
+    for operand, path in ((m, "generated"), (clone, "generated")):
         k, _ = _rd_on(path, lambda: reduction.map_reduce_axis(two, kind, axis, shape, operand), p)
         assert torch.equal(k, direct)
     t = elementwise.View(clone.T.contiguous(), 0, (R, C), (1, R))  # the same values, transposed
-    k, _ = _rd_on("element", lambda: reduction.reduce_axis(t, kind, axis), p)
+    k, _ = _rd_on("generated", lambda: reduction.reduce_axis(t, kind, axis), p)
     assert torch.equal(k, direct)
 
 
 @pytest.mark.parametrize("shape", [(300, 260), (77, 1030), (5, 7), (1000, 4)])
 def test_rd_full_walks_the_rows_of_broadcast_operands(cuda, shape):
     """rd_full of a 2-D expression with a (1, C) row and an (R, 1) column:
-    16 bytes at a time along rows that start at 16-byte boundaries
-    (lanes4), element by element otherwise."""
+    16 bytes at a time along rows that start at 16-byte boundaries, element
+    by element otherwise, both on the evaluator generated for the program."""
     R, C = shape
     m = _aligned(cuda, R, (C + 3) // 4 * 4)[:, :C]
     row, col = _aligned(cuda, 1, C), _aligned(cuda, R, 1)
@@ -522,11 +522,11 @@ def test_rd_full_walks_the_rows_of_broadcast_operands(cuda, shape):
         vals = reduction.values(prog, shape, operands, cuda)
         for kind in ("sum", "max", "min"):
             p = reduction._plain(vals, kind)
-            k, _ = _rd_on("lanes4", lambda: reduction.map_reduce(prog, kind, shape, *operands), p)
+            k, _ = _rd_on("generated", lambda: reduction.map_reduce(prog, kind, shape, *operands), p)
             _rd_agree(kind, k, p, vals.abs().sum())
             if C % 4:
                 ragged = [m.contiguous()] + operands[1:]
-                k, _ = _rd_on("element", lambda: reduction.map_reduce(prog, kind, shape, *ragged), p)
+                k, _ = _rd_on("generated", lambda: reduction.map_reduce(prog, kind, shape, *ragged), p)
                 _rd_agree(kind, k, p, vals.abs().sum())
 
 
@@ -536,15 +536,15 @@ def test_rd_axis_broadcast_operands_keep_the_16_byte_paths(cuda, axis):
     m, row, col, one = (_aligned(cuda, *s) for s in ((R, C), (1, C), (R, 1), (1, 1)))
     cases = [(lambda a, r: a * r, [m, row], "single"), (lambda c, a: c - a, [col, m], "single"),
              (lambda a, s: a * s, [m, one], "single"),
-             (lambda a, r, c: sm.square(a * r - c), [m, row, col], "lanes4"),
-             (lambda a, s: sm.where(a > s, a, 0.0), [m, one], "lanes4")]
+             (lambda a, r, c: sm.square(a * r - c), [m, row, col], "generated"),
+             (lambda a, s: sm.where(a > s, a, 0.0), [m, one], "generated")]
     for fn, operands, path in cases:
         prog = _lowered(fn, *operands)
         vals = reduction.values(prog, (R, C), operands, cuda)
         k, p = _rd_on(path, lambda: reduction.map_reduce_axis(prog, "sum", axis, (R, C), *operands),
                       reduction._plain(vals, "sum", axis))
         _rd_agree("sum", k, p, vals.abs().sum(axis))
-        km, pm = _rd_on("lanes4", lambda: reduction.map_reduce_axis(prog, "max", axis, (R, C), *operands),
+        km, pm = _rd_on("generated", lambda: reduction.map_reduce_axis(prog, "max", axis, (R, C), *operands),
                         reduction._plain(vals, "max", axis))
         assert torch.equal(km, pm)
 
@@ -1143,6 +1143,70 @@ def test_ew_flat_iterated_carry(cuda):
     assert _max_ulp(k1, p1) == 0.0  # one instruction, iterated: not the hoisted loop
 
 
+# -------------- ew_flat's and rd_*'s generated kernels (ops/codegen.py)
+# Bit for bit the interpreters' values (``elementwise.interpret``,
+# ``reduction.interpret``) on the cases chip_smoke.py holds them to
+# (``flat_generated_cases``: every opcode and cast on float32, int32,
+# uint32, bool and bfloat16 operands, scalar operands, a ragged tail,
+# bfloat16 operands 2 bytes off, programs of MAX_INSTS instructions;
+# ``reduction_generated_cases``: every walk, quads and gathered, sum, max
+# and min, in float32, bfloat16 and float16), a part of them a test.
+def _smoke():
+    import pathlib
+    import sys
+
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+_PARTS = 6
+
+
+@pytest.mark.parametrize("part", range(_PARTS))
+def test_ew_flat_generated_is_the_interpreter(cuda, part):
+    smoke = _smoke()
+    cases = smoke.flat_generated_cases(cuda)[part::_PARTS]
+    assert smoke.flat_generated_checks(sm, elementwise, program, cases) == len(cases)
+
+
+@pytest.mark.parametrize("part", range(_PARTS))
+def test_rd_generated_is_the_interpreter(cuda, part):
+    smoke = _smoke()
+    cases = smoke.reduction_generated_cases(cuda)[part::_PARTS]
+    for label, prog, kind, axis, shape, operands in cases:
+        reduction.reset_launches()
+        if axis is None:
+            g = reduction.map_reduce(prog, kind, shape, *operands)
+        else:
+            g = reduction.map_reduce_axis(prog, kind, axis, shape, *operands)
+        i = reduction.interpret(prog, kind, axis, shape, operands)
+        torch.cuda.synchronize()
+        assert reduction.PATHS == {"direct": 0, "single": 0, "generated": 1, "interp": 1}, label
+        assert torch.equal(g.view(torch.int32), i.view(torch.int32)), label
+
+
+def test_generated_kernels_report_registers_and_spills(cuda):
+    """ptxas' report of a generated kernel is kept beside its CUBIN: the
+    16M chain's flat kernel and the distance's evaluator spill nothing."""
+    from simplemath_tpu_torch.ops import codegen
+
+    n = 4096 + 3
+    x, y, z = (_inputs(torch.float32, n, cuda, seed) for seed in range(3))
+    chain = _lowered(lambda a, b, c: a * b + c - a, x, y, z)
+    elementwise.elementwise(chain, (n,), torch.float32, x, y, z)
+    dist = _lowered(lambda a, b: sm.square(a - b), x, y)
+    reduction.map_reduce(dist, "sum", (n,), x, y)
+    torch.cuda.synchronize()
+    for sig in (elementwise.signature(chain, chain.kernel_codes, (n,), [x, y, z], flat=True),
+                reduction.signature(dist, dist.kernel_codes, 0, (n,), [x, y])):
+        report = codegen.ptxas(sig)
+        assert report["registers"] <= 255 and report["spill_stores"] == 0, report
+
+
 # ------------------------ ew_strided's generated kernels (ops/codegen.py)
 # Bit for bit the interpreter's values (``elementwise.interpret``) on every
 # opcode, rank, operand layout and carry; ``elementwise.PATHS`` says which
@@ -1679,7 +1743,7 @@ def test_rd_half_inputs_match_plain(cuda, dtype, kind, axis):
     else:
         fn = lambda: reduction.reduce_axis(x, kind, axis)  # noqa: E731
     k, p = _rd_both(fn, reduction._plain(t, kind, axis))
-    taken = "direct" if axis is None else "element"
+    taken = "direct" if axis is None else "generated"
     assert reduction.path(reduction.identity(dtype), kind, x.shape, reduction.layout([x]),
                           axis) == taken
     assert reduction.PATHS[taken] == 2
@@ -1694,8 +1758,8 @@ def test_rd_half_inputs_match_plain(cuda, dtype, kind, axis):
 
 def test_rd_rounding_program_and_integer_division(cuda):
     """A map-reduce of a bfloat16 program (each instruction's result rounded
-    in the register) and the sum of an int32 floor division, both on
-    lanes4, against the plain version."""
+    in the register) and the sum of an int32 floor division, both on a
+    generated evaluator, against the plain version."""
     rng = np.random.default_rng(5)
     n = 4096 * 3 + 777
     a = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda).to(torch.bfloat16)
@@ -1710,7 +1774,7 @@ def test_rd_rounding_program_and_integer_division(cuda):
     i = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32)).to(cuda)
     li = program.leaf((n,), torch.int32)
     div = program.lower(li // 7, [li])
-    assert reduction.path(div, "sum", (n,), reduction.layout([i])) == "lanes4"
+    assert reduction.path(div, "sum", (n,), reduction.layout([i])) == "generated"
     k, p = _rd_both(lambda: reduction.map_reduce(div, "sum", (n,), i),
                     reduction._plain(reduction.values(div, (n,), [i], cuda), "sum"))
     assert float(k) == float(p)
@@ -1975,25 +2039,31 @@ def _half_programs(n):
 @pytest.mark.parametrize("n", [3, 4, 1025, 1026, 1027, 1028, (1 << 16) + 5])
 @pytest.mark.parametrize("name", sorted(_half_programs(4)))
 def test_ew_flat_bf16_wide_path_is_the_element_path(cuda, name, n):
-    """A bfloat16 (or mixed bfloat16/float32) program on ew_flat's wide path
+    """A bfloat16 (or mixed bfloat16/float32) program on ew_flat's quads
     (one 8-byte load a quad, the result rounded and packed into one 8-byte
     store; the last n % 4 elements one by one) gives bit for bit the
     element path's values on the same data 2 bytes off, the interpreter's
     (elementwise.interpret) and the plain version's; max/min propagate NaN.
-    FLAT_PATHS counts each launch on its path."""
+    A program of one instruction runs the compiled kernel, any other the
+    one generated for it, on quads and 2 bytes off alike.  FLAT_PATHS counts
+    each launch on its path."""
     root, leaves = _half_programs(n)[name]
     prog = program.lower(root, leaves)
     operands = [(_inputs(l.dtype, max(n, 16), cuda, seed)[:n] if l.shape else
                  torch.tensor(1.75, device=cuda, dtype=l.dtype)) for seed, l in enumerate(leaves)]
     wide = [_placed(o, 0) if o.dim() else o for o in operands]
     off = [_placed(o, 1) if o.dim() and o.element_size() == 2 else o for o in operands]
-    assert elementwise.flat_path(prog, (n,), elementwise.layout(wide)) == "wide"
-    assert elementwise.flat_path(prog, (n,), elementwise.layout(off)) == "element"
+    single = elementwise.single(prog)
+    assert elementwise.flat_path(prog, (n,), elementwise.layout(wide)) == (
+        "wide" if single else "generated")
+    assert elementwise.flat_path(prog, (n,), elementwise.layout(off)) == (
+        "element" if single else "generated")
     elementwise.reset_launches()
     k = elementwise.elementwise(prog, (n,), prog.dtype, *wide)
     e = elementwise.elementwise(prog, (n,), prog.dtype, *off)
     torch.cuda.synchronize()
-    assert elementwise.FLAT_PATHS == {"wide": 1, "element": 1}
+    assert elementwise.FLAT_PATHS == ({"wide": 1, "element": 1, "generated": 0} if single
+                                      else {"wide": 0, "element": 0, "generated": 2})
     assert elementwise.LAUNCHES == {"ew_flat": 2, "ew_strided": 0}
     i = elementwise.interpret(prog, (n,), *wide)
     p = program.run_plain(prog, operands, (n,))
@@ -2016,7 +2086,7 @@ def test_ew_flat_bf16_add_through_the_api_takes_the_wide_path(cuda):
     elementwise.reset_launches()
     out = sm.add(sm.Array(a.bfloat16()), sm.Array(b.bfloat16())).torch()
     torch.cuda.synchronize()
-    assert elementwise.FLAT_PATHS == {"wide": 1, "element": 0}
+    assert elementwise.FLAT_PATHS == {"wide": 1, "element": 0, "generated": 0}
     want = (a.bfloat16().float() + b.bfloat16().float()).bfloat16()
     assert torch.equal(out.view(torch.int16), want.view(torch.int16))
 
@@ -2046,7 +2116,7 @@ def test_rd_full_half_direct_is_the_element_path(cuda, dtype, kind, n):
     wide, off = _placed(x, 0), _placed(x, 1)
     p = reduction._plain(x, kind)
     k, _ = _rd_on("direct", lambda: reduction.reduce(wide, kind), p)
-    e, _ = _rd_on("element", lambda: reduction.reduce(off, kind), p)
+    e, _ = _rd_on("generated", lambda: reduction.reduce(off, kind), p)
     c, _ = _rd_on("direct", lambda: reduction.reduce(off.clone(), kind), p)
     assert torch.equal(k.view(torch.int32), e.view(torch.int32))
     assert torch.equal(k.view(torch.int32), c.view(torch.int32))
@@ -2070,7 +2140,7 @@ def test_rd_axis_half_direct_is_the_element_path(cuda, dtype, kind, axis, shape)
     wide, off = _placed(m, 0), _placed(m, 1)
     p = reduction._plain(m, kind, axis)
     k, _ = _rd_on("direct", lambda: reduction.reduce_axis(wide, kind, axis), p)
-    e, _ = _rd_on("element", lambda: reduction.reduce_axis(off, kind, axis), p)
+    e, _ = _rd_on("generated", lambda: reduction.reduce_axis(off, kind, axis), p)
     assert torch.equal(k.view(torch.int32), e.view(torch.int32))
     _rd_agree(kind, k, p, m.float().abs().sum(axis))
 
@@ -2089,10 +2159,10 @@ def _rounding_cases(cuda, n, R, C):
         ("bf16 a*row axis 0", _lowered(mul, m, row), "sum", 0, (R, C), [m, row], "single"),
         ("bf16 a*row axis 1", _lowered(mul, m, row), "sum", 1, (R, C), [m, row], "single"),
         ("bf16 a*b+a sum", _lowered(lambda p, q: p * q + p, a, b), "sum", None, (n,), [a, b],
-         "lanes4"),
-        ("f32 * bf16 sum", _lowered(mul, f, b), "sum", None, (n,), [f, b], "lanes4"),
+         "generated"),
+        ("f32 * bf16 sum", _lowered(mul, f, b), "sum", None, (n,), [f, b], "generated"),
         ("bf16 (a+b)*a max", _lowered(lambda p, q: (p + q) * p, a, b), "max", None, (n,), [a, b],
-         "lanes4"),
+         "generated"),
     ]
 
 
@@ -2101,7 +2171,7 @@ def _rounding_cases(cuda, n, R, C):
 def test_rd_half_programs_on_the_quad_paths_are_the_element_path(cuda, case, n):
     """The rounding ``single`` routes (a bfloat16 instruction's result
     rounded on each lane before it is summed), a bfloat16 program on
-    ``lanes4`` and a mixed float32/bfloat16 one: bit for bit the element
+    a generated evaluator and a mixed float32/bfloat16 one: bit for bit the element
     path's on the same values 2 bytes off, within 2e-5 * sum|v| of the
     plain version."""
     label, prog, kind, axis, shape, operands, want = _rounding_cases(cuda, n, 96, 128)[case]
@@ -2117,7 +2187,7 @@ def test_rd_half_programs_on_the_quad_paths_are_the_element_path(cuda, case, n):
         return reduction.map_reduce_axis(prog, kind, axis, shape, *ops)
 
     k, _ = _rd_on(want, lambda: run(wide), p)
-    e, _ = _rd_on("element", lambda: run(off), p)
+    e, _ = _rd_on("generated", lambda: run(off), p)
     assert torch.equal(k.view(torch.int32), e.view(torch.int32)), label
     _rd_agree(kind, k, p, vals.float().abs().sum(axis) if axis is not None else vals.float().abs().sum())
 

@@ -2,11 +2,14 @@
 operands, on the CPU.
 
 ``ew_flat`` reads whole quads of four elements where every full-size
-operand and the result allow it (``elementwise.flat_path``: ``"wide"``),
-each operand at its own width: one 16-byte load of a 4-byte type, one
-8-byte load of a bfloat16 widened in registers; else every element on its
-own (``"element"``).  ``reduction.path`` decides the same for ``rd_*``
-(tests/test_torch_reduction.py holds its table).  Held here: ``flat_path``
+operand and the result allow it (``elementwise.quads``), each operand at
+its own width: one 16-byte load of a 4-byte type, one 8-byte load of a
+bfloat16 widened in registers; else every element on its own.  A program
+of one instruction runs the compiled kernel (``elementwise.flat_path``:
+``"wide"`` or ``"element"``), any other the kernel generated for it
+(``"generated"``), on quads where they are allowed.  ``reduction.path``
+and ``reduction.reach`` decide the same for ``rd_*``
+(tests/test_torch_reduction.py holds their table).  Held here: ``flat_path``
 on every kind of layout, and the bfloat16 adds and the bfloat16 and
 float16 sums at ragged lengths against the JAX package (the port's plain
 versions, which these CPU tensors take; the JAX package's Pallas kernels in
@@ -75,10 +78,12 @@ def _flat_cases():
         "bf16 * 2.5": (_lowered(lambda p: p * 2.5, a), (n,), [a], "wide"),
         "bf16 scalar - bf16": (_lowered(lambda s, p: s - p, a[:1].reshape(()), b), (n,),
                                [a[:1].reshape(()), b], "wide"),
-        "bf16 chain": (_lowered(lambda p, q: (p + q) * p - q, a, b), (n,), [a, b], "wide"),
-        "bf16 + f32": (_lowered(add, a, f), (n,), [a, f], "wide"),
+        "bf16 chain": (_lowered(lambda p, q: (p + q) * p - q, a, b), (n,), [a, b], "generated"),
+        "bf16 chain, 2 bytes off": (_lowered(lambda p, q: (p + q) * p - q, a, b), (n,),
+                                    [base[1:n + 1], b], "generated"),
+        "bf16 + f32": (_lowered(add, a, f), (n,), [a, f], "generated"),  # a cast, then the add
         "f32 + bf16 2 bytes off": (_lowered(add, f, base[1:n + 1]), (n,), [f, base[1:n + 1]],
-                                   "element"),
+                                   "generated"),
         "bf16 > bf16 (bool result)": (_lowered(lambda p, q: p > q, a, b), (n,), [a, b], "element"),
         "where(bool, bf16, bf16)": (_lowered(lambda k, p, q: sm.where(k, p, q), a > b, a, b), (n,),
                                     [a > b, a, b], "element"),
@@ -99,11 +104,13 @@ def _flat_cases():
 @pytest.mark.parametrize("case", sorted(_flat_cases()))
 def test_flat_path_table(case):
     """``elementwise.flat_path`` decides from the program, the shape and the
-    operands' layouts alone whether ``ew_flat`` reads whole quads; on these
-    CPU tensors the wrapper gives the plain version's values and counts no
-    launch."""
+    operands' layouts alone which kernel ``ew_flat`` runs and whether the
+    compiled one reads whole quads; on these CPU tensors the wrapper gives
+    the plain version's values and counts no launch."""
     prog, shape, operands, want = _flat_cases()[case]
     assert elementwise.flat_path(prog, shape, elementwise.layout(operands)) == want
+    if want is not None:
+        assert elementwise.single(prog) is (want != "generated")
     elementwise.reset_launches()
     got = elementwise.elementwise(prog, shape, prog.dtype, *operands)
     ref = program.run_plain(prog, [elementwise.read(o) for o in operands], shape)
@@ -143,7 +150,8 @@ def test_half_sums_at_ragged_lengths_match_jax(rng, dtype, r):
     (13, 4 * 11 + r) matrix in bfloat16 and float16: within one unit of
     the type's spacing of the JAX package's; the full sum of a contiguous
     quad-aligned operand takes the card's ``direct`` loop, the axis sums
-    ``direct`` where the rows are whole quads and ``element`` elsewhere."""
+    ``direct`` where the rows are whole quads, and elsewhere a generated
+    evaluator that gathers the elements."""
     n = 4096 + r
     x = rng.standard_normal(n).astype(np.float32)
     pa, ja = sm.Array(x, dtype=dtype), jsm.Array(x, dtype=dtype)
@@ -152,7 +160,8 @@ def test_half_sums_at_ragged_lengths_match_jax(rng, dtype, r):
     ident = reduction.identity(t.dtype)
     aligned = elementwise.quad_aligned(t.dtype, t.data_ptr())
     assert reduction.path(ident, "sum", (n,), reduction.layout([t])) == (
-        "direct" if aligned else "element")
+        "direct" if aligned else "generated")
+    assert (reduction.reach((n,), reduction.layout([t])) == "gather") is not aligned
     m = rng.standard_normal((13, 44 + r)).astype(np.float32)
     pm, jm = sm.Array(m, dtype=dtype), jsm.Array(m, dtype=dtype)
     for axis in (0, 1):
@@ -162,4 +171,6 @@ def test_half_sums_at_ragged_lengths_match_jax(rng, dtype, r):
         tm = pm.torch()
         rows_whole = r % 4 == 0 and elementwise.quad_aligned(tm.dtype, tm.data_ptr())
         assert reduction.path(ident, "sum", tm.shape, reduction.layout([tm]), axis) == (
-            "direct" if rows_whole else "element")
+            "direct" if rows_whole else "generated")
+        assert reduction.walk(tm.shape, reduction.layout([tm]), axis) == (
+            f"axis{axis}", not rows_whole)

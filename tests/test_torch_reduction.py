@@ -535,30 +535,30 @@ def _path_cases():
         "identity 2-D": (ident, "sum", (R, C), [m], None, "direct"),
         "dot f32": (_lowered(mul, a, b), "sum", (n,), [a, b], None, "single"),
         "dot int32": (_lowered(mul, ia, ib), "sum", (n,), [ia, ib], None, "single"),
-        "a*b max": (_lowered(mul, a, b), "max", (n,), [a, b], None, "lanes4"),
+        "a*b max": (_lowered(mul, a, b), "max", (n,), [a, b], None, "generated"),
         "a*scalar": (_lowered(mul, a, eps), "sum", (n,), [a, eps], None, "single"),
         "a*2.5": (_lowered(lambda p: p * 2.5, a), "sum", (n,), [a], None, "single"),
         "a>b": (_lowered(lambda p, q: p > q, a, b), "sum", (n,), [a, b], None, "single"),
-        "exp": (_lowered(lambda p: sm.exp(p), a), "sum", (n,), [a], None, "lanes4"),
-        "dot int32.f32": (_lowered(mul, ia, b), "sum", (n,), [ia, b], None, "lanes4"),
+        "exp": (_lowered(lambda p: sm.exp(p), a), "sum", (n,), [a], None, "generated"),
+        "dot int32.f32": (_lowered(mul, ia, b), "sum", (n,), [ia, b], None, "generated"),
         "distance": (_lowered(lambda p, q, e: sm.square(p + e - q), a, b, eps), "sum", (n,),
-                     [a, b, eps], None, "lanes4"),
-        "thresholded": (_lowered(thr, a, eps), "sum", (n,), [a, eps], None, "lanes4"),
-        "one element off": (ident, "sum", (n,), [shifted], None, "element"),
-        "dot, b one element off": (_lowered(mul, a, b), "sum", (n,), [a, shifted], None, "element"),
+                     [a, b, eps], None, "generated"),
+        "thresholded": (_lowered(thr, a, eps), "sum", (n,), [a, eps], None, "generated"),
+        "one element off": (ident, "sum", (n,), [shifted], None, "generated, gathered"),
+        "dot, b one element off": (_lowered(mul, a, b), "sum", (n,), [a, shifted], None, "generated, gathered"),
         "transposed": (ident, "sum", (C, R), [elementwise.View(m, 0, (C, R), (1, C))], None,
-                       "element"),
+                       "generated, gathered"),
         "negative step": (ident, "sum", (n,), [elementwise.View(a, n - 1, (n,), (-1,))], None,
-                          "element"),
+                          "generated, gathered"),
         "bool operand": (_lowered(lambda k, p: sm.where(k, p, 0.0), mask, a), "sum", (n,),
-                         [mask, a], None, "element"),
+                         [mask, a], None, "generated, gathered"),
         # rd_full over the rows of a 2-D expression with broadcast operands
         "full map row col": (_lowered(lambda p, r, c: sm.square(p * r - c), m, row, col), "sum",
-                             (R, C), [m, row, col], None, "lanes4"),
-        "full a*row": (_lowered(mul, m, row), "sum", (R, C), [m, row], None, "lanes4"),
+                             (R, C), [m, row, col], None, "generated"),
+        "full a*row": (_lowered(mul, m, row), "sum", (R, C), [m, row], None, "generated"),
         "full a*row, ragged rows": (_lowered(mul, _aligned(R, C - 1), _aligned(1, C - 1)), "sum",
                                     (R, C - 1), [_aligned(R, C - 1), _aligned(1, C - 1)], None,
-                                    "element"),
+                                    "generated, gathered"),
         # rd_axis
         "axis 0 identity": (ident, "sum", (R, C), [m], 0, "direct"),
         "axis 1 identity min": (ident, "min", (R, C), [m], 1, "direct"),
@@ -566,19 +566,19 @@ def _path_cases():
         "axis 1 col-a": (_lowered(lambda c, p: c - p, col, m), "sum", (R, C), [col, m], 1,
                          "single"),
         "axis 0 a*(1,1)": (_lowered(mul, m, one), "sum", (R, C), [m, one], 0, "single"),
-        "axis 1 thresholded (1,1)": (_lowered(thr, m, one), "sum", (R, C), [m, one], 1, "lanes4"),
+        "axis 1 thresholded (1,1)": (_lowered(thr, m, one), "sum", (R, C), [m, one], 1, "generated"),
         "axis 0 map row col": (_lowered(lambda p, r, c: sm.square(p * r - c), m, row, col), "max",
-                               (R, C), [m, row, col], 0, "lanes4"),
+                               (R, C), [m, row, col], 0, "generated"),
         "axis 0 rows of a wider base": (ident, "sum", (R, C), [wide[:, :C]], 0, "direct"),
-        "axis 1 ragged columns": (ident, "sum", (R, C - 1), [_aligned(R, C - 1)], 1, "element"),
+        "axis 1 ragged columns": (ident, "sum", (R, C - 1), [_aligned(R, C - 1)], 1, "generated, gathered"),
         "axis 1 ragged columns, aligned rows": (ident, "sum", (R, C - 1), [m[:, :C - 1]], 1,
                                                 "direct"),
-        "axis 0 one column off": (ident, "sum", (R, C), [wide[:, 1:C + 1]], 0, "element"),
+        "axis 0 one column off": (ident, "sum", (R, C), [wide[:, 1:C + 1]], 0, "generated, gathered"),
         "axis 0 transposed": (ident, "sum", (C, R), [elementwise.View(m, 0, (C, R), (1, C))], 0,
-                              "element"),
+                              "generated, gathered"),
         "axis 1 negative step": (ident, "sum", (R // 2, C // 2),
                                  [elementwise.View(m, R * C - 1, (R // 2, C // 2), (-2 * C, -2))],
-                                 1, "element"),
+                                 1, "generated, gathered"),
         # 2-byte operands: a quad is one 8-byte load where the operand is
         # 8-byte aligned and, along rows, its rows are whole quads.
         "bf16 identity": (ident16, "sum", (n,), [a16], None, "direct"),
@@ -587,46 +587,49 @@ def _path_cases():
         "bf16 identity 8 bytes off": (ident16, "sum", (n - 4,), [a16[4:]], None, "direct"),
         "bf16 a*b": (_lowered(mul, a16, b16), "sum", (n,), [a16, b16], None, "single"),
         "bf16 a*2.5": (_lowered(lambda p: p * 2.5, a16), "sum", (n,), [a16], None, "single"),
-        "bf16 a*b max": (_lowered(mul, a16, b16), "max", (n,), [a16, b16], None, "lanes4"),
-        "bf16 exp": (_lowered(lambda p: sm.exp(p), a16), "sum", (n,), [a16], None, "lanes4"),
+        "bf16 a*b max": (_lowered(mul, a16, b16), "max", (n,), [a16, b16], None, "generated"),
+        "bf16 exp": (_lowered(lambda p: sm.exp(p), a16), "sum", (n,), [a16], None, "generated"),
         "bf16 axis 0 (1, C) row": (ident16, "sum", (1, C), [row16], 0, "direct"),
         "bf16 axis 0 a*row": (_lowered(mul, m16, row16), "sum", (R, C), [m16, row16], 0,
                               "single"),
         "bf16 axis 1 identity": (ident16, "sum", (R, C), [m16], 1, "direct"),
         "bf16 axis 0 identity max": (ident16, "max", (R, C), [m16], 0, "direct"),
         "bf16 full map row col": (_lowered(lambda p, r, c: sm.square(p * r - c), m16, row16, col16),
-                                  "sum", (R, C), [m16, row16, col16], None, "lanes4"),
-        "bf16 one element off": (ident16, "sum", (n,), [shifted16], None, "element"),
+                                  "sum", (R, C), [m16, row16, col16], None, "generated"),
+        "bf16 one element off": (ident16, "sum", (n,), [shifted16], None, "generated, gathered"),
         "bf16 a*b, b one element off": (_lowered(mul, a16, b16), "sum", (n,), [a16, shifted16],
-                                        None, "element"),
+                                        None, "generated, gathered"),
         "bf16 axis 1 ragged columns": (ident16, "sum", (R, C - 1), [_aligned(R, C - 1, dtype=bf16)],
-                                       1, "element"),
+                                       1, "generated, gathered"),
         "bf16 axis 0 ragged columns": (ident16, "sum", (R, C - 2), [_aligned(R, C - 2, dtype=bf16)],
-                                       0, "element"),
+                                       0, "generated, gathered"),
         "bf16 axis 1 ragged columns, aligned rows": (ident16, "sum", (R, C - 1), [m16[:, :C - 1]],
                                                      1, "direct"),
-        "f32 * bf16": (_lowered(mul, a, b16), "sum", (n,), [a, b16], None, "lanes4"),
-        "f32 * bf16 axis 1": (_lowered(mul, m, m16), "sum", (R, C), [m, m16], 1, "lanes4"),
+        "f32 * bf16": (_lowered(mul, a, b16), "sum", (n,), [a, b16], None, "generated"),
+        "f32 * bf16 axis 1": (_lowered(mul, m, m16), "sum", (R, C), [m, m16], 1, "generated"),
         "f32 * bf16, bf16 one element off": (_lowered(mul, a, b16), "sum", (n,), [a, shifted16],
-                                             None, "element"),
+                                             None, "generated, gathered"),
         "f16 identity": (ident_h, "sum", (n,), [_aligned(n, dtype=torch.float16)], None, "direct"),
         "f16 identity min": (ident_h, "min", (n,), [_aligned(n, dtype=torch.float16)], None,
                              "direct"),
         "f16 axis 1": (ident_h, "sum", (R, C), [_aligned(R, C, dtype=torch.float16)], 1, "direct"),
         "f16 one element off": (ident_h, "sum", (n,),
                                 [elementwise.View(_aligned(n + 1, dtype=torch.float16), 1, (n,),
-                                                  (1,))], None, "element"),
+                                                  (1,))], None, "generated, gathered"),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_path_cases()))
 def test_path_table(case):
     """``reduction.path`` decides from the program, the reduction, the shape
-    and the operands' layouts alone how the kernel evaluates a launch; and
-    on these CPU tensors the wrappers give the plain version's values and
-    count nothing."""
+    and the operands' layouts alone how the kernel evaluates a launch, and
+    ``reduction.walk`` whether a generated evaluator gathers its operands;
+    and on these CPU tensors the wrappers give the plain version's values
+    and count nothing."""
     prog, kind, shape, operands, axis, want = _path_cases()[case]
-    assert reduction.path(prog, kind, shape, reduction.layout(operands), axis) == want
+    where = reduction.layout(operands)
+    assert reduction.path(prog, kind, shape, where, axis) == want.split(",")[0]
+    assert reduction.walk(shape, where, axis)[1] is want.endswith("gathered")
     reduction.reset_launches()
     if axis is None:
         got = reduction.map_reduce(prog, kind, shape, *operands) if prog.dtype != torch.int32 \

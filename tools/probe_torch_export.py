@@ -20,7 +20,10 @@ nested ``scan`` nodes:
 * ``closed_loop:H:TICKS``: ``closed_loop`` of the cartpole, beside its
   compiled call;
 * ``rti:H:TICKS``: ``rti_closed_loop`` of the quadrotor, beside its
-  compiled call.
+  compiled call;
+* ``sm_pendulum_solve:B:H:ITERS``: the whole ``solve_batched`` of the
+  ``sm``-written pendulum (``chip_smoke.py`` phase 10's nested program),
+  beside its eager call.
 
 By default a small cartpole (64 x H=20, 3 iterations), the cartpole at
 BASELINE config 3's width (8192 x H=100, 10 iterations), the
@@ -57,6 +60,7 @@ from simplemath_tpu_torch.models import (  # noqa: E402
     ILQRConfig, MPCController, closed_loop, make_cartpole, make_quadrotor, make_sm_pendulum,
     rti, solve_batched_jit,
 )
+from simplemath_tpu_torch.models import ilqr  # noqa: E402
 from simplemath_tpu_torch.models.sqp_mpc import SQPConfig, solve_constrained  # noqa: E402
 from simplemath_tpu_torch.ops import elementwise, linalg_small  # noqa: E402
 from simplemath_tpu_torch.utils import export, graphs  # noqa: E402
@@ -158,6 +162,12 @@ def whole(name, *sizes):
             return tuple(rti.rti_closed_loop(quad, x, h, ticks))
 
         return fn, (x12,), fn
+    if name == "sm_pendulum_solve":
+        b, h, iters = sizes
+        pendulum, cfg = make_sm_pendulum(), ILQRConfig(iterations=iters)
+        x0 = (0.2 * torch.randn(b, 2, generator=g)).cuda()
+        return (lambda x, u: tuple(ilqr.solve_batched(pendulum, x, u, cfg)[:3]),
+                (x0, torch.zeros(b, h, 1, device="cuda")), None)
     raise ValueError(f"unknown case {name}")
 
 

@@ -17,8 +17,13 @@ ragged tail, and prints device times (CUDA events, as
   each beside ``torch.add`` timed the same way;
 - a launch on 1024 elements, beside ``torch.add``'s (what a launch costs);
 - the add and the chain ``a * b + c - a`` on 16M floats (192 and 256 MB:
-  device memory), the chain beside its plain version (three torch kernels)
-  and its bound by bytes;
+  device memory), the chain beside its plain version (three torch kernels),
+  the interpreter (``elementwise.interpret``, where the package has it) and
+  its bound by bytes; then chains of 2 to 128 instructions over two 16M
+  operands on ``ew_flat``'s kernel generated for each, on quads and with an
+  operand 4 bytes off (an element a thread), beside the interpreter, with
+  ptxas' registers and spills of each generated kernel (where the package
+  generates them);
 - the bfloat16 add: 1M elements hot in the L2 and over a ring past it, and
   16M (96 MiB), each beside ``torch.add``, and the 1M ring once more with
   every operand 2 bytes past a 16-byte boundary (``ew_flat``'s element
@@ -135,6 +140,32 @@ def strided(run, f32, t):
 
         times["nvrtc_ms"] = codegen.COMPILE_MS
         times["generated_stats"] = codegen.STATS
+    return times
+
+
+def flat_chains(run, big, t):
+    """Chains ``x * y + 0.5`` of k instructions over two 16M operands on
+    ew_flat: the kernel the package runs for each (on quads, and with x 4
+    bytes off: an element a thread), the interpreter's time, and ptxas'
+    registers and spills of the generated kernel where there is one."""
+    from simplemath_tpu_torch.ops import codegen
+
+    x, y = big[0], big[1]
+    off = torch.empty(N_BIG + 4, device="cuda")[1:N_BIG + 1].copy_(x)
+    times = {}
+    for k in (2, 8, 32, 128):
+        lx, ly = program.leaf((N_BIG,), torch.float32), program.leaf((N_BIG,), torch.float32)
+        root = lx
+        while len(program.lower(root * ly + 0.5, [lx, ly]).insts) <= k:
+            root = root * ly + 0.5
+        prog = program.lower(root, [lx, ly])
+        times[f"chain{k}_ms"] = t(lambda: run(prog, x, y), n=10)
+        times[f"chain{k}_4_bytes_off_ms"] = t(lambda: run(prog, off, y), n=10)
+        if hasattr(elementwise, "interpret"):
+            times[f"chain{k}_interp_ms"] = t(lambda: elementwise.interpret(prog, (N_BIG,), x, y), n=10)
+        if hasattr(codegen, "ptxas") and not elementwise.single(prog):
+            sig = elementwise.signature(prog, prog.kernel_codes, (N_BIG,), [x, y], flat=True)
+            times[f"chain{k}_ptxas"] = codegen.ptxas(sig)
     return times
 
 
@@ -286,6 +317,9 @@ def main():
         "add_bf16_bound_ms": chip_smoke.bound(6 * N_ADD, N_ADD)[0],
         "add_bf16_16m_bound_ms": chip_smoke.bound(6 * N_BIG, N_BIG)[0],
     }
+    if hasattr(elementwise, "interpret"):
+        times["chain_16m_interp_ms"] = t(lambda: elementwise.interpret(chain, (N_BIG,), *big), n=10)
+    times.update(flat_chains(run, big, t))
     if hasattr(elementwise, "FLAT_PATHS"):
         elementwise.reset_launches()
         run(add_1m16, a16, b16)

@@ -31,6 +31,14 @@ events, as ``chip_smoke.py::time_ms`` takes them: runs of 20 calls over
   against their plain versions, the 2-bytes-off sum bit for bit against
   the aligned one.
 
+Where the package generates its evaluators (ops/codegen.py, kind
+``"reduce"``), the four map-reduces (the distance, ``a * row - col`` in
+full, the thresholded sums along both axes) and two gathered sums (4 bytes
+off; a transposed view along axis 0) are also timed on the
+interpreter (``reduction.interpret``), held to it bit for bit, with ptxas'
+registers and spills of each generated kernel, and again with each count of
+quads a thread asks for at once in ``--batches B,...`` (default 1,2,4).
+
 ``--root DIR`` takes the package and ``chip_smoke.py`` from another checkout
 (the parent commit, unpacked beside this one), so that two versions are
 timed in one call on one card.  Imports no jax.
@@ -55,6 +63,11 @@ if "--root" in ARGS:
     del ARGS[i:i + 2]
 CHECK = "--no-check" not in ARGS
 ARGS = [a for a in ARGS if a != "--no-check"]
+BATCHES = (1, 2, 4)
+if "--batches" in ARGS:
+    i = ARGS.index("--batches")
+    BATCHES = tuple(int(b) for b in ARGS[i + 1].split(","))
+    del ARGS[i:i + 2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
@@ -107,6 +120,40 @@ def compile_alone(tag):
     (out_dir / f"reduction_{tag}_nvcc.log").write_text(log)
     return seconds, {k: f"regs {r.get('registers')} stack {r.get('stack')} spill {r.get('spill_stores')}"
                      for k, r in _build.ptxas(log).items() if "rd_" in k}
+
+
+def generated(t, workloads):
+    """The generated evaluators of ``workloads`` (key, program, axis, shape,
+    operands; sums) against the interpreter: bits, both times, ptxas'
+    report, and the time with each count of quads in ``BATCHES``."""
+    from simplemath_tpu_torch.ops import codegen
+
+    out = {}
+
+    def call(prog, axis, shape, ops):
+        if axis is None:
+            return reduction.map_reduce(prog, "sum", shape, *ops)
+        return reduction.map_reduce_axis(prog, "sum", axis, shape, *ops)
+
+    for key, prog, axis, shape, ops in workloads:
+        g, i = call(prog, axis, shape, ops), reduction.interpret(prog, "sum", axis, shape, ops)
+        if not torch.equal(g.view(torch.int32), i.view(torch.int32)):
+            raise SystemExit(f"time_torch_reduction: {key}'s generated evaluator differs from "
+                             "the interpreter")
+        out[f"{key}_interp_ms"] = t(lambda: reduction.interpret(prog, "sum", axis, shape, ops))
+        sig = reduction.signature(prog, prog.kernel_codes, 0, shape, ops, axis)
+        out[f"{key}_ptxas"] = codegen.ptxas(sig)
+    default = codegen.REDUCE_BATCH
+    for batch in BATCHES:
+        codegen.REDUCE_BATCH = batch
+        codegen._evict(reduction._library())  # the next calls compile this batch's kernels
+        for key, prog, axis, shape, ops in workloads:
+            out[f"{key}_batch{batch}_ms"] = t(lambda: call(prog, axis, shape, ops))
+            sig = reduction.signature(prog, prog.kernel_codes, 0, shape, ops, axis)
+            out[f"{key}_batch{batch}_ptxas"] = codegen.ptxas(sig)
+    codegen.REDUCE_BATCH = default
+    codegen._evict(reduction._library())
+    return out
 
 
 def main():
@@ -260,6 +307,15 @@ def main():
     times["sum_over_library"] = times["sum_ms"] / times["sum_library_ms"]
     if hasattr(reduction, "PATHS"):
         times["paths"] = dict(reduction.PATHS)
+    if hasattr(reduction, "interpret"):
+        ident = reduction.identity(torch.float32)
+        times.update(generated(t, [
+            ("dist", p_dist, None, (N_DOT,), [a, b, eps]),
+            ("full_map", p_map, None, sq, [mat, row, col]),
+            ("axis0_thresholded", p_thr[0], 0, sq, [mat, thr]),
+            ("axis1_thresholded", p_thr[1], 1, sq, [mat, thr]),
+            ("sum_4_bytes_off", ident, None, (N_SUM,), [off]),
+            ("axis0_transposed_view", ident, 0, sq, [view_t])]))
     print(f"{card}: " + json.dumps({"root": str(ROOT), "flags": ARGS,
                                     "nvcc_reduction_s": seconds, **times}))
     return 0

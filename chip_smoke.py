@@ -340,6 +340,10 @@ MM_OTHER_SOURCES = ["simplemath_tpu_torch/csrc/matmul_fma.cuh",
 WGMMA_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma.cu"
 CODEGEN_SOURCE = "simplemath_tpu_torch/ops/codegen.py"
 NVRTC_SOURCE = "simplemath_tpu_torch/csrc/nvrtc.cu"
+MM_GENERATED_SOURCES = ["simplemath_tpu_torch/csrc/matmul_wgmma.cuh",
+                        "simplemath_tpu_torch/csrc/matmul_wgmma_s8.cuh",
+                        "simplemath_tpu_torch/csrc/matmul_fma.cuh",
+                        "simplemath_tpu_torch/csrc/matmul.cuh", NVRTC_SOURCE]
 RD_GENERATED_SOURCES = ["simplemath_tpu_torch/csrc/reduction.cuh",
                         "simplemath_tpu_torch/csrc/reduction.cu", NVRTC_SOURCE]
 WGMMA_S8_SOURCE = "simplemath_tpu_torch/csrc/matmul_wgmma_s8.cu"
@@ -650,18 +654,20 @@ def generated_checks(dev, rng, sm, elementwise, program):
 def generated_phase(state, phase):
     """The generated kernels of the phase that ends now (``state``: what
     the last call saw, filled by the first): codegen.STATS' counts, the
-    milliseconds NVRTC took, and the new signatures by kind."""
+    milliseconds NVRTC took (on this thread and on compile_ahead's), the new
+    signatures by kind, and the phase's wall seconds."""
     from simplemath_tpu_torch.ops import codegen
 
-    now = (dict(codegen.STATS), len(codegen.COMPILE_MS), set(codegen.SEEN))
+    now = (dict(codegen.STATS), len(codegen.COMPILE_MS), set(codegen.SEEN), time.perf_counter())
     if "last" in state:
-        stats, n_ms, seen = state["last"]
+        stats, n_ms, seen, t0 = state["last"]
         new = now[2] - seen
         state.setdefault("phases", {})[phase] = {
             **{k: codegen.STATS[k] - stats[k] for k in stats},
             "compile_ms": sum(codegen.COMPILE_MS[n_ms:]),
             "signatures": {kind: sum(1 for sig in new if sig.kind == kind)
-                           for kind in ("strided", "flat", "reduce")}}
+                           for kind in ("strided", "flat", "reduce", "matmul")},
+            "phase_s": now[3] - t0}
     state["last"] = now
 
 
@@ -1367,6 +1373,159 @@ def in_order(a, b):
     return acc
 
 
+MM_GEN = (3, 200, 96, 264)  # B, M, K, N of the generated epilogues' checks (ragged: N 259)
+
+
+def matmul_generated_cases(dev, seed=0):
+    """(label, a, b, out_dtype, epilogue, extras) of the checks of the matmul
+    kernels generated per epilogue (ops/codegen.py, kind "matmul"): each
+    variant that takes an epilogue (bf16 and int8/uint8 on the tensor
+    cores, float32, mixed and int32 on the CUDA cores), rank 2 and 3, every
+    stored type (float32, bfloat16, int32, bool), extras of every shape
+    (1|B, 1|M, 1|N) and of each type the epilogue reads (float32, bfloat16,
+    int32, bool), ragged N (rows not 16-byte aligned), operands on other
+    staging orders and on the element path, the dequantizing epilogue of
+    ``int8_matmul(scale=)``, and programs of ~100 instructions.  From their
+    own generator (``seed``), so that no other check's draws move."""
+    import torch
+
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch.ops import matmul, program
+
+    rng = np.random.default_rng(seed)
+    B, M, K, N = MM_GEN
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def values(shape, dtype):
+        if dtype in (torch.float32, torch.bfloat16):
+            return on(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+        if dtype == torch.bool:
+            return on(rng.standard_normal(shape) > 0)
+        lo, hi = {torch.int8: (-128, 128), torch.uint8: (0, 256)}.get(dtype, (-1000, 1000))
+        return on(rng.integers(lo, hi, shape)).to(dtype)
+
+    def pair(da, db, batch=None, n=N):
+        lead = () if batch is None else (batch,)
+        return values(lead + (M, K), da), values(lead + (K, n), db)
+
+    cases = []
+
+    def add(label, a, b, out_dtype, build, extras):
+        acc_dtype = matmul.accumulator(a.dtype, b.dtype)
+        shape = tuple(a.shape[:-1]) + (b.shape[-1],)
+        acc = program.leaf(shape, acc_dtype)
+        leaves = [program.leaf(tuple(e.shape), e.dtype) for e in extras]
+        cases.append((label, a, b, out_dtype, program.lower_epilogue(build(acc, *leaves), acc, leaves),
+                      extras))
+
+    def long_program(acc, e):
+        root = acc
+        for _ in range(50):  # two instructions a turn, and the extras' widening
+            root = root * e + 0.5
+        return root
+
+    def relu_bias(acc, e):
+        return sm.maximum(acc + e, 0.5) * 0.25 - 0.5
+
+    f32, bf16, i32 = torch.float32, torch.bfloat16, torch.int32
+    # bf16 @ bf16 (wgmma_bf16)
+    a, b = pair(bf16, bf16)
+    for out in (f32, bf16):
+        add(f"bf16 mm relu(acc+bias) -> {out}", a, b, out, relu_bias, [values((1, N), f32)])
+    add("bf16 mm acc > row -> bool", a, b, torch.bool, lambda acc, e: acc > e, [values((1, N), f32)])
+    add("bf16 mm column, scalar, full bf16", a, b, f32, lambda acc, c, s, f: (acc * c - f) / s,
+        [values((M, 1), f32), values((), f32) + 3.0, values((M, N), bf16)])
+    add("bf16 mm bool and int32 extras", a, b, f32,
+        lambda acc, m, i: program.apply("where", m, acc, program.cast(i, f32)),
+        [values((M, N), torch.bool), values((1, N), i32)])
+    add("bf16 mm ~100 instructions", a, b, f32, long_program, [values((1, N), f32) * 0.1])
+    ar, br = pair(bf16, bf16, n=N - 5)
+    add("bf16 mm ragged N -> bf16", ar, br, bf16, relu_bias, [values((1, N - 5), f32)])
+    ta, tb = values((K, M), bf16).T, values((N, K), bf16).T
+    add("bf16 mm transposed views", ta, tb, f32, relu_bias, [values((1, N), bf16)])
+    a3, b3 = pair(bf16, bf16, batch=B)
+    add("bf16 bmm (B,1,N) (1,M,1) (B,1,1)", a3, b3, f32, lambda acc, r, c, s: (acc + r) * c - s,
+        [values((B, 1, N), f32), values((1, M, 1), f32), values((B, 1, 1), f32)])
+    add("bf16 bmm (1,1,N) bf16 (B,M,N) -> bf16", a3, b3, bf16, lambda acc, r, f: acc * r + f,
+        [values((1, 1, N), bf16), values((B, M, N), f32)])
+    # int8 / uint8 pairs (wgmma_s8)
+    q, w = pair(torch.int8, torch.int8)
+    deq2, deq3 = matmul._dequant_epilogue(2), matmul._dequant_epilogue(3)
+    cases.append(("int8 mm dequant (1,N)", q, w, f32, deq2, [values((1, N), f32).abs()]))
+    cases.append(("int8 mm dequant scalar", q, w, f32, deq2, [values((), f32).abs()]))
+    q3, w3 = pair(torch.int8, torch.int8, batch=B)
+    cases.append(("int8 bmm dequant (B,1,N)", q3, w3, f32, deq3, [values((B, 1, N), f32).abs()]))
+    add("int8 mm (acc+column)*3 -> int32", q, w, i32, lambda acc, c: (acc + c) * 3, [values((M, 1), i32)])
+    add("int8 mm acc > row -> bool", q, w, torch.bool, lambda acc, r: acc > r, [values((1, N), i32)])
+    uq, uw = pair(torch.uint8, torch.int8, n=N - 5)
+    add("uint8 @ int8 mm ragged N, float -> bf16", uq, uw, bf16,
+        lambda acc, s: program.cast(acc, f32) * s, [values((1, N - 5), f32)])
+    add("int8 mm transposed B, full int32", q, values((N, K), torch.int8).T, i32,
+        lambda acc, f: acc - f, [values((M, N), i32)])
+    # float32 and mixed pairs (fma_f32), int32 pairs (imad_i32)
+    x, y = pair(f32, f32)
+    for out in (f32, bf16):
+        add(f"f32 mm relu(acc+bias) -> {out}", x, y, out, relu_bias, [values((1, N), f32)])
+    add("f32 mm acc > full -> bool", x, y, torch.bool, lambda acc, f: acc > f, [values((M, N), f32)])
+    x3, y3 = pair(f32, f32, batch=B)
+    add("f32 bmm (B,M,1) (1,1,N)", x3, y3, f32, lambda acc, c, r: acc * c + r,
+        [values((B, M, 1), f32), values((1, 1, N), f32)])
+    xr, yr = pair(f32, f32, n=N - 5)
+    add("f32 mm ragged N, full and scalar", xr, yr, f32, lambda acc, f, s: acc * s - f,
+        [values((M, N - 5), f32), values((), f32)])
+    off = values((M, K + 1), f32)[:, 1:]
+    add("f32 mm transposed B, A 4 bytes off", off, values((N, K), f32).T, f32, relu_bias,
+        [values((1, N), f32)])
+    add("f32 mm transposed A", values((K, M), f32).T, y, f32, relu_bias, [values((1, N), bf16)])
+    add("f32 @ bf16 mm row", x, values((K, N), bf16), f32, relu_bias, [values((1, N), f32)])
+    add("f32 mm ~100 instructions", x, y, f32, long_program, [values((1, N), f32) * 0.1])
+    ia, ib = pair(i32, i32)
+    add("int32 mm acc*row+7 -> int32", ia, ib, i32, lambda acc, r: acc * r + 7, [values((1, N), i32)])
+    add("int32 @ int8 mm acc > column -> bool", ia, values((K, N), torch.int8), torch.bool,
+        lambda acc, c: acc > c, [values((M, 1), i32)])
+    ia3, ib3 = pair(i32, i32, batch=B)
+    add("int32 bmm float (B,1,1)", ia3, ib3, f32, lambda acc, s: program.cast(acc, f32) * s,
+        [values((B, 1, 1), f32)])
+    iar, ibr = pair(i32, i32, n=N - 5)
+    add("int32 mm ragged N, bool where", iar, ibr, i32,
+        lambda acc, m: program.apply("where", m, acc, -acc), [values((M, N - 5), torch.bool)])
+    return cases
+
+
+def matmul_generated_signatures(dev):
+    """The signatures of ``matmul_generated_cases``: what ``compile_ahead``
+    compiles before their checks run."""
+    from simplemath_tpu_torch.ops import matmul
+
+    return [matmul.launch_signature(a, b, out, epi, extras)
+            for _, a, b, out, epi, extras in matmul_generated_cases(dev, SEED + 21)]
+
+
+def matmul_generated_checks(matmul, cases):
+    """Phase 7: each case on its generated kernel (``EPILOGUE_PATHS``
+    "generated") against the compiled kernel's interpreter
+    (``matmul.interpret``, "interp"), bit for bit.  Returns the number of
+    cases and the variants, ranks and stored types they covered."""
+    import torch
+
+    covered = set()
+    for label, a, b, out_dtype, epi, extras in cases:
+        matmul.reset_launches()
+        g = matmul.matmul(a, b, out_dtype, epilogue=epi, extras=extras)
+        check(matmul.EPILOGUE_PATHS == {"generated": 1, "interp": 0},
+              f"{label}: the epilogue ran {matmul.EPILOGUE_PATHS}")
+        i = matmul.interpret(a, b, out_dtype, epilogue=epi, extras=extras)
+        torch.cuda.synchronize()
+        check(matmul.EPILOGUE_PATHS == {"generated": 1, "interp": 1},
+              f"{label}: the reference ran {matmul.EPILOGUE_PATHS}")
+        check(g.dtype == i.dtype == out_dtype and torch.equal(bits(g), bits(i)),
+              f"{label}: the generated epilogue differs from the interpreter")
+        covered.add((matmul.variant(a.dtype, b.dtype), a.dim(), str(out_dtype)))
+    return len(cases), covered
+
+
 def cuda_core_checks(dev, rng, sm, program, matmul, elementwise, both):
     """Phase 7a, the CUDA-core kernel (csrc/matmul.cu): f32, mixed f32/bf16
     and int32 products on both staging paths (16-byte cp.async copies and
@@ -1613,12 +1772,33 @@ def int8_checks(dev, rng, sm, matmul, elementwise, both):
         "exact product, inside the tensor-core kernel")
 
 
+def matmul_root_grad_bound(x, w, b):
+    """The float64 gradient of ``sum(tanh(x @ w + b) * 2 - b)`` in (x, w,
+    b), and the bound of each part that its float32 computations give: dx =
+    g @ w^T and dw = x^T @ g (g = 2 (1 - tanh^2)) are products, within 2e-5
+    (|A| @ |B|); db = sum_i (g_i - 1) is a sum over the rows, within 2e-5
+    sum_i (|g_i| + 1) (``PERF.md`` §2's product and sum bounds)."""
+    import torch
+
+    x, w, b = (v.double() for v in (x, w, b))
+    t = torch.tanh(x @ w + b)
+    g = 2.0 * (1.0 - t * t)
+    grads = (g @ w.T, x.T @ g, g.sum(0, keepdim=True) - x.shape[0])
+    bound = (2e-5 * (g.abs() @ w.abs().T), 2e-5 * (x.abs().T @ g.abs()),
+             2e-5 * (g.abs() + 1.0).sum(0, keepdim=True))
+    return grads, bound
+
+
 def transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch):
     """Phase 5c: an sm op under each torch.func transform on each kernel
     family, under sync debug mode "error", counted and held to plain
     torch's autograd (float32 products in the kernel's order: within 1e-4
     relative and absolute at K = 2048; bfloat16 results within one
-    bfloat16 rounding)."""
+    bfloat16 rounding).  The gradient, whose parts are float32 products and
+    a sum over K = 2048 terms of O(45) partial sums, is held instead, on
+    both sides, to its float64 value within the bounds of those
+    computations (``matmul_root_grad_bound``): two float32 orders of such a
+    sum differ by ~1e-4 near 0, beyond 1e-4 (1 + |v|)."""
     import torch
 
     def on(v):
@@ -1653,12 +1833,15 @@ def transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch):
         check(not any(k.startswith("torch_path") for k in counts),
               f"{label} took the plain torch route: {counts}")
         launches = {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES}
+        check("matmul root" not in label or (matmul.EPILOGUE_PATHS["interp"] == 0
+                                             and matmul.EPILOGUE_PATHS["generated"] > 0),
+              f"{label}: the fused root's epilogue ran {matmul.EPILOGUE_PATHS}")
         return got, launches, counts
 
     out = {}
     xb, tb, wb, bb = (v.bfloat16() for v in (x, t_x, w, b))
     cases = (
-        ("grad f32", lambda f: torch.func.grad(lambda *a: f(*a).float().sum(), (0, 1, 2))(x, w, b), 1e-4),
+        ("grad f32", lambda f: torch.func.grad(lambda *a: f(*a).float().sum(), (0, 1, 2))(x, w, b), None),
         ("jvp f32", lambda f: torch.func.jvp(f, (x, w, b), (t_x, w, b))[1], 1e-4),
         ("vmap f32", lambda f: torch.func.vmap(f, (0, None, 0))(torch.stack([x, t_x]), w,
                                                               torch.stack([b, -b])), 1e-4),
@@ -1676,11 +1859,20 @@ def transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch):
                   f"the fused matmul root under {label} launched no matmul kernel: {launches}")
             check(label.startswith("vmap") or launches["ew_flat"] + launches["ew_strided"] > 0,
                   f"the fused matmul root under {label} ran no derivative program: {launches}")
-            for u, v in zip(got, want):
-                check(bool(((u.float() - v.float()).abs() <= tol * (1.0 + v.float().abs())).all()),
-                      f"the fused matmul root under {label} is beyond {tol} of plain torch: {err}")
-            out[f"matmul root {label}"] = {"launches": {k: v for k, v in launches.items() if v},
-                                           "max_abs_err": err}
+            row = {"launches": {k: v for k, v in launches.items() if v}, "max_abs_err": err}
+            if label == "grad f32":
+                want64, bound = matmul_root_grad_bound(x, w, b)
+                for side, vals in (("port", got), ("torch", want)):
+                    over = max(float(((u.double() - r).abs() / bd).max())
+                               for u, r, bd in zip(vals, want64, bound))
+                    check(over <= 1.0, f"the fused matmul root's gradient ({side}) is {over} x "
+                          "the float32 computations' bound from float64")
+                    row[f"{side}_over_bound"] = over
+            else:
+                for u, v in zip(got, want):
+                    check(bool(((u.float() - v.float()).abs() <= tol * (1.0 + v.float().abs())).all()),
+                          f"the fused matmul root under {label} is beyond {tol} of plain torch: {err}")
+            out[f"matmul root {label}"] = row
     del xb, tb, wb, bb
 
     rows, m = 16, 65536
@@ -2554,6 +2746,7 @@ for name, args in inputs.items():
     info[name] = {"load_s": load_s, "call_s": time.perf_counter() - t0,
                   "launches": {**elementwise.LAUNCHES, **reduction.LAUNCHES, **matmul.LAUNCHES,
                                **linalg_small.LAUNCHES},
+                  "epilogue_paths": dict(matmul.EPILOGUE_PATHS),
                   "nodes": export.program_nodes(run)}
 torch.save(out, os.path.join(d, "outputs.pt"))
 mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "simplemath_tpu"))
@@ -2689,6 +2882,9 @@ def utils_phase(dev, card):
         info = loaded["loaded"][name]
         got = {k: v for k, v in info["launches"].items() if v}
         check(got == {counter: 1}, f"{name}: the loaded artifact launched {got}, not {counter} once")
+        if counter in ("mm", "bmm"):  # its sm::mm / sm::bmm runs the generated epilogue
+            check(info["epilogue_paths"] == {"generated": 1, "interp": 0},
+                  f"{name}: the loaded artifact's epilogue ran {info['epilogue_paths']}")
         check(_bits_equal(served[name].to(dev), live[name]),
               f"{name}: the loaded artifact's result differs from the live call's bits")
         exported[name].update(info, op=op)
@@ -3435,6 +3631,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     import simplemath_tpu_torch as sm
     from simplemath_tpu_torch import _build
     from simplemath_tpu_torch.ops import (
@@ -3459,14 +3656,22 @@ def main():
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
     _build.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS})")
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.2f} s (nvcc {_build.BUILD_SECONDS}); NVRTC {_build.NVRTC_VERSION}")
+    units = dict(sorted(_build.UNIT_SECONDS.items(), key=lambda kv: -kv[1]))
+    log(f"build units, seconds each beside the others: {json.dumps(units)}")
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry function" in line:
             log(f"ptxas: {line.strip()}")
-    # The kernels of phases 3d and 5d's checks, compiled into the disk cache
-    # on other threads while phases 3-5 run.
+    # The kernels of phases 3d and 5d's checks, then the matmul kernels
+    # generated for phase 7's checks, compiled into the disk cache on other
+    # threads while the phases before them run.  The main path's fused calls
+    # compile their kernels where they first launch them.
     ahead = threading.Thread(target=compile_ahead, args=(generated_signatures(dev),), daemon=True)
     ahead.start()
+    ahead_mm = threading.Thread(
+        target=compile_ahead, args=(matmul_generated_signatures(dev),), daemon=True)
+    ahead_mm.start()
 
     gen = {}
     generated_phase(gen, None)
@@ -3984,6 +4189,7 @@ def main():
 
     generated_phase(gen, "5b")
     # ---------------------------------------- 5c. sm ops under torch.func
+    ahead_mm.join()
     transform_checks(dev, rng, sm, elementwise, reduction, matmul, dispatch)
 
     generated_phase(gen, "5c")
@@ -4277,8 +4483,10 @@ def main():
     dispatch.reset()
     mm_outs = []
     by_kernel = {}  # (entry point, kernel) -> launches on the main path
+    fused_launches = {}  # label of a fused call -> its launches on a generated epilogue
     for label, call, want in main_calls:
         before, before_v = dict(matmul.LAUNCHES), dict(matmul.VARIANTS)
+        before_e = dict(matmul.EPILOGUE_PATHS)
         mm_outs.append(call().torch())
         got = {k: matmul.LAUNCHES[k] - before[k] for k in before}
         check(got == want, f"{label}: launched {got}, expected {want}")
@@ -4288,10 +4496,19 @@ def main():
         check(took == {kernel: 1}, f"{label}: ran {took}")
         entry_point = "bmm" if got["bmm"] else "mm"
         by_kernel[entry_point, kernel] = by_kernel.get((entry_point, kernel), 0) + 1
+        # Every launch with an epilogue runs the kernel generated for it.
+        epilogue = {k: v - before_e[k] for k, v in matmul.EPILOGUE_PATHS.items()}
+        fused = "fused" in label or "scale" in label
+        check(epilogue == {"generated": int(fused), "interp": 0},
+              f"{label}: its epilogue ran {epilogue}")
+        fused_launches[label] = epilogue["generated"]
     torch.cuda.synchronize()
     mm_launches, mm_variants = dict(matmul.LAUNCHES), dict(matmul.VARIANTS)
     counts = dispatch.counts()
-    log(f"matmul path launches {mm_launches} by kernel {mm_variants} dispatch {counts}")
+    log(f"matmul path launches {mm_launches} by kernel {mm_variants} epilogues "
+        f"{matmul.EPILOGUE_PATHS} dispatch {counts}")
+    check(matmul.EPILOGUE_PATHS == {"generated": 5, "interp": 0},
+          f"the matmul path's epilogues ran {matmul.EPILOGUE_PATHS}")
     check(mm_launches == {"mm": 6, "bmm": 2}, f"the matmul path launched {mm_launches}")
     # The two bf16 workloads took the bf16 tensor-core kernel, the two
     # int8_matmul calls the int8 one, and only they.
@@ -4317,6 +4534,7 @@ def main():
     epi_f = program.lower_epilogue(sm.maximum(acc_leaf + lf, 0.0) * s_c - c_c, acc_leaf, [lf])
     epi_b = program.lower_epilogue(sm.maximum(acc_leaf + lb16, 0.0) * s_c - c_c, acc_leaf, [lb16])
     bias_f3, bias_b3 = biasf.torch().reshape(1, 1, n), biasb.torch().reshape(1, 1, n)
+    fused_err = {}  # a fused call's largest |kernel - plain|
     for key, label, out, (x, w, bias), epi in (
             (("mm", "fma_f32"), "f32 2048^3", out_f, (xf, wf, bias_f3), epi_f),
             (("mm", "wgmma_bf16"), "bf16 2048^3", out_b, (xb, wb, bias_b3), epi_b),
@@ -4330,6 +4548,7 @@ def main():
             tol = tol + 2.0 ** -7 * plain.double().abs()
         check(bool((diff <= tol).all()), f"fused {label}: kernel vs plain beyond tolerance")
         err_mm[key] = max(err_mm[key], float(diff.max()))
+        fused_err[label] = float(diff.max())
     log("check fused f32/bf16 2048^3 and f32/bf16 (8,1024,1024): kernel within tolerance of "
         "the plain version at the main path's shapes")
     check(bool(torch.isfinite(out_3f).all()) and tuple(out_3f.shape) == BMM,
@@ -4361,6 +4580,7 @@ def main():
           "int8_matmul differs from the int64 product on 64 rows")
     check(out_qs.dtype == torch.float32 and torch.equal(out_qs, acc_q.float() * q_scale.torch()),
           "int8_matmul with scale= is not the scaled exact product")
+    fused_err["int8 scaled"] = float((out_qs - acc_q.float() * q_scale.torch()).abs().max())
     want_i = (ia.torch().cpu().long() @ ib.torch().cpu().long())
     check(out_i.dtype == torch.int32 and torch.equal(out_i.cpu().long(), want_i),
           "sm.dot of int32 is not exact")
@@ -4373,6 +4593,21 @@ def main():
         err_mm[key] = max(err_mm[key], float(diff))
     log("check sm.int8_matmul 2048^3 (exact int32; scaled: exact), sm.dot int32 (512,512) and "
         "int64 (512,512), full-range values: exact")
+
+    # The kernels generated per epilogue against the compiled kernels'
+    # interpreter, bit for bit, on cases of their own (compiled ahead).
+    t0 = time.perf_counter()
+    n_gen, covered = matmul_generated_checks(matmul, matmul_generated_cases(dev, SEED + 21))
+    for kernel in ("wgmma_bf16", "wgmma_s8", "fma_f32", "imad_i32"):
+        check({(kernel, 2), (kernel, 3)} <= {c[:2] for c in covered},
+              f"the generated epilogue checks left out {kernel} at rank 2 or 3")
+    check({c[2] for c in covered} == {"torch.float32", "torch.bfloat16", "torch.int32", "torch.bool"},
+          f"the generated epilogue checks stored {sorted({c[2] for c in covered})}")
+    log(f"check the matmul kernels generated per epilogue = the interpreter (matmul.interpret), bit "
+        f"for bit: {n_gen} cases (wgmma_bf16, wgmma_s8, fma_f32, imad_i32; mm and bmm; float32, "
+        "bfloat16, int32 and bool stored; extras (1|B,1|M,1|N) of float32, bfloat16, int32, bool; "
+        "ragged N; transposed and element-path operands; the dequantizing epilogue; ~100 "
+        f"instructions), {time.perf_counter() - t0:.1f} s")
 
     # Float and complex dot/matmul go to torch.matmul: held to numpy.
     small = 512
@@ -4406,6 +4641,7 @@ def main():
                                     float((out64 != plain64).sum()))  # 0 when equal, as checked
     x3ft, w3ft = x3f.torch(), w3f.torch()
     x3t, w3t = x3.torch(), w3.torch()
+    deq2 = matmul._dequant_epilogue(2)
     q3a, q3b = (on(rng.integers(-127, 128, BMM[:1] + (BMM[1], BMM[2])).astype(np.int8))
                 for _ in range(2))
     mmt = {
@@ -4421,6 +4657,23 @@ def main():
         "fused_bf16_ms": time_ms(lambda: layer(xb, wb, biasb).torch(), n=5),
         "fused_bf16_plain_ms": time_ms(
             lambda: matmul.matmul_plain(xbt, wbt, torch.bfloat16, epi_b, [bias_b3]), n=5),
+        # The same fused calls on the compiled kernels' interpreter.
+        "fused_f32_interp_ms": time_ms(
+            lambda: matmul.interpret(xt_, wt_, torch.float32, epi_f, [bias_f3[0]]), n=5),
+        "fused_bf16_interp_ms": time_ms(
+            lambda: matmul.interpret(xbt, wbt, torch.bfloat16, epi_b, [bias_b3[0]]), n=5),
+        "int8_scaled_interp_ms": time_ms(
+            lambda: matmul.interpret(qat, qbt, torch.float32, deq2, [q_scale.torch()]), n=20),
+        "int8_scaled_plain_ms": time_ms(
+            lambda: matmul.matmul_plain(qat, qbt, torch.float32, deq2, [q_scale.torch()]), n=3),
+        "bmm_fused_bf16_interp_ms": time_ms(
+            lambda: matmul.interpret(x3t, w3t, torch.bfloat16, epi_b, [bias3.torch()]), n=5),
+        "bmm_fused_bf16_plain_ms": time_ms(
+            lambda: matmul.matmul_plain(x3t, w3t, torch.bfloat16, epi_b, [bias3.torch()]), n=5),
+        "bmm_fused_f32_interp_ms": time_ms(
+            lambda: matmul.interpret(x3ft, w3ft, torch.float32, epi_f, [bias3f.torch()]), n=5),
+        "bmm_fused_f32_plain_ms": time_ms(
+            lambda: matmul.matmul_plain(x3ft, w3ft, torch.float32, epi_f, [bias3f.torch()]), n=5),
         # int8: the bare kernel as bf16 is timed, then the public calls.
         "mm_int8_ms": time_ms(lambda: matmul.matmul(qat, qbt, torch.int32), n=20),
         "int8_ms": time_ms(lambda: sm.int8_matmul(qa, qb).torch(), n=20),
@@ -4633,6 +4886,26 @@ def main():
         entry("mm_int64", WGMMA_I64_SOURCE, "simplemath_tpu/ops/engine.py:495 :557",
               by_kernel.get(("mm", "wgmma_i64"), 0), err_mm["mm", "wgmma_i64"], mmt["mm_int64_ms"],
               mmt["mm_int64_plain_ms"], b_int64, mmt["int64_library_ms"]),
+        # The fused calls on the kernels generated per epilogue (ops/codegen.py,
+        # kind "matmul"), with their launches on the main path; interp_ms
+        # the same call on the compiled kernel's interpreter, bare_ms the
+        # product alone; the bound the bare product's.
+        *(dict(entry(name, CODEGEN_SOURCE, replaces, fused_launches[label], fused_err[err_key],
+                     mmt[f"{key}_ms"], mmt[f"{key}_plain_ms"], b, None),
+               interp_ms=mmt[f"{key}_interp_ms"], bare_ms=mmt[bare], other_sources=MM_GENERATED_SOURCES)
+          for name, replaces, label, err_key, key, bare, b in (
+              ("mm_bf16_epilogue_generated", "simplemath_tpu/ops/matmul.py:134",
+               "fused relu(x@W+bias)*s-c 2048^3 bf16", "bf16 2048^3", "fused_bf16", "mm_bf16_ms", b_bf16),
+              ("mm_int8_dequant_generated", "simplemath_tpu/ops/matmul.py:134 :451 :457",
+               "sm.int8_matmul 2048^3 scale=(1,N)", "int8 scaled", "int8_scaled", "mm_int8_ms", b_int8),
+              ("mm_f32_epilogue_generated", "simplemath_tpu/ops/matmul.py:134",
+               "fused relu(x@W+bias)*s-c 2048^3 f32", "f32 2048^3", "fused_f32", "mm_f32_ms", b_f32),
+              ("bmm_bf16_epilogue_generated", "simplemath_tpu/ops/matmul.py:209",
+               "fused batched root (8,1024,1024) bf16", "bf16 (8,1024,1024)", "bmm_fused_bf16",
+               "bmm_bf16_ms", b_bmm),
+              ("bmm_f32_epilogue_generated", "simplemath_tpu/ops/matmul.py:209",
+               "fused batched root (8,1024,1024) f32", "f32 (8,1024,1024)", "bmm_fused_f32",
+               "bmm_f32_ms", b_bmm_f32))),
         # bfloat16, uint32 and int32 // on the elementwise and map-reduce
         # kernels (phase 5b's launches).
         entry("ew_flat_bf16", SOURCE, "simplemath_tpu/ops/elementwise.py:161",
@@ -4738,10 +5011,14 @@ def main():
     # programs among them) generate kernels for.
     gen["phases_8_11_signatures"] = {
         kind: sum(phases[ph]["signatures"][kind] for ph in ("8", "9", "10", "11"))
-        for kind in ("strided", "flat", "reduce")}
+        for kind in ("strided", "flat", "reduce", "matmul")}
     print(json.dumps({"generated": gen["phases"] | {
         "phases_8_11_signatures": gen["phases_8_11_signatures"]}}))
     print(json.dumps({"kernels": kernels}))
+    # Each phase's wall seconds (the build's, then each phase's from the
+    # end of the one before), and the whole run's.
+    print(json.dumps({"phase_s": {"build": build_s, **{ph: v["phase_s"] for ph, v in phases.items()}},
+                      "total_s": time.perf_counter() - started}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,12 @@
 // and int32 operands; matmul_wgmma.cu and matmul_wgmma_s8.cu: the
 // tensor-core kernels for bf16 @ bf16 and for int8/uint8 pairs;
 // matmul_wgmma_i64.cu, which reads the parameter block alone: the 64-bit
-// product on the int8 tensor cores) share: the parameter block of one
-// product and the epilogue of one output element, or of four.  One copy, so all give an epilogue's values bit for bit alike
-// from the same accumulator.
+// product on the int8 tensor cores) and the kernels generated per epilogue
+// (ops/codegen.py, kind "matmul") share: the parameter block of one product
+// and the epilogue of four output elements.  The kernels take the epilogue
+// as a type (MmInterp here, the interpreter; MmGenerated in a generated
+// source), with one interface, so that every epilogue runs in the same
+// store and gives the same bits from the same accumulator.
 #pragma once
 
 #include "program.cuh"
@@ -42,17 +45,19 @@ struct MmParams {
   int32_t pad;
 };
 
-// The epilogue's value at output element (bz, m, n) whose accumulator is
-// ``acc``; ``r`` is the interpreter's register file with the constants
-// already loaded (sm_load_consts).
-__device__ __forceinline__ uint32_t mm_epilogue_at(const SmParams& p, uint32_t* r, int64_t bz,
-                                                   int64_t m, int64_t n, uint32_t acc) {
-  r[0] = acc;
-  for (int o = 1; o < p.n_ops; ++o) {
-    const SmOperand& x = p.ops[o];
-    r[o] = sm_load(x.ptr, bz * x.strides[0] + m * x.strides[1] + n * x.strides[2], x.dtype);
-  }
-  return sm_run(p, r);
+// Operand ``x`` of the epilogue at four adjacent columns (m, n .. n + 3),
+// of which the first ``count`` exist (the others read as zero), in the
+// register type (sm_load widens ``dtype``).
+__device__ __forceinline__ uint4 mm_load4(const SmOperand& x, int64_t bz, int64_t m, int64_t n,
+                                          int count, int32_t dtype) {
+  const int64_t step = x.strides[2];
+  const int64_t at = bz * x.strides[0] + m * x.strides[1] + n * step;
+  uint4 v;
+  v.x = sm_load(x.ptr, at, dtype);
+  v.y = count > 1 ? sm_load(x.ptr, at + step, dtype) : 0u;
+  v.z = count > 2 ? sm_load(x.ptr, at + 2 * step, dtype) : 0u;
+  v.w = count > 3 ? sm_load(x.ptr, at + 3 * step, dtype) : 0u;
+  return v;
 }
 
 // The epilogue's values at four adjacent columns (m, n .. n + 3) at once,
@@ -64,16 +69,43 @@ __device__ __forceinline__ uint32_t mm_epilogue_at(const SmParams& p, uint32_t* 
 __device__ __forceinline__ uint4 mm_epilogue4_at(const SmParams& p, uint4* r, int64_t bz, int64_t m,
                                                  int64_t n, uint4 acc, int count) {
   r[0] = acc;
-  for (int o = 1; o < p.n_ops; ++o) {
-    const SmOperand& x = p.ops[o];
-    const int64_t step = x.strides[2];
-    const int64_t at = bz * x.strides[0] + m * x.strides[1] + n * step;
-    uint4 v;
-    v.x = sm_load(x.ptr, at, x.dtype);
-    v.y = count > 1 ? sm_load(x.ptr, at + step, x.dtype) : 0u;
-    v.z = count > 2 ? sm_load(x.ptr, at + 2 * step, x.dtype) : 0u;
-    v.w = count > 3 ? sm_load(x.ptr, at + 3 * step, x.dtype) : 0u;
-    r[o] = v;
-  }
+  for (int o = 1; o < p.n_ops; ++o) r[o] = mm_load4(p.ops[o], bz, m, n, count, p.ops[o].dtype);
   return sm_run4(p, r);
 }
+
+// An epilogue as the stores of the matmul kernels call it.  ``kGenerated``
+// is false for the interpreter, whose kernels also store bare products
+// (MmParams::epilogue 0) and store the parameter block's ``out_dtype``;
+// a generated epilogue always runs and stores ``kOut``.  Constructed once
+// a thread, at the block's batch ``bz``; ``columns(n, count)`` before the
+// rows of a group of four columns, ``row(m)`` before each row of it, then
+// ``(m, n, acc, count)``: the four values from the four accumulators.
+
+#if !defined(__CUDACC_RTC__)  // a generated kernel brings its own epilogue
+// Out of line: one copy of the interpreter for every instantiation of a
+// kernel, whose store may be unrolled.
+static __device__ __noinline__ uint4 mm_interp4(const SmParams& p, uint4* r, int64_t bz, int64_t m,
+                                                int64_t n, uint4 acc, int count) {
+  return mm_epilogue4_at(p, r, bz, m, n, acc, count);
+}
+
+// MmInterp: the interpreter, the reference (matmul.interpret).  Its
+// register file (uint4 r[SM_MAX_REGS]) lives in local memory, the
+// constants loaded once, and every instruction is fetched and dispatched
+// at run time (sm_run4).
+struct MmInterp {
+  static constexpr bool kGenerated = false;
+  static constexpr int32_t kOut = -1;
+  const SmParams& p;
+  const int64_t bz;
+  uint4 r[SM_MAX_REGS];
+  __device__ __forceinline__ MmInterp(const MmParams& q, int64_t bz_) : p(q.p), bz(bz_) {
+    sm_load_consts4(p, r);
+  }
+  __device__ __forceinline__ void columns(int64_t, int) {}
+  __device__ __forceinline__ void row(int64_t) {}
+  __device__ __forceinline__ uint4 operator()(int64_t m, int64_t n, uint4 acc, int count) {
+    return mm_interp4(p, r, bz, m, n, acc, count);
+  }
+};
+#endif  // !__CUDACC_RTC__

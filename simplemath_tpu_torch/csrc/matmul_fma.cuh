@@ -22,10 +22,13 @@
 // Integer sums are exact in any order.  The epilogue is the elementwise
 // kernel's opcode program (program.cuh) with register 0 holding the
 // accumulator and the other operand registers the extras, run on four
-// adjacent columns per dispatch (mm_epilogue4_at), so it gives the values
-// ew_strided would give on the stored product, without storing it.  The
-// result is cast to the output type at the store (f32 -> bf16 rounds to
-// nearest even).
+// adjacent columns at a time, so it gives the values ew_strided would give
+// on the stored product, without storing it: on the launch's path a kernel
+// generated for the program (ops/codegen.py, kind "matmul": this kernel's
+// body, mm_body, with the epilogue compiled in, built by NVRTC), and in the
+// kernels built here the interpreter (matmul.cuh's MmInterp), the
+// reference.  The result is cast to the output type at the store (f32 ->
+// bf16 rounds to nearest even).
 //
 // How the TPU kernel's parts translate.  Its sequential K grid dimension
 // with a VMEM accumulator becomes a K loop inside the block with the
@@ -80,7 +83,7 @@
 //     bytes and f32 2048^3 took 0.508-0.511 ms against 0.4956 for this
 //     layout; with fragments two k deep throughout, 0.507.  H100 SXM,
 //     700 W.)
-//   - the epilogue dispatches once per four columns, and a row of four
+//   - the epilogue runs on four columns at a time, and a row of four
 //     results goes out as one 16-byte (f32, int32) or 8-byte (bf16) store
 //     where the output's rows allow it.
 //
@@ -252,18 +255,18 @@ __device__ __forceinline__ void gather(const Walk& w, const void* ptr, F widen, 
 template <bool IS_A, int KIND, typename T>
 __device__ __forceinline__ void fetch(const MmParams& q, const Walk& w, T (&v)[kEach<T>]) {
   const MmOperand& x = IS_A ? q.a : q.b;
-  const auto as_is = [](auto e) { return (T)e; };
-  const auto as_i32 = [](auto e) { return (T)(uint32_t)(int32_t)e; };
+  // One lambda a type, none generic: NVRTC takes a generic lambda's call
+  // operator for host code.
   if (KIND == kF32 && x.dtype == SM_F32) {
-    gather<T, uint32_t>(w, x.ptr, as_is, v);
+    gather<T, uint32_t>(w, x.ptr, [](uint32_t e) { return (T)e; }, v);
   } else if (KIND == kF32) {  // SM_BF16
     gather<T, uint16_t>(w, x.ptr, [](uint16_t e) { return (T)((uint32_t)e << 16); }, v);
   } else if (x.dtype == SM_I32) {
-    gather<T, uint32_t>(w, x.ptr, as_i32, v);
+    gather<T, uint32_t>(w, x.ptr, [](uint32_t e) { return (T)(uint32_t)(int32_t)e; }, v);
   } else if (x.dtype == SM_I8) {
-    gather<T, int8_t>(w, x.ptr, as_i32, v);
+    gather<T, int8_t>(w, x.ptr, [](int8_t e) { return (T)(uint32_t)(int32_t)e; }, v);
   } else {  // SM_U8
-    gather<T, uint8_t>(w, x.ptr, as_is, v);
+    gather<T, uint8_t>(w, x.ptr, [](uint8_t e) { return (T)e; }, v);
   }
 }
 
@@ -311,13 +314,6 @@ __device__ __forceinline__ void multiply(const T* At, const T* Bt, int tx, int t
   }
 }
 
-// The epilogue of four adjacent columns, out of line: one copy of the
-// interpreter for every instantiation of the kernel.
-__device__ __noinline__ uint4 epilogue4(const SmParams& p, uint4* r, int64_t bz, int64_t m,
-                                        int64_t n, uint4 acc, int count) {
-  return mm_epilogue4_at(p, r, bz, m, n, acc, count);
-}
-
 // Four results (m, n .. n + count - 1) into the output, whose rows of N
 // elements start at ``row``: one 16- or 8-byte store where the row allows
 // it, element by element otherwise.
@@ -340,24 +336,46 @@ __device__ __forceinline__ void store4(void* out, int64_t row, int64_t n, int co
 }
 
 // The block's results of one thread (rows m.., columns n.. as mm_row
-// lays them out), through the epilogue when there is one, four columns a
-// step.  Unrolled, so the accumulators stay in registers.
+// lays them out), bare or through the epilogue E (matmul.cuh), four
+// columns a step.  Unrolled, so the accumulators stay in registers; the
+// interpreter is called out of line (mm_interp4), a generated epilogue is
+// inlined, and reads an extra that is the same for every row once for each
+// of the thread's two groups of columns.
+template <typename E>
 __device__ __forceinline__ void store_tile(const MmParams& q, void* out, const uint32_t (&acc)[8][8],
                                            int64_t out_base, int64_t m, int64_t n, int64_t bz) {
   const bool whole = q.N % 4 == 0;  // rows start on 16 (4-byte) or 8 (bf16) bytes
-  uint4 r[SM_MAX_REGS];
-  if (q.epilogue) sm_load_consts4(q.p, r);
+  const int32_t out_dtype = E::kGenerated ? E::kOut : q.out_dtype;
+  if (!E::kGenerated && !q.epilogue) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t mi = m + (i & 4) * 16 + (i & 3);
+    for (int i = 0; i < 8; ++i) {
+      const int64_t mi = m + (i & 4) * 16 + (i & 3);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t nh = n + 64 * h;
-      if (mi >= q.M || nh >= q.N) continue;
-      const int count = q.N - nh < 4 ? (int)(q.N - nh) : 4;
-      uint4 v = make_uint4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
-      if (q.epilogue) v = epilogue4(q.p, r, bz, mi, nh, v, count);
-      store4(out, out_base + mi * q.N, nh, count, q.out_dtype, whole, v);
+      for (int h = 0; h < 2; ++h) {
+        const int64_t nh = n + 64 * h;
+        if (mi >= q.M || nh >= q.N) continue;
+        const int count = q.N - nh < 4 ? (int)(q.N - nh) : 4;
+        const uint4 v = make_uint4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+        store4(out, out_base + mi * q.N, nh, count, out_dtype, whole, v);
+      }
+    }
+    return;
+  }
+  E epi(q, bz);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t nh = n + 64 * h;
+    if (nh >= q.N) continue;
+    const int count = q.N - nh < 4 ? (int)(q.N - nh) : 4;
+    epi.columns(nh, count);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t mi = m + (i & 4) * 16 + (i & 3);
+      if (mi >= q.M) continue;
+      epi.row(mi);
+      const uint4 v = epi(mi, nh, make_uint4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                              acc[i][4 * h + 3]), count);
+      store4(out, out_base + mi * q.N, nh, count, out_dtype, whole, v);
     }
   }
 }
@@ -368,9 +386,8 @@ __device__ __forceinline__ void store_tile(const MmParams& q, void* out, const u
 // before the multiply-adds of the stage kStages - 1 steps earlier, and are
 // stored after them, so that they are in flight while those run; a kernel
 // whose operands are both copied holds no register for them.
-template <int KIND, bool AK, bool BK, bool ELEM>
-__global__ void __launch_bounds__(kThreads, 1)
-    mm_kernel(const __grid_constant__ MmParams q, void* __restrict__ out) {
+template <int KIND, bool AK, bool BK, bool ELEM, typename E>
+__device__ __forceinline__ void mm_body(const MmParams& q, void* __restrict__ out) {
   using T = uint32_t;
   constexpr int kBK = 128 / sizeof(T);
   constexpr int kTileElems = kTileBytes / sizeof(T);
@@ -436,7 +453,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  store_tile(q, out, acc, bz * q.M * q.N, m0 + 4 * ty, n0 + 4 * tx, bz);
+  store_tile<E>(q, out, acc, bz * q.M * q.N, m0 + 4 * ty, n0 + 4 * tx, bz);
+}
+
+// The host's side, which NVRTC does not compile: the kernels with the
+// interpreter, and their launchers.
+#if !defined(__CUDACC_RTC__)
+template <int KIND, bool AK, bool BK, bool ELEM>
+__global__ void __launch_bounds__(kThreads, 1)
+    mm_kernel(const __grid_constant__ MmParams q, void* __restrict__ out) {
+  mm_body<KIND, AK, BK, ELEM, MmInterp>(q, out);
 }
 
 namespace {
@@ -472,3 +498,4 @@ int mm_launch_layouts(const MmParams& q, void* out, cudaStream_t s) {
 // accumulator and layouts; matmul_elem.cu compiles them, apart from the
 // others (matmul.cu), so that nvcc builds the two halves side by side.
 int mm_launch_elem(const MmParams& q, void* out, cudaStream_t s);
+#endif  // !__CUDACC_RTC__

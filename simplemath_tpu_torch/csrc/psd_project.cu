@@ -29,9 +29,10 @@
 // Two paths, chosen by n at the launch (PSD_NREG_F32 / PSD_NREG_F64 in
 // psd_project.cuh: the largest n whose thread-path instantiation ptxas
 // builds with 0 bytes of spill; ops/linalg_small.py::N_REG).  The kernels
-// are in psd_project.cuh; this source builds the float32 launcher and the C
-// entry point, psd_project_f64.cu the float64 launcher, so that the two
-// types' unrolled kernels compile in parallel:
+// are in psd_project.cuh; nvcc builds the thread-path instantiations (a
+// type and an n) in units of their own (psd_thread.cu: those of n < 8 of a
+// type in one, each larger n alone), side by side, and this source holds
+// the block path and the C entry point, which picks the launcher:
 //
 // * thread path, n <= N_REG: one thread a matrix, S and V in registers.  A
 //   template on the type and n, fully unrolled, so every index is a
@@ -89,11 +90,35 @@
 // and a CUDA graph can hold it.  Built with --fmad=false, so each
 // operation rounds once, as the plain version's torch ops do.
 
+#define PSD_UNIT_BLOCK
 #include "psd_project.cuh"
+
+// The thread path's launcher of the n x n matrices, N the type's largest n.
+template <typename T, int N>
+static int psd_thread_dispatch(const T* H, T* out, long long batch, int n, T eps,
+                               cudaStream_t stream) {
+    if constexpr (N > 1) {
+        if (n < N) return psd_thread_dispatch<T, N - 1>(H, out, batch, n, eps, stream);
+    }
+    return psd_thread_launch<T, N>(H, out, batch, eps, stream);
+}
+
+template <typename T>
+static int psd_launch(const void* H, void* out, long long batch, int n, double eps,
+                      cudaStream_t stream) {
+    if (n < 1 || n > (sizeof(T) == 4 ? PSD_MAX_N_F32 : PSD_MAX_N_F64) || batch < 1)
+        return (int)cudaErrorInvalidValue;
+    const T* h = static_cast<const T*>(H);
+    T* o = static_cast<T*>(out);
+    if (n <= (sizeof(T) == 4 ? PSD_NREG_F32 : PSD_NREG_F64))
+        return psd_thread_dispatch<T, sizeof(T) == 4 ? PSD_NREG_F32 : PSD_NREG_F64>(
+            h, o, batch, n, (T)eps, stream);
+    return psd_block_launch<T>(h, o, batch, n, (T)eps, stream);
+}
 
 extern "C" int sm_psd_project_launch(const void* H, void* out, long long batch, int n,
                                      int f64, double eps, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return f64 ? psd_launch_f64(H, out, batch, n, eps, s)
+    return f64 ? psd_launch<double>(H, out, batch, n, eps, s)
                : psd_launch<float>(H, out, batch, n, eps, s);
 }

@@ -1,8 +1,11 @@
 // The PSD projection's kernels and launchers (the design and the algorithm:
-// psd_project.cu).  Each type's launcher is built in a source of its own,
-// psd_project.cu (float32, and the C entry point) and psd_project_f64.cu
-// (float64), so that nvcc compiles the two sets of fully unrolled
-// thread-path kernels in parallel.
+// psd_project.cu).  nvcc builds them in units of their own, so that the
+// fully unrolled thread-path instantiations compile side by side
+// (_build.py::units): psd_thread.cu once for each group of the thread path's
+// instantiations (-DPSD_UNIT_T=float -DPSD_UNIT_FROM=1 -DPSD_UNIT_TO=7: the
+// section under PSD_UNIT_T), and psd_project.cu the block path of both types
+// (PSD_UNIT_BLOCK) and the C entry point, which dispatches on the type and n
+// to the launchers declared at the end of this file.
 
 #pragma once
 
@@ -50,6 +53,29 @@ __device__ __forceinline__ void psd_rotation(T app, T aqq, T apq, T* c, T* s, T*
     *dq = aqq + t * apq;
 }
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory above the 48 KB
+// default, once a device (`*done` holds a bit a device), so that a launch
+// inside a CUDA graph's capture makes no such call.
+template <typename K>
+static cudaError_t psd_allow_smem(K kernel, size_t smem, unsigned long long* done) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess || (*done >> dev & 1ull)) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) *done |= 1ull << dev;
+    return err;
+}
+
+// The launchers of the two paths, each defined in its section below and
+// instantiated in its unit: the thread path for an n x n matrix (n == N),
+// the block path for any n the type takes.
+template <typename T, int N>
+int psd_thread_launch(const T* H, T* out, long long batch, T eps, cudaStream_t stream);
+template <typename T>
+int psd_block_launch(const T* H, T* out, long long batch, int n, T eps, cudaStream_t stream);
+
+#if defined(PSD_UNIT_T)
 // ------------------------------------------------------------ thread path
 // The round-robin schedule of an n x n matrix: pair k of round r is (p, q),
 // p < q; q == n (the dummy index of odd n) means no pair.
@@ -211,6 +237,21 @@ __global__ void __launch_bounds__(PSD_TILE)
     psd_stage<T, NN, LD, false>(out + first * NN, slab, count);
 }
 
+
+template <typename T, int N>
+int psd_thread_launch(const T* H, T* out, long long batch, T eps, cudaStream_t stream) {
+    const size_t smem = (size_t)PSD_TILE * ((N * N) | 1) * sizeof(T);
+    static unsigned long long allowed = 0;
+    cudaError_t err = psd_allow_smem(psd_thread_kernel<T, N>, smem, &allowed);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (batch + PSD_TILE - 1) / PSD_TILE;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    psd_thread_kernel<T, N><<<(unsigned)blocks, PSD_TILE, smem, stream>>>(H, out, batch, eps);
+    return (int)cudaGetLastError();
+}
+#endif  // PSD_UNIT_T
+
+#if defined(PSD_UNIT_BLOCK)
 // ------------------------------------------------------------- block path
 template <typename T>
 __device__ __forceinline__ T psd_warp_max(T v) {
@@ -402,47 +443,9 @@ __global__ void __launch_bounds__(1024)
         }
 }
 
-// ----------------------------------------------------------------- launch
-// Lets `kernel` take `smem` bytes of dynamic shared memory above the 48 KB
-// default, once a device (`*done` holds a bit a device), so that a launch
-// inside a CUDA graph's capture makes no such call.
-template <typename K>
-static cudaError_t psd_allow_smem(K kernel, size_t smem, unsigned long long* done) {
-    if (smem <= 48 * 1024) return cudaSuccess;
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess || (*done >> dev & 1ull)) return err;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess) *done |= 1ull << dev;
-    return err;
-}
-
-template <typename T, int N>
-static int psd_thread_launch(const T* H, T* out, long long batch, int n, T eps,
-                             cudaStream_t stream) {
-    if constexpr (N > 1) {
-        if (n < N) return psd_thread_launch<T, N - 1>(H, out, batch, n, eps, stream);
-    }
-    const size_t smem = (size_t)PSD_TILE * ((N * N) | 1) * sizeof(T);
-    static unsigned long long allowed = 0;
-    cudaError_t err = psd_allow_smem(psd_thread_kernel<T, N>, smem, &allowed);
-    if (err != cudaSuccess) return (int)err;
-    const long long blocks = (batch + PSD_TILE - 1) / PSD_TILE;
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    psd_thread_kernel<T, N><<<(unsigned)blocks, PSD_TILE, smem, stream>>>(H, out, batch, eps);
-    return (int)cudaGetLastError();
-}
 
 template <typename T>
-static int psd_launch(const void* H, void* out, long long batch, int n, double eps,
-                      cudaStream_t stream) {
-    if (n < 1 || n > (sizeof(T) == 4 ? PSD_MAX_N_F32 : PSD_MAX_N_F64) || batch < 1)
-        return (int)cudaErrorInvalidValue;
-    const T* h = static_cast<const T*>(H);
-    T* o = static_cast<T*>(out);
-    if (n <= (sizeof(T) == 4 ? PSD_NREG_F32 : PSD_NREG_F64))
-        return psd_thread_launch<T, sizeof(T) == 4 ? PSD_NREG_F32 : PSD_NREG_F64>(
-            h, o, batch, n, (T)eps, stream);
+int psd_block_launch(const T* H, T* out, long long batch, int n, T eps, cudaStream_t stream) {
     if (batch > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const int half = (n + 1) / 2, slots = half * half + n * half;
     const int threads = slots >= 1024 ? 1024 : (slots + 31) / 32 * 32;
@@ -454,10 +457,7 @@ static int psd_launch(const void* H, void* out, long long batch, int n, double e
         psd_block_kernel<T>, psd_block_smem(sizeof(T) == 4 ? PSD_MAX_N_F32 : PSD_MAX_N_F64, sizeof(T)),
         &allowed);
     if (err != cudaSuccess) return (int)err;
-    psd_block_kernel<T><<<(unsigned)batch, threads, smem, stream>>>(h, o, n, (T)eps);
+    psd_block_kernel<T><<<(unsigned)batch, threads, smem, stream>>>(H, out, n, eps);
     return (int)cudaGetLastError();
 }
-
-// float64's launcher, in psd_project_f64.cu.
-int psd_launch_f64(const void* H, void* out, long long batch, int n, double eps,
-                   cudaStream_t stream);
+#endif  // PSD_UNIT_BLOCK

@@ -5,7 +5,7 @@
 // the ring of shared-memory stages, the 128-byte-swizzled tile layouts and
 // their descriptors, the two ways a tile is filled (16-byte cp.async copies
 // and element by element through the strides), and the store of a tile's
-// accumulators, with or without the epilogue.  Each source adds its own
+// accumulators, bare or through an epilogue (matmul.cuh).  Each source adds its own
 // wgmma instruction and its K loop.  T is the operands' element type, ESIZE
 // its size in bytes: a tile row is 128 bytes of the contraction dimension (K-major), so
 // one step of the K loop covers 128 / ESIZE of k.
@@ -262,7 +262,8 @@ __device__ __forceinline__ void flush_rows(const uint8_t* mine, int lane, uint8_
 }
 
 // The store of a block's 128 x 256 tile, after its last multiply has been
-// waited for.  Accumulator register 4 * j + 2 * h + c of a thread is the
+// waited for, through the epilogue E (matmul.cuh: MmInterp, or a generated
+// MmGenerated).  Accumulator register 4 * j + 2 * h + c of a thread is the
 // element at row 16 * warp + lane / 4 + 8 * h, column 8 * j + 2 * (lane % 4)
 // + c of the tile (warps 0-3 are the first warpgroup): pair e = 2 * j + h is
 // two adjacent columns.  With one block of 8 warps on an SM every
@@ -271,14 +272,15 @@ __device__ __forceinline__ void flush_rows(const uint8_t* mine, int lane, uint8_
 // on 16 bytes (``wide``) a warp lays its 16 x 256 results out in the ring
 // at ``ring_ptr``, which is free by now, and writes whole rows; otherwise
 // the pairs go out one by one.
-template <typename ACC>
+template <typename E, typename ACC>
 __device__ __forceinline__ void store_tile(const MmParams& q, void* out, const ACC* acc,
                                            uint8_t* ring_ptr, int tid, int64_t bz, int64_t m0,
                                            int64_t n0) {
   const int lane = tid & 31, warp = tid >> 5;
   const int64_t row0 = m0 + warp * 16 + (lane >> 2);
   const int64_t col0 = n0 + (lane & 3) * 2;
-  const int esize = q.out_dtype == SM_BF16 ? 2 : (q.out_dtype == SM_BOOL ? 1 : 4);
+  const int32_t out_dtype = E::kGenerated ? E::kOut : q.out_dtype;
+  const int esize = out_dtype == SM_BF16 ? 2 : (out_dtype == SM_BOOL ? 1 : 4);
   const bool wide = (q.N * esize) % 16 == 0;
   uint8_t* const out_bytes = static_cast<uint8_t*>(out) + bz * q.M * q.N * esize;
   uint8_t* const mine = ring_ptr + warp * Rows<4>::kWarpBytes;
@@ -291,7 +293,7 @@ __device__ __forceinline__ void store_tile(const MmParams& q, void* out, const A
   uint8_t* const dst = out_bytes + first * row_bytes + n0 * esize;
   const int64_t bytes = row_bytes - n0 * esize;  // of an output row, from this tile on
 
-  if (!q.epilogue) {
+  if (!E::kGenerated && !q.epilogue) {
     if (wide) {
       // 4-byte or bf16: no bounds here, the rows are cut when they are written.
       if (esize == 2) {
@@ -319,44 +321,53 @@ __device__ __forceinline__ void store_tile(const MmParams& q, void* out, const A
 
   // The epilogue.  The accumulators go to the warp's rows as they are; then
   // a lane takes four adjacent columns of a row at a time (two such groups
-  // a row) through the interpreter, whose registers hold four elements
-  // each, and puts the results back at the row's start in the stored type
-  // (never past what the warp has already read), or straight to the output
-  // where its rows do not start on 16 bytes.  Each instruction is
-  // dispatched once for the four elements (sm_exec4): dispatching per
-  // element cost 0.03 ms more at 2048^3 (H100, 700 W).  The register file
-  // in shared memory instead of local memory, and eight elements a pass
-  // instead of four, were tried and were no faster.
+  // a row: the first group of every row, then the second) through the
+  // epilogue, whose registers hold four elements each, and puts the results
+  // back at the row's start in the stored type (never past what the warp
+  // has already read: group 0's results cover the row's first 64 columns'
+  // bytes, group 1's the next 64, all read in group 0), or straight to the
+  // output where its rows do not start on 16 bytes.  Each instruction is
+  // dispatched once for the four elements: with the interpreter (sm_exec4)
+  // dispatching per element cost 0.03 ms more at 2048^3 (H100, 700 W), and
+  // its register file in shared memory instead of local memory, and eight
+  // elements a pass instead of four, were no faster.  A generated epilogue
+  // has its registers in registers and its opcodes compiled in; it reads an
+  // extra that is the same for every row once a group, and one that is the
+  // same along the row once a row.
   Rows<4>::stash(mine, lane, acc);
   __syncwarp();
-  const SmParams& p = q.p;
-  uint4 r[SM_MAX_REGS];
-  sm_load_consts4(p, r);
+  E epi(q, bz);
 #pragma unroll 1
-  for (int pass = 0; pass < 2 * rows; ++pass) {
-    const int rr = pass >> 1;
-    const int c = 4 * (lane + 32 * (pass & 1));  // the group's first column in the tile
-    const int64_t m = first + rr, n = n0 + c;
+  for (int group = 0; group < 2; ++group) {
+    const int c = 4 * (lane + 32 * group);  // the group's first column in the tile
+    const int64_t n = n0 + c;
     const int count = n < q.N ? (int)(q.N - n < 4 ? q.N - n : 4) : 0;
-    uint8_t* const row = mine + rr * Rows<4>::kPitch;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (count)
-      v = mm_epilogue4_at(p, r, bz, m, n, *reinterpret_cast<const uint4*>(row + c * 4), count);
-    __syncwarp();  // every lane has read its accumulators of this half row
-    if (wide) {  // then count is 0 or 4; what lies past N is not written out
-      if (esize == 4)
-        *reinterpret_cast<uint4*>(row + c * 4) = v;
-      else if (esize == 2)
-        *reinterpret_cast<uint2*>(row + c * 2) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-      else
-        *reinterpret_cast<uint32_t*>(row + c) =
-            (v.x != 0) | ((v.y != 0) << 8) | ((v.z != 0) << 16) | ((uint32_t)(v.w != 0) << 24);
-    } else {
-      uint8_t* at = out_bytes + (m * q.N + n) * esize;
-      const uint32_t vs[4] = {v.x, v.y, v.z, v.w};
+    if (count) epi.columns(n, count);
+#pragma unroll 1
+    for (int rr = 0; rr < rows; ++rr) {
+      const int64_t m = first + rr;
+      uint8_t* const row = mine + rr * Rows<4>::kPitch;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (count) {
+        epi.row(m);
+        v = epi(m, n, *reinterpret_cast<const uint4*>(row + c * 4), count);
+      }
+      __syncwarp();  // every lane has read its accumulators of this group
+      if (wide) {  // then count is 0 or 4; what lies past N is not written out
+        if (esize == 4)
+          *reinterpret_cast<uint4*>(row + c * 4) = v;
+        else if (esize == 2)
+          *reinterpret_cast<uint2*>(row + c * 2) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        else
+          *reinterpret_cast<uint32_t*>(row + c) =
+              (v.x != 0) | ((v.y != 0) << 8) | ((v.z != 0) << 16) | ((uint32_t)(v.w != 0) << 24);
+      } else {
+        uint8_t* at = out_bytes + (m * q.N + n) * esize;
+        const uint32_t vs[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i < count) write_one(at + i * esize, esize, vs[i]);
+        for (int i = 0; i < 4; ++i)
+          if (i < count) write_one(at + i * esize, esize, vs[i]);
+      }
     }
   }
   if (!wide) return;

@@ -23,7 +23,15 @@ program, of one of three kinds (``Signature.kind``):
   their order and the second launch that combines them are the
   interpreter's, and so are the bits; each operand read at the constant
   width of its type, quads loaded whole or, ``gathered``, element by
-  element through the strides.
+  element through the strides;
+* ``"matmul"``: a matmul kernel with its epilogue compiled in.  The
+  epilogue is ``MmGenerated`` (csrc/matmul.cuh's interface: an extra that
+  is one value a block loaded once, one a row once a row, one the same for
+  every row once for each group of four columns, the others a quad a
+  call), and the kernel is the compiled kernel's own body (``variant``:
+  csrc/matmul_wgmma.cuh, matmul_wgmma_s8.cuh or matmul_fma.cuh, at the
+  template arguments ``layout``), so the product, the store and the grid
+  are the compiled kernel's and the accumulator stays in registers.
 
 In each of them
 
@@ -44,10 +52,11 @@ In each of them
 
 It is what the TPU kernels do (``simplemath_tpu/ops/elementwise.py::
 _build_call_1d`` and ``::_build_call``, ``ops/reduction.py::
-_build_map_reduce_1d/_2d`` and ``::_build_reduce_axis`` compile a kernel
-per tile function and cache it on the function's id).  The kernel takes
-the interpreter's parameter block (``SmParams``, or ``RdParams`` around it)
-as a ``__grid_constant__``, so the shape, the strides, the pointers, the
+_build_map_reduce_1d/_2d`` and ``::_build_reduce_axis``, ``ops/matmul.py::
+_build_matmul`` and ``::_build_bmm`` compile a kernel per tile function or
+epilogue and cache it on the function's id).  The kernel takes the
+interpreter's parameter block (``SmParams``, or ``RdParams`` or
+``MmParams`` around it) as a ``__grid_constant__``, so the shape, the strides, the pointers, the
 constants' values and the count of iterations are read at run time and are
 not part of the code: ``a + 2.0`` and ``a + 3.0`` share a kernel.  What the
 code depends on is the ``Signature``.
@@ -81,11 +90,21 @@ from . import program
 
 KERNEL = "sm_generated"
 OPTIONS = ("--gpu-architecture=sm_90a", "--fmad=false", "-std=c++17", "--ptxas-options=-v")
-HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh")
+HEADERS = ("tiles.cuh", "program.cuh", "reduction.cuh", "matmul.cuh", "wgmma.cuh",
+           "matmul_wgmma.cuh", "matmul_wgmma_s8.cuh", "matmul_fma.cuh")
 CAP = 512  # as the reference's _TILE_FN_CAP
 # enum SmDtype (csrc/tiles.cuh), by code.
 DTYPE_NAMES = ("SM_F32", "SM_I32", "SM_BOOL", "SM_BF16", "SM_I8", "SM_U8", "SM_I64",
                "SM_U32", "SM_F16")
+# The matmul kernels that take an epilogue (ops/matmul.py::VARIANTS): the
+# header that holds each one's body, the body, and its template arguments
+# before the ones ``Signature.layout`` gives.
+MATMUL_BODIES = {
+    "wgmma_bf16": ("matmul_wgmma.cuh", "mm_wgmma_body", ()),
+    "wgmma_s8": ("matmul_wgmma_s8.cuh", "mm_wgmma_s8_body", ()),
+    "fma_f32": ("matmul_fma.cuh", "mm_body", ("kF32",)),
+    "imad_i32": ("matmul_fma.cuh", "mm_body", ("kI32",)),
+}
 # enum RdOp (csrc/reduction.cuh), by code.
 REDUCE_NAMES = ("RD_SUM", "RD_MAX", "RD_MIN", "RD_SUM_I32")
 # Quads a thread of a generated evaluator asks for before it combines them
@@ -122,11 +141,16 @@ class Signature:
     read; ``rounds`` says which instructions round their result to bfloat16;
     ``operands`` the operands' dtype codes; ``carry`` is -1 unless
     ``iterated``; ``narrow`` says every index and offset fits 32 bits.
-    ``kind`` is ``"strided"``, ``"flat"`` or ``"reduce"`` (the module's
-    docstring); for the last two ``scalars`` marks the one-element
-    operands, loaded once; ``"reduce"`` adds the reduction (``reduce``, a
-    code of ``REDUCE_NAMES``), the ``walk`` and whether the operands are
-    ``gathered`` element by element."""
+    ``kind`` is ``"strided"``, ``"flat"``, ``"reduce"`` or ``"matmul"``
+    (the module's docstring); for ``"flat"`` and ``"reduce"`` ``scalars``
+    marks the one-element operands, loaded once; ``"reduce"`` adds the
+    reduction (``reduce``, a code of ``REDUCE_NAMES``), the ``walk`` and
+    whether the operands are ``gathered`` element by element; ``"matmul"``
+    the kernel (``variant``, a key of ``MATMUL_BODIES``), its template
+    arguments (``layout``: the operands' staging orders, signedness and
+    ways in, or element path; bools and ints) and, for each operand, the dims of (m, n) along which it
+    ``varies`` (``"mn"``, ``"m"``, ``"n"`` or ``""``; operand 0 is the
+    accumulator); ``out_dtype`` is then the stored type."""
 
     insts: Tuple[Tuple[int, int, int, int, int], ...]
     rounds: Tuple[bool, ...]
@@ -143,11 +167,14 @@ class Signature:
     reduce: int = -1
     walk: str = ""
     gathered: bool = False
+    variant: str = ""
+    layout: Tuple[int, ...] = ()
+    varies: Tuple[str, ...] = ()
 
 
 def signature(prog, codes, operand_dtypes, out_dtype, rank, iterations, carry,
               narrow, kind="strided", scalars=(), reduce=-1, walk="",
-              gathered=False) -> Signature:
+              gathered=False, variant="", layout=(), varies=()) -> Signature:
     """The signature of ``prog`` (with its kernel ``codes``) over operands
     of dtype codes ``operand_dtypes``, writing ``out_dtype`` (a code) at
     ``rank``; the rest as ``Signature`` has them."""
@@ -170,6 +197,9 @@ def signature(prog, codes, operand_dtypes, out_dtype, rank, iterations, carry,
         reduce=reduce,
         walk=walk,
         gathered=gathered,
+        variant=variant,
+        layout=tuple(layout),
+        varies=tuple(varies),
     )
 
 
@@ -187,6 +217,8 @@ def source(sig: Signature) -> str:
         return _flat_source(sig)
     if sig.kind == "reduce":
         return _reduce_source(sig)
+    if sig.kind == "matmul":
+        return _matmul_source(sig)
     return _strided_source(sig)
 
 
@@ -376,6 +408,65 @@ def _reduce_source(sig: Signature) -> str:
     return "\n".join(out)
 
 
+def _matmul_source(sig: Signature) -> str:
+    """The matmul kernel of ``sig.variant`` at ``sig.layout`` with
+    ``sig``'s epilogue compiled in (``MmGenerated``, csrc/matmul.cuh's
+    interface): the accumulator is operand 0, each extra is held in a
+    register from where it stops varying (``sig.varies``), and the result
+    is stored as ``sig.out_dtype``."""
+    header, body, fixed = MATMUL_BODIES[sig.variant]
+    n_ops = len(sig.operands)
+    held = {"": "the constructor", "m": "row", "n": "columns"}
+    out = [
+        f'#include "{header}"',
+        "",
+        f"// Generated for {sig}.",
+        "namespace {",
+        "",
+        "struct MmGenerated {",
+        "  static constexpr bool kGenerated = true;",
+        f"  static constexpr int32_t kOut = {_dtype(sig.out_dtype)};",
+        "  const MmParams& q;",
+        "  const int64_t bz;",
+    ]
+    for o in range(1, n_ops):
+        if sig.varies[o] != "mn":
+            out.append(f"  uint4 e{o};  // set by {held[sig.varies[o]]}")
+    out.append("  __device__ __forceinline__ MmGenerated(const MmParams& q_, int64_t bz_) : q(q_), bz(bz_) {")
+    for o in range(1, n_ops):
+        if sig.varies[o] == "":
+            x = f"q.p.ops[{o}]"
+            out.append(f"    e{o} = sm_splat(sm_load({x}.ptr, bz * {x}.strides[0], "
+                       f"{_dtype(sig.operands[o])}));")
+    out += ["  }", "  __device__ __forceinline__ void columns(int64_t n, int count) {"]
+    for o in range(1, n_ops):
+        if sig.varies[o] == "n":
+            out.append(f"    e{o} = mm_load4(q.p.ops[{o}], bz, 0, n, count, {_dtype(sig.operands[o])});")
+    out += ["  }", "  __device__ __forceinline__ void row(int64_t m) {"]
+    for o in range(1, n_ops):
+        if sig.varies[o] == "m":
+            x = f"q.p.ops[{o}]"
+            out.append(f"    e{o} = sm_splat(sm_load({x}.ptr, bz * {x}.strides[0] + m * {x}.strides[1], "
+                       f"{_dtype(sig.operands[o])}));")
+    out += ["  }",
+            "  __device__ __forceinline__ uint4 operator()(int64_t m, int64_t n, uint4 acc, int count) const {",
+            "    const uint4 z = sm_splat(0u);",
+            "    const uint4 v0 = acc;"]
+    for o in range(1, n_ops):
+        value = (f"mm_load4(q.p.ops[{o}], bz, m, n, count, {_dtype(sig.operands[o])})"
+                 if sig.varies[o] == "mn" else f"e{o}")
+        out.append(f"    const uint4 v{o} = {value};")
+    for j in range(sig.n_consts):
+        out.append(f"    const uint4 v{n_ops + j} = sm_splat(q.p.consts[{j}]);")
+    out += _body(sig, "v", "    ", "z", True)
+    args = ", ".join([*fixed, *(str(x).lower() for x in sig.layout), "MmGenerated"])
+    out += [f"    return v{sig.result};", "  }", "};", "", "}  // namespace", "",
+            f'extern "C" __global__ void __launch_bounds__(256, 1) {KERNEL}(',
+            "    const __grid_constant__ MmParams q, void* __restrict__ out) {",
+            f"  {body}<{args}>(q, out);", "}", ""]
+    return "\n".join(out)
+
+
 def _strided_source(sig: Signature) -> str:
     """``ew_strided``'s kernel for ``sig``: an element a thread a pass."""
     idx = "int" if sig.narrow else "long long"
@@ -412,6 +503,7 @@ def _digest(src: str) -> str:
 
     h = hashlib.sha256(src.encode())
     h.update(" ".join(OPTIONS).encode())
+    h.update(str(_build.NVRTC_VERSION).encode())
     for name in HEADERS:
         h.update(name.encode())
         h.update((_build.CSRC / name).read_bytes())

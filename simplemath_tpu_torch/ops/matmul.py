@@ -56,6 +56,18 @@ it broadcasts; the kernel runs it once per output element on the
 accumulator, so the product itself is never stored.  The result is cast to
 ``out_dtype`` at the store.
 
+Every launch with an epilogue runs a kernel compiled for it, as the TPU
+kernels are built once per epilogue (``_build_matmul``/``_build_bmm``,
+cached on the epilogue's id): ops/codegen.py writes the variant's kernel
+body (the same product, store and grid) with the epilogue's instructions as
+code (kind ``"matmul"``), and NVRTC compiles it once per ``signature``: the
+variant and its template arguments, the program, the extras' types, which
+of them are one value a block, a row or a column group, and the stored
+type; never the constants' values, the shapes or the strides.  The
+compiled kernels keep the epilogue's interpreter as the reference,
+``interpret``, which no other path takes.  ``EPILOGUE_PATHS`` counts the
+launches with an epilogue by the one they ran (``generated``, ``interp``).
+
 Precision.  ``precision="default"`` and ``"highest"`` are the same on this
 card.  Float32 operands get exact float32 multiply-adds with a float32
 accumulator, which is also what ``torch.matmul`` does on the card with TF32
@@ -98,12 +110,13 @@ import torch
 
 from .. import dtypes as _dt
 from ..utils.precision import exact_float32
-from . import dispatch, elementwise, library, program
+from . import codegen, dispatch, elementwise, library, program
 
 # Kernel launches by entry point since the last reset, and the same
 # launches by the kernel they took.
 LAUNCHES = {"mm": 0, "bmm": 0}
 VARIANTS = {"wgmma_bf16": 0, "wgmma_s8": 0, "fma_f32": 0, "imad_i32": 0, "wgmma_i64": 0}
+EPILOGUE_PATHS = {"generated": 0, "interp": 0}
 # The kernels that stage tiles for ``wgmma``, and the library function of each.
 _TENSOR_CORE = {"wgmma_bf16": "sm_mm_wgmma_launch", "wgmma_s8": "sm_mm_wgmma_s8_launch"}
 
@@ -128,7 +141,7 @@ _MAX_M = 65535 * 128      # gridDim.y tiles of 128 rows
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, VARIANTS):
+    for counts in (LAUNCHES, VARIANTS, EPILOGUE_PATHS):
         for k in counts:
             counts[k] = 0
 
@@ -274,12 +287,51 @@ def _set_operand(dst, x, batched, contraction, kernel):
     dst.inner_fast, dst.vec16 = int(k_major), int(vec16)
 
 
-def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
-    lib = _library()
+def _s8_way(x) -> int:
+    """How the int8 kernel takes operand ``x`` in (csrc/matmul_wgmma_s8.cuh,
+    ``S8Way``): 0 copied, 1 transposed, 2 byte by byte."""
+    return (0 if x.inner_fast else 1) if x.vec16 else 2
+
+
+def layout(kernel, q) -> tuple:
+    """The template arguments of ``kernel``'s body that the parameter block
+    ``q`` picks: each operand's staging order (``wgmma_bf16``), whether
+    each is signed and how each comes in (``wgmma_s8``), or the staging
+    orders and whether an operand takes the element path (``fma_f32``,
+    ``imad_i32``)."""
+    if kernel == "wgmma_bf16":
+        return bool(q.a.inner_fast), bool(q.b.inner_fast)
+    if kernel == "wgmma_s8":
+        return (q.a.dtype == _DTYPE_CODE[torch.int8], q.b.dtype == _DTYPE_CODE[torch.int8],
+                _s8_way(q.a), _s8_way(q.b))
+    return bool(q.a.inner_fast), bool(q.b.inner_fast), not (q.a.vec16 and q.b.vec16)
+
+
+def signature(epilogue, kernel, q, acc) -> codegen.Signature:
+    """The signature of the kernel generated for a launch of ``kernel``
+    whose parameter block is ``q`` (epilogue set) and whose accumulator
+    type is ``acc``: what ``_signature`` keys on, read from ``q``."""
+    p = q.p
+    varies = ["mn"] + ["m" * (p.ops[o].strides[1] != 0) + "n" * (p.ops[o].strides[2] != 0)
+                       for o in range(1, p.n_ops)]
+    dtypes = (_DTYPE_CODE[acc], *(p.ops[o].dtype for o in range(1, p.n_ops)))
+    return _signature(epilogue, kernel, layout(kernel, q), dtypes, tuple(varies), q.out_dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _signature(epilogue, kernel, kernel_layout, dtypes, varies, out_code):
+    """``signature`` of its parts: a launch's host work, kept as
+    ``elementwise._signature`` keeps its own."""
+    return codegen.signature(epilogue, epilogue.kernel_codes, dtypes, out_code, 3, 1, -1, False,
+                             kind="matmul", variant=kernel, layout=kernel_layout, varies=varies)
+
+
+def _params(a, b, dims, acc, out_dtype, epilogue, extras, out):
+    """The parameter block of a launch into ``out`` (extras as ``_extra3``
+    gives them), and the kernel it takes."""
     kernel = variant(a.dtype, b.dtype)
     B, M, N, K = dims
     batched = len(a.shape) == 3
-    out = torch.empty((B, M, N) if batched else (M, N), dtype=out_dtype, device=device)
     q = _MmParams()
     if epilogue is not None and (epilogue.insts or epilogue.result != 0):
         codes = elementwise.check_program(epilogue, "matmul epilogue")
@@ -292,9 +344,38 @@ def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
     q.B, q.M, q.N, q.K = B, M, N, K
     q.int_acc = _ACC_CODE[acc]
     q.out_dtype = _DTYPE_CODE[out_dtype]
+    return q, kernel
+
+
+def launch_signature(a, b, out_dtype, epilogue, extras=(), broadcast=False) -> codegen.Signature:
+    """The signature of the kernel that ``matmul(a, b, out_dtype,
+    epilogue=epilogue, extras=extras)`` launches on the card, which
+    ``codegen.kernel`` compiles; nothing is launched, and the operands may
+    lie on any device.  ``broadcast``: the extras are already rank 3, as
+    ``matmul_plain`` is given them."""
+    dims = product_shape(a.shape, b.shape)
+    acc = accumulator(a.dtype, b.dtype)
+    if not broadcast:
+        extras = [_extra3(x, dims, len(a.shape) == 3) for x in extras]
+    out = torch.empty(1, dtype=out_dtype, device=a.device)
+    q, kernel = _params(a, b, dims, acc, out_dtype, epilogue, extras, out)
+    return signature(epilogue, kernel, q, acc)
+
+
+def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device, interpreted=False):
+    lib = _library()
+    B, M, N, K = dims
+    batched = len(a.shape) == 3
+    out = torch.empty((B, M, N) if batched else (M, N), dtype=out_dtype, device=device)
+    q, kernel = _params(a, b, dims, acc, out_dtype, epilogue, extras, out)
+    path = ("interp" if interpreted else "generated") if q.epilogue else None
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if kernel == "wgmma_i64":
+        if path == "generated":
+            handle = codegen.kernel(lib, signature(epilogue, kernel, q, acc))
+            rc = lib.sm_mm_launch_kernel(handle, ctypes.byref(q), out.data_ptr(),
+                                         int(kernel in _TENSOR_CORE), stream)
+        elif kernel == "wgmma_i64":
             # The operands' byte planes; from the graph's pool under capture.
             scratch = torch.empty(lib.sm_mm_wgmma_i64_scratch(B, M, N, K), dtype=torch.uint8,
                                   device=device)
@@ -305,9 +386,11 @@ def _launch(a, b, dims, acc, out_dtype, epilogue, extras, device):
             rc = launch(ctypes.byref(q), out.data_ptr(), stream)
     entry = "bmm" if batched else "mm"
     if rc != 0:
-        raise RuntimeError(f"{entry} ({kernel}) launch failed: cudaError {rc}")
+        raise RuntimeError(f"{entry} ({kernel}, epilogue {path}) launch failed: cudaError {rc}")
     LAUNCHES[entry] += 1
     VARIANTS[kernel] += 1
+    if path:
+        EPILOGUE_PATHS[path] += 1
     return out
 
 
@@ -415,6 +498,24 @@ def _extra3(x, dims, batched):
 def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
            extras=()) -> torch.Tensor:
     """``a @ b`` through the matmul kernel (see the module docstring)."""
+    return _matmul(a, b, out_dtype, precision, epilogue, extras, interpreted=False)
+
+
+def interpret(a, b, out_dtype=None, epilogue=None, extras=()) -> torch.Tensor:
+    """``matmul`` as the compiled kernels run it, their epilogue on the
+    interpreter: on CUDA tensors the reference of the generated epilogues
+    (``EPILOGUE_PATHS["interp"]``), on CPU tensors the plain version."""
+    return _matmul(a, b, out_dtype, "default", epilogue, extras, interpreted=True)
+
+
+def _check_launch(device, dims):
+    if device.type != "cuda":
+        raise ValueError(f"the matmul kernel runs on CUDA tensors, not {device}")
+    if dims[0] > _MAX_BATCH or dims[1] > _MAX_M:
+        raise ValueError(f"the matmul kernel takes B <= {_MAX_BATCH} and M <= {_MAX_M}")
+
+
+def _matmul(a, b, out_dtype, precision, epilogue, extras, interpreted):
     from . import autodiff
 
     if precision not in PRECISIONS:
@@ -463,12 +564,17 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
         raise TypeError(
             f"a {_dt.name(result)} result cannot be stored as {_dt.name(out_dtype)}"
         )
-    if any(map(autodiff.transformed, (a, b, *extras))):
+    if not interpreted and any(map(autodiff.transformed, (a, b, *extras))):
         # The kernel's one route under a torch.func transform: the same
         # kernel, with derivative and batching rules.
         return autodiff.product(epilogue, out_dtype,
                                 *(elementwise.read(x) for x in (a, b, *extras)))
     extras = [_extra3(x, dims, batched) for x in extras]
+    if interpreted and device.type == "cpu":
+        return matmul_plain(a, b, out_dtype, epilogue, extras)
+    if interpreted:
+        _check_launch(device, dims)
+        return _launch(a, b, dims, acc, out_dtype, epilogue, extras, device, interpreted=True)
     dispatch.record("matmul", "bmm" if batched else "mm")
     if epilogue is not None:
         dispatch.record("matmul", "bmm_epilogue" if batched else "mm_epilogue")
@@ -479,8 +585,8 @@ def matmul(a, b, out_dtype=None, precision: str = "default", epilogue=None,
     if device.type == "cuda" and dispatch.INTERPRET.get():
         dispatch.record("interpret", "matmul")
         return matmul_plain(a, b, out_dtype, epilogue, extras)
-    if device.type == "cuda" and (dims[0] > _MAX_BATCH or dims[1] > _MAX_M):
-        raise ValueError(f"the matmul kernel takes B <= {_MAX_BATCH} and M <= {_MAX_M}")
+    if device.type == "cuda":
+        _check_launch(device, dims)
     if library.tracing((a, b, *extras)):
         return library.call_matmul(a, b, out_dtype, epilogue, extras)
     if device.type == "cpu":

@@ -387,3 +387,24 @@ def test_reduce_headers_enter_the_disk_cache_name():
 
     assert "reduction.cuh" in codegen.HEADERS
     assert "#if !defined(__CUDACC_RTC__)" in (_build.CSRC / "reduction.cuh").read_text()
+
+
+@pytest.mark.parametrize("flags", [(), ("-DPSD_NREG_F32=11", "-DPSD_NREG_F64=8")], ids=["header", "flags"])
+def test_build_units_instantiate_each_psd_n_once(flags):
+    """``_build.units`` compiles every source once and the PSD thread path's
+    instantiations in groups that cover each n of each type up to its
+    ``N_REG`` once: those below ``PSD_ALONE`` together, each larger n alone."""
+    from simplemath_tpu_torch import _build
+
+    units = _build.units(_build.NVCC_FLAGS + flags)
+    plain = [src for _, src, defines in units if not defines]
+    assert sorted(plain) == sorted(s for s in _build.SOURCES if s != _build.PER_INSTANTIATION)
+    nreg = _build._psd_nreg(_build.NVCC_FLAGS + flags)
+    for typ, key in (("float", "PSD_NREG_F32"), ("double", "PSD_NREG_F64")):
+        ranges = [tuple(int(d.split("=")[1]) for d in defines[1:]) for _, src, defines in units
+                  if src == _build.PER_INSTANTIATION and defines[0] == f"-DPSD_UNIT_T={typ}"]
+        covered = [n for lo, hi in ranges for n in range(lo, hi + 1)]
+        assert sorted(covered) == list(range(1, nreg[key] + 1)), (typ, ranges)
+        assert all(lo == hi for lo, hi in ranges if hi >= _build.PSD_ALONE), ranges
+    assert nreg == ({"PSD_NREG_F32": 11, "PSD_NREG_F64": 8} if flags else
+                    {"PSD_NREG_F32": 10, "PSD_NREG_F64": 7})

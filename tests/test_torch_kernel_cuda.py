@@ -1207,6 +1207,62 @@ def test_generated_kernels_report_registers_and_spills(cuda):
         assert report["registers"] <= 255 and report["spill_stores"] == 0, report
 
 
+@pytest.mark.parametrize("part", range(_PARTS))
+def test_mm_epilogue_generated_is_the_interpreter(cuda, part):
+    """Each launch with an epilogue runs the kernel generated for it, which
+    gives the compiled kernel's interpreter's bits (``matmul.interpret``):
+    chip_smoke's phase 7 cases (every variant, mm and bmm, every stored
+    type, every shape and type of extra, ragged N, other layouts, the
+    dequantizing epilogue, ~100 instructions)."""
+    smoke = _smoke()
+    cases = smoke.matmul_generated_cases(cuda, smoke.SEED + 21)[part::_PARTS]
+    smoke.compile_ahead(matmul.launch_signature(a, b, out, epi, extras)
+                        for _, a, b, out, epi, extras in cases)
+    assert smoke.matmul_generated_checks(matmul, cases)[0] == len(cases)
+
+
+def test_generated_kernels_compile_with_the_nvrtc_of_nvcc_toolkit(cuda):
+    """The generated kernels are compiled by the NVRTC of the toolkit whose
+    nvcc built the library, though torch, imported first, holds its own."""
+    import re
+    import subprocess
+
+    from simplemath_tpu_torch import _build
+
+    elementwise._library()
+    said = subprocess.run([_build.nvcc(), "--version"], capture_output=True, text=True).stdout
+    major, minor = map(int, re.search(r"release (\d+)\.(\d+)", said).groups())
+    assert _build.NVRTC_VERSION == major * 1000 + minor * 10, (_build.NVRTC_VERSION, said)
+
+
+def test_mm_generated_kernels_report_registers_no_spill_no_serialized_wgmma(cuda):
+    """ptxas' report of each generated matmul kernel, kept beside its
+    CUBIN: at most 255 registers, no spill, and no ``wgmma`` that ptxas
+    serialized (warnings C7510-C7520).  Phase 7's cases, and the main
+    path's ``int8_matmul(scale=)`` on row-major operands (B through the
+    transposing stage, which none of those cases takes)."""
+    from simplemath_tpu_torch.ops import codegen
+
+    smoke = _smoke()
+    q, w = (torch.randint(-127, 128, shape, dtype=torch.int8, device=cuda)
+            for shape in ((256, 128), (128, 256)))
+    scale = torch.rand(1, 256, device=cuda)
+    cases = smoke.matmul_generated_cases(cuda, smoke.SEED + 21) + [
+        ("int8 mm dequant, row-major", q, w, torch.float32, matmul._dequant_epilogue(2), [scale])]
+    picked = {}
+    for case in cases:  # every kernel: each variant, stored type and way in
+        label, a, b, out, epi, extras = case
+        picked.setdefault(matmul.launch_signature(a, b, out, epi, extras), case)
+    for sig, (label, a, b, out, epi, extras) in picked.items():
+        matmul.matmul(a, b, out, epilogue=epi, extras=extras)
+        report = codegen.ptxas(sig)
+        assert report["registers"] <= 255 and report["spill_stores"] == 0, (label, report)
+        assert report["spill_loads"] == 0, (label, report)
+        log = codegen._log_path(codegen.source(sig)).read_text()
+        assert "C7510" not in log and "C7515" not in log and "C7520" not in log, (label, log)
+    torch.cuda.synchronize()
+
+
 # ------------------------ ew_strided's generated kernels (ops/codegen.py)
 # Bit for bit the interpreter's values (``elementwise.interpret``) on every
 # opcode, rank, operand layout and carry; ``elementwise.PATHS`` says which

@@ -27,6 +27,15 @@ limit, of:
   product (row-major, each operand a transposed view, one byte off, with
   ``scale=``, rank 3, 4096^3) beside ``torch._int_mm``'s.
 
+``--epilogue`` times the five fused calls of ``chip_smoke.py``'s phase 7
+instead (``relu(x @ W + bias) * s - c`` at 2048^3 in bf16 and f32, at (8,
+1024, 1024) in bf16 and f32, and ``int8_matmul(scale=)`` at 2048^3), each
+on its kernel generated per epilogue, on the compiled kernel's interpreter
+(``matmul.interpret``, where the checkout has it) and as the bare product,
+with the NVRTC milliseconds and ptxas' report of each generated kernel;
+with ``--root`` the parent's fused calls (its interpreter) in the same
+turns, and the fused products of both checkouts must be ``torch.equal``.
+
 ``--root DIR`` compares this checkout with another one (the parent commit,
 unpacked beside this one) in one call on one card: each is timed in a
 process of its own, in the order DIR, this, this, DIR, and the float32,
@@ -52,6 +61,68 @@ def card():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def epilogue_worker(root, save):
+    """``--epilogue``: the five fused calls of checkout ``root``, timed
+    generated, interpreted and bare; saves the fused products to ``save``;
+    prints one JSON line."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke
+    import simplemath_tpu_torch as sm
+    from simplemath_tpu_torch import _build
+    from simplemath_tpu_torch.ops import codegen, matmul, program
+
+    _build.library()
+    dev, rng = torch.device("cuda"), np.random.default_rng(0)
+    n, (bb, bm, bn) = chip_smoke.N_MM, chip_smoke.BMM
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def relu_bias(shape, extra, dtype):
+        acc, leaf = program.leaf(shape, torch.float32), program.leaf(extra, dtype)
+        return program.lower_epilogue(sm.maximum(acc + leaf, 0.0) * (1.0 / n) - 0.5, acc, [leaf])
+
+    x, w, bias = f32(n, n), f32(n, n), f32(1, n)
+    x3, w3, bias3 = f32(bb, bm, bn), f32(bb, bn, bn), f32(1, 1, bn)
+    q = torch.from_numpy(rng.integers(-127, 128, (n, n)).astype(np.int8)).to(dev)
+    qw = torch.from_numpy(rng.integers(-127, 128, (n, n)).astype(np.int8)).to(dev)
+    scale = f32(1, n).abs() * 1e-3
+    calls = {  # name: (a, b, stored type, epilogue, extras)
+        "fused_bf16": (x.bfloat16(), w.bfloat16(), torch.bfloat16,
+                       relu_bias((n, n), (1, n), torch.bfloat16), [bias.bfloat16()]),
+        "int8_scaled": (q, qw, torch.float32, matmul._dequant_epilogue(2), [scale]),
+        "fused_f32": (x, w, torch.float32, relu_bias((n, n), (1, n), torch.float32), [bias]),
+        "bmm_fused_bf16": (x3.bfloat16(), w3.bfloat16(), torch.bfloat16,
+                           relu_bias((bb, bm, bn), (1, 1, bn), torch.bfloat16), [bias3.bfloat16()]),
+        "bmm_fused_f32": (x3, w3, torch.float32, relu_bias((bb, bm, bn), (1, 1, bn), torch.float32),
+                          [bias3]),
+    }
+    t = chip_smoke.time_ms
+    times, products, ptxas = {}, {}, {}
+    interp = getattr(matmul, "interpret", None)
+    with matmul.exact_float32():
+        for name, (a, b, out, epi, extras) in calls.items():
+            bare_out = torch.int32 if a.dtype == torch.int8 else out
+            products[name] = matmul.matmul(a, b, out, epilogue=epi, extras=extras).cpu()
+            reps = 5 if a.dtype == torch.float32 else 20
+            times[f"{name}_ms"] = t(lambda: matmul.matmul(a, b, out, epilogue=epi, extras=extras), n=reps)
+            times[f"{name}_bare_ms"] = t(lambda: matmul.matmul(a, b, bare_out), n=reps)
+            if interp is not None:
+                ref = interp(a, b, out, epilogue=epi, extras=extras).cpu()
+                times[f"{name}_bits_equal_interp"] = torch.equal(ref, products[name])
+                times[f"{name}_interp_ms"] = t(lambda: interp(a, b, out, epilogue=epi, extras=extras),
+                                               n=reps)
+                sig = matmul.launch_signature(a, b, out, epi, extras)
+                ptxas[name] = codegen.ptxas(sig)
+    times["nvrtc_ms"] = list(getattr(codegen, "COMPILE_MS", []))
+    torch.save(products, save)
+    print(f"{card()}: " + json.dumps({"root": str(root), "epilogue": True, **times,
+                                      "ptxas": ptxas}), flush=True)
+    return 0
 
 
 def worker(root, save, check, flags):
@@ -217,6 +288,8 @@ def main():
         if not torch.cuda.is_available():
             print("time_torch_matmul: no CUDA device is visible", file=sys.stderr)
             return 1
+        if "--epilogue" in args:
+            return epilogue_worker(pathlib.Path(args[1]), args[2])
         return worker(pathlib.Path(args[1]), args[2], check, args[3:])
     other = None
     if "--root" in args:

@@ -35,7 +35,7 @@ the CPU, install tests/torch_standin.py's ``patches()`` and no-ops for
 
 times the projection's kernel alone at ``chip_smoke.PSD_SHAPES`` (random
 symmetric float32 matrices from the seed): this tree's
-``csrc/psd_project*.cu`` and, with ``--root``, DIR's (another checkout, for
+PSD units and, with ``--root``, DIR's (another checkout, for
 example the parent commit unpacked by ``git archive`` into a directory that
 ``.gitignore`` lists), each compiled alone with the package's nvcc flags
 into its own library under ``build/psd_kernel/``, all started together,
@@ -98,32 +98,35 @@ def _kernel_name(mangled):
 
 
 def build_alone(trees, flags=()):
-    """Each tree's ``csrc/psd_project*.cu`` compiled alone (one ``nvcc -c``
-    a source, all started together) and linked into a shared library, with
-    the package's nvcc flags and ``flags``: {tag: (ctypes library, ptxas
-    report)}."""
+    """Each tree's PSD units compiled alone (one ``nvcc -c`` a unit, a
+    tree's all started together: ``_build.units`` where the tree builds the
+    thread path an instantiation a unit, else its ``csrc/psd_project*.cu``)
+    and linked into a shared library, with the package's nvcc flags and
+    ``flags``: {tag: (ctypes library, ptxas report)}."""
     import ctypes
 
     from simplemath_tpu_torch import _build
 
     out_dir = pathlib.Path(ROOT) / "build" / "psd_kernel"
     out_dir.mkdir(parents=True, exist_ok=True)
+    all_flags = (*_build.NVCC_FLAGS, *flags)
     procs = {}
     for tag, tree in trees.items():
         csrc = pathlib.Path(tree) / "simplemath_tpu_torch" / "csrc"
-        for src in sorted(csrc.glob("psd_project*.cu")):
-            obj = out_dir / f"{tag}_{src.stem}.o"
-            cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(csrc), "-c", "-o",
-                   str(obj), str(src)]
-            procs.setdefault(tag, []).append(
-                (obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)))
+        if (csrc / _build.PER_INSTANTIATION).exists():
+            todo = [(f"{tag}_{name}", src, defines) for name, src, defines in _build.units(all_flags)
+                    if src.startswith("psd_")]
+        else:
+            todo = [(f"{tag}_{src.stem}", src.name, ()) for src in sorted(csrc.glob("psd_project*.cu"))]
+        procs[tag] = [(out_dir / f"{name}.o", (out, rc))
+                      for (name, _, _), (_, out, rc, _) in
+                      zip(todo, _build.compile_units(todo, out_dir, all_flags, csrc))]
     built = {}
     for tag, compiles in procs.items():
         text = ""
-        for _, proc in compiles:
-            text += proc.communicate()[0]
-            cs.check(proc.returncode == 0, f"nvcc failed on {trees[tag]}:\n{text[-4000:]}")
+        for _, (out, rc) in compiles:
+            text += out
+            cs.check(rc == 0, f"nvcc failed on {trees[tag]}:\n{text[-4000:]}")
         so = out_dir / f"{tag}.so"
         link = subprocess.run([_build.nvcc(), "-shared", *_build.NVCC_FLAGS[:2], "-o", str(so),
                                *(str(obj) for obj, _ in compiles)], capture_output=True, text=True)
